@@ -1,0 +1,246 @@
+"""Resident masked fleet engine: ``[W, ...]`` worker stacks on the device.
+
+Port of the masked resident engine of ``repro/core/fleet.py``.  Every worker
+stays at base shape; its sub-model is a 0/1 coordinate mask, so the whole
+fleet trains as one stack and a pruning event only rewrites mask rows.
+
+* ``scatter_global``  — broadcast-back is a masked scatter ``P = g[None] * M``;
+* ``train_rounds``    — one trainer call over the whole stack, with per-step
+  validity masks so ragged plans never change shapes;
+* ``train_rows``      — participation-sized training: when only some slots
+  have work (the phase-B pruners), their rows are gathered into a
+  ``[B, ...]`` sub-stack, B padded to the next power of two, trained, and
+  scattered back;
+* ``refresh_masks``   — rewrite the mask stack from the workers' global
+  indices and re-mask the params;
+* aggregation consumes the stacks directly (``aggregation``).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, Mapping, Optional, Sequence
+
+import numpy as np
+import torch
+
+from repro_torch.optim.group_lasso import group_size_sqrt_from_shapes
+
+from .aggregation import UnitMap, subparam_shapes
+from .masks import GlobalIndex
+from .worker import LocalTrainer, stack_batch_plans
+
+__all__ = [
+    "FleetEngine",
+    "FleetState",
+    "bucket_rows",
+    "gather_stack_rows",
+    "scatter_stack_rows",
+]
+
+Tensors = Dict[str, torch.Tensor]
+
+
+def bucket_rows(n: int, cap: int) -> int:
+    """Sub-stack row bucket for ``n`` active rows: the smallest power of two
+    >= n, capped at the fleet size."""
+    if n < 1:
+        raise ValueError(f"bucket_rows needs n >= 1, got {n}")
+    b = 1
+    while b < n:
+        b <<= 1
+    return min(b, cap)
+
+
+def _row_index(rows: Sequence[int], num_rows: int, device) -> torch.Tensor:
+    rows = np.asarray(rows, np.int64)
+    if rows.size and (rows.min() < 0 or rows.max() >= num_rows):
+        raise ValueError(
+            f"row ids {rows[(rows < 0) | (rows >= num_rows)]} outside [0, {num_rows})"
+        )
+    return torch.as_tensor(rows, device=device)
+
+
+def gather_stack_rows(stacks: Mapping[str, torch.Tensor], rows, num_rows: int) -> Tensors:
+    """Gather rows of ``[W, ...]`` stacks into a ``[B, ...]`` sub-stack
+    (``rows`` may repeat: bucket padding repeats the first row)."""
+    out: Tensors = {}
+    for k, v in stacks.items():
+        out[k] = torch.index_select(v, 0, _row_index(rows, num_rows, v.device))
+    return out
+
+
+def scatter_stack_rows(
+    stacks: Mapping[str, torch.Tensor], rows, sub: Mapping[str, torch.Tensor], num_rows: int
+) -> Tensors:
+    """Write the first ``len(rows)`` rows of a sub-stack back into the
+    ``[W, ...]`` stacks (bucket-padding rows are discarded)."""
+    n = len(rows)
+    out: Tensors = {}
+    for k, v in stacks.items():
+        v = v.clone()
+        v[_row_index(rows, num_rows, v.device)] = sub[k][:n]
+        out[k] = v
+    return out
+
+
+@dataclasses.dataclass
+class FleetState:
+    """Resident multi-worker state: every tensor is a ``[W, ...]`` stack on
+    the device.  ``params`` rows are always masked (pruned coordinates
+    exactly 0); ``gl_sizes`` holds each worker's sqrt-group-size factors of
+    its reconfigured shapes, so the group-lasso penalty equals the
+    physically small twin's."""
+
+    params: Tensors
+    masks: Tensors
+    xs: torch.Tensor                 # [W, n_max, H, W, 3] padded shards
+    ys: torch.Tensor                 # [W, n_max]
+    num_workers: int
+    gl_sizes: Dict[str, np.ndarray]
+
+
+class FleetEngine:
+    """Trains the resident fleet through a ``LocalTrainer``."""
+
+    def __init__(self, trainer: LocalTrainer, unit_map: UnitMap,
+                 base_shapes: Mapping[str, tuple], device="cpu"):
+        self.trainer = trainer
+        self.unit_map = unit_map
+        self.base_shapes = base_shapes
+        self.device = torch.device(device)
+        self.batched_calls = 0           # fleet training calls launched
+        self.buckets_used: set = set()   # sub-stack row counts launched
+
+    def init_state(self, base_params: Tensors, shards_x: Sequence[np.ndarray],
+                   shards_y: Sequence[np.ndarray]) -> FleetState:
+        """Stack W full-model replicas + their data shards on the device.
+        Shards are padded to the longest; plans never index the padding."""
+        W = len(shards_x)
+        sizes = np.array([len(x) for x in shards_x], dtype=np.int64)
+        n_max = int(sizes.max())
+        xs = np.zeros((W, n_max) + shards_x[0].shape[1:], np.float32)
+        ys = np.zeros((W, n_max), np.int64)
+        for w in range(W):
+            xs[w, : sizes[w]] = shards_x[w]
+            ys[w, : sizes[w]] = shards_y[w]
+        dev = self.device
+        params = {
+            k: v.to(dev).unsqueeze(0).expand((W,) + tuple(v.shape)).contiguous()
+            for k, v in base_params.items()
+        }
+        masks = {k: torch.ones_like(v) for k, v in params.items()}
+        return FleetState(
+            params=params, masks=masks,
+            xs=torch.as_tensor(xs, device=dev), ys=torch.as_tensor(ys, device=dev),
+            num_workers=W,
+            gl_sizes={
+                lname: np.full((W,), s, np.float32)
+                for lname, s in group_size_sqrt_from_shapes(
+                    self.base_shapes, self.unit_map
+                ).items()
+            },
+        )
+
+    def _unit_dims(self) -> Dict[str, int]:
+        dims: Dict[str, int] = {}
+        for path, entries in self.unit_map.items():
+            for lname, axis in entries:
+                dims[lname] = self.base_shapes[path][axis]
+        return dims
+
+    def refresh_masks(self, state: FleetState, indices: Sequence[GlobalIndex]):
+        """Rewrite the mask stack from the global indices and re-mask the
+        params: the only thing a pruning event does to the resident state."""
+        W = state.num_workers
+        presence: Dict[str, np.ndarray] = {}
+        for lname, dim in self._unit_dims().items():
+            p = np.zeros((W, dim), np.float32)
+            for w in range(W):
+                p[w, np.asarray(indices[w][lname], np.int64)] = 1.0
+            presence[lname] = p
+        for path, shape in self.base_shapes.items():
+            m = torch.ones((W,) + tuple(shape), device=self.device)
+            for lname, axis in self.unit_map.get(path, ()):
+                bshape = [W] + [1] * len(shape)
+                bshape[1 + axis] = shape[axis]
+                m = m * torch.as_tensor(presence[lname], device=self.device).reshape(bshape)
+            state.masks[path] = m
+            state.params[path] = state.params[path] * m
+        for w in range(W):
+            shapes = subparam_shapes(indices[w], self.unit_map, self.base_shapes)
+            for lname, s in group_size_sqrt_from_shapes(shapes, self.unit_map).items():
+                state.gl_sizes[lname][w] = s
+
+    def scatter_global(self, state: FleetState, global_params: Tensors):
+        """Broadcast-back as a masked scatter: ``P = g[None] * M``."""
+        for path, g in global_params.items():
+            state.params[path] = g.unsqueeze(0) * state.masks[path]
+
+    def stack_plans(self, plans, pad_rows: Optional[int] = None,
+                    pad_steps: Optional[int] = None):
+        """Per-row plans -> device ``[R, S, batch]`` plan stack + ``[R, S]``
+        validity mask, or ``None`` when no row has a step."""
+        stacked = stack_batch_plans(plans, num_rows=pad_rows, num_steps=pad_steps)
+        if stacked is None:
+            return None
+        stack, valid = stacked
+        return (torch.as_tensor(stack, device=self.device),
+                torch.as_tensor(valid, device=self.device))
+
+    def _gl(self, state: FleetState, rows) -> Tensors:
+        return {
+            k: torch.as_tensor(np.asarray(v)[list(rows)], device=self.device)
+            for k, v in state.gl_sizes.items()
+        }
+
+    def train_rounds(self, state: FleetState, plans: Sequence[Optional[np.ndarray]],
+                     lam: float = 0.0, pad_steps: Optional[int] = None) -> Optional[np.ndarray]:
+        """One trainer call for a whole round phase.  Rows without a plan
+        are neither trained nor computed: fewer than W active rows go
+        through ``train_rows``.  Returns per-worker mean losses (idle rows
+        0), or ``None`` if nobody had work."""
+        W = state.num_workers
+        rows = [w for w, p in enumerate(plans) if p is not None and p.shape[0] > 0]
+        if not rows:
+            return None
+        if len(rows) == W:
+            plan_stack, valid = self.stack_plans(plans, pad_steps=pad_steps)
+            state.params, losses = self.trainer.train_resident(
+                state.params, state.masks, self.unit_map, state.xs, state.ys,
+                plan_stack, valid, lam, self._gl(state, range(W)),
+            )
+            self.batched_calls += 1
+            self.buckets_used.add(W)
+            return losses.cpu().numpy()
+        losses = self.train_rows(state, rows, [plans[w] for w in rows], lam, pad_steps)
+        full = np.zeros(W, np.float32)
+        full[rows] = losses
+        return full
+
+    def train_rows(self, state: FleetState, rows: Sequence[int],
+                   plans: Sequence[Optional[np.ndarray]], lam: float = 0.0,
+                   pad_steps: Optional[int] = None) -> np.ndarray:
+        """Gather ``rows`` into a bucket-sized sub-stack, train it in one
+        call, scatter the trained rows back.  ``plans`` aligns with ``rows``."""
+        W = state.num_workers
+        B = len(rows)
+        bucket = bucket_rows(B, W)
+        rows = [int(w) for w in rows]
+        rows_pad = rows + [rows[0]] * (bucket - B)
+        stacked = self.stack_plans(list(plans) + [None] * (bucket - B),
+                                   pad_rows=bucket, pad_steps=pad_steps)
+        if stacked is None:
+            return np.zeros(B, np.float32)
+        plan_stack, valid = stacked
+        sub_params = gather_stack_rows(state.params, rows_pad, W)
+        sub_masks = gather_stack_rows(state.masks, rows_pad, W)
+        idx = _row_index(rows_pad, W, self.device)
+        out, losses = self.trainer.train_resident(
+            sub_params, sub_masks, self.unit_map,
+            torch.index_select(state.xs, 0, idx), torch.index_select(state.ys, 0, idx),
+            plan_stack, valid, lam, self._gl(state, rows_pad),
+        )
+        self.batched_calls += 1
+        self.buckets_used.add(bucket)
+        state.params = scatter_stack_rows(state.params, rows, out, W)
+        return losses.cpu().numpy()[:B]

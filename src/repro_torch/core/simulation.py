@@ -1,0 +1,573 @@
+"""Multi-worker collaborative-learning simulator (AdaptCL §IV), on PyTorch.
+
+Port of ``repro/core/simulation.py`` for the synchronous methods on the
+resident masked engine:
+
+  * ``adaptcl``  — Algorithm 1 driven by Algorithm 2 pruned-rate learning
+  * ``fedavg``   — McMahan et al. BSP
+  * ``fedavg_s`` — + group-lasso sparse training
+
+W workers with heterogeneous bandwidths (the Eq. 6/7 channel model) train
+pruned copies of a VGG as ``[W, ...]`` base-shape stacks on the device
+(``core.fleet``); a sub-model is a 0/1 mask, pruning rewrites mask rows, and
+aggregation reads the stacks.  ``compute="block_skip"`` sends every conv and
+the head through the hand-written block-skip CUDA kernel, so a pruned
+worker's device FLOPs follow its retention; ``compute="dense"`` runs grouped
+convs at base shape (the oracle).
+
+All host randomness is numpy and is consumed in the reference's order (batch
+plans per active worker, then one jitter draw per active worker), so the
+virtual clock and the prune events equal the JAX package's for the same
+seed.  The JAX package draws its init from ``jax.random``; pass that init as
+``run_simulation(sim, base_params=...)`` to start from the same weights
+(otherwise ``init_cnn`` draws from a ``torch.Generator`` seeded with
+``sim.seed``).
+
+The entry points run on the card: ``SimConfig.device`` defaults to
+``"cuda"`` and raises when no card is present.  Configurations outside this
+slice raise ``ValueError`` naming the field (see ROADMAP.md).
+"""
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+import time as _time
+from typing import Dict, List, Mapping, Optional, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.convert import params_from_numpy, params_to_numpy
+from repro_torch.data.synthetic import SyntheticImageTask, partition_noniid
+from repro_torch.models.cnn import (
+    CNNConfig,
+    build_unit_space,
+    cnn_apply,
+    cnn_block_compute,
+    cnn_flops,
+    cnn_flops_from_shapes,
+    extract_bn_scales,
+    init_cnn,
+    vgg_config,
+)
+
+from .aggregation import (
+    aggregate_by_unit_stacked,
+    aggregate_by_worker_stacked,
+    extract_subparams,
+    roundtrip_total,
+    subparam_shapes,
+)
+from .fleet import FleetEngine
+from .importance import DATA_DEPENDENT, METHODS, ImportanceContext
+from .masks import full_index, payload_bytes, prune_to_budget, retention, similarity
+from .pruned_rate import PrunedRateConfig, WorkerHistory, learn_pruned_rates
+from .scenario import full_participation
+from .timing import HeterogeneityConfig, heterogeneity_from_times, make_bandwidths
+from .worker import LocalTrainer, make_batch_plan, plan_steps
+
+__all__ = ["SimConfig", "SimResult", "run_simulation", "default_cnn", "validate_config"]
+
+SYNC_METHODS = ("adaptcl", "fedavg", "fedavg_s")
+ASYNC_METHODS = ("fedasync_s", "ssp_s", "dcasgd_s")
+
+
+def default_cnn() -> CNNConfig:
+    """Small VGG used by the CPU-budget simulations (same family as VGG16)."""
+    return vgg_config("vgg_sim", [32, "M", 64, "M", 64], num_classes=10, image_size=16)
+
+
+@dataclasses.dataclass
+class SimConfig:
+    method: str = "adaptcl"
+    rounds: int = 30
+    num_workers: int = 10
+    local_epochs: float = 1.0
+    batch_size: int = 32
+    lr: float = 0.05
+    lam: float = 1e-4                   # group-lasso coefficient (sparse train)
+    prune_interval: int = 5             # PI
+    beta: float = 1.0                   # pruning position within local epochs
+    importance: str = "cig_bnscalor"
+    aggregation: str = "by_worker"      # "by_worker" | "by_unit"
+    rate_cfg: PrunedRateConfig = dataclasses.field(default_factory=PrunedRateConfig)
+    het: HeterogeneityConfig = dataclasses.field(default_factory=HeterogeneityConfig)
+    t_train_full: float = 1.0           # seconds per local round, full model
+    train_sens: float = 0.1             # Appendix E: GPU-like ~0, CPU-like ~1
+    time_jitter: float = 0.02
+    noniid_s: float = 0.0               # paper's s%: 0 (IID) or 80
+    fixed_pruned_rates: Optional[List[List[float]]] = None  # Tab. IX mode
+    # fields of the reference this slice does not run yet; each is refused
+    # by name unless left at its default
+    dgc_sparsity: float = 0.0
+    regrow: Optional[object] = None
+    engine: str = "masked"              # only the resident masked engine
+    resident_momentum: bool = False
+    scenario: Optional[object] = None
+    robust: Optional[object] = None
+    mesh: Optional[object] = None
+    # device compute path: "block_skip" (the CUDA kernel) or "dense"
+    compute: str = "dense"
+    # kernel block sizes (block_m, block_n, block_k): skip granularity; on
+    # the card each must be a multiple of the kernel's 64-wide tile
+    compute_blocks: Tuple[int, int, int] = (128, 128, 128)
+    cnn: CNNConfig = dataclasses.field(default_factory=default_cnn)
+    task: Optional[SyntheticImageTask] = None
+    eval_every: int = 1
+    seed: int = 0
+    device: str = "cuda"
+
+
+@dataclasses.dataclass
+class SimResult:
+    method: str
+    acc_time: List[Tuple[float, float]]         # (virtual seconds, test acc)
+    final_acc: float
+    best_acc: float
+    best_acc_time: float
+    total_time: float
+    het_traj: List[Tuple[int, float]]            # (round, H of update times)
+    retentions: List[float]                      # final gamma per worker
+    param_reduction: float
+    flops_reduction: float
+    comm_bytes: float
+    server_overhead_s: float                     # Alg.2 + aggregation walltime
+    recompiles: int                              # distinct training signatures
+    similarity_traj: List[Tuple[int, float]]     # Eq. 3 between two workers
+    update_times: List[List[float]]              # per round, per worker
+    engine: str = "masked"
+    batched_calls: int = 0                       # fleet training calls
+    walltime_s: float = 0.0
+    host_roundtrips: int = 0                     # extract_subparams in the loop
+    bucket_sizes: List[int] = dataclasses.field(default_factory=list)
+    compute: str = "dense"
+    # training-FLOPs ledger, per scheduled plan step x batch images:
+    # flops_ideal is the reconfigured sub-model's cost, flops_executed what
+    # the dispatch runs (base shapes for dense, kept blocks for block_skip),
+    # blocks_executed the executed kernel block cells (host proxy)
+    flops_executed: float = 0.0
+    flops_ideal: float = 0.0
+    blocks_executed: float = 0.0
+    images_trained: int = 0                      # ledger images (plan steps x batch)
+    train_steps: int = 0                         # trainer steps run, padding included
+    flops_per_image_final: float = 0.0
+    blocks_per_image_final: float = 0.0
+    host_dispatches: int = 0                     # training + evaluation calls
+    compile_walltime_s: float = 0.0              # first call of each signature
+    prune_events: List[Tuple[int, int, Dict[str, tuple]]] = dataclasses.field(
+        default_factory=list
+    )
+    device: str = "cpu"
+    global_params: Optional[Dict[str, np.ndarray]] = None
+
+
+def _refuse(field: str, why: str) -> ValueError:
+    return ValueError(
+        f"SimConfig.{field}: {why} — not ported to repro_torch yet "
+        "(see ROADMAP.md, queue A)"
+    )
+
+
+def validate_config(sim: SimConfig) -> None:
+    """Raise ``ValueError`` naming the first field outside this slice."""
+    if sim.method in ASYNC_METHODS:
+        raise _refuse("method", f"async method {sim.method!r}")
+    if sim.method not in SYNC_METHODS:
+        raise ValueError(f"SimConfig.method: unknown method {sim.method!r}")
+    if sim.engine != "masked":
+        raise _refuse("engine", f"engine={sim.engine!r} (only 'masked' runs)")
+    if sim.scenario is not None:
+        raise _refuse("scenario", "client sampling / dropout / churn / faults")
+    if sim.regrow is not None:
+        raise _refuse("regrow", "FedDST mask regrowth")
+    if sim.dgc_sparsity > 0.0:
+        raise _refuse("dgc_sparsity", "DGC delta compression")
+    if sim.robust is not None:
+        raise _refuse("robust", "robust aggregation")
+    if sim.mesh is not None:
+        raise _refuse("mesh", "the mesh-sharded fleet")
+    if sim.resident_momentum:
+        raise _refuse("resident_momentum", "cross-round resident momentum")
+    if sim.importance in DATA_DEPENDENT:
+        raise _refuse("importance", f"data-dependent importance {sim.importance!r}")
+    if sim.importance not in METHODS:
+        raise ValueError(f"SimConfig.importance: unknown criterion {sim.importance!r}")
+    if sim.cnn.kind == "resnet":
+        raise _refuse("cnn", "cnn.kind == 'resnet'")
+    if sim.aggregation not in ("by_worker", "by_unit"):
+        raise ValueError(f"SimConfig.aggregation: unknown {sim.aggregation!r}")
+    if sim.compute not in ("dense", "block_skip"):
+        raise ValueError(f"SimConfig.compute: unknown {sim.compute!r}")
+
+
+def resolve_device(name: str) -> torch.device:
+    """The run's device.  ``"cuda"`` without a card raises: nothing falls
+    back to the CPU."""
+    dev = torch.device(name)
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                f"SimConfig.device={name!r} but torch sees no CUDA device; "
+                "pass device='cpu' to run on the CPU"
+            )
+    elif dev.type != "cpu":
+        raise ValueError(f"SimConfig.device={name!r}: use 'cuda' or 'cpu'")
+    return dev
+
+
+@contextlib.contextmanager
+def ieee_f32():
+    """For the duration of a run: TF32 off for matmuls and cuDNN convs, so
+    every path computes in IEEE float32, and cuDNN kept to deterministic
+    algorithms, so a seed reproduces a dense run exactly (the block_skip
+    path is deterministic by construction).  The caller's flags come back
+    on exit."""
+    flags = [
+        (torch.backends.cuda.matmul, "allow_tf32", False),
+        (torch.backends.cudnn, "allow_tf32", False),
+        (torch.backends.cudnn, "deterministic", True),
+    ]
+    saved = [getattr(obj, name) for obj, name, _ in flags]
+    for obj, name, value in flags:
+        setattr(obj, name, value)
+    try:
+        yield
+    finally:
+        for (obj, name, _), value in zip(flags, saved):
+            setattr(obj, name, value)
+
+
+class _Env:
+    """Shared experimental fixture (same across all methods, per seed)."""
+
+    def __init__(self, sim: SimConfig, base_params=None):
+        validate_config(sim)
+        self.sim = sim
+        self.device = resolve_device(sim.device)
+        self.task = sim.task or SyntheticImageTask(
+            num_classes=sim.cnn.num_classes, image_size=sim.cnn.image_size,
+            train_size=1280, test_size=512, seed=sim.seed,
+        )
+        self.shards = partition_noniid(
+            self.task.y_train, sim.num_workers, sim.noniid_s, seed=sim.seed
+        )
+        if base_params is None:
+            gen = torch.Generator().manual_seed(sim.seed)
+            self.base_params = init_cnn(sim.cnn, gen, self.device)
+        else:
+            self.base_params = params_from_numpy(
+                {k: np.asarray(v.detach().cpu() if isinstance(v, torch.Tensor) else v)
+                 for k, v in base_params.items()},
+                self.device,
+            )
+        self.base_shapes = {k: tuple(v.shape) for k, v in self.base_params.items()}
+        self.space, self.unit_map = build_unit_space(sim.cnn, self.base_params)
+        self.full_bytes = payload_bytes(full_index(self.space), self.space)
+        self.full_flops = cnn_flops(self.base_params, sim.cnn)
+        self.bandwidths = make_bandwidths(sim.het, self.full_bytes, sim.t_train_full)
+        self.trainer = LocalTrainer(
+            sim.cnn, lr=sim.lr, compute=sim.compute,
+            compute_blocks=sim.compute_blocks, device=self.device,
+        )
+        self.fleet = FleetEngine(self.trainer, self.unit_map, self.base_shapes, self.device)
+        self.rng = np.random.default_rng(sim.seed + 17)
+        self.x_test = torch.as_tensor(self.task.x_test, device=self.device)
+        self.flops_executed = 0.0
+        self.flops_ideal = 0.0
+        self.blocks_executed = 0.0
+        self.images_trained = 0
+        self._acct_cache: Dict[tuple, Tuple[float, float, float]] = {}
+
+    def cost_for_index(self, index) -> Tuple[float, float, float]:
+        """(executed flops, ideal flops, executed kernel blocks) per IMAGE at
+        this global index, for this run's compute path."""
+        key = tuple((l, tuple(map(int, v))) for l, v in sorted(index.items()))
+        cached = self._acct_cache.get(key)
+        if cached is None:
+            shapes = subparam_shapes(index, self.unit_map, self.base_shapes)
+            ideal = cnn_flops_from_shapes(shapes, self.sim.cnn)
+            if self.sim.compute == "block_skip":
+                masks = {
+                    l.name: np.asarray(
+                        np.isin(np.arange(l.num_units), index[l.name]), np.float32
+                    )
+                    for l in self.space.layers
+                }
+                bc = cnn_block_compute(self.sim.cnn, masks, self.sim.compute_blocks)
+                cached = (bc["flops"], ideal, bc["blocks"])
+            else:
+                # dense masked programs run the base shapes regardless of masks
+                cached = (self.full_flops, ideal, 0.0)
+            self._acct_cache[key] = cached
+        return cached
+
+    def account_train(self, index, steps: int):
+        """Record one worker's local-training phase in the FLOPs ledger."""
+        if steps <= 0:
+            return
+        executed, ideal, blocks = self.cost_for_index(index)
+        images = steps * self.sim.batch_size
+        self.flops_executed += images * executed
+        self.flops_ideal += images * ideal
+        self.blocks_executed += images * blocks
+        self.images_trained += images
+
+    def phi(self, worker: int, shapes: Mapping[str, tuple], jitter: bool) -> float:
+        """Eq. 6/7 channel-model update time of a sub-model of these
+        (reconfigured) shapes; ``jitter`` draws one multiplicative factor
+        from ``env.rng``, in the reference's order."""
+        sim = self.sim
+        bytes_raw = sum(int(np.prod(s)) * 4 for s in shapes.values())
+        rel = cnn_flops_from_shapes(shapes, sim.cnn) / self.full_flops
+        jmult = (
+            float(np.exp(self.rng.normal(0, sim.time_jitter)))
+            if jitter and sim.time_jitter > 0 else 1.0
+        )
+        t_train = sim.t_train_full * ((1 - sim.train_sens) + sim.train_sens * rel)
+        t = 2.0 * bytes_raw / self.bandwidths[worker] + t_train * sim.local_epochs
+        return t * jmult
+
+    def shard_xy(self, w):
+        sh = self.shards[w]
+        return self.task.x_train[sh], self.task.y_train[sh]
+
+
+def _env_accuracy(env: _Env, params) -> float:
+    """Test accuracy of the global model: dense ``F.conv2d`` in batches of
+    256, each batch one counted dispatch (``count_compile=False``)."""
+    cfg = env.sim.cnn
+    y = env.task.y_test
+    correct = 0
+
+    def logits_of(p, xb):
+        with torch.no_grad():
+            return cnn_apply(p, cfg, xb).argmax(-1).cpu().numpy()
+
+    for i in range(0, len(y), 256):
+        xb = env.x_test[i : i + 256]
+        pred = env.trainer.dispatch(
+            ("eval_logits", tuple(xb.shape)), logits_of, params, xb, count_compile=False
+        )
+        correct += int((pred == y[i : i + 256]).sum())
+    return correct / len(y)
+
+
+def _run_sync(sim: SimConfig, env: _Env) -> SimResult:
+    W = sim.num_workers
+    sparse = sim.method in ("fedavg_s", "adaptcl")
+    adapt = sim.method == "adaptcl"
+    lam = sim.lam if sparse else 0.0
+
+    global_params = dict(env.base_params)
+    indices = [full_index(env.space) for _ in range(W)]
+    histories = [WorkerHistory() for _ in range(W)]
+    pending_rates = [0.0] * W
+    cig_scores = None              # frozen at first pruning (CIG principle)
+    interval_phis: List[List[float]] = [[] for _ in range(W)]
+    prune_round_count = 0
+    prune_events: List[Tuple[int, int, Dict[str, tuple]]] = []
+
+    shard_x, shard_y = zip(*(env.shard_xy(w) for w in range(W)))
+    state = env.fleet.init_state(env.base_params, list(shard_x), list(shard_y))
+    # constant per-phase step pads: every sub-stack shares one plan shape
+    pad_a = max(
+        plan_steps(len(env.shards[w]), sim.batch_size, sim.local_epochs) for w in range(W)
+    )
+    pad_b = max(
+        plan_steps(len(env.shards[w]), sim.batch_size, (1 - sim.beta) * sim.local_epochs)
+        for w in range(W)
+    )
+
+    clock = 0.0
+    comm_bytes = 0.0
+    server_overhead = 0.0
+    acc_time, het_traj, sim_traj, upd_times = [], [], [], []
+    acc_time.append((0.0, _env_accuracy(env, global_params)))
+    rt_base = roundtrip_total()
+
+    def _learn_rates():
+        """One Alg. 2 server step at a pruning-interval boundary."""
+        nonlocal prune_round_count, cig_scores, pending_rates, interval_phis
+        prune_round_count += 1
+        if cig_scores is None and sim.importance == "cig_bnscalor":
+            cig_scores = METHODS["cig_bnscalor"](ImportanceContext(
+                unit_counts=env.space.unit_counts,
+                scales=extract_bn_scales(global_params, sim.cnn),
+            ))
+        gammas_now = [retention(indices[w], env.space) for w in range(W)]
+        phis_now = [
+            float(np.mean(interval_phis[w])) if interval_phis[w]
+            else env.phi(w, subparam_shapes(indices[w], env.unit_map, env.base_shapes),
+                         jitter=False)
+            for w in range(W)
+        ]
+        for w in range(W):
+            histories[w].record(gammas_now[w], phis_now[w])
+        if sim.fixed_pruned_rates is not None:
+            k = prune_round_count - 1
+            rates = (
+                sim.fixed_pruned_rates[k] if k < len(sim.fixed_pruned_rates) else [0.0] * W
+            )
+        else:
+            rates = learn_pruned_rates(histories, gammas_now, phis_now, sim.rate_cfg)
+        pending_rates = list(rates)
+        interval_phis = [[] for _ in range(W)]
+
+    def _scores_for(worker: int):
+        if sim.importance == "cig_bnscalor":
+            if cig_scores is None:
+                raise RuntimeError("CIG order not yet frozen")
+            return cig_scores
+        return METHODS[sim.importance](ImportanceContext(
+            unit_counts=env.space.unit_counts, worker=worker,
+            round=prune_round_count, seed=sim.seed,
+        ))
+
+    for t in range(1, sim.rounds + 1):
+        events = full_participation(W)
+        active_ws = [int(w) for w in np.flatnonzero(events.active)]
+
+        # batch plans, drawn in worker order up front (the reference's order)
+        plans_a: List[Optional[np.ndarray]] = [None] * W
+        plans_b: List[Optional[np.ndarray]] = [None] * W
+        prune_now = [False] * W
+        for w in active_ws:
+            rate = pending_rates[w] if adapt else 0.0
+            if adapt and rate > 0.0:
+                e1, e2 = sim.beta * sim.local_epochs, (1 - sim.beta) * sim.local_epochs
+                prune_now[w] = True
+            else:
+                e1, e2 = sim.local_epochs, 0.0
+            n = len(env.shards[w])
+            plans_a[w] = make_batch_plan(n, sim.batch_size, e1, env.rng)
+            plans_b[w] = make_batch_plan(n, sim.batch_size, e2, env.rng)
+        for w in active_ws:   # FLOPs ledger: phase A runs at the pre-prune index
+            env.account_train(indices[w], plans_a[w].shape[0])
+
+        # phase A: broadcast-back as a masked scatter, one fleet call
+        env.fleet.scatter_global(state, global_params)
+        env.fleet.train_rounds(state, plans_a, lam, pad_steps=pad_a)
+
+        # phase B: pruning workers rewrite their mask rows, then finish
+        pruned_any = False
+        for w in active_ws:
+            if not prune_now[w]:
+                continue
+            indices[w] = prune_to_budget(indices[w], _scores_for(w), pending_rates[w], env.space)
+            pruned_any = True
+            prune_events.append((t, int(w), {k: tuple(map(int, v)) for k, v in indices[w].items()}))
+        if pruned_any:
+            env.fleet.refresh_masks(state, indices)
+            env.fleet.train_rounds(
+                state, [plans_b[w] if prune_now[w] else None for w in range(W)],
+                lam, pad_steps=pad_b,
+            )
+        for w in active_ws:   # FLOPs ledger: phase B runs at the pruned index
+            if prune_now[w]:
+                env.account_train(indices[w], plans_b[w].shape[0])
+
+        # submission boundary: the channel model
+        submitters = events.submitters
+        phis = np.full(W, np.nan)
+        for w in active_ws:
+            shapes_w = subparam_shapes(indices[w], env.unit_map, env.base_shapes)
+            phi_w = env.phi(w, shapes_w, jitter=True)
+            phis[w] = phi_w
+            interval_phis[w].append(phi_w)
+            if submitters[w]:
+                bytes_w = sum(int(np.prod(s)) * 4 for s in shapes_w.values())
+                comm_bytes += 2.0 * bytes_w
+            pending_rates[w] = 0.0
+        sub_phis = phis[submitters]
+        clock += float(sub_phis.max())          # BSP: the slowest gates
+        upd_times.append(list(phis))
+        het_traj.append((t, heterogeneity_from_times(sub_phis)))
+        if W > 3:
+            sim_traj.append((t, similarity(indices[1], indices[3])))
+
+        t0 = _time.perf_counter()
+        if sim.aggregation == "by_unit":
+            agg = aggregate_by_unit_stacked(state.params, state.masks, submitters)
+        else:
+            agg = aggregate_by_worker_stacked(state.params, submitters / submitters.sum())
+        global_params = {k: v.float() for k, v in agg.items()}
+        if adapt and t % sim.prune_interval == 0:
+            _learn_rates()
+        server_overhead += _time.perf_counter() - t0
+
+        if t % sim.eval_every == 0:
+            acc_time.append((clock, _env_accuracy(env, global_params)))
+
+    host_roundtrips = roundtrip_total() - rt_base
+    final_costs = [env.cost_for_index(indices[w]) for w in range(W)]
+    return _finalize(
+        sim, env, acc_time, het_traj, sim_traj, upd_times,
+        [retention(indices[w], env.space) for w in range(W)],
+        [extract_subparams(global_params, indices[w], env.unit_map) for w in range(W)],
+        comm_bytes, server_overhead, clock,
+        global_params=global_params, host_roundtrips=host_roundtrips,
+        flops_per_image_final=float(np.mean([c[0] for c in final_costs])),
+        blocks_per_image_final=float(np.mean([c[2] for c in final_costs])),
+        prune_events=prune_events,
+    )
+
+
+def _finalize(sim, env, acc_time, het_traj, sim_traj, upd_times, retentions,
+              worker_params, comm_bytes, server_overhead, clock,
+              global_params, host_roundtrips, flops_per_image_final,
+              blocks_per_image_final, prune_events) -> SimResult:
+    accs = np.array([a for _, a in acc_time])
+    times = np.array([t for t, _ in acc_time])
+    best = int(np.argmax(accs))
+    param_sizes = [sum(v.numel() for v in p.values()) for p in worker_params]
+    flops = [cnn_flops(p, sim.cnn) for p in worker_params]
+    full_size = sum(v.numel() for v in env.base_params.values())
+    return SimResult(
+        method=sim.method,
+        acc_time=acc_time,
+        final_acc=float(accs[-1]),
+        best_acc=float(accs[best]),
+        best_acc_time=float(times[best]),
+        total_time=float(clock),
+        het_traj=het_traj,
+        retentions=retentions,
+        param_reduction=1.0 - float(np.mean(param_sizes)) / full_size,
+        flops_reduction=1.0 - float(np.mean(flops)) / env.full_flops,
+        comm_bytes=comm_bytes,
+        server_overhead_s=server_overhead,
+        recompiles=env.trainer.compile_count,
+        similarity_traj=sim_traj,
+        update_times=upd_times,
+        engine=sim.engine,
+        batched_calls=env.fleet.batched_calls,
+        host_roundtrips=host_roundtrips,
+        host_dispatches=env.trainer.dispatch_count,
+        compile_walltime_s=env.trainer.compile_walltime_s,
+        prune_events=prune_events,
+        bucket_sizes=sorted(env.fleet.buckets_used),
+        compute=sim.compute,
+        flops_executed=env.flops_executed,
+        flops_ideal=env.flops_ideal,
+        blocks_executed=env.blocks_executed,
+        images_trained=env.images_trained,
+        train_steps=env.trainer.steps_run,
+        flops_per_image_final=flops_per_image_final,
+        blocks_per_image_final=blocks_per_image_final,
+        device=str(env.device),
+        global_params=params_to_numpy(global_params),
+    )
+
+
+def run_simulation(
+    sim: SimConfig, base_params: Optional[Mapping[str, object]] = None
+) -> SimResult:
+    """Run one simulation.  ``base_params`` (a flat ``{path: array}`` dict in
+    HWIO layout) replaces the seeded ``init_cnn`` draw."""
+    t0 = _time.perf_counter()
+    with ieee_f32():
+        env = _Env(sim, base_params)
+        result = _run_sync(sim, env)
+        if env.device.type == "cuda":
+            torch.cuda.synchronize(env.device)
+    result.walltime_s = _time.perf_counter() - t0
+    return result
