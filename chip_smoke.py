@@ -29,6 +29,27 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
              equal, params within the drift bound stated at PARITY_ATOL,
              and fewer kernel blocks run than unpruned.
 
+Slice 2, the LLM serving path (RecurrentGemma-9B):
+
+6. llm_build  — nvcc seconds and ptxas' register/shared-memory lines of
+                ``csrc/flash_attention.cu`` and ``csrc/rg_lru_scan.cu`` (all
+                three sources are compiled together in phase 1).
+7. llm_kernel — both kernels against their plain versions on the card: the
+                CPU tests' cases, MQA/GQA and ragged lengths, and the serve
+                shapes (flash b=2, s=3072, h=16, kv=1, d=256, window 2048,
+                causal; scan b=2, s=3072, r=4096), tensors O(1); allclose at
+                3e-5 (flash) / 2e-4 (scan) and max|err| / max|plain| under
+                the same bar.
+8. llm_times  — per kernel at the serve shape: ms per launch and per
+                prefill, launches per prefill, the bound, the plain version
+                and (flash only) one ``F.scaled_dot_product_attention`` call.
+9. serve      — ``serve_batch`` at recurrentgemma-9b, full width and depth
+                (38 layers), weights from the port's seeded init on the
+                card, batch 2, prompt 3072, 32 new tokens; launch counts
+                zeroed just before and read just after; each step's logits
+                against ``forward`` over prompt + generated tokens (2e-3);
+                then the same at retention 0.5.
+
 Then a ``{"kernels": [...]}`` line, the ``nvidia-smi`` name/power line, and
 as the last line ``{"ok": true, "device": {...}}``.  Details go to
 ``chiprun_out/chip_smoke.json``.  Without a CUDA device, or without the
@@ -56,7 +77,14 @@ REPLACES = {
     "pruned_matmul_fwd": "src/repro/kernels/pruned_matmul.py:146 (_call -> _kernel :66)",
     "pruned_matmul_bwd_dx": "src/repro/kernels/pruned_matmul.py:204 (_pm_bwd dX)",
     "pruned_matmul_bwd_dw": "src/repro/kernels/pruned_matmul.py:210 (_pm_bwd dW)",
+    "flash_attention": "src/repro/kernels/flash_attention.py:120 (pallas_call -> _kernel :31)",
+    "rg_lru_scan": "src/repro/kernels/rg_lru_scan.py:68 (pallas_call -> _kernel :32)",
 }
+KERNEL_SOURCES = ("pruned_matmul", "flash_attention", "rg_lru_scan")
+FLASH_TOL = 3e-5          # tests/test_kernels.py's f32 attention bar
+SCAN_TOL = 2e-4           # tests/test_kernels.py's RG-LRU bar
+DECODE_TOL = 2e-3         # tests/test_models_smoke.py's decode-vs-forward bar
+SERVE = {"arch": "recurrentgemma-9b", "batch": 2, "prompt": 3072, "new_tokens": 32, "seed": 0}
 
 
 def emit(obj) -> None:
@@ -139,7 +167,9 @@ def phase_build(report):
     from repro_torch.kernels import build
 
     t0 = time.perf_counter()
-    build.load_library("pruned_matmul")
+    build.build_all(KERNEL_SOURCES)     # one nvcc per source, all started together
+    for name in KERNEL_SOURCES:
+        build.load_library(name)
     secs = time.perf_counter() - t0
     log = build.PTXAS_LOG.get("pruned_matmul", "")
     regs = [l.strip() for l in log.splitlines() if "registers" in l]
@@ -499,6 +529,268 @@ ONE_STEP_ATOL = 1e-4
 PARITY_ATOL = 0.1
 
 
+# ---------------------------------------------------------------------------
+# slice 2: the LLM serving path
+# ---------------------------------------------------------------------------
+
+def phase_llm_build(report):
+    from repro_torch.kernels import build
+    from repro_torch.kernels.flash_attention import HEAD_DIMS, smem_bytes
+
+    rec = {"phase": "llm_build"}
+    for name in ("flash_attention", "rg_lru_scan"):
+        log = build.PTXAS_LOG.get(name, "")
+        rec[name] = {"nvcc_seconds": build.BUILD_SECONDS.get(name),
+                     "ptxas": [l.strip() for l in log.splitlines()
+                               if "registers" in l or "spill" in l]}
+    rec["flash_attention"]["dynamic_smem_bytes"] = {d: smem_bytes(d) for d in HEAD_DIMS}
+    emit(rec)
+    report["llm_build"] = rec
+
+
+def _rel_compare(out, ref, tol):
+    import torch
+
+    d = (out - ref).abs()
+    err, top = float(d.max()), float(ref.abs().max())
+    return {"err": err, "ref_max": top, "rel_err": err / top if top > 0 else float("inf"),
+            "allclose": bool(torch.allclose(out, ref, atol=tol, rtol=tol))}
+
+
+def _qkv(gen, b, s, h, kv, d):
+    import torch
+
+    dev = torch.device(DEVICE)
+    return (torch.randn(b, s, h, d, generator=gen, device=dev),
+            torch.randn(b, s, kv, d, generator=gen, device=dev),
+            torch.randn(b, s, kv, d, generator=gen, device=dev))
+
+
+def _scan_inputs(gen, b, s, r, with_h0=True):
+    import torch
+
+    dev = torch.device(DEVICE)
+    x = 0.1 * torch.randn(b, s, r, generator=gen, device=dev)
+    a = 0.85 + 0.149 * torch.rand(b, s, r, generator=gen, device=dev)   # (0.85, 0.999)
+    h0 = 0.1 * torch.randn(b, r, generator=gen, device=dev) if with_h0 else None
+    return x, a, h0
+
+
+def serve_shapes():
+    from repro_torch.configs import get_config
+
+    cfg = get_config(SERVE["arch"])
+    b, s = SERVE["batch"], SERVE["prompt"]
+    return cfg, {"flash": (b, s, cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim,
+                           {"window": cfg.window_size, "softcap": cfg.attn_softcap}),
+                 "scan": (b, s, cfg.rnn_width)}
+
+
+def phase_llm_kernel(report):
+    import torch
+    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_plain
+    from repro_torch.kernels.rg_lru_scan import rg_lru_scan, rg_lru_scan_plain
+
+    gen = torch.Generator(device=DEVICE).manual_seed(2)
+    _, shapes = serve_shapes()
+    flash_cases = [
+        # tests/test_kernels.py (kv = h)
+        (2, 256, 4, 4, 64, {}), (1, 256, 2, 2, 128, {"window": 64}),
+        (2, 128, 2, 2, 64, {"softcap": 50.0}), (1, 256, 2, 2, 64, {"causal": False}),
+        (1, 512, 1, 1, 64, {"window": 100, "softcap": 30.0}),
+        # MQA / GQA, ragged lengths, head_dim 256
+        (2, 128, 4, 1, 64, {}), (2, 128, 4, 2, 64, {"window": 48}),
+        (2, 128, 8, 2, 64, {"softcap": 50.0}), (2, 128, 16, 1, 64, {"window": 64, "softcap": 30.0}),
+        (2, 100, 4, 1, 64, {}), (2, 200, 4, 2, 64, {"window": 50}), (2, 37, 2, 2, 64, {"softcap": 20.0, "window": 8}),
+        (2, 1, 2, 1, 64, {}), (1, 333, 4, 2, 128, {"window": 70}),
+        (2, 300, 8, 4, 256, {"window": 128, "softcap": 50.0}), (1, 257, 16, 1, 256, {"causal": False}),
+        # the serve shape (recurrentgemma-9b local attention)
+        (*shapes["flash"][:5], {k: v for k, v in shapes["flash"][5].items() if v is not None}),
+    ]
+    cases = []
+    for b, s, h, kv, d, kw in flash_cases:
+        q, k, v = _qkv(gen, b, s, h, kv, d)
+        out = flash_attention(q, k, v, **kw)
+        ref = flash_attention_plain(q, k, v, **kw)
+        torch.cuda.synchronize()
+        cases.append({"kernel": "flash_attention", "case": f"b={b} s={s} h={h} kv={kv} d={d} {kw}",
+                      **_rel_compare(out, ref, FLASH_TOL)})
+        del q, k, v, out, ref
+    b, s, r = shapes["scan"]
+    for b, s, r, with_h0 in [(8, 512, 256, True), (4, 1000, 300, True), (2, 128, 128, False),
+                             (3, 37, 100, True), (b, s, r, True)]:
+        x, a, h0 = _scan_inputs(gen, b, s, r, with_h0)
+        out = rg_lru_scan(x, a, h0)
+        ref = rg_lru_scan_plain(x, a, h0)
+        torch.cuda.synchronize()
+        cases.append({"kernel": "rg_lru_scan", "case": f"b={b} s={s} r={r} h0={'given' if with_h0 else 'None'}",
+                      **_rel_compare(out, ref, SCAN_TOL)})
+    per = {}
+    for name, tol in (("flash_attention", FLASH_TOL), ("rg_lru_scan", SCAN_TOL)):
+        mine = [c for c in cases if c["kernel"] == name]
+        per[name] = {"cases": len(mine), "max_abs_err": max(c["err"] for c in mine),
+                     "max_rel_err": max(c["rel_err"] for c in mine),
+                     "min_ref_max": min(c["ref_max"] for c in mine),
+                     "all_allclose": all(c["allclose"] for c in mine),
+                     "all_rel_ok": all(c["rel_err"] <= tol for c in mine), "tol": tol}
+    emit({"phase": "llm_kernel", **per})
+    report["llm_kernel"] = {**per, "detail": cases}
+    bad = [c for c in cases
+           if not (c["allclose"] and c["rel_err"] <= (FLASH_TOL if c["kernel"] == "flash_attention" else SCAN_TOL))]
+    check(not bad, "LLM kernel disagrees with its plain version: " + json.dumps(bad))
+    return per
+
+
+def flash_pairs(s, causal, window):
+    """Kept (query, key) pairs of one head: what the function must compute."""
+    tot = 0
+    for i in range(s):
+        lo = max(0, i - window + 1) if window else 0
+        hi = i + 1 if causal else s
+        tot += hi - lo
+    return tot
+
+
+def phase_llm_times(report):
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import flash_attention_cuda, flash_attention_plain
+    from repro_torch.kernels.rg_lru_scan import rg_lru_scan_cuda, rg_lru_scan_plain
+
+    cfg, shapes = serve_shapes()
+    kinds = cfg.layer_kinds()
+    per_prefill = {"flash_attention": kinds.count("local") + kinds.count("attn"),
+                   "rg_lru_scan": kinds.count("rglru")}
+    gen = torch.Generator(device=DEVICE).manual_seed(3)
+    b, s, h, kv, d, kw = shapes["flash"]
+    window, cap = kw["window"], kw["softcap"]
+    q, k, v = _qkv(gen, b, s, h, kv, d)
+    ms = time_ms(lambda: flash_attention_cuda(q, k, v, window=window, softcap=cap))
+    plain = time_ms(lambda: flash_attention_plain(q, k, v, window=window, softcap=cap))
+    # the library yardstick (timed only): SDPA with the equivalent boolean mask
+    qp = torch.arange(s, device=q.device)[:, None]
+    kp = torch.arange(s, device=q.device)[None, :]
+    mask = (kp <= qp) & (kp > qp - window)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k.expand(b, s, h, d), v.expand(b, s, h, d)))
+    library = time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask))
+    pairs = flash_pairs(s, True, window) * b * h
+    flops = 4.0 * pairs * d
+    byts = 4.0 * (2 * b * s * h * d + 2 * b * s * kv * d)
+    t_ops, t_bytes = flops / F32_TFLOPS * 1e3, byts / HBM_BPS * 1e3
+    n = per_prefill["flash_attention"]
+    flash = {"shape": f"b={b} s={s} h={h} kv={kv} d={d} window={window} causal",
+             "ms_per_launch": ms, "launches_per_prefill": n, "ms": ms * n, "plain_ms": plain * n,
+             "library_ms": library * n, "bound_ms": max(t_ops, t_bytes) * n,
+             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+             "flops_per_launch": flops, "bytes_per_launch": byts,
+             "achieved_tflops": flops / (ms * 1e-3) / 1e12}
+    del q, k, v, qt, kt, vt, mask
+    b, s, r = shapes["scan"]
+    x, a, h0 = _scan_inputs(gen, b, s, r)
+    ms = time_ms(lambda: rg_lru_scan_cuda(x, a, h0), iters=20)
+    plain = time_ms(lambda: rg_lru_scan_plain(x, a, h0), iters=2, warm=1)
+    byts = 4.0 * (3 * b * s * r + b * r)
+    flops = 2.0 * b * s * r
+    t_ops, t_bytes = flops / F32_TFLOPS * 1e3, byts / HBM_BPS * 1e3
+    n = per_prefill["rg_lru_scan"]
+    scan = {"shape": f"b={b} s={s} r={r}", "ms_per_launch": ms, "launches_per_prefill": n,
+            "ms": ms * n, "plain_ms": plain * n, "library_ms": None,
+            "bound_ms": max(t_ops, t_bytes) * n, "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "bytes_per_launch": byts, "achieved_gbps": byts / (ms * 1e-3) / 1e9}
+    rec = {"phase": "llm_times", "flash_attention": flash, "rg_lru_scan": scan}
+    emit(rec)
+    report["llm_times"] = rec
+    return rec
+
+
+def _serve_once(cfg, label, gen_seed):
+    """serve_batch at ``cfg`` with the port's seeded init on the card; the
+    launch counts are zeroed just before it and read just after.  Then each
+    step's logits against ``forward`` over prompt + generated tokens."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa_mod
+    from repro_torch.kernels import pruned_matmul as pm_mod
+    from repro_torch.kernels import rg_lru_scan as rg_mod
+    from repro_torch.launch.serve import serve_batch
+    from repro_torch.models import transformer as T
+    from repro_torch.models.config import param_count
+
+    dev = torch.device(DEVICE)
+    b, s, n = SERVE["batch"], SERVE["prompt"], SERVE["new_tokens"]
+    gen = torch.Generator(device=dev).manual_seed(gen_seed)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = T.init_params(gen, cfg)
+    prompts = torch.randint(0, cfg.vocab_size, (b, s), generator=gen, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    weights_gb = torch.cuda.memory_allocated() / 1e9
+    stats = {}
+    torch.cuda.reset_peak_memory_stats()
+    for mod in (fa_mod, rg_mod, pm_mod):
+        mod.reset_launches()
+    out, logits = serve_batch(cfg, params, prompts, n, device=DEVICE, stats=stats, return_logits=True)
+    launches = {**fa_mod.LAUNCHES, **rg_mod.LAUNCHES}
+    pm_launches = sum(pm_mod.LAUNCHES.values())
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    # a second prefill alone: its time without first-call costs
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    T.prefill(params, cfg, {"tokens": prompts}, max_len=s + n)
+    torch.cuda.synchronize()
+    prefill2_s = time.perf_counter() - t1
+    # decode vs forward over prompt + generated tokens at the same positions
+    full, _ = T.forward(params, cfg, {"tokens": torch.cat([prompts, out], dim=1)})
+    ref = full[:, s - 1:]
+    diffs = (logits - ref).abs().amax(dim=(0, 2)).tolist()
+    rec = {
+        "phase": "serve", "label": label, "arch": cfg.name, "retention": cfg.retention,
+        "num_layers": cfg.num_layers, "d_model": cfg.d_model, "d_ff": cfg.d_ff,
+        "rnn_width": cfg.rnn_width, "param_count": param_count(cfg),
+        "batch": b, "prompt": s, "new_tokens": n, "init_s": init_s,
+        "prefill_s": stats["prefill_s"], "prefill_tok_per_s": b * s / stats["prefill_s"],
+        "prefill_again_s": prefill2_s, "prefill_again_tok_per_s": b * s / prefill2_s,
+        "decode_ms_per_token": stats["decode_s"] / n * 1e3,
+        "decode_tok_per_s": b * n / stats["decode_s"],
+        "weights_gb": weights_gb, "peak_mem_gb": peak_gb,
+        "launches_per_prefill": launches, "pruned_matmul_launches": pm_launches,
+        "max_logit_diff_vs_forward": max(diffs), "per_step_logit_diff": diffs,
+        "max_abs_logit": float(ref.abs().max()),
+        "logits_finite": bool(torch.isfinite(logits).all()),
+        "tokens_in_range": bool(((out >= 0) & (out < cfg.vocab_size)).all()),
+        "sample_tokens": out[0, :8].tolist(),
+    }
+    emit({k: v for k, v in rec.items() if k != "per_step_logit_diff"})
+    kinds = cfg.layer_kinds()
+    check(launches["flash_attention"] == kinds.count("local") + kinds.count("attn"),
+          f"{label}: flash launches {launches} per prefill")
+    check(launches["rg_lru_scan"] == kinds.count("rglru"), f"{label}: scan launches {launches}")
+    check(pm_launches == 0, f"{label}: pruned_matmul launched on the LLM path")
+    check(rec["logits_finite"] and rec["tokens_in_range"], f"{label}: non-finite logits or bad tokens")
+    check(tuple(out.shape) == (b, n), f"{label}: generated shape {tuple(out.shape)}")
+    check(rec["max_logit_diff_vs_forward"] <= DECODE_TOL,
+          f"{label}: decode differs from forward by {rec['max_logit_diff_vs_forward']} > {DECODE_TOL}")
+    del params, prompts, out, logits, full, ref
+    torch.cuda.empty_cache()
+    return rec
+
+
+def phase_serve(report):
+    from repro_torch.configs import get_config
+    from repro_torch.models.config import apply_retention
+
+    cfg = get_config(SERVE["arch"])
+    check(cfg.num_layers == 38 and cfg.d_model == 4096, "serve runs recurrentgemma-9b at full size")
+    full = _serve_once(cfg, "full", SERVE["seed"])
+    sub = _serve_once(apply_retention(cfg, 0.5), "retention_0.5", SERVE["seed"])
+    ratio = {"prefill_time_ratio": sub["prefill_again_s"] / full["prefill_again_s"],
+             "decode_time_ratio": sub["decode_ms_per_token"] / full["decode_ms_per_token"],
+             "param_ratio": sub["param_count"] / full["param_count"]}
+    emit({"phase": "serve_retention", **ratio})
+    report["serve"] = {"full": full, "retention_0.5": sub, **ratio}
+    return full
+
+
 def main() -> int:
     try:
         import torch
@@ -526,6 +818,13 @@ def main() -> int:
         launches, res = phase_main(report)
         save(report)
         phase_parity(report)
+        save(report)
+        phase_llm_build(report)
+        llm_errs = phase_llm_kernel(report)
+        save(report)
+        llm_times = phase_llm_times(report)
+        save(report)
+        served = phase_serve(report)
     steps = max(res.train_steps, 1)
     kernels = []
     for kname, short in (("pruned_matmul_fwd", "fwd"), ("pruned_matmul_bwd_dx", "dx"),
@@ -540,6 +839,18 @@ def main() -> int:
             "bound_by": "operations" if tot["ops_ms"] >= tot["bytes_ms"] else "bytes",
             "library_ms": tot["library_ms"],
             "shapes": "one training step, VGG16_CIFAR, 10 workers x 32 images, retention 1.0",
+        })
+    for kname in ("flash_attention", "rg_lru_scan"):
+        t = llm_times[kname]
+        kernels.append({
+            "name": kname, "route": "cuda", "source": f"src/repro_torch/kernels/csrc/{kname}.cu",
+            "replaces": REPLACES[kname], "launches": served["launches_per_prefill"][kname],
+            "max_abs_err": llm_errs[kname]["max_abs_err"],
+            "max_rel_err": llm_errs[kname]["max_rel_err"],
+            "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+            "ms_per_launch": t["ms_per_launch"],
+            "shapes": f"one prefill of recurrentgemma-9b: {t['launches_per_prefill']} launches at {t['shape']}",
         })
     report["kernels"] = kernels
     report["card"] = card

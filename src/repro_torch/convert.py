@@ -1,19 +1,24 @@
-"""Carry parameter dicts between numpy and the port's tensors.
+"""Carry parameter trees between numpy and the port's tensors.
 
 ``params_from_numpy`` turns a flat ``{path: array}`` dict — for example the
 JAX package's ``init_cnn`` output passed through ``np.asarray`` — into
 float32 tensors on ``device``, in the same HWIO layout, so the port can run
 from the reference's exact init (``run_simulation(sim, base_params=...)``);
 ``params_to_numpy`` is the inverse.
+
+``tree_from_numpy`` / ``tree_to_numpy`` do the same for nested dicts and
+lists (the LLM parameter and decode-state trees), keeping each leaf's dtype:
+a test hands ``T.init_params(key, cfg)`` of the JAX package, leaf by leaf
+through ``np.asarray``, to the port's ``models.transformer``.
 """
 from __future__ import annotations
 
-from typing import Dict, Mapping
+from typing import Any, Dict, Mapping
 
 import numpy as np
 import torch
 
-__all__ = ["params_from_numpy", "params_to_numpy"]
+__all__ = ["params_from_numpy", "params_to_numpy", "tree_from_numpy", "tree_to_numpy"]
 
 
 def params_from_numpy(params: Mapping[str, np.ndarray], device="cpu") -> Dict[str, torch.Tensor]:
@@ -25,3 +30,25 @@ def params_from_numpy(params: Mapping[str, np.ndarray], device="cpu") -> Dict[st
 
 def params_to_numpy(params: Mapping[str, torch.Tensor]) -> Dict[str, np.ndarray]:
     return {k: v.detach().cpu().numpy() for k, v in params.items()}
+
+
+def tree_from_numpy(tree: Any, device="cpu") -> Any:
+    """Nested dicts / lists / tuples of arrays -> the same tree of tensors
+    on ``device`` (each leaf copied, dtype kept)."""
+    if isinstance(tree, Mapping):
+        return {k: tree_from_numpy(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_from_numpy(v, device) for v in tree)
+    return torch.as_tensor(np.array(tree), device=device)
+
+
+def tree_to_numpy(tree: Any) -> Any:
+    """The inverse of ``tree_from_numpy``; non-tensor leaves (a decode
+    state's position) pass through."""
+    if isinstance(tree, Mapping):
+        return {k: tree_to_numpy(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_to_numpy(v) for v in tree)
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().cpu().numpy()
+    return tree

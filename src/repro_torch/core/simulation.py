@@ -200,18 +200,18 @@ def validate_config(sim: SimConfig) -> None:
         raise ValueError(f"SimConfig.compute: unknown {sim.compute!r}")
 
 
-def resolve_device(name: str) -> torch.device:
-    """The run's device.  ``"cuda"`` without a card raises: nothing falls
-    back to the CPU."""
+def resolve_device(name: str, what: str = "SimConfig.device") -> torch.device:
+    """The run's device (``what`` names the setting in errors).  ``"cuda"``
+    without a card raises: nothing falls back to the CPU."""
     dev = torch.device(name)
     if dev.type == "cuda":
         if not torch.cuda.is_available():
             raise RuntimeError(
-                f"SimConfig.device={name!r} but torch sees no CUDA device; "
+                f"{what}={name!r} but torch sees no CUDA device; "
                 "pass device='cpu' to run on the CPU"
             )
     elif dev.type != "cpu":
-        raise ValueError(f"SimConfig.device={name!r}: use 'cuda' or 'cpu'")
+        raise ValueError(f"{what}={name!r}: use 'cuda' or 'cpu'")
     return dev
 
 

@@ -5,7 +5,8 @@ library with a plain C interface (no PyTorch headers, so a build takes
 seconds) and loaded with ``ctypes``.  Libraries go to ``kernels/_build/``
 (listed in ``.gitignore``), named by a hash of the source and the flags, so
 an edited source rebuilds and an unchanged one is reused.  Nothing builds at
-import time: the first call that needs a kernel builds it.
+import time: the first call that needs a kernel builds it.  ``build_all``
+starts one nvcc per source at once and waits for all of them.
 """
 from __future__ import annotations
 
@@ -18,7 +19,7 @@ import time
 from pathlib import Path
 from typing import Dict, Sequence
 
-__all__ = ["CSRC", "BUILD_DIR", "NVCC_FLAGS", "build_library", "load_library"]
+__all__ = ["CSRC", "BUILD_DIR", "NVCC_FLAGS", "build_library", "build_all", "load_library"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
@@ -52,26 +53,52 @@ def _lib_path(name: str, flags: Sequence[str]) -> Path:
     return BUILD_DIR / f"lib{name}_{tag}.so"
 
 
-def build_library(name: str, flags: Sequence[str] = NVCC_FLAGS) -> Path:
-    """Compile ``csrc/<name>.cu`` unless a library of the same source and
-    flags is already built; returns the library's path."""
+def _start(name: str, flags: Sequence[str]):
+    """Start nvcc for ``name`` unless its library exists; returns
+    ``(out, tmp, proc, t0)`` or ``None`` when there is nothing to build."""
     out = _lib_path(name, flags)
     if out.exists():
-        return out
+        return None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
     cmd = [_nvcc(), *flags, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-    t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    return out, tmp, proc, time.perf_counter()
+
+
+def _finish(name: str, job) -> None:
+    out, tmp, proc, t0 = job
+    stdout, stderr = proc.communicate()
     BUILD_SECONDS[name] = time.perf_counter() - t0
-    PTXAS_LOG[name] = proc.stdout + proc.stderr
+    PTXAS_LOG[name] = stdout + stderr
     if proc.returncode != 0:
         raise RuntimeError(
-            f"nvcc failed for {name}.cu (exit {proc.returncode}):\n"
-            f"{proc.stdout}{proc.stderr}"
+            f"nvcc failed for {name}.cu (exit {proc.returncode}):\n{stdout}{stderr}"
         )
     os.replace(tmp, out)
-    return out
+
+
+def build_all(names: Sequence[str], flags: Sequence[str] = NVCC_FLAGS) -> Dict[str, Path]:
+    """Compile every ``csrc/<name>.cu`` that is not built yet, all nvcc runs
+    started together; raises after all have ended if any failed."""
+    jobs = {n: _start(n, flags) for n in names}
+    errors = []
+    for n, job in jobs.items():
+        if job is None:
+            continue
+        try:
+            _finish(n, job)
+        except RuntimeError as e:
+            errors.append(str(e))
+    if errors:
+        raise RuntimeError("\n".join(errors))
+    return {n: _lib_path(n, flags) for n in names}
+
+
+def build_library(name: str, flags: Sequence[str] = NVCC_FLAGS) -> Path:
+    """Compile ``csrc/<name>.cu`` unless a library of the same source and
+    flags is already built; returns the library's path."""
+    return build_all([name], flags)[name]
 
 
 def load_library(name: str) -> ctypes.CDLL:

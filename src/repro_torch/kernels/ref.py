@@ -1,9 +1,12 @@
-"""Gather-based oracle of the block-skip kernel (port of ``repro/kernels/ref.py``)."""
+"""Plain PyTorch oracles of the kernels (port of ``repro/kernels/ref.py``)."""
 from __future__ import annotations
+
+import math
+from typing import Optional
 
 import torch
 
-__all__ = ["pruned_matmul_ref"]
+__all__ = ["pruned_matmul_ref", "flash_attention_ref", "rg_lru_ref"]
 
 
 def pruned_matmul_ref(
@@ -15,3 +18,48 @@ def pruned_matmul_ref(
     """y = x[:, in_idx] @ w[in_idx][:, out_idx] — the sub-model's matmul
     against base-model weights."""
     return x.index_select(1, in_idx) @ w.index_select(0, in_idx).index_select(1, out_idx)
+
+
+def flash_attention_ref(
+    q: torch.Tensor,          # [b, s, h, d]
+    k: torch.Tensor,          # [b, s, h, d]  (kv already repeated to h)
+    v: torch.Tensor,
+    *,
+    causal: bool = True,
+    window: Optional[int] = None,
+    softcap: Optional[float] = None,
+) -> torch.Tensor:
+    """softmax(softcap(q k^T / sqrt(d)), masked with finfo(f32).min) v."""
+    b, s, h, d = q.shape
+    scores = torch.einsum("bshd,bthd->bhst", q.float(), k.float()) / math.sqrt(d)
+    if softcap is not None:
+        scores = softcap * torch.tanh(scores / softcap)
+    qp = torch.arange(s, device=q.device)[:, None]
+    kp = torch.arange(s, device=q.device)[None, :]
+    keep = torch.ones((s, s), dtype=torch.bool, device=q.device)
+    if causal:
+        keep &= kp <= qp
+    if window is not None:
+        keep &= kp > qp - window
+    scores = scores.masked_fill(~keep, torch.finfo(torch.float32).min)
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bhst,bthd->bshd", probs, v.float())
+    return out.to(q.dtype)
+
+
+def rg_lru_ref(
+    x: torch.Tensor,          # [b, s, r] gated inputs
+    a: torch.Tensor,          # [b, s, r] per-step decay in (0, 1)
+    h0: Optional[torch.Tensor] = None,   # [b, r]
+) -> torch.Tensor:
+    """h_t = a_t * h_{t-1} + x_t, one step at a time (a rounded multiply,
+    then a rounded add)."""
+    b, s, r = x.shape
+    h = (torch.zeros((b, r), dtype=torch.float32, device=x.device) if h0 is None
+         else h0.float())
+    a32, x32 = a.float(), x.float()
+    out = torch.empty((b, s, r), dtype=torch.float32, device=x.device)
+    for t in range(s):
+        h = a32[:, t] * h + x32[:, t]
+        out[:, t] = h
+    return out.to(x.dtype)

@@ -1,0 +1,97 @@
+"""RG-LRU linear recurrence: the CUDA kernel's wrapper and its plain version.
+
+Port of ``repro/kernels/rg_lru_scan.py`` and ``ops.rg_lru_scan``:
+``h_t = a_t * h_{t-1} + x_t`` over ``[b, s, r]`` inputs, from ``h0 [b, r]``
+(zeros when ``None``, as ``ops.py`` does); returns every ``h_t``.  The
+argument order is ``ops.rg_lru_scan(x, a, h0)``, not the ``pallas_call``'s
+``(a, x, h0)``.
+
+The TPU kernel closes each sequence block in log space,
+``h = A * (h_in + cumsum(x / A))`` with ``A = cumprod(a)``, because the
+TPU's vector unit does cumulative sums well and serial steps badly.  That
+form is not carried over: on the card one thread per channel walks the
+steps in order (``csrc/rg_lru_scan.cu``), and the log-space form would only
+add the ``1 / A`` overflow bound that the TPU docstring warns about.  The
+kernel does a rounded multiply and a rounded add per step, exactly as the
+plain version, so the two agree bit for bit.
+
+A CPU tensor runs the plain version (``ref.rg_lru_ref``); a CUDA tensor
+launches the kernel or raises.  ``LAUNCHES`` counts kernel launches.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Dict, Optional
+
+import torch
+
+from .ref import rg_lru_ref
+
+__all__ = ["LAUNCHES", "reset_launches", "rg_lru_scan", "rg_lru_scan_plain", "rg_lru_scan_cuda"]
+
+NAME = "rg_lru_scan"
+LAUNCHES: Dict[str, int] = {NAME: 0}
+
+
+def reset_launches() -> None:
+    LAUNCHES[NAME] = 0
+
+
+def rg_lru_scan_plain(x: torch.Tensor, a: torch.Tensor,
+                      h0: Optional[torch.Tensor] = None) -> torch.Tensor:
+    return rg_lru_ref(x, a, h0)
+
+
+_LIB = None
+
+
+def _lib():
+    global _LIB
+    if _LIB is None:
+        from .build import load_library
+
+        lib = load_library(NAME)
+        P, I = ctypes.c_void_p, ctypes.c_int
+        lib.rg_lru_scan_f32.argtypes = [P, P, P, P, I, I, I, P]
+        lib.rg_lru_scan_f32.restype = I
+        _LIB = lib
+    return _LIB
+
+
+def rg_lru_scan_cuda(x: torch.Tensor, a: torch.Tensor, h0: torch.Tensor) -> torch.Tensor:
+    """Launch the kernel once on CUDA tensors (checked, made contiguous)."""
+    dev = x.device
+    for nm, t in (("x", x), ("a", a), ("h0", h0)):
+        if t.device != dev or t.device.type != "cuda":
+            raise ValueError(f"{nm} must lie on {dev}, got {t.device}")
+        if t.dtype != torch.float32:
+            raise ValueError(f"{nm} must be float32, got {t.dtype}")
+    if x.dim() != 3 or tuple(a.shape) != tuple(x.shape):
+        raise ValueError(f"x {tuple(x.shape)} and a {tuple(a.shape)} must both be [b, s, r]")
+    b, s, r = x.shape
+    if tuple(h0.shape) != (b, r):
+        raise ValueError(f"h0 {tuple(h0.shape)} != {(b, r)}")
+    if b > 65535:
+        raise ValueError(f"b={b}: the kernel's grid takes b <= 65535")
+    x, a, h0 = x.contiguous(), a.contiguous(), h0.contiguous()
+    out = torch.empty_like(x)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    rc = _lib().rg_lru_scan_f32(x.data_ptr(), a.data_ptr(), h0.data_ptr(), out.data_ptr(),
+                                b, s, r, stream)
+    if rc != 0:
+        raise RuntimeError(f"rg_lru_scan kernel launch failed: cudaError {rc}")
+    LAUNCHES[NAME] += 1
+    return out
+
+
+def rg_lru_scan(x: torch.Tensor, a: torch.Tensor,
+                h0: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``h_t = a_t h_{t-1} + x_t``; CPU tensors take the plain version, CUDA
+    tensors the kernel."""
+    if x.device.type == "cpu":
+        return rg_lru_scan_plain(x, a, h0)
+    if x.device.type != "cuda":
+        raise ValueError(f"rg_lru_scan runs on CPU or CUDA tensors, got {x.device}")
+    if h0 is None:
+        h0 = torch.zeros((x.shape[0], x.shape[2]), dtype=torch.float32, device=x.device)
+    return rg_lru_scan_cuda(x, a, h0)

@@ -1,0 +1,390 @@
+"""Model assembly for the LLM serving path (port of ``repro/models/transformer.py``).
+
+Decoder-only stacks of ``attn`` / ``local`` / ``rglru`` blocks.  Full periods
+of ``cfg.block_pattern`` are parameter-stacked on a leading group axis
+(``params["blocks"]["s{j}"]``), exactly as the JAX package stacks them for
+``lax.scan``; here a Python loop indexes one group at a time.  Remainder
+layers are the list ``params["rem"]``.  ``constrain`` and ``jax.checkpoint``
+have no counterpart: on one device both are no-ops or training-only.
+
+Entry points:
+  * ``forward(params, cfg, batch)``               -> (logits, aux)
+  * ``prefill(params, cfg, batch, max_len)``      -> (last logits, state)
+  * ``decode_step(params, cfg, state, token)``    -> (logits, state)
+
+The decode state holds ring-buffer KV caches and recurrent states, stacked
+over groups like the parameters, and the next position as a Python int.
+``decode_step`` updates the caches in place (the JAX version returns new
+arrays), so a step writes one ring slot instead of copying the cache.
+
+Block kinds ``moe``/``moe_local``/``mlstm``/``slstm``, the encoder, vision
+prefix embeddings, learned positions and dtypes other than float32 are
+refused by name (``validate_config``).
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, List, Tuple
+
+import torch
+
+from . import attention as attn_mod
+from . import ffn as ffn_mod
+from . import rglru as rglru_mod
+from .attention import AttnSpec
+from .config import ModelConfig
+from .ffn import FFNSpec
+from .layers import layer_norm, normal_init, rms_norm, softcap
+from .rglru import RGLRUSpec
+
+__all__ = [
+    "SUPPORTED_KINDS",
+    "validate_config",
+    "init_params",
+    "forward",
+    "prefill",
+    "init_decode_state",
+    "decode_step",
+    "tree_map",
+]
+
+SUPPORTED_KINDS = ("attn", "local", "rglru")
+_REFUSED_KINDS = {
+    "moe": "mixture of experts",
+    "moe_local": "windowed mixture of experts",
+    "mlstm": "xLSTM mLSTM cells",
+    "slstm": "xLSTM sLSTM cells",
+}
+_ATTN_KINDS = ("attn", "local")
+
+
+def _refuse(field: str, why: str) -> ValueError:
+    return ValueError(
+        f"ModelConfig.{field}: {why} — not ported to repro_torch yet "
+        "(see ROADMAP.md, queue A)"
+    )
+
+
+def validate_config(cfg: ModelConfig) -> None:
+    """Raise ``ValueError`` naming the first field outside this slice."""
+    for kind in cfg.block_pattern:
+        if kind in _REFUSED_KINDS:
+            raise _refuse("block_pattern", f"block kind {kind!r} ({_REFUSED_KINDS[kind]})")
+        if kind not in SUPPORTED_KINDS:
+            raise ValueError(f"ModelConfig.block_pattern: unknown block kind {kind!r}")
+    if cfg.encoder_layers > 0:
+        raise _refuse("encoder_layers", f"encoder_layers={cfg.encoder_layers} (enc-dec models)")
+    if cfg.num_prefix_embeds > 0:
+        raise _refuse("num_prefix_embeds",
+                      f"num_prefix_embeds={cfg.num_prefix_embeds} (vision prefix embeddings)")
+    if cfg.pos_embed != "rope":
+        raise _refuse("pos_embed", f"pos_embed={cfg.pos_embed!r} (only 'rope' runs)")
+    if cfg.dtype != "float32":
+        raise _refuse("dtype", f"dtype={cfg.dtype!r} (only float32 runs; bf16 kernels come later)")
+    if cfg.norm_style not in ("rms", "layernorm"):
+        raise ValueError(f"ModelConfig.norm_style: unknown {cfg.norm_style!r}")
+
+
+# --------------------------------------------------------------------------
+# pytrees of tensors
+# --------------------------------------------------------------------------
+
+def tree_map(fn, tree):
+    """Apply ``fn`` to every tensor leaf of nested dicts / lists."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_map(fn, v) for v in tree)
+    return fn(tree)
+
+
+def _stack(trees: List[Any]):
+    first = trees[0]
+    if isinstance(first, dict):
+        return {k: _stack([t[k] for t in trees]) for k in first}
+    return torch.stack(trees)
+
+
+def _copy_into(dst, src) -> None:
+    """Write a block's new decode cache into its (stacked) slot in place
+    (an attention cache comes back as the same, already updated, views)."""
+    for k, v in src.items():
+        if v is not dst[k]:
+            dst[k].copy_(v)
+
+
+# --------------------------------------------------------------------------
+# specs per block kind
+# --------------------------------------------------------------------------
+
+def _attn_spec(cfg: ModelConfig, kind: str, causal: bool = True) -> AttnSpec:
+    return AttnSpec(
+        d_model=cfg.d_model,
+        num_heads=cfg.num_heads,
+        num_kv_heads=cfg.num_kv_heads,
+        head_dim=cfg.resolved_head_dim,
+        qk_norm=cfg.qk_norm,
+        qkv_bias=cfg.qkv_bias,
+        logit_softcap=cfg.attn_softcap,
+        window=cfg.window_size if kind == "local" else None,
+        causal=causal,
+        rope_theta=cfg.rope_theta,
+        use_rope=cfg.pos_embed == "rope",
+    )
+
+
+def _ffn_spec(cfg: ModelConfig) -> FFNSpec:
+    return FFNSpec(cfg.d_model, cfg.d_ff, gated=cfg.gated_ffn, activation=cfg.activation)
+
+
+def _rglru_spec(cfg: ModelConfig) -> RGLRUSpec:
+    return RGLRUSpec(cfg.d_model, cfg.rnn_width or cfg.d_model, cfg.rnn_heads)
+
+
+# --------------------------------------------------------------------------
+# init
+# --------------------------------------------------------------------------
+
+def _init_norm(cfg: ModelConfig, lead, device):
+    shape = (*lead, cfg.d_model)
+    if cfg.norm_style == "layernorm":
+        return {"scale": torch.ones(shape, device=device), "bias": torch.zeros(shape, device=device)}
+    return {"scale": torch.zeros(shape, device=device)}
+
+
+def _apply_norm(cfg: ModelConfig, p, x):
+    if cfg.norm_style == "layernorm":
+        return layer_norm(x, p["scale"], p["bias"])
+    return rms_norm(x, p["scale"])
+
+
+def _init_block(gen: torch.Generator, cfg: ModelConfig, kind: str, lead=()):
+    dev = gen.device
+    if kind in _ATTN_KINDS:
+        return {
+            "ln1": _init_norm(cfg, lead, dev),
+            "attn": attn_mod.init_attention(gen, _attn_spec(cfg, kind), lead),
+            "ln2": _init_norm(cfg, lead, dev),
+            "ffn": ffn_mod.init_ffn(gen, _ffn_spec(cfg), lead),
+        }
+    if kind == "rglru":
+        return {
+            "ln1": _init_norm(cfg, lead, dev),
+            "rglru": rglru_mod.init_rglru(gen, _rglru_spec(cfg), lead),
+            "ln2": _init_norm(cfg, lead, dev),
+            "ffn": ffn_mod.init_ffn(gen, _ffn_spec(cfg), lead),
+        }
+    raise ValueError(f"unknown block kind {kind}")
+
+
+def _split_layers(cfg: ModelConfig) -> Tuple[int, List[str]]:
+    """(num_full_groups, remainder_kinds)."""
+    period = len(cfg.block_pattern)
+    if not cfg.scan_layers:
+        return 0, list(cfg.layer_kinds())
+    g = cfg.num_layers // period
+    return g, list(cfg.layer_kinds()[g * period:])
+
+
+@torch.no_grad()
+def init_params(gen: torch.Generator, cfg: ModelConfig) -> Dict[str, Any]:
+    """Random parameters on ``gen``'s device: the JAX package's tree, shapes
+    and dtypes (the values differ: another generator)."""
+    validate_config(cfg)
+    params: Dict[str, Any] = {"embed": normal_init(gen, (cfg.vocab_size, cfg.d_model), 0.02)}
+    g, rem = _split_layers(cfg)
+    if g > 0:
+        params["blocks"] = {
+            f"s{j}": _init_block(gen, cfg, kind, lead=(g,))
+            for j, kind in enumerate(cfg.block_pattern)
+        }
+    if rem:
+        params["rem"] = [_init_block(gen, cfg, kind) for kind in rem]
+    params["final_norm"] = _init_norm(cfg, (), gen.device)
+    if not cfg.tie_embeddings:
+        params["lm_head"] = normal_init(gen, (cfg.d_model, cfg.vocab_size), 0.02)
+    return params
+
+
+# --------------------------------------------------------------------------
+# full-sequence forward (prefill)
+# --------------------------------------------------------------------------
+
+def _block_fwd(cfg: ModelConfig, kind: str, p, x, collect_cache: bool, cache_len: int = 0):
+    """Returns (x, cache_or_None)."""
+    cache = None
+    if kind in _ATTN_KINDS:
+        h, (k, v) = attn_mod.attention_fwd(p["attn"], _attn_spec(cfg, kind),
+                                           _apply_norm(cfg, p["ln1"], x))
+        x = x + h
+        x = x + ffn_mod.ffn_fwd(p["ffn"], _ffn_spec(cfg), _apply_norm(cfg, p["ln2"], x))
+        if collect_cache:
+            cache = _ringify(cfg, kind, k, v, cache_len)
+    elif kind == "rglru":
+        h, state = rglru_mod.rglru_fwd(p["rglru"], _rglru_spec(cfg), _apply_norm(cfg, p["ln1"], x))
+        x = x + h
+        x = x + ffn_mod.ffn_fwd(p["ffn"], _ffn_spec(cfg), _apply_norm(cfg, p["ln2"], x))
+        if collect_cache:
+            cache = state
+    else:
+        raise ValueError(kind)
+    return x, cache
+
+
+def _ringify(cfg: ModelConfig, kind: str, k, v, cache_len: int):
+    """Prefill K/V as the ring-buffer decode cache of capacity ``cache_len``
+    (windowed layers clamp it to the window, so the ring rotates)."""
+    spec = _attn_spec(cfg, kind)
+    b, s = k.shape[0], k.shape[1]
+    L = min(cache_len, spec.window) if spec.window is not None else cache_len
+    dev = k.device
+    if s >= L:
+        # keep the last L entries; their slots are pos % L (ring semantics)
+        tail_pos = torch.arange(s - L, s, dtype=torch.int32, device=dev)
+        order = torch.argsort(torch.remainder(tail_pos, L))
+        kk = k[:, s - L:].index_select(1, order)
+        vv = v[:, s - L:].index_select(1, order)
+        pos = tail_pos[order][None].expand(b, L).contiguous()
+    else:
+        pad = L - s
+        kk = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad))
+        vv = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad))
+        pos = torch.cat([torch.arange(s, dtype=torch.int32, device=dev),
+                         torch.full((pad,), -1, dtype=torch.int32, device=dev)])
+        pos = pos[None].expand(b, L).contiguous()
+    return {"k": kk, "v": vv, "pos": pos}
+
+
+def _embed_inputs(params, cfg: ModelConfig, tokens: torch.Tensor) -> torch.Tensor:
+    x = params["embed"][tokens]
+    if cfg.embed_scale:
+        x = x * torch.tensor(cfg.d_model**0.5, dtype=x.dtype, device=x.device)
+    return x
+
+
+def _group(tree, gi: int):
+    """Group ``gi`` of a stacked tree (views)."""
+    return tree_map(lambda t: t[gi], tree)
+
+
+def _stack_fwd(params, cfg: ModelConfig, x, collect_cache: bool, cache_len: int = 0):
+    """Run all layers; returns (x, caches dict)."""
+    g, rem = _split_layers(cfg)
+    caches: Dict[str, Any] = {}
+    if g > 0:
+        group_caches = []
+        for gi in range(g):
+            gp = _group(params["blocks"], gi)
+            gc = {}
+            for j, kind in enumerate(cfg.block_pattern):
+                x, gc[f"s{j}"] = _block_fwd(cfg, kind, gp[f"s{j}"], x, collect_cache, cache_len)
+            group_caches.append(gc)
+        if collect_cache:
+            caches["blocks"] = _stack(group_caches)
+    for i, kind in enumerate(rem):
+        x, cache = _block_fwd(cfg, kind, params["rem"][i], x, collect_cache, cache_len)
+        if collect_cache:
+            caches.setdefault("rem", []).append(cache)
+    return x, caches
+
+
+def _logits(params, cfg: ModelConfig, x):
+    head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    logits = softcap((x @ head).float(), cfg.final_softcap)
+    if cfg.vocab_size_real is not None and cfg.vocab_size_real < cfg.vocab_size:
+        # vocab was padded up; mask the padding
+        mask = torch.arange(cfg.vocab_size, device=logits.device) >= cfg.vocab_size_real
+        logits = logits.masked_fill(mask, -1e30)
+    return logits
+
+
+@torch.no_grad()
+def forward(params, cfg: ModelConfig, batch) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Teacher-forced forward. Returns (logits [b, s, V], aux_loss = 0)."""
+    validate_config(cfg)
+    x = _embed_inputs(params, cfg, batch["tokens"])
+    x, _ = _stack_fwd(params, cfg, x, collect_cache=False)
+    x = _apply_norm(cfg, params["final_norm"], x)
+    return _logits(params, cfg, x), torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+# --------------------------------------------------------------------------
+# inference: prefill + single-token decode
+# --------------------------------------------------------------------------
+
+@torch.no_grad()
+def prefill(params, cfg: ModelConfig, batch, max_len: int | None = None):
+    """Returns (last-position logits [b, V], decode state).
+
+    ``max_len``: total KV-cache capacity (prefill length + decode headroom);
+    defaults to 2x the prompt length.
+    """
+    validate_config(cfg)
+    x = _embed_inputs(params, cfg, batch["tokens"])
+    s_total = x.shape[1]
+    if max_len is None:
+        max_len = 2 * s_total
+    x, caches = _stack_fwd(params, cfg, x, collect_cache=True, cache_len=max_len)
+    x = _apply_norm(cfg, params["final_norm"], x[:, -1:])
+    logits = _logits(params, cfg, x)[:, 0]
+    return logits, {"caches": caches, "pos": s_total}
+
+
+def _init_block_cache(cfg: ModelConfig, kind: str, batch: int, cache_len: int, device):
+    if kind in _ATTN_KINDS:
+        return attn_mod.init_cache(_attn_spec(cfg, kind), batch, cache_len, device=device)
+    if kind == "rglru":
+        return rglru_mod.init_rglru_state(_rglru_spec(cfg), batch, device=device)
+    raise ValueError(kind)
+
+
+def init_decode_state(cfg: ModelConfig, batch: int, cache_len: int, device="cpu"):
+    validate_config(cfg)
+    g, rem = _split_layers(cfg)
+    caches: Dict[str, Any] = {}
+    if g > 0:
+        caches["blocks"] = {
+            f"s{j}": tree_map(lambda t: t[None].repeat(g, *([1] * t.dim())),
+                              _init_block_cache(cfg, kind, batch, cache_len, device))
+            for j, kind in enumerate(cfg.block_pattern)
+        }
+    if rem:
+        caches["rem"] = [_init_block_cache(cfg, kind, batch, cache_len, device) for kind in rem]
+    return {"caches": caches, "pos": 0}
+
+
+def _block_decode(cfg: ModelConfig, kind: str, p, x, cache, position: int):
+    if kind in _ATTN_KINDS:
+        h, cache = attn_mod.attention_decode(
+            p["attn"], _attn_spec(cfg, kind), _apply_norm(cfg, p["ln1"], x), cache, position
+        )
+    elif kind == "rglru":
+        h, cache = rglru_mod.rglru_decode(
+            p["rglru"], _rglru_spec(cfg), _apply_norm(cfg, p["ln1"], x), cache
+        )
+    else:
+        raise ValueError(kind)
+    x = x + h
+    x = x + ffn_mod.ffn_fwd(p["ffn"], _ffn_spec(cfg), _apply_norm(cfg, p["ln2"], x))
+    return x, cache
+
+
+@torch.no_grad()
+def decode_step(params, cfg: ModelConfig, state, token: torch.Tensor):
+    """One decode step. token: [b] int. Returns (logits [b, V], state), the
+    state's caches updated in place."""
+    position = int(state["pos"])
+    x = _embed_inputs(params, cfg, token[:, None])
+    g, rem = _split_layers(cfg)
+    caches = state["caches"]
+    for gi in range(g):
+        gp = _group(params["blocks"], gi)
+        gc = _group(caches["blocks"], gi)
+        for j, kind in enumerate(cfg.block_pattern):
+            x, new = _block_decode(cfg, kind, gp[f"s{j}"], x, gc[f"s{j}"], position)
+            _copy_into(gc[f"s{j}"], new)
+    for i, kind in enumerate(rem):
+        x, caches["rem"][i] = _block_decode(cfg, kind, params["rem"][i], x,
+                                            caches["rem"][i], position)
+    x = _apply_norm(cfg, params["final_norm"], x)
+    logits = _logits(params, cfg, x)[:, 0]
+    return logits, {"caches": caches, "pos": position + 1}
