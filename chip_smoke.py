@@ -7,16 +7,24 @@ Run from the repository root on a machine with an NVIDIA H100:
 Phases (each prints one JSON line; any failure raises and exits non-zero):
 
 1. build   — compile ``csrc/pruned_matmul.cu`` with nvcc (sm_90a), print the
-             build seconds, ptxas' register/shared-memory line and the card.
+             build seconds, the card, and for every template instance and
+             the split-K reduce pass its registers, local bytes, shared
+             memory and ptxas' spill line; fails on any spill.
 2. kernel  — the block-skip kernel (forward, dX, dW) against its plain
-             PyTorch version on the card: the cases of tests/test_kernels.py
-             and the VGG16_CIFAR im2col shapes at batch 32, every tensor
+             PyTorch version on the card: the cases of tests/test_kernels.py,
+             the VGG16_CIFAR im2col shapes at batch 32, the conv0/conv1 dW
+             shapes at 10 workers with per-row masks, rows whose every K
+             block is dead, ragged K and N under split-K, blocks (64, 64, 64),
+             (256, 128, 64) and (64, 128, 128), and stride-0 shared
+             operands, every tensor
              O(1); allclose at atol = rtol = 1e-4 (the repo's f32 bar),
              max|err| / max|plain| <= 1e-4, and pruned units exactly 0.
+             Then two launches of the same split call must be bit-identical.
 3. times   — kernel, plain version and ``torch.matmul`` on pre-masked
              operands (the library yardstick) at the main path's shapes
              (VGG16_CIFAR, 10 workers x 32 images), retention 1.0/0.5/0.25,
-             with CUDA events, beside each kernel's bound.
+             with CUDA events, beside each kernel's bound; per layer and
+             direction also the split S, the instance and workspace bytes.
 4. main    — ``run_simulation(SimConfig(method="adaptcl", engine="masked",
              compute="block_skip", cnn=VGG16_CIFAR, num_workers=10,
              rounds=6, prune_interval=2, device="cuda"))``; the launch counts
@@ -171,16 +179,23 @@ def phase_build(report):
     for name in KERNEL_SOURCES:
         build.load_library(name)
     secs = time.perf_counter() - t0
+    from repro_torch.kernels.pruned_matmul import instance_info
+
     log = build.PTXAS_LOG.get("pruned_matmul", "")
-    regs = [l.strip() for l in log.splitlines() if "registers" in l]
+    spills = [l.strip() for l in log.splitlines() if "spill" in l]
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60,
     ).stdout.strip().splitlines()
     rec = {"phase": "build", "seconds": secs, "nvcc_seconds": build.BUILD_SECONDS.get("pruned_matmul"),
-           "ptxas": regs, "card": smi[0] if smi else None}
+           "card": smi[0] if smi else None, "instances": instance_info(),
+           "ptxas_spill_lines": spills}
     emit(rec)
-    report["build"] = rec
+    report["build"] = {**rec, "ptxas": log.splitlines()}
+    check(len(spills) >= len(rec["instances"]), f"ptxas reported {len(spills)} spill lines "
+          f"for {len(rec['instances'])} pruned_matmul kernels")
+    check(all("0 bytes spill stores, 0 bytes spill loads" in l for l in spills),
+          "a pruned_matmul instance spills registers: " + json.dumps(spills))
     return smi[0] if smi else "unknown"
 
 
@@ -238,6 +253,7 @@ def _compare(x, w, im, om, rm, blocks, gen):
 
 def phase_kernel(report):
     import torch
+    from repro_torch.kernels.pruned_matmul import instance_info
 
     dev = torch.device(DEVICE)
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -246,11 +262,16 @@ def phase_kernel(report):
     cases = []
 
     def add(name, x, w, im, om, rm=None, blocks=(128, 128, 128)):
-        B, M = x.shape[0], x.shape[1]
-        rm = torch.ones((B, M), device=dev) if rm is None else rm
+        M = x.shape[-2]
+        if rm is None:
+            rm = torch.ones((M,), device=dev) if im.dim() == 1 else torch.ones((im.shape[0], M), device=dev)
+        plans = _plans(x, w, blocks)
         errs, rels, refs, ok, zeros = _compare(x, w, im, om, rm, blocks, gen)
         cases.append({"case": name, "err": errs, "rel_err": rels, "ref_max": refs, "allclose": ok,
-                      "rel_ok": max(rels.values()) <= REL_TOL, "pruned_max": zeros})
+                      "rel_ok": max(rels.values()) <= REL_TOL, "pruned_max": zeros,
+                      "plans": plans})
+        del x, w
+        torch.cuda.empty_cache()
 
     # tests/test_kernels.py: prefix / heavy / extreme
     for M, K, N, kk, kn in [(128, 256, 128, 256, 128), (256, 512, 384, 300, 200),
@@ -293,6 +314,51 @@ def phase_kernel(report):
         x = torch.randn(2, M, K, generator=gen, device=dev)
         w = torch.randn(2, K, N, generator=gen, device=dev) / float(np.sqrt(K))
         add(f"vgg16_{name}(2,{M},{K},{N})", x, w, T(ims), T(oms))
+    # the thin, deep dW products of the main path (10 workers x 32 images),
+    # per-row masks of different retention in every dimension
+    W = 10
+    for name, mpi, K, N, cin, taps in vgg16_layers()[:2]:
+        M = 32 * mpi
+        keeps = np.linspace(1.0, 0.3, W)
+        ims = np.stack([np.repeat(prefix(cin, k), taps) for k in keeps])
+        oms = np.stack([prefix(N, k) for k in keeps[::-1]])
+        rms = (rng.random((W, M)) < 0.9).astype(np.float32)
+        add(f"dw_{name}_per_row({W},{M},{K},{N})", torch.randn(W, M, K, generator=gen, device=dev),
+            torch.randn(W, K, N, generator=gen, device=dev) / float(np.sqrt(K)),
+            T(ims), T(oms), T(rms))
+    # rows whose every K block is dead: in_mask (forward), out_mask (dX's
+    # contraction) and row_mask (dW's contraction) all zero in one row each
+    B, M, K, N = 4, 200, 1000, 300
+    ims, oms, rms = np.ones((B, K), np.float32), np.ones((B, N), np.float32), np.ones((B, M), np.float32)
+    ims[1], oms[2], rms[3] = 0.0, 0.0, 0.0
+    add(f"dead_rows({B},{M},{K},{N})", torch.randn(B, M, K, generator=gen, device=dev),
+        torch.randn(B, K, N, generator=gen, device=dev) / float(np.sqrt(K)), T(ims), T(oms), T(rms))
+    # ragged K and N under split-K: K % 4 != 0 (generic instance) and
+    # K % 4 == 0 with a 4-row last block (vector instances)
+    for B, M, K, N in [(2, 100, 4099, 70), (2, 96, 4100, 132)]:
+        ims = (rng.random((B, K)) < 0.8).astype(np.float32)
+        oms = (rng.random((B, N)) < 0.8).astype(np.float32)
+        ims[:, -1] = 1.0
+        add(f"ragged_split({B},{M},{K},{N})", torch.randn(B, M, K, generator=gen, device=dev),
+            torch.randn(B, K, N, generator=gen, device=dev) / float(np.sqrt(K)), T(ims), T(oms))
+    # the block sizes of tests/test_torch_kernels.py, and (64, 128, 128),
+    # whose 64x128 tiles reach the last vector instances; per-row masks
+    for blocks in [(64, 64, 64), (256, 128, 64), (64, 128, 128)]:
+        B, M, K, N = 3, 300, 640, 260
+        ims = (rng.random((B, K)) < np.array([[0.9], [0.4], [0.1]])).astype(np.float32)
+        oms = (rng.random((B, N)) < np.array([[0.2], [0.6], [0.9]])).astype(np.float32)
+        rms = (rng.random((B, M)) < 0.7).astype(np.float32)
+        add(f"blocks{blocks}({B},{M},{K},{N})", torch.randn(B, M, K, generator=gen, device=dev),
+            torch.randn(B, K, N, generator=gen, device=dev) / float(np.sqrt(K)),
+            T(ims), T(oms), T(rms), blocks=blocks)
+    # stride-0 shared operands: one w (or one x) for every row, shared masks
+    B, M, K, N = 3, 256, 576, 192
+    im1, om1 = T(prefix(K, 0.5)), T(prefix(N, 0.75))
+    add(f"shared_w({B},{M},{K},{N})", torch.randn(B, M, K, generator=gen, device=dev),
+        torch.randn(K, N, generator=gen, device=dev) / float(np.sqrt(K)), im1, om1)
+    add(f"shared_x({B},{M},{K},{N})", torch.randn(M, K, generator=gen, device=dev),
+        torch.randn(B, K, N, generator=gen, device=dev) / float(np.sqrt(K)), im1, om1)
+    determinism = _determinism(gen)
     per_kernel = {k: {"max_abs_err": max(c["err"][k] for c in cases),
                       "max_rel_err": max(c["rel_err"][k] for c in cases)}
                   for k in ("fwd", "dx", "dw")}
@@ -303,20 +369,74 @@ def phase_kernel(report):
            "min_ref_max": min(min(c["ref_max"].values()) for c in cases),
            "all_allclose": all(c["allclose"] for c in cases),
            "all_rel_ok": all(c["rel_ok"] for c in cases),
-           "pruned_exact_zero": all(c["pruned_max"] == 0.0 for c in cases)}
+           "pruned_exact_zero": all(c["pruned_max"] == 0.0 for c in cases),
+           "instances": sorted({f"{pl['instance']},S{'>1' if pl['split'] > 1 else '=1'}"
+                                for c in cases for pl in c["plans"].values()}),
+           "max_split": max(pl["split"] for c in cases for pl in c["plans"].values()),
+           "deterministic": determinism}
     report["kernel"] = {**rec, "detail": cases}
     emit(rec)
     bad = [c for c in cases if not (c["allclose"] and c["rel_ok"])]
     check(not bad, f"kernel disagrees with plain beyond atol=rtol={TOL} or "
           f"err/max|ref| {REL_TOL}: " + json.dumps(bad))
     check(rec["pruned_exact_zero"], "pruned units not exactly zero")
+    built = {n[len("pm_kernel<"):-1] for n in instance_info() if n.startswith("pm_kernel<")}
+    ran = {pl["instance"] for c in cases for pl in c["plans"].values()}
+    check(built <= ran, f"kernel instances no case exercised: {sorted(built - ran)}")
+    check(all(d["bit_identical"] for d in determinism), "two launches differ: " + json.dumps(determinism))
+    check(all(any(d["plans"][k]["split"] > 1 for d in determinism) for k in ("fwd", "dx", "dw")),
+          "the determinism check ran no split launch in some direction")
     return per_kernel
+
+
+def _plans(x, w, blocks):
+    """``launch_plan`` of the forward, dX and dW launches of one case, on
+    the operands as ``pruned_matmul`` hands them to the kernel (the upstream
+    gradient contiguous, as in ``_compare``)."""
+    import torch
+    from repro_torch.kernels.pruned_matmul import _batched, launch_plan
+
+    B = max(x.shape[0] if x.dim() == 3 else 1, w.shape[0] if w.dim() == 3 else 1)
+    x3, w3 = _batched(x, 3, B), _batched(w, 3, B)
+    g = torch.empty((B, x3.shape[1], w3.shape[2]), device=x.device)
+    bm, bn, bk = blocks
+    plans = {"fwd": launch_plan(x3, w3, (bm, bn, bk)),
+             "dx": launch_plan(g, w3.transpose(1, 2), (bm, bk, bn)),
+             "dw": launch_plan(x3.transpose(1, 2), g, (bk, bn, bm))}
+    return {k: {"instance": v.instance, "split": v.split, "workspace_bytes": v.workspace_bytes}
+            for k, v in plans.items()}
+
+
+def _determinism(gen):
+    """Forward, dX and dW launched twice on the same inputs must give
+    bit-identical outputs (split-K sums its slices in a fixed order, no
+    atomics).  Three shapes, each split in one direction: conv10's
+    forward (M = 128 rows per worker), its dX with the widths swapped, and a
+    thin, deep dW."""
+    import torch
+    from repro_torch.kernels.pruned_matmul import pruned_matmul
+
+    out = []
+    for B, M, K, N in [(10, 128, 4608, 512), (10, 128, 512, 4608), (10, 4096, 64, 576)]:
+        x = torch.randn(B, M, K, generator=gen, device=DEVICE).requires_grad_(True)
+        w = (torch.randn(B, K, N, generator=gen, device=DEVICE) / float(np.sqrt(K))).requires_grad_(True)
+        im = (torch.rand(B, K, generator=gen, device=DEVICE) < 0.7).float()
+        om = (torch.rand(B, N, generator=gen, device=DEVICE) < 0.7).float()
+        gy = torch.randn(B, M, N, generator=gen, device=DEVICE)
+        runs = []
+        for _ in range(2):
+            y = pruned_matmul(x, w, im, om)
+            runs.append((y.detach(), *_grads(y, x, w, gy, gy)))
+        torch.cuda.synchronize()
+        out.append({"shape": [B, M, K, N], "plans": _plans(x.detach(), w.detach(), (128, 128, 128)),
+                    "bit_identical": all(torch.equal(a, b) for a, b in zip(*runs))})
+    return out
 
 
 def phase_times(report):
     import torch
     from repro_torch.kernels.pruned_matmul import (
-        DW, DX, FWD, keep_info, pruned_matmul_cuda, pruned_matmul_plain,
+        DW, DX, FWD, keep_info, launch_plan, pruned_matmul_cuda, pruned_matmul_plain,
     )
 
     dev = torch.device(DEVICE)
@@ -347,18 +467,18 @@ def phase_times(report):
                 FWD: (lambda: pruned_matmul_cuda(x, w, im, om, rm, blocks, (k_row, k_out, k_in), FWD),
                       lambda: pruned_matmul_plain(x, w, im, om, rm),
                       lambda: torch.matmul(xm, w),
-                      (M, K, N, rm_np, im_np, om_np, (bm, bn, bk))),
+                      (M, K, N, rm_np, im_np, om_np, (bm, bn, bk)), (x, w)),
                 DX: (lambda: pruned_matmul_cuda(g, wT, om, im, rm, (bm, bk, bn), (k_row, k_in, k_out), DX),
                      lambda: pruned_matmul_plain(g, wT, om, im, rm),
                      lambda: torch.matmul(gm, wT),
-                     (M, N, K, rm_np, om_np, im_np, (bm, bk, bn))),
+                     (M, N, K, rm_np, om_np, im_np, (bm, bk, bn)), (g, wT)),
                 DW: (lambda: pruned_matmul_cuda(xT, g, rm, om, im, (bk, bn, bm), (k_in, k_out, k_row), DW),
                      lambda: pruned_matmul_plain(xT, g, rm, om, im),
                      lambda: torch.matmul(xm.transpose(1, 2), gm),
-                     (K, M, N, im_np, rm_np, om_np, (bk, bn, bm))),
+                     (K, M, N, im_np, rm_np, om_np, (bk, bn, bm)), (xT, g)),
             }
             lrec = {"layer": name, "M": M, "K": K, "N": N}
-            for kname, (kern, plain, lib, geo) in runs.items():
+            for kname, (kern, plain, lib, geo, ops) in runs.items():
                 if kname == DX and name == "conv0":
                     continue   # the image input takes no gradient on the main path
                 Mo, Kc, No, rmask, imask, omask, blk = geo
@@ -368,13 +488,21 @@ def phase_times(report):
                      "ops_ms": t_ops, "bytes_ms": t_bytes}
                 for f in r:
                     tot[kname][f] += r[f]
-                lrec[kname] = r
+                plan = launch_plan(*ops, blk)
+                lrec[kname] = {**r, "split": plan.split, "instance": plan.instance,
+                               "workspace_bytes": plan.workspace_bytes}
             layers.append(lrec)
             del x, w, g, xm, gm
         per_ret[keep] = {"totals": tot, "layers": layers}
+        split = {f"{l['layer']}.{k[len('pruned_matmul_'):]}": [l[k]["split"], round(l[k]["ms"], 4),
+                                                               round(l[k]["library_ms"], 4)]
+                 for l in layers for k in (FWD, DX, DW) if k in l and l[k]["split"] > 1}
         emit({"phase": "times", "retention": keep, "workers": W, "batch": batch,
               "per_step_totals_ms": {k: {f: v[f] for f in ("ms", "plain_ms", "library_ms", "bound_ms")}
-                                     for k, v in tot.items()}})
+                                     for k, v in tot.items()},
+              "split_layers_S_ms_library_ms": split,
+              "max_workspace_bytes": max(l[k]["workspace_bytes"] for l in layers
+                                         for k in (FWD, DX, DW) if k in l)})
     report["times"] = {str(k): v for k, v in per_ret.items()}
     return per_ret
 
@@ -401,6 +529,7 @@ def phase_main(report):
         "train_steps": res.train_steps,
         "walltime_s": res.walltime_s, "compile_walltime_s": res.compile_walltime_s,
         "steady_walltime_s": res.walltime_s - res.compile_walltime_s,
+        "steady_ms_per_step": (res.walltime_s - res.compile_walltime_s) / max(res.train_steps, 1) * 1e3,
         "host_dispatches": res.host_dispatches, "recompiles": res.recompiles,
         "prune_events": len(res.prune_events),
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30,

@@ -4,8 +4,11 @@ Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into a shared
 library with a plain C interface (no PyTorch headers, so a build takes
 seconds) and loaded with ``ctypes``.  Libraries go to ``kernels/_build/``
 (listed in ``.gitignore``), named by a hash of the source and the flags, so
-an edited source rebuilds and an unchanged one is reused.  Nothing builds at
-import time: the first call that needs a kernel builds it.  ``build_all``
+an edited source rebuilds and an unchanged one is reused.  nvcc's output
+(ptxas' registers, shared memory and spills) is kept beside the library as
+``<library>.log`` and read back into ``PTXAS_LOG`` when the library is
+reused.  Nothing builds at import time: the first call that needs a kernel
+builds it.  ``build_all``
 starts one nvcc per source at once and waits for all of them.
 """
 from __future__ import annotations
@@ -30,7 +33,7 @@ NVCC_FLAGS = (
 
 _LOADED: Dict[str, ctypes.CDLL] = {}
 BUILD_SECONDS: Dict[str, float] = {}   # name -> wall seconds of its nvcc run
-PTXAS_LOG: Dict[str, str] = {}         # name -> nvcc/ptxas output
+PTXAS_LOG: Dict[str, str] = {}         # name -> nvcc/ptxas output of its build
 
 
 def _nvcc() -> str:
@@ -57,7 +60,9 @@ def _start(name: str, flags: Sequence[str]):
     """Start nvcc for ``name`` unless its library exists; returns
     ``(out, tmp, proc, t0)`` or ``None`` when there is nothing to build."""
     out = _lib_path(name, flags)
-    if out.exists():
+    log = out.with_suffix(".log")
+    if out.exists() and log.exists():
+        PTXAS_LOG[name] = log.read_text()
         return None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
@@ -75,6 +80,7 @@ def _finish(name: str, job) -> None:
         raise RuntimeError(
             f"nvcc failed for {name}.cu (exit {proc.returncode}):\n{stdout}{stderr}"
         )
+    out.with_suffix(".log").write_text(PTXAS_LOG[name])
     os.replace(tmp, out)
 
 

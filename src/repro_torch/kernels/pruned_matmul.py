@@ -23,13 +23,23 @@ pass reuses the same kernel through strides, with no materialised transpose:
 so gradients are exactly zero on pruned units and backward FLOPs track
 retention like the forward pass.
 
+Each launch is planned on the host from shapes and strides alone
+(``launch_plan``): the operand layout picks the kernel's template instance,
+the block sizes pick its output tile (128 or 64 per side), and
+``split_factor`` picks how many slices ``S`` split the live K blocks when
+the output tiles alone cannot fill the card.  ``slice_bounds`` is the
+kernel's rule for which live blocks each slice walks, and
+``pruned_matmul_split_plain`` replays the whole split-K schedule in plain
+torch (partials per slice, summed in slice order).
+
 ``LAUNCHES`` counts kernel launches per direction (forward, dX, dW); each
-is incremented only right after its kernel was launched.
+is incremented only right after its kernel was launched (one count per
+product, the reduce pass of a split launch included).
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -41,6 +51,13 @@ __all__ = [
     "pruned_matmul",
     "pruned_matmul_plain",
     "pruned_matmul_cuda",
+    "pruned_matmul_split_plain",
+    "LaunchPlan",
+    "launch_plan",
+    "tile_shape",
+    "split_factor",
+    "slice_bounds",
+    "instance_info",
     "keep_info",
     "check_blocks",
     "block_keep_count",
@@ -93,24 +110,49 @@ def _lib():
             P, L, L, L,            # w, strides b/k/n
             P, L, P, L, P, L,      # in/out/row masks + batch strides
             P, P, P, P,            # m_keep, n_keep, k_live, k_count
-            P,                     # y
+            P, P,                  # y, workspace
             I, I, I, I, I, I, I,   # B M N K bm bn bk
             I, I, I,               # nMb nNb nKb
+            I, I, I, I,            # layout tile_m tile_n split
             P,                     # stream
         ]
         lib.pruned_matmul_f32.restype = I
+        lib.pruned_matmul_instance_count.argtypes = []
+        lib.pruned_matmul_instance_count.restype = I
+        lib.pruned_matmul_instance_info.argtypes = [I, ctypes.c_char_p, I, ctypes.POINTER(I)]
+        lib.pruned_matmul_instance_info.restype = I
         _LIB = lib
     return _LIB
 
 
-# the kernel's output tile (csrc/pruned_matmul.cu: TM = TN = 64)
+def instance_info() -> Dict[str, Dict[str, int]]:
+    """Every compiled kernel instance (and the reduce pass) with its
+    registers, local bytes (spills and stack), static and dynamic shared
+    bytes, as ``cudaFuncGetAttributes`` reports them on this card."""
+    lib = _lib()
+    out = {}
+    for i in range(lib.pruned_matmul_instance_count()):
+        name = ctypes.create_string_buffer(64)
+        vals = (ctypes.c_int * 5)()
+        rc = lib.pruned_matmul_instance_info(i, name, 64, vals)
+        if rc != 0:
+            raise RuntimeError(f"cudaFuncGetAttributes failed: cudaError {rc}")
+        out[name.value.decode()] = dict(zip(
+            ("registers", "local_bytes", "static_smem", "dynamic_smem", "max_threads"), vals))
+    return out
+
+
+# the kernel's output tiles are 128 or 64 wide per side
+# (csrc/pruned_matmul.cu); 64 is the finest, so it sets the block grain
 KERNEL_TILE = 64
+WIDE_TILE = 128
 
 
 def check_blocks(blocks: Tuple[int, int, int]) -> Tuple[int, int, int]:
-    """The kernel's 64x64 output tiles must each lie inside one block of
-    every dimension, and every block size is an output-tile dimension in
-    one of the three directions, so each must be a multiple of 64."""
+    """The kernel's output tiles (64 or 128 per side) must each lie inside
+    one block of every dimension, and every block size is an output-tile
+    dimension in one of the three directions, so each must be a multiple
+    of 64."""
     bm, bn, bk = (int(b) for b in blocks)
     if any(b <= 0 or b % KERNEL_TILE for b in (bm, bn, bk)):
         raise ValueError(
@@ -143,6 +185,158 @@ def keep_info(mask: torch.Tensor, block: int) -> KeepInfo:
     )
 
 
+# ---------------------------------------------------------------------------
+# the launch plan (host, from shapes and strides alone: no device sync)
+# ---------------------------------------------------------------------------
+
+# operand layouts, one kernel template instance each (csrc/pruned_matmul.cu)
+L_GENERIC, L_FWD, L_DX, L_DW = 0, 1, 2, 3
+LAYOUTS = {L_GENERIC: "generic", L_FWD: "fwd", L_DX: "dx", L_DW: "dw"}
+SPLIT_MIN_ROWS = 256   # a slice walks this many contraction rows or more, on average
+SPLIT_MAX = 32         # at most this many slices (the workspace is S x the output)
+# take the fewest slices within this factor of the best makespan: on the
+# card, splitting conv4-6's forward for a ~10 % gain moved the one-step
+# block_skip vs dense (cuDNN) parameter difference from 5.7e-5 to 9.7e-5
+# of the 1e-4 bar (chip_smoke.py phase parity), for 0.3 ms per step
+SPLIT_TOL = 1.25
+
+
+class LaunchPlan(NamedTuple):
+    layout: int
+    tile_m: int
+    tile_n: int
+    split: int
+    workspace_bytes: int
+
+    @property
+    def instance(self) -> str:
+        return f"{self.tile_m}x{self.tile_n},{LAYOUTS[self.layout]}"
+
+
+def tile_shape(M: int, N: int, bm: int, bn: int) -> Tuple[int, int]:
+    """Output tile of one launch: 128 on a side whose block size is a
+    multiple of 128 and whose extent exceeds 64, else 64, so a tile lies
+    inside one block of each dimension."""
+    tm = WIDE_TILE if bm % WIDE_TILE == 0 and M > KERNEL_TILE else KERNEL_TILE
+    tn = WIDE_TILE if bn % WIDE_TILE == 0 and N > KERNEL_TILE else KERNEL_TILE
+    return tm, tn
+
+
+def split_factor(B: int, M: int, N: int, K: int, blocks: Tuple[int, int, int], sms: int) -> int:
+    """Slices S of the contraction for one launch, from shapes alone.
+
+    The model: each SM runs its blocks one after another, so a launch takes
+    about ``ceil(tiles * S / sms)`` block times, and a block walks
+    ``ceil(nKb / S)`` K blocks.  S is the fewest slices whose makespan
+    ``ceil(tiles * S / sms) * ceil(nKb / S)`` is within ``SPLIT_TOL`` of the
+    best, over S <= ``SPLIT_MAX`` with at least ``SPLIT_MIN_ROWS`` rows per
+    slice on average.  So S = 1 where the output tiles already fill the
+    SMs' waves, and S > 1 where few tiles walk a deep contraction."""
+    bm, bn, bk = blocks
+    tm, tn = tile_shape(M, N, bm, bn)
+    tiles = B * -(-M // tm) * -(-N // tn)
+    nkb = -(-K // bk)
+    cap = max(1, min(SPLIT_MAX, nkb, K // SPLIT_MIN_ROWS))
+    cost = [-(-tiles * S // sms) * -(-nkb // S) for S in range(1, cap + 1)]
+    best = min(cost)
+    return next(S for S, c in enumerate(cost, 1) if c <= best * SPLIT_TOL)
+
+
+def slice_bounds(k_count: torch.Tensor, split: int) -> torch.Tensor:
+    """``[B, split, 2]`` half-open ranges into each row's compacted live
+    list: slice s of row b walks ``k_live[b, lo:hi]`` with
+    ``lo = s * n // split``, ``hi = (s + 1) * n // split``, n = k_count[b]
+    (the kernel's rule, evaluated on the device there)."""
+    n = k_count.to(torch.int64).reshape(-1, 1)
+    s = torch.arange(split + 1, device=k_count.device, dtype=torch.int64).reshape(1, -1)
+    edges = s * n // split
+    return torch.stack([edges[:, :-1], edges[:, 1:]], dim=-1)
+
+
+def _aligned(t: torch.Tensor, fast: int, extent: int) -> bool:
+    """Unit stride on dim ``fast``, the other strides and the extent along
+    ``fast`` multiples of 4 floats, a 16-byte aligned pointer: the
+    kernel's 16-byte cp.async copies are legal.  Stride 0 (a shared
+    operand) counts as a multiple of 4."""
+    others = [t.stride(d) for d in range(t.dim()) if d != fast]
+    return (t.stride(fast) == 1 and all(st % 4 == 0 for st in others)
+            and extent % 4 == 0 and t.data_ptr() % 16 == 0)
+
+
+def _layout(x: torch.Tensor, w: torch.Tensor) -> int:
+    """The template instance for these operand strides: forward (x k-fast,
+    w n-fast), dX (x k-fast, w = w'^T k-fast), dW (x = x'^T m-fast, w
+    n-fast), else the generic-stride one."""
+    _, M, K = x.shape
+    N = w.shape[2]
+    a_k, a_m = _aligned(x, 2, K), _aligned(x, 1, M)
+    b_n, b_k = _aligned(w, 2, N), _aligned(w, 1, K)
+    if a_k and b_n:
+        return L_FWD
+    if a_k and b_k:
+        return L_DX
+    if a_m and b_n:
+        return L_DW
+    return L_GENERIC
+
+
+_SMS: Dict[int, int] = {}
+
+
+def _sm_count(dev: torch.device) -> int:
+    idx = dev.index if dev.index is not None else torch.cuda.current_device()
+    if idx not in _SMS:
+        _SMS[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
+    return _SMS[idx]
+
+
+def launch_plan(x: torch.Tensor, w: torch.Tensor, blocks: Tuple[int, int, int],
+                sms: Optional[int] = None) -> LaunchPlan:
+    """Instance, tile and split of one launch on ``x [B, M, K]``,
+    ``w [B, K, N]`` at this orientation's ``blocks``; ``sms`` defaults to
+    the SM count of the operands' card."""
+    B, M, K = x.shape
+    N = w.shape[2]
+    bm, bn, _ = blocks
+    tm, tn = tile_shape(M, N, bm, bn)
+    S = split_factor(B, M, N, K, blocks, _sm_count(x.device) if sms is None else sms)
+    ws = 4 * S * B * M * N if S > 1 else 0
+    return LaunchPlan(_layout(x, w), tm, tn, S, ws)
+
+
+def pruned_matmul_split_plain(
+    x: torch.Tensor, w: torch.Tensor, in_mask: torch.Tensor, out_mask: torch.Tensor,
+    row_mask: torch.Tensor, blocks: Tuple[int, int, int], split: int,
+) -> torch.Tensor:
+    """The kernel's split-K schedule in plain torch, for ``[B, ...]``
+    operands and ``[B, len]`` masks: slice s of row b sums
+    ``(x * in_mask) @ w`` over its live K blocks (``slice_bounds``), the
+    partials are added in slice order s = 0..S-1, then
+    ``* out_mask * row_mask``, and dead M/N blocks are written as zeros."""
+    bm, bn, bk = blocks
+    B, M, K = x.shape
+    N = w.shape[2]
+    m_keep, _, _ = keep_info(row_mask, bm)
+    n_keep, _, _ = keep_info(out_mask, bn)
+    _, k_live, k_count = keep_info(in_mask, bk)
+    bounds = slice_bounds(k_count, split)
+    xm = x * in_mask.unsqueeze(-2)
+    parts = torch.zeros((split, B, M, N), dtype=x.dtype, device=x.device)
+    for b in range(B):
+        for s in range(split):
+            lo, hi = (int(v) for v in bounds[b, s])
+            for kb in k_live[b, lo:hi].tolist():
+                k0, k1 = kb * bk, min(kb * bk + bk, K)
+                parts[s, b] += xm[b, :, k0:k1] @ w[b, k0:k1]
+    y = parts[0]
+    for s in range(1, split):
+        y = y + parts[s]
+    y = y * out_mask.unsqueeze(-2) * row_mask.unsqueeze(-1)
+    live = (torch.repeat_interleave(m_keep.bool(), bm, dim=1)[:, :M].unsqueeze(-1)
+            & torch.repeat_interleave(n_keep.bool(), bn, dim=1)[:, :N].unsqueeze(-2))
+    return torch.where(live, y, torch.zeros_like(y))
+
+
 def _check_operand(name: str, t: torch.Tensor, ndim: int, device) -> None:
     if not isinstance(t, torch.Tensor):
         raise TypeError(f"{name} must be a tensor")
@@ -164,8 +358,9 @@ def pruned_matmul_cuda(
     keeps: Tuple[KeepInfo, KeepInfo, KeepInfo],   # row@bm, out@bn, in@bk
     counter: str = FWD,
 ) -> torch.Tensor:
-    """Launch the block-skip kernel once (no autograd).  ``keeps`` are the
-    ``keep_info`` of (row_mask, bm), (out_mask, bn), (in_mask, bk)."""
+    """Launch the block-skip kernel once (no autograd), with the instance,
+    tile and split of ``launch_plan``.  ``keeps`` are the ``keep_info`` of
+    (row_mask, bm), (out_mask, bn), (in_mask, bk)."""
     dev = x.device
     _check_operand("x", x, 3, dev)
     _check_operand("w", w, 3, dev)
@@ -183,8 +378,9 @@ def pruned_matmul_cuda(
             raise ValueError(f"{nm} {tuple(t.shape)} != {(B, n)}")
     if counter not in LAUNCHES:
         raise ValueError(f"unknown launch counter {counter!r}")
-    if B > 65535 or -(-M // KERNEL_TILE) > 65535:
-        raise ValueError(f"B={B}, M={M}: the kernel's grid takes B <= 65535 and M <= 65535 * 64")
+    if B > 65535 or -(-M // KERNEL_TILE) * -(-N // KERNEL_TILE) >= 2**31:
+        raise ValueError(f"B={B}, M={M}, N={N}: the kernel's grid takes B <= 65535 "
+                         f"and fewer than 2**31 output tiles")
     bm, bn, bk = check_blocks(blocks)
     (m_keep, _, _), (n_keep, _, _), (_, k_live, k_count) = keeps
     nMb, nNb, nKb = -(-M // bm), -(-N // bn), -(-K // bk)
@@ -194,7 +390,10 @@ def pruned_matmul_cuda(
     for t in (m_keep, n_keep, k_live, k_count):
         if t.device != dev or t.dtype != torch.int32 or not t.is_contiguous():
             raise ValueError("keep flags must be contiguous int32 on the operands' device")
+    plan = launch_plan(x, w, (bm, bn, bk))
     y = torch.empty((B, M, N), device=dev, dtype=torch.float32)
+    ws = (torch.empty((plan.split, B, M, N), device=dev, dtype=torch.float32)
+          if plan.split > 1 else None)
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = _lib().pruned_matmul_f32(
         x.data_ptr(), x.stride(0), x.stride(1), x.stride(2),
@@ -203,8 +402,9 @@ def pruned_matmul_cuda(
         out_mask.data_ptr(), out_mask.stride(0),
         row_mask.data_ptr(), row_mask.stride(0),
         m_keep.data_ptr(), n_keep.data_ptr(), k_live.data_ptr(), k_count.data_ptr(),
-        y.data_ptr(),
+        y.data_ptr(), None if ws is None else ws.data_ptr(),
         B, M, N, K, bm, bn, bk, nMb, nNb, nKb,
+        plan.layout, plan.tile_m, plan.tile_n, plan.split,
         stream,
     )
     if rc != 0:

@@ -19,11 +19,17 @@ from repro.kernels.ref import pruned_matmul_ref as j_ref
 from repro_torch.kernels import pruned_matmul as pm_mod
 from repro_torch.kernels.pruned_matmul import (
     LAUNCHES,
+    SPLIT_TOL,
     block_keep_count,
     check_blocks,
     keep_info,
+    launch_plan,
     pruned_matmul,
     pruned_matmul_plain,
+    pruned_matmul_split_plain,
+    slice_bounds,
+    split_factor,
+    tile_shape,
 )
 from repro_torch.kernels.ref import pruned_matmul_ref
 
@@ -203,6 +209,139 @@ def test_device_keep_flags_match_host_block_count(L, block):
         expect = [i for i in range(flags.shape[1]) if masks[b, i * block:(i + 1) * block].sum() > 0]
         assert live[b, : int(count[b])].tolist() == expect
         assert flags[b].tolist() == [int(i in expect) for i in range(flags.shape[1])]
+
+
+# ---------------------------------------------------------------------------
+# the split-K schedule (host side of the CUDA kernel), on the CPU
+# ---------------------------------------------------------------------------
+
+H100_SMS = 132
+
+
+@pytest.mark.parametrize("split", [1, 2, 3, 7, 32])
+@pytest.mark.parametrize("L,block", [(300, 128), (4099, 128), (640, 64), (27, 128)])
+def test_slices_cover_every_live_block_once_in_order(L, block, split):
+    rng = np.random.default_rng(L + split)
+    masks = (rng.random((4, L)) < np.array([[0.9], [0.3], [0.02], [0.0]])).astype(np.float32)
+    masks[0, -1] = 1.0                      # the ragged last block is live in row 0
+    _, live, count = keep_info(_t(masks), block)
+    bounds = slice_bounds(count, split)
+    assert tuple(bounds.shape) == (4, split, 2)
+    assert int(count[3]) == 0               # a row with no live K block
+    for b in range(4):
+        n = int(count[b])
+        walked = []
+        for s in range(split):
+            lo, hi = (int(v) for v in bounds[b, s])
+            assert 0 <= lo <= hi <= n
+            walked += live[b, lo:hi].tolist()
+        assert walked == live[b, :n].tolist()          # every live block once, ascending
+        assert walked == sorted(set(walked))
+        sizes = [int(bounds[b, s, 1] - bounds[b, s, 0]) for s in range(split)]
+        assert max(sizes) - min(sizes) <= 1             # balanced slices
+
+
+@pytest.mark.parametrize("B,M,N,K", [
+    (10, 2048, 2304, 256),      # conv5 dX: 2880 tiles of 128x128, 22 waves on 132 SMs
+    (10, 512, 4608, 512),       # conv8 dX
+    (10, 4608, 512, 512),       # conv8 dW
+    (1, 132 * 128, 128, 4096),  # exactly one full wave, deep contraction
+])
+def test_split_is_one_when_the_output_tiles_fill_the_card(B, M, N, K):
+    tm, tn = tile_shape(M, N, 128, 128)
+    assert B * -(-M // tm) * -(-N // tn) >= H100_SMS
+    assert split_factor(B, M, N, K, (128, 128, 128), H100_SMS) == 1
+
+
+def _makespan(B, M, N, K, S):
+    """The split rule's cost: block times on the busiest SM x K blocks a slice walks."""
+    tm, tn = tile_shape(M, N, 128, 128)
+    tiles = B * -(-M // tm) * -(-N // tn)
+    return -(-tiles * S // H100_SMS) * -(-(-(-K // 128)) // S)
+
+
+@pytest.mark.parametrize("B,M,N,K,tiles,gain", [
+    (10, 27, 64, 32768, (64, 64), 8),       # conv0 dW: x^T [27, 32768] @ g [32768, 64]
+    (10, 576, 64, 32768, (128, 64), 2),     # conv1 dW
+    (10, 128, 512, 4608, (128, 128), 2),    # conv10 forward
+    (10, 512, 512, 4608, (128, 128), 1.3),  # conv8 forward: 160 tiles, a second wave of 28
+])
+def test_split_covers_the_thin_deep_products(B, M, N, K, tiles, gain):
+    assert tile_shape(M, N, 128, 128) == tiles
+    S = split_factor(B, M, N, K, (128, 128, 128), H100_SMS)
+    assert S > 1
+    assert K / S >= 256 and S <= -(-K // 128)          # each slice walks >= 256 rows
+    assert _makespan(B, M, N, K, S) * gain <= _makespan(B, M, N, K, 1)
+    # the fewest slices within the tolerance of the best makespan
+    best = min(_makespan(B, M, N, K, s) for s in range(1, min(32, K // 256) + 1))
+    assert _makespan(B, M, N, K, S) <= SPLIT_TOL * best
+    assert all(_makespan(B, M, N, K, s) > SPLIT_TOL * best for s in range(1, S))
+
+
+def test_launch_plan_picks_the_instance_from_strides_and_alignment():
+    B, M, K, N = 2, 256, 576, 64
+    x, w, g = torch.zeros(B, M, K), torch.zeros(B, K, N), torch.zeros(B, M, N)
+    plan = lambda a, b_, blk=(128, 128, 128): launch_plan(a, b_, blk, sms=H100_SMS)
+    assert plan(x, w).instance == "128x64,fwd"
+    assert plan(g, w.transpose(1, 2)).instance == "128x128,dx"
+    dw = plan(x.transpose(1, 2), g)
+    assert dw.instance == "128x64,dw" and dw.split == 1
+    # a stride-0 shared operand keeps the vector instance
+    assert plan(x, torch.zeros(K, N).expand(B, K, N)).instance == "128x64,fwd"
+    # K = 27 (conv0), an unaligned pointer, or an odd stride: the generic instance
+    assert plan(torch.zeros(B, M, 27), torch.zeros(B, 27, N)).instance == "128x64,generic"
+    assert plan(torch.zeros(B, M, K + 1)[:, :, 1:], w).instance == "128x64,generic"
+    assert plan(torch.zeros(B, K, M + 2)[:, :, :M].transpose(1, 2), w).instance == "128x64,generic"
+    # 64-wide blocks give 64-wide tiles; the split needs a thin, deep product
+    assert plan(x, w, (64, 64, 64)).instance == "64x64,fwd"
+    deep = plan(torch.zeros(10, 32768, 27).transpose(1, 2), torch.zeros(10, 32768, 64))
+    assert deep.split > 1 and deep.workspace_bytes == 4 * deep.split * 10 * 27 * 64
+
+
+def _split_case(seed, B, M, K, N):
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(B, M, K)).astype(np.float32)
+    w = (rng.normal(size=(B, K, N)) / np.sqrt(K)).astype(np.float32)
+    keep = np.array([[1.0], [0.5], [0.1], [0.0]])[:B]       # different live counts per row
+    im = (rng.random((B, K)) < keep).astype(np.float32)     # the last row: no live K block
+    om = (rng.random((B, N)) < 0.6).astype(np.float32)
+    rm = (rng.random((B, M)) < 0.8).astype(np.float32)
+    om[:, 0] = rm[:, 0] = 1.0
+    return x, w, im, om, rm
+
+
+SPLIT_CASES = [
+    # seed, (B, M, K, N), blocks, split
+    (0, (4, 70, 1000, 90), (64, 64, 64), 5),          # ragged K, N and M
+    (1, (4, 27, 2500, 64), (128, 128, 128), 7),       # conv0-like dW: thin output
+    (2, (3, 130, 777, 130), (256, 128, 64), 3),
+    (3, (2, 64, 300, 64), (64, 64, 64), 8),           # more slices than some rows' blocks
+]
+
+
+@pytest.mark.parametrize("seed,shape,blocks,split", SPLIT_CASES)
+def test_split_schedule_plain_matches_the_plain_version(seed, shape, blocks, split):
+    x, w, im, om, rm = _split_case(seed, *shape)
+    ys = pruned_matmul_split_plain(_t(x), _t(w), _t(im), _t(om), _t(rm), blocks, split)
+    y1 = pruned_matmul_split_plain(_t(x), _t(w), _t(im), _t(om), _t(rm), blocks, 1)
+    yp = pruned_matmul_plain(_t(x), _t(w), _t(im), _t(om), _t(rm))
+    np.testing.assert_allclose(ys.numpy(), yp.numpy(), atol=1e-5, rtol=1e-5)
+    np.testing.assert_allclose(y1.numpy(), yp.numpy(), atol=1e-5, rtol=1e-5)
+    if shape[0] == 4:
+        assert np.abs(ys.numpy()[3]).max() == 0.0      # no live K block: exact zeros
+    assert np.abs(ys.numpy()[np.broadcast_to(om[:, None, :] == 0, ys.shape)]).max(initial=0.0) == 0.0
+
+
+@pytest.mark.parametrize("seed,shape,blocks,split", SPLIT_CASES[:3])
+def test_split_schedule_plain_matches_jax_kernel(seed, shape, blocks, split):
+    x, w, im, om, rm = _split_case(seed, *shape)
+    bm, bn, bk = blocks
+    ys = pruned_matmul_split_plain(_t(x), _t(w), _t(im), _t(om), _t(rm), blocks, split).numpy()
+    for b in range(shape[0]):
+        yj = np.asarray(j_pm(jnp.asarray(x[b]), jnp.asarray(w[b]), jnp.asarray(im[b]),
+                             jnp.asarray(om[b]), jnp.asarray(rm[b]), block_m=bm, block_n=bn,
+                             block_k=bk, interpret=True))
+        np.testing.assert_allclose(ys[b], yj, atol=TOL, rtol=TOL)
 
 
 @pytest.fixture
