@@ -39,18 +39,25 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
 
 Slice 2, the LLM serving path (RecurrentGemma-9B):
 
-6. llm_build  — nvcc seconds and ptxas' register/shared-memory lines of
-                ``csrc/flash_attention.cu`` and ``csrc/rg_lru_scan.cu`` (all
-                three sources are compiled together in phase 1).
+6. llm_build  — nvcc seconds and, for every kernel entry of
+                ``csrc/flash_attention.cu`` and ``csrc/rg_lru_scan.cu``, its
+                registers and ptxas' spill line (all three sources are
+                compiled together in phase 1); fails on any spill.
 7. llm_kernel — both kernels against their plain versions on the card: the
-                CPU tests' cases, MQA/GQA and ragged lengths, and the serve
-                shapes (flash b=2, s=3072, h=16, kv=1, d=256, window 2048,
-                causal; scan b=2, s=3072, r=4096), tensors O(1); allclose at
-                3e-5 (flash) / 2e-4 (scan) and max|err| / max|plain| under
-                the same bar.
+                CPU tests' cases, MQA/GQA and ragged lengths, head counts
+                that do not pair (h = 1, 3, h/kv odd), S = 1, 31, 129,
+                3072 + 17, windows narrower than a 32-key tile, d = 64 and
+                128 at the serve length, and the serve shapes (flash b=2,
+                s=3072, h=16, kv=1, d=256, window 2048, causal; scan b=2,
+                s=3072, r=4096; scan R not a multiple of 64 or of 4, S
+                shorter than the ring), tensors O(1); allclose at 3e-5
+                (flash) / 2e-4 (scan) and max|err| / max|plain| under the
+                same bar; every scan case bit-identical to the plain loop.
 8. llm_times  — per kernel at the serve shape: ms per launch and per
-                prefill, launches per prefill, the bound, the plain version
-                and (flash only) one ``F.scaled_dot_product_attention`` call.
+                prefill, launches per prefill, the bound (flash: the FP32
+                one and the 3xTF32 tensor-core one, ``bound_tc_ms``, with
+                the achieved FP32-equivalent TFLOP/s), the plain version and
+                (flash only) one ``F.scaled_dot_product_attention`` call.
 9. serve      — ``serve_batch`` at recurrentgemma-9b, full width and depth
                 (38 layers), weights from the port's seeded init on the
                 card, batch 2, prompt 3072, 32 new tokens; launch counts
@@ -76,6 +83,7 @@ import numpy as np
 ROOT = Path(__file__).resolve().parent
 OUT = ROOT / "chiprun_out" / "chip_smoke.json"
 F32_TFLOPS = 67e12        # H100 SXM FP32 (non-tensor) peak, NVIDIA data sheet
+TF32_TFLOPS = 495e12      # H100 SXM dense TF32 tensor-core peak, same sheet
 HBM_BPS = 3.35e12         # H100 SXM HBM3 bandwidth
 TOL = 1e-4                # atol = rtol, tests/test_kernels.py's f32 bar
 REL_TOL = 1e-4            # max|kernel - plain| / max|plain|, per tensor
@@ -662,19 +670,36 @@ PARITY_ATOL = 0.1
 # slice 2: the LLM serving path
 # ---------------------------------------------------------------------------
 
+def ptxas_entries(log: str):
+    """Each kernel entry of a ptxas -v log: its name, registers and spill line."""
+    out, cur = [], None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            cur = {"entry": line.split("'")[1], "registers": None, "spills": None}
+            out.append(cur)
+        elif cur is not None and "spill" in line:
+            cur["spills"] = line.strip()
+        elif cur is not None and "Used" in line and "registers" in line:
+            cur["registers"] = int(line.split("Used")[1].split("registers")[0])
+    return out
+
+
 def phase_llm_build(report):
     from repro_torch.kernels import build
     from repro_torch.kernels.flash_attention import HEAD_DIMS, smem_bytes
 
     rec = {"phase": "llm_build"}
     for name in ("flash_attention", "rg_lru_scan"):
-        log = build.PTXAS_LOG.get(name, "")
-        rec[name] = {"nvcc_seconds": build.BUILD_SECONDS.get(name),
-                     "ptxas": [l.strip() for l in log.splitlines()
-                               if "registers" in l or "spill" in l]}
+        entries = ptxas_entries(build.PTXAS_LOG.get(name, ""))
+        rec[name] = {"nvcc_seconds": build.BUILD_SECONDS.get(name), "entries": entries}
     rec["flash_attention"]["dynamic_smem_bytes"] = {d: smem_bytes(d) for d in HEAD_DIMS}
     emit(rec)
     report["llm_build"] = rec
+    for name in ("flash_attention", "rg_lru_scan"):
+        entries = rec[name]["entries"]
+        check(entries and all(e["spills"] for e in entries), f"no ptxas spill line for {name}")
+        check(all("0 bytes spill stores, 0 bytes spill loads" in e["spills"] for e in entries),
+              f"a {name} kernel spills registers: " + json.dumps(entries))
 
 
 def _rel_compare(out, ref, tol):
@@ -722,6 +747,7 @@ def phase_llm_kernel(report):
 
     gen = torch.Generator(device=DEVICE).manual_seed(2)
     _, shapes = serve_shapes()
+    serve_flash = (*shapes["flash"][:5], {k: v for k, v in shapes["flash"][5].items() if v is not None})
     flash_cases = [
         # tests/test_kernels.py (kv = h)
         (2, 256, 4, 4, 64, {}), (1, 256, 2, 2, 128, {"window": 64}),
@@ -734,7 +760,17 @@ def phase_llm_kernel(report):
         (2, 1, 2, 1, 64, {}), (1, 333, 4, 2, 128, {"window": 70}),
         (2, 300, 8, 4, 256, {"window": 128, "softcap": 50.0}), (1, 257, 16, 1, 256, {"causal": False}),
         # the serve shape (recurrentgemma-9b local attention)
-        (*shapes["flash"][:5], {k: v for k, v in shapes["flash"][5].items() if v is not None}),
+        serve_flash,
+        # head grouping: one head, h / kv odd (no pairing), ragged under 128-row tiles
+        (1, 200, 1, 1, 64, {}), (2, 130, 3, 1, 128, {"window": 40}), (2, 150, 6, 2, 64, {}),
+        (1, 97, 5, 5, 64, {"causal": False}), (1, 129, 3, 1, 256, {}),
+        # S = 1, 31, 129, 3072 + 17 at the serve heads and window
+        *[(2, n, *serve_flash[2:5], serve_flash[5]) for n in (1, 31, 129, 3072 + 17)],
+        # a window narrower than one 32-key tile
+        (2, 300, 16, 1, 256, {"window": 7}), (1, 200, 3, 1, 64, {"window": 1}),
+        (1, 100, 2, 1, 64, {"window": 5, "causal": False}),
+        # head dims 64 and 128 at the serve length
+        *[(*serve_flash[:4], dd, serve_flash[5]) for dd in (64, 128)],
     ]
     cases = []
     for b, s, h, kv, d, kw in flash_cases:
@@ -746,14 +782,18 @@ def phase_llm_kernel(report):
                       **_rel_compare(out, ref, FLASH_TOL)})
         del q, k, v, out, ref
     b, s, r = shapes["scan"]
+    # R not a multiple of the kernel's 64 channels (and not of 4: the 4-byte
+    # load path); S shorter than its 128-step ring and not a multiple of a stage
     for b, s, r, with_h0 in [(8, 512, 256, True), (4, 1000, 300, True), (2, 128, 128, False),
-                             (3, 37, 100, True), (b, s, r, True)]:
+                             (3, 37, 100, True), (2, 3072, 4100, True), (2, 777, 1001, True),
+                             (4, 100, 256, True), (2, 255, 4096, False), (2, 1, 64, True),
+                             (b, s, r, True)]:
         x, a, h0 = _scan_inputs(gen, b, s, r, with_h0)
         out = rg_lru_scan(x, a, h0)
         ref = rg_lru_scan_plain(x, a, h0)
         torch.cuda.synchronize()
         cases.append({"kernel": "rg_lru_scan", "case": f"b={b} s={s} r={r} h0={'given' if with_h0 else 'None'}",
-                      **_rel_compare(out, ref, SCAN_TOL)})
+                      **_rel_compare(out, ref, SCAN_TOL), "bit_identical": bool(torch.equal(out, ref))})
     per = {}
     for name, tol in (("flash_attention", FLASH_TOL), ("rg_lru_scan", SCAN_TOL)):
         mine = [c for c in cases if c["kernel"] == name]
@@ -762,11 +802,16 @@ def phase_llm_kernel(report):
                      "min_ref_max": min(c["ref_max"] for c in mine),
                      "all_allclose": all(c["allclose"] for c in mine),
                      "all_rel_ok": all(c["rel_err"] <= tol for c in mine), "tol": tol}
+    per["rg_lru_scan"]["all_bit_identical"] = all(
+        c["bit_identical"] for c in cases if c["kernel"] == "rg_lru_scan")
     emit({"phase": "llm_kernel", **per})
     report["llm_kernel"] = {**per, "detail": cases}
     bad = [c for c in cases
            if not (c["allclose"] and c["rel_err"] <= (FLASH_TOL if c["kernel"] == "flash_attention" else SCAN_TOL))]
     check(not bad, "LLM kernel disagrees with its plain version: " + json.dumps(bad))
+    # the ring scan does the plain loop's rounded multiply and add, step by step
+    check(per["rg_lru_scan"]["all_bit_identical"], "rg_lru_scan is not bit-identical to the plain "
+          "loop: " + json.dumps([c for c in cases if c["kernel"] == "rg_lru_scan"]))
     return per
 
 
@@ -806,11 +851,15 @@ def phase_llm_times(report):
     flops = 4.0 * pairs * d
     byts = 4.0 * (2 * b * s * h * d + 2 * b * s * kv * d)
     t_ops, t_bytes = flops / F32_TFLOPS * 1e3, byts / HBM_BPS * 1e3
+    # the kernel runs each FP32 product as three TF32 tensor-core products
+    t_tc = 3.0 * flops / TF32_TFLOPS * 1e3
     n = per_prefill["flash_attention"]
     flash = {"shape": f"b={b} s={s} h={h} kv={kv} d={d} window={window} causal",
              "ms_per_launch": ms, "launches_per_prefill": n, "ms": ms * n, "plain_ms": plain * n,
              "library_ms": library * n, "bound_ms": max(t_ops, t_bytes) * n,
              "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+             "bound_tc_ms": max(t_tc, t_bytes) * n, "bound_tc_ms_per_launch": max(t_tc, t_bytes),
+             "tc_bound_share": max(t_tc, t_bytes) / ms,
              "flops_per_launch": flops, "bytes_per_launch": byts,
              "achieved_tflops": flops / (ms * 1e-3) / 1e12}
     del q, k, v, qt, kt, vt, mask
@@ -971,7 +1020,7 @@ def main() -> int:
         })
     for kname in ("flash_attention", "rg_lru_scan"):
         t = llm_times[kname]
-        kernels.append({
+        entry = {
             "name": kname, "route": "cuda", "source": f"src/repro_torch/kernels/csrc/{kname}.cu",
             "replaces": REPLACES[kname], "launches": served["launches_per_prefill"][kname],
             "max_abs_err": llm_errs[kname]["max_abs_err"],
@@ -980,7 +1029,11 @@ def main() -> int:
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
             "ms_per_launch": t["ms_per_launch"],
             "shapes": f"one prefill of recurrentgemma-9b: {t['launches_per_prefill']} launches at {t['shape']}",
-        })
+        }
+        if kname == "flash_attention":
+            # its own bound: the 3xTF32 products at the tensor-core rate
+            entry.update(bound_ms=t["bound_tc_ms"], bound_fp32_ms=t["bound_ms"])
+        kernels.append(entry)
     report["kernels"] = kernels
     report["card"] = card
     report["seconds"] = time.perf_counter() - t0

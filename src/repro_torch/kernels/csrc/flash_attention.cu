@@ -1,8 +1,9 @@
-// Flash attention (blocked online softmax) for Hopper (sm_90a), plain FP32 FFMA.
+// Flash attention (blocked online softmax) for Hopper (sm_90a), both
+// products in 3xTF32 on the tensor cores with FP32 accumulation.
 //
-// Replaces the Pallas TPU kernel src/repro/kernels/flash_attention.py
-// (_kernel / flash_attention_kernel_call).  For every batch row b, query
-// head h and query position i:
+// Replaces the Pallas TPU kernel src/repro/kernels/flash_attention.py:120
+// (flash_attention_kernel_call -> _kernel :31).  For every batch row b,
+// query head h and query position i:
 //
 //   o[b, i, h] = softmax_j( softcap(q[b, i, h] . k[b, j, g] / sqrt(d)) over
 //                           the kept keys j ) @ v[b, :, g]
@@ -12,7 +13,8 @@
 // K/V are read in place: nothing is repeated in device memory.  Key j is
 // kept for query i iff j < S, (not causal or j <= i) and (no window or
 // j > i - window).  q, o are contiguous [B, S, H, D]; k, v contiguous
-// [B, S, KV, D]; any S (the ragged last tile is bounds-checked).
+// [B, S, KV, D]; D is 64, 128 or 256; any S (ragged tiles are zero-filled
+// on load and masked).
 //
 // Mask rule.  The TPU kernel writes -1e30 into masked scores and the JAX
 // model adds finfo(f32).min; here a masked key gets probability exactly 0
@@ -22,28 +24,50 @@
 // A row that kept no key at all would come out 0 here (the references
 // would give the mean of v); no caller of the port produces one.
 //
-// Design.  One 256-thread block owns BQ = 64 query rows of one (b, h): the
-// Q tile stays in shared memory, and the block walks the KV tiles of BK = 64
-// keys in order, skipping whole tiles above the causal diagonal or outside
-// the window (the TPU kernel's pl.when skip, done here by the loop bounds).
-// Per tile: S = Q K^T into a 4x4 register tile per thread (rows ty + 16 i,
-// keys tx + 16 j), scale, softcap and mask, the online-softmax update of
-// the running max m, denominator l and output accumulator (rows kept in
-// registers, 4 rows x D/16 columns per thread, reductions over the 16
-// threads of a row by warp shuffles), then O += P V with P staged through
-// shared memory.  Everything accumulates in FP32.  Shared memory for D=256:
-// Q and K tiles 64 x 260 floats each, V 64 x 256, P 64 x 80: 219,136 bytes,
-// above the 48 KB default, so the host wrapper opts in with
-// cudaFuncSetAttribute.  Row pads keep the float4 shared loads free of bank
-// conflicts.
+// Arithmetic.  Every product runs as mma.sync m16n8k8 tf32 with FP32
+// accumulators, in 3xTF32: each operand x is split as hi = tf32(x),
+// lo = tf32(x - hi) (the rounding of cvt.rna.tf32.f32), and a product is
+// hi*lo + lo*hi + hi*hi (the lo*lo term is below FP32 rounding).  The result
+// stays within a few times FP32's error, where one TF32 pass (~5e-4 relative
+// at d = 256) would not; this is the kernel's only mode.  1/sqrt(d) and log2(e) are one
+// multiply per score, and the softmax runs in exp2; tanh is FP32.
 //
-// What bounds it on an H100: FP32 FFMA throughput (67 TFLOP/s) for the
-// 4 * kept-pairs * D FLOPs of the live tiles; at the serve shape (S = 3072,
-// window 2048, D = 256) the bytes are two orders of magnitude below.  This
-// first design runs one block per SM (8 warps), loads K/V through registers
-// with no copy/compute overlap, and uses no tensor cores; cp.async/TMA
-// double buffering, several heads per block sharing one MQA K/V tile, and a
-// TF32/bf16 wgmma path are later work.
+// Layout.  A block of 256 threads (8 warps) owns 128 query rows that read
+// the same K/V: two query heads of one kv head at 64 positions when H/KV is
+// even, else 128 positions of one head.  Each warp owns 16 of the rows with
+// the full D of its output in registers (FlashAttention-2): at D = 256 that
+// is 128 accumulators a thread, 252 registers in all, no spills.  The
+// running max and denominator of a row live in the quad of lanes that share
+// it.  S = Q K^T of a 32-key tile stays in the mma C fragments, and
+// P = softmax(S) feeds P V from there: the C fragment holds keys (2t, 2t+1)
+// of row g in lane (g, t), and P V takes its contraction order from that
+// (A's k = t is key 2t, k = t + 4 is key 2t + 1, and V's rows are read in
+// the same order), so P never passes through shared memory.  Q K^T
+// contracts d in the order that lets one 16-byte shared load feed two
+// k-steps.  A tile in which every row of a warp keeps every key skips the
+// mask arithmetic; one in which no row keeps a key is skipped by the warp.
+//
+// Staging.  Q (128 rows) stays in shared memory.  K and V tiles of 32 keys
+// arrive by cp.async, 16 bytes a thread, in single staggered buffers: V_j
+// loads while S_j = Q K_j^T runs, K_{j+1} while P V_j runs.  Shared memory
+// at D = 256: Q 128 x 272 floats, K 32 x 272, V 32 x 260 = 207,360 bytes
+// (the +16 / +4 row pads make the fragment loads free of bank conflicts),
+// opted in with cudaFuncSetAttribute: one block per SM.  Each block walks
+// only the live tiles of its 128 rows (causal diagonal, window), and the
+// grid issues the last (longest causal) query tiles first so that they do
+// not form the tail.  The layout was chosen over a 64-row block with a
+// two-stage (K, V) ring, which fits in the same shared memory but gives
+// each SM 4 warps instead of 8 and feeds each K/V tile to half as many rows;
+// it measured slower on the card.
+//
+// What bounds it on an H100: the tensor cores, 3 x 4 x kept-pairs x D FLOPs
+// at the dense TF32 rate (495 TFLOP/s; the FP32 FFMA bound of the same
+// work, 4 x kept-pairs x D at 67 TFLOP/s, is 2.4x longer).  mma.sync reaches
+// only part of that rate, and beside each product the warps issue the
+// operand splits (four integer/FP32 instructions an element; every warp
+// splits the whole K and V tile for itself), the fragment loads and the
+// softmax, with 8 warps per SM to hide the latencies.  wgmma on K-major
+// tf32 operands in shared memory, with TMA loads, is the next step.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -51,221 +75,305 @@
 
 namespace {
 
-constexpr int BQ = 64;        // query rows per block
-constexpr int BK = 64;        // keys per KV tile
-constexpr int THREADS = 256;  // 16 x 16 threads
+constexpr int BK = 32;             // keys per K/V tile
+constexpr int WARPS = 8;
+constexpr int THREADS = 32 * WARPS;
+constexpr int ROWS = 16 * WARPS;   // query rows (head, position) per block
 constexpr float NEG = -1e30f;
 
 template <int D>
 struct Layout {
-    static constexpr int LDQ = D + 4;     // Q/K row stride (floats)
-    static constexpr int LDP = BK + 16;   // P row stride
-    static constexpr size_t floats =
-        (size_t)BQ * LDQ + (size_t)BK * LDQ + (size_t)BK * D + (size_t)BQ * LDP;
-    static constexpr size_t bytes = floats * sizeof(float);
+    static constexpr int LDK = D + 16;   // Q and K row stride (floats)
+    static constexpr int LDV = D + 4;    // V row stride
+    static constexpr size_t q_floats = (size_t)ROWS * LDK;
+    static constexpr size_t k_floats = (size_t)BK * LDK;
+    static constexpr size_t v_floats = (size_t)BK * LDV;
+    static constexpr size_t bytes = (q_floats + k_floats + v_floats) * sizeof(float);
+};
+
+struct Args {
+    const float* q; const float* k; const float* v; float* o;
+    int B, S, H, KV, hpb, nqt, causal, window;
+    float scale, softcap;
 };
 
 __device__ __forceinline__ float4 ld4(const float* p) {
     return *reinterpret_cast<const float4*>(p);
 }
 
-__device__ __forceinline__ void st4(float* p, float4 v) {
-    *reinterpret_cast<float4*>(p) = v;
+__device__ __forceinline__ void cp_async16(float* dst, const float* src, bool valid) {
+    const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+    const int n = valid ? 16 : 0;     // src-size 0: zero-fill, nothing read
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+                 :: "r"(s), "l"(src), "r"(n) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+    asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
 }
 
-__device__ __forceinline__ float comp(const float4& v, int i) {
-    return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
+// x = hi + lo, each rounded to tf32 as cvt.rna.tf32.f32 rounds a finite
+// value: add half a tf32 ulp to the magnitude's bits, drop the low 13.
+// Written as integer ops because ptxas expands the cvt into four
+// instructions with an Inf/NaN guard (the inputs are finite); lo's low bits
+// are left in place, as ptxas leaves them after its own cvt, since the
+// tensor core reads only the top 19 bits of a tf32 operand.
+__device__ __forceinline__ void split(float x, unsigned& hi, unsigned& lo) {
+    hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+    lo = __float_as_uint(x - __uint_as_float(hi)) + 0x1000u;
+}
+
+// c += a b for one m16n8k8 tile: a rows (g, g+8) x k (t, t+4), b k (t, t+4)
+// x column g, c rows (g, g+8) x columns (2t, 2t+1).
+__device__ __forceinline__ void mma(float (&c)[4], const unsigned (&a)[4], unsigned b0, unsigned b1) {
+    asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// s = Q_w K^T for the warp's 16 rows and the tile's 32 keys: n-tile j holds
+// keys 8j..8j+7.  Lane t contracts d0 + 4t .. 4t+3 of each 16-wide slice:
+// (4t, 4t+1) as k = (t, t+4) of the first k-step, (4t+2, 4t+3) of the second.
+template <int D, int LDK>
+__device__ __forceinline__ void qk_tile(const float* __restrict__ Qw, const float* __restrict__ Kt,
+                                        int g, int t, float (&s)[4][4])
+{
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+    const float* q0 = Qw + g * LDK + 4 * t;
+    const float* q1 = q0 + 8 * LDK;
+    const float* kr = Kt + g * LDK + 4 * t;
+#pragma unroll 4
+    for (int d0 = 0; d0 < D; d0 += 16) {
+        const float4 qa = ld4(q0 + d0), qb = ld4(q1 + d0);
+        unsigned h0[4], l0[4], h1[4], l1[4];   // A of k-step 0 and 1
+        split(qa.x, h0[0], l0[0]); split(qb.x, h0[1], l0[1]);
+        split(qa.y, h0[2], l0[2]); split(qb.y, h0[3], l0[3]);
+        split(qa.z, h1[0], l1[0]); split(qb.z, h1[1], l1[1]);
+        split(qa.w, h1[2], l1[2]); split(qb.w, h1[3], l1[3]);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+            const float4 kv = ld4(kr + 8 * j * LDK + d0);
+            unsigned bh[4], bl[4];
+            split(kv.x, bh[0], bl[0]); split(kv.y, bh[1], bl[1]);
+            split(kv.z, bh[2], bl[2]); split(kv.w, bh[3], bl[3]);
+            mma(s[j], h0, bl[0], bl[1]);
+            mma(s[j], l0, bh[0], bh[1]);
+            mma(s[j], h0, bh[0], bh[1]);
+            mma(s[j], h1, bl[2], bl[3]);
+            mma(s[j], l1, bh[2], bh[3]);
+            mma(s[j], h1, bh[2], bh[3]);
+        }
+    }
+}
+
+// o += P V_t.  k-step j takes S's n-tile j: A = (p[j][0], p[j][2], p[j][1],
+// p[j][3]) is keys 8j + 2t (k = t) and 8j + 2t + 1 (k = t + 4) of rows g,
+// g + 8, so B reads V's rows in that order; n-tile n is columns 8n..8n+7.
+template <int D, int LDV>
+__device__ __forceinline__ void pv_tile(const float* __restrict__ Vt, int g, int t,
+                                        const float (&p)[4][4], float (&o)[D / 8][4])
+{
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+        unsigned ah[4], al[4];
+        split(p[j][0], ah[0], al[0]); split(p[j][2], ah[1], al[1]);
+        split(p[j][1], ah[2], al[2]); split(p[j][3], ah[3], al[3]);
+        const float* v0 = Vt + (8 * j + 2 * t) * LDV + g;
+        const float* v1 = v0 + LDV;
+#pragma unroll
+        for (int n = 0; n < D / 8; ++n) {
+            unsigned bh0, bl0, bh1, bl1;
+            split(v0[8 * n], bh0, bl0);
+            split(v1[8 * n], bh1, bl1);
+            mma(o[n], al, bh0, bh1);
+            mma(o[n], ah, bl0, bl1);
+            mma(o[n], ah, bh0, bh1);
+        }
+    }
 }
 
 template <int D>
 __global__ void __launch_bounds__(THREADS, 1)
-flash_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                       const float* __restrict__ v, float* __restrict__ o,
-                       int S, int H, int KV, float sqrt_d, int causal, int window,
-                       float softcap)
+flash_attention_kernel(const Args p)
 {
-    constexpr int LDQ = Layout<D>::LDQ;
-    constexpr int LDP = Layout<D>::LDP;
-    constexpr int V4 = D / 4;     // float4 per row
-    constexpr int NG = D / 64;    // float4 column groups per thread
+    constexpr int LDK = Layout<D>::LDK, LDV = Layout<D>::LDV;
+    constexpr int V4 = D / 4;     // 16-byte chunks per row
+    constexpr int NT = D / 8;     // output n-tiles per warp
 
     extern __shared__ __align__(16) float smem[];
-    float* Qs = smem;               // [BQ][LDQ]
-    float* Ks = Qs + BQ * LDQ;      // [BK][LDQ]
-    float* Vs = Ks + BK * LDQ;      // [BK][D]
-    float* Ps = Vs + BK * D;        // [BQ][LDP]
+    float* Qs = smem;                          // [ROWS][LDK]
+    float* Ks = Qs + Layout<D>::q_floats;      // [BK][LDK]
+    float* Vs = Ks + Layout<D>::k_floats;      // [BK][LDV]
 
     const int tid = threadIdx.x;
-    const int tx = tid & 15;        // key / column group
-    const int ty = tid >> 4;        // row group: rows ty + 16 i
-    const int q0 = blockIdx.x * BQ;
-    const int h = blockIdx.y;
-    const int b = blockIdx.z;
-    const int g = h / (H / KV);
-    const long long qrow = (long long)H * D;    // elements between positions
-    const long long krow = (long long)KV * D;
-    const float* qb = q + (long long)b * S * qrow + (long long)h * D;
-    const float* kb = k + (long long)b * S * krow + (long long)g * D;
-    const float* vb = v + (long long)b * S * krow + (long long)g * D;
-    float* ob = o + (long long)b * S * qrow + (long long)h * D;
+    const int lane = tid & 31, warp = tid >> 5;
+    const int g = lane >> 2, t = lane & 3;
 
-    const float4 zero4 = make_float4(0.f, 0.f, 0.f, 0.f);
-    for (int i = tid; i < BQ * V4; i += THREADS) {
-        const int r = i / V4, c = (i % V4) * 4;
-        float4 val = zero4;
-        if (q0 + r < S) val = ld4(qb + (q0 + r) * qrow + c);
-        st4(Qs + r * LDQ + c, val);
-    }
+    // block -> (query tile, batch row, head group); last query tiles first
+    const int hb_count = p.H / p.hpb;
+    const int per_tile = p.B * hb_count;
+    const int qt = p.nqt - 1 - (int)(blockIdx.x / per_tile);
+    const int rem = (int)(blockIdx.x % per_tile);
+    const int b = rem / hb_count;
+    const int head0 = (rem % hb_count) * p.hpb;
+    const int pos_n = ROWS / p.hpb;            // positions per block
+    const int p0 = qt * pos_n;
+    const int S = p.S;
+    const int kvh = head0 / (p.H / p.KV);
 
-    float m[4], l[4], acc[4][4 * NG];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-        m[i] = NEG;
-        l[i] = 0.f;
-#pragma unroll
-        for (int c = 0; c < 4 * NG; ++c) acc[i][c] = 0.f;
-    }
+    // this warp's 16 rows: one head, positions wp0 .. wp0 + 15
+    const int whead = head0 + (16 * warp) / pos_n;
+    const int wp0 = p0 + (16 * warp) % pos_n;
 
-    // live KV tiles: not wholly above the diagonal, not wholly out of window
+    // live K/V tiles of the block: not wholly above the diagonal of its
+    // newest row, not wholly out of the window of its oldest
     const int nkt = (S + BK - 1) / BK;
-    int kt_end = nkt;
-    if (causal) kt_end = min(nkt, (q0 + BQ - 1) / BK + 1);
+    const int kt_end = p.causal ? min(nkt, (min(p0 + pos_n, S) - 1) / BK + 1) : nkt;
     int kt_begin = 0;
-    if (window > 0) {
-        // live iff the tile's newest key k0 + BK - 1 > q0 - window
-        const int t = q0 - window - BK + 1;
-        if (t >= 0) kt_begin = t / BK + 1;
+    if (p.window > 0) {
+        const int tt = p0 - p.window - BK + 1;
+        if (tt >= 0) kt_begin = tt / BK + 1;
     }
+
+    for (int i = tid; i < ROWS * V4; i += THREADS) {
+        const int r = i / V4, c = (i % V4) * 4;
+        const int pos = p0 + r % pos_n;
+        const bool ok = pos < S;
+        const float* src = ok ? p.q + ((long long)(b * S + pos) * p.H + head0 + r / pos_n) * D + c
+                              : p.q;
+        cp_async16(Qs + r * LDK + c, src, ok);
+    }
+    // K or V rows k0 .. k0 + BK - 1 of kv head kvh (zeros past S)
+    auto load_tile = [&](float* dst, const float* base, int ld, int k0) {
+        for (int i = tid; i < BK * V4; i += THREADS) {
+            const int r = i / V4, c = (i % V4) * 4;
+            const bool ok = k0 + r < S;
+            const float* src = ok ? base + ((long long)(b * S + k0 + r) * p.KV + kvh) * D + c : base;
+            cp_async16(dst + r * ld + c, src, ok);
+        }
+    };
+    load_tile(Ks, p.k, LDK, kt_begin * BK);
+    cp_async_commit();
+
+    float o[NT][4], m[2], l[2];
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
+    m[0] = m[1] = NEG;
+    l[0] = l[1] = 0.f;
+    const float* Qw = Qs + 16 * warp * LDK;
+    // scores in log2 units: exp(x) = exp2(x log2 e), log2 e folded into the scale
+    constexpr float LOG2E = 1.4426950408889634f;
+    const bool capped = p.softcap > 0.f;
+    const float qk_scale = capped ? p.scale / p.softcap : p.scale * LOG2E;
+    const float cap = p.softcap * LOG2E;
 
     for (int kt = kt_begin; kt < kt_end; ++kt) {
         const int k0 = kt * BK;
-        __syncthreads();   // Q stored / previous tile's K, V, P consumed
-        for (int i = tid; i < BK * V4; i += THREADS) {
-            const int r = i / V4, c = (i % V4) * 4;
-            float4 kv = zero4, vv = zero4;
-            if (k0 + r < S) {
-                kv = ld4(kb + (k0 + r) * krow + c);
-                vv = ld4(vb + (k0 + r) * krow + c);
-            }
-            st4(Ks + r * LDQ + c, kv);
-            st4(Vs + r * D + c, vv);
-        }
-        __syncthreads();
+        // live: some row of the warp keeps a key of the tile; full: every
+        // row keeps every key
+        const bool live = wp0 < S && !(p.causal && k0 > wp0 + 15) &&
+                          !(p.window > 0 && k0 + BK - 1 <= wp0 - p.window);
+        const bool full = k0 + BK <= S && !(p.causal && k0 + BK - 1 > wp0) &&
+                          !(p.window > 0 && k0 <= wp0 + 15 - p.window);
+        cp_async_wait<0>();
+        __syncthreads();          // K_kt landed; every warp is done with V_{kt-1}
+        load_tile(Vs, p.v, LDV, k0);
+        cp_async_commit();
 
-        // S = Q K^T for rows ty + 16 i, keys tx + 16 j
         float s[4][4];
+        if (live) {
+            qk_tile<D, LDK>(Qw, Ks, g, t, s);
+            // scale, softcap and mask; online softmax of rows g (hh = 0), g + 8
+            float alpha[2];
 #pragma unroll
-        for (int i = 0; i < 4; ++i)
+            for (int hh = 0; hh < 2; ++hh) {
+                const int row = wp0 + g + 8 * hh;
+                unsigned keep = 0;
+                float mx = NEG;
 #pragma unroll
-            for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-#pragma unroll 4
-        for (int kk = 0; kk < D; kk += 4) {
-            float4 qa[4], ka[4];
+                for (int j = 0; j < 4; ++j)
 #pragma unroll
-            for (int i = 0; i < 4; ++i) qa[i] = ld4(Qs + (ty + 16 * i) * LDQ + kk);
-#pragma unroll
-            for (int j = 0; j < 4; ++j) ka[j] = ld4(Ks + (tx + 16 * j) * LDQ + kk);
-#pragma unroll
-            for (int i = 0; i < 4; ++i)
-#pragma unroll
-                for (int j = 0; j < 4; ++j) {
-                    float t = s[i][j];
-                    t = fmaf(qa[i].x, ka[j].x, t);
-                    t = fmaf(qa[i].y, ka[j].y, t);
-                    t = fmaf(qa[i].z, ka[j].z, t);
-                    t = fmaf(qa[i].w, ka[j].w, t);
-                    s[i][j] = t;
-                }
-        }
-
-        // online softmax: scale, softcap, mask; update m, l, rescale acc
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-            const int row = q0 + ty + 16 * i;
-            bool keep[4];
-            float mx = NEG;
-#pragma unroll
-            for (int j = 0; j < 4; ++j) {
-                const int col = k0 + tx + 16 * j;
-                float sv = s[i][j] / sqrt_d;
-                if (softcap > 0.f) sv = softcap * tanhf(sv / softcap);
-                keep[j] = col < S && (!causal || col <= row) &&
-                          (window <= 0 || col > row - window);
-                s[i][j] = sv;
-                if (keep[j]) mx = fmaxf(mx, sv);
-            }
-#pragma unroll
-            for (int off = 8; off > 0; off >>= 1)
-                mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-            const float m_new = fmaxf(m[i], mx);
-            const float alpha = expf(m[i] - m_new);
-            float ps = 0.f;
-#pragma unroll
-            for (int j = 0; j < 4; ++j) {
-                const float p = keep[j] ? expf(s[i][j] - m_new) : 0.f;
-                Ps[(ty + 16 * i) * LDP + tx + 16 * j] = p;
-                ps += p;
-            }
-#pragma unroll
-            for (int off = 8; off > 0; off >>= 1)
-                ps += __shfl_xor_sync(0xffffffffu, ps, off);
-            l[i] = l[i] * alpha + ps;
-            m[i] = m_new;
-#pragma unroll
-            for (int c = 0; c < 4 * NG; ++c) acc[i][c] *= alpha;
-        }
-        __syncthreads();
-
-        // O += P V: thread columns tx * 4 + 64 * gg (+0..3)
-#pragma unroll 2
-        for (int j = 0; j < BK; j += 4) {
-            float4 pa[4];
-#pragma unroll
-            for (int i = 0; i < 4; ++i) pa[i] = ld4(Ps + (ty + 16 * i) * LDP + j);
-#pragma unroll
-            for (int jj = 0; jj < 4; ++jj) {
-                const float* vrow = Vs + (j + jj) * D + tx * 4;
-#pragma unroll
-                for (int gg = 0; gg < NG; ++gg) {
-                    const float4 vv = ld4(vrow + 64 * gg);
-#pragma unroll
-                    for (int i = 0; i < 4; ++i) {
-                        const float p = comp(pa[i], jj);
-                        acc[i][4 * gg + 0] = fmaf(p, vv.x, acc[i][4 * gg + 0]);
-                        acc[i][4 * gg + 1] = fmaf(p, vv.y, acc[i][4 * gg + 1]);
-                        acc[i][4 * gg + 2] = fmaf(p, vv.z, acc[i][4 * gg + 2]);
-                        acc[i][4 * gg + 3] = fmaf(p, vv.w, acc[i][4 * gg + 3]);
+                    for (int e = 0; e < 2; ++e) {
+                        const int col = k0 + 8 * j + 2 * t + e;
+                        float sv = s[j][2 * hh + e] * qk_scale;
+                        if (capped) sv = cap * tanhf(sv);
+                        const bool kp = full || (col < S && (!p.causal || col <= row) &&
+                                                 (p.window <= 0 || col > row - p.window));
+                        keep |= (unsigned)kp << (2 * j + e);
+                        s[j][2 * hh + e] = sv;
+                        if (kp) mx = fmaxf(mx, sv);
                     }
+                mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+                mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+                const float m_new = fmaxf(m[hh], mx);
+                alpha[hh] = exp2f(m[hh] - m_new);
+                float ps = 0.f;
+#pragma unroll
+                for (int j = 0; j < 4; ++j)
+#pragma unroll
+                    for (int e = 0; e < 2; ++e) {
+                        const float pr = (keep >> (2 * j + e)) & 1u
+                                             ? exp2f(s[j][2 * hh + e] - m_new) : 0.f;
+                        s[j][2 * hh + e] = pr;
+                        ps += pr;
+                    }
+                l[hh] = l[hh] * alpha[hh] + ps;     // this lane's share of the row
+                m[hh] = m_new;
+            }
+            if (__any_sync(0xffffffffu, alpha[0] != 1.f || alpha[1] != 1.f)) {
+#pragma unroll
+                for (int n = 0; n < NT; ++n) {
+                    o[n][0] *= alpha[0]; o[n][1] *= alpha[0];
+                    o[n][2] *= alpha[1]; o[n][3] *= alpha[1];
                 }
             }
         }
+
+        cp_async_wait<0>();
+        __syncthreads();          // V_kt landed; every warp is done with K_kt
+        if (kt + 1 < kt_end) load_tile(Ks, p.k, LDK, k0 + BK);
+        cp_async_commit();
+        if (live) pv_tile<D, LDV>(Vs, g, t, s, o);
     }
 
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-        const int row = q0 + ty + 16 * i;
+    for (int hh = 0; hh < 2; ++hh) {
+        float den = l[hh];
+        den += __shfl_xor_sync(0xffffffffu, den, 1);
+        den += __shfl_xor_sync(0xffffffffu, den, 2);
+        const int row = wp0 + g + 8 * hh;
         if (row >= S) continue;
-        const float inv = 1.f / fmaxf(l[i], 1e-30f);
-        float* orow = ob + row * qrow + tx * 4;
+        const float inv = 1.f / fmaxf(den, 1e-30f);
+        float* orow = p.o + ((long long)(b * S + row) * p.H + whead) * D + 2 * t;
 #pragma unroll
-        for (int gg = 0; gg < NG; ++gg)
-            st4(orow + 64 * gg, make_float4(acc[i][4 * gg + 0] * inv, acc[i][4 * gg + 1] * inv,
-                                            acc[i][4 * gg + 2] * inv, acc[i][4 * gg + 3] * inv));
+        for (int n = 0; n < NT; ++n)
+            *reinterpret_cast<float2*>(orow + 8 * n) =
+                make_float2(o[n][2 * hh] * inv, o[n][2 * hh + 1] * inv);
     }
 }
 
 template <int D>
-int launch(const float* q, const float* k, const float* v, float* o,
-           int B, int S, int H, int KV, float sqrt_d, int causal, int window,
-           float softcap, cudaStream_t stream)
+int launch(Args a, cudaStream_t stream)
 {
     const size_t bytes = Layout<D>::bytes;
     cudaError_t err = cudaFuncSetAttribute(
         flash_attention_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
     if (err != cudaSuccess) return (int)err;
-    dim3 grid((S + BQ - 1) / BQ, H, B);
-    flash_attention_kernel<D><<<grid, THREADS, bytes, stream>>>(
-        q, k, v, o, S, H, KV, sqrt_d, causal, window, softcap);
+    a.hpb = (a.H / a.KV) % 2 == 0 ? 2 : 1;
+    const int pos_n = ROWS / a.hpb;
+    a.nqt = (a.S + pos_n - 1) / pos_n;
+    const long long blocks = (long long)a.nqt * a.B * (a.H / a.hpb);
+    if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
+    flash_attention_kernel<D><<<(unsigned)blocks, THREADS, bytes, stream>>>(a);
     return (int)cudaGetLastError();
 }
 
@@ -291,11 +399,12 @@ extern "C" int flash_attention_f32(
 {
     if (B <= 0 || S <= 0 || H <= 0) return (int)cudaSuccess;
     if (KV <= 0 || H % KV != 0) return (int)cudaErrorInvalidValue;
+    Args a{q, k, v, o, B, S, H, KV, 1, 1, causal, window, 1.f / sqrt_d, softcap};
     cudaStream_t st = (cudaStream_t)stream;
     switch (D) {
-        case 64: return launch<64>(q, k, v, o, B, S, H, KV, sqrt_d, causal, window, softcap, st);
-        case 128: return launch<128>(q, k, v, o, B, S, H, KV, sqrt_d, causal, window, softcap, st);
-        case 256: return launch<256>(q, k, v, o, B, S, H, KV, sqrt_d, causal, window, softcap, st);
+        case 64: return launch<64>(a, st);
+        case 128: return launch<128>(a, st);
+        case 256: return launch<256>(a, st);
         default: return (int)cudaErrorInvalidValue;
     }
 }

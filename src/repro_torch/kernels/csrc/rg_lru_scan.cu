@@ -1,16 +1,25 @@
 // RG-LRU linear recurrence for Hopper (sm_90a): h_t = a_t * h_{t-1} + x_t.
 //
-// Replaces the Pallas TPU kernel src/repro/kernels/rg_lru_scan.py
-// (_kernel / rg_lru_scan_kernel_call).  x, a, out are contiguous
+// Replaces the Pallas TPU kernel src/repro/kernels/rg_lru_scan.py:68
+// (rg_lru_scan_kernel_call -> _kernel :32).  x, a, out are contiguous
 // [B, S, R] float32, h0 is [B, R]; out[b, t] = h_t.
 //
-// Design: one thread per (b, r) channel walks the sequence in order with
-// the carry in a register.  Neighbouring threads own neighbouring channels,
-// so every load and store of a step is coalesced across r.  The step is a
-// rounded multiply then a rounded add (__fmul_rn, __fadd_rn, no FMA
-// contraction), the same arithmetic as the plain PyTorch loop, so the two
-// agree bit for bit.  The loads of U = 16 steps are issued before their
-// dependent updates, so each thread keeps 32 loads in flight.
+// Design: a deep prefetch ring under the sequential recurrence.  One warp
+// owns 64 neighbouring channels of one batch row (lane l: channels l and
+// l + 32) and walks the sequence in order with each channel's carry in a
+// register.  The steps of a and x stream into a shared-memory ring of
+// STAGES = 4 stages of T = 32 steps (128 steps x 64 channels x 2 arrays x 4
+// bytes = 64 KB a block) by cp.async: 16 bytes a thread when R and the
+// pointers allow it (a warp instruction lands 2 steps, each one 256-byte
+// row), else 4 bytes a thread.  While the warp walks one stage, the next
+// three (48 KB) are in flight, so no load waits behind a dependent update.
+// 64 channels a warp rather than 32 make each step's read and write one
+// 256-byte segment instead of 128, which the memory serves faster at the
+// cost of half as many blocks (128 at the serve shape, for 132 SMs).  The
+// step is a rounded multiply then a rounded add (__fmul_rn, __fadd_rn, no
+// FMA contraction), the same arithmetic as the plain PyTorch loop, so the
+// two agree bit for bit; every byte of x and a is read once and every h_t
+// written once.
 //
 // The TPU kernel's log-space block form, h = A * (h_in + cumsum(x / A))
 // with A = cumprod(a), is not carried over: it exists to turn the serial
@@ -18,50 +27,150 @@
 // would only add the 1 / A overflow bound its docstring warns about
 // (a ~ 0.9 over a 256-step block gives 1 / A ~ 5e11).
 //
-// What bounds it on an H100: latency.  At the serve shape (B = 2, R = 4096)
-// there are 8 192 channels, 128 blocks of 64 threads for 132 SMs, each
-// thread walking S = 3 072 dependent steps; the byte bound (3 * B * S * R *
-// 4 bytes over 3.35 TB/s, ~0.09 ms) needs far more bytes in flight than
-// this gives.  A chunked scan (per-chunk carries, then a fix-up pass) is
-// later work.
+// What bounds it on an H100: bytes, 3 * B * S * R * 4 over 3.35 TB/s (0.090
+// ms at the serve shape B = 2, S = 3072, R = 4096).  The walk itself (per
+// step and channel two shared loads, a multiply, an add and a store) takes
+// a small part of that; what is left is the memory's rate on this pattern
+// of one row segment per block and step.
 
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace {
 
-constexpr int THREADS = 64;
-constexpr int U = 16;
+constexpr int CPL = 2;         // channels per lane: lane + 32 k, k < CPL
+constexpr int CH = 32 * CPL;   // channels per block (one warp)
+constexpr int T = 32;          // steps per stage
+constexpr int STAGES = 4;      // ring depth: STAGES * T = 128 steps
+constexpr int STAGE_FLOATS = T * CH;
+constexpr size_t SMEM_BYTES = 2ull * STAGES * STAGE_FLOATS * sizeof(float);   // a and x
 
-__global__ void __launch_bounds__(THREADS)
-rg_lru_scan_kernel(const float* __restrict__ x, const float* __restrict__ a,
-                   const float* __restrict__ h0, float* __restrict__ out,
-                   int S, int R)
+__device__ __forceinline__ void cp_async16(float* dst, const float* src, bool valid) {
+    const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+    const int n = valid ? 16 : 0;     // src-size 0: zero-fill, nothing read
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+                 :: "r"(s), "l"(src), "r"(n) : "memory");
+}
+__device__ __forceinline__ void cp_async4(float* dst, const float* src, bool valid) {
+    const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+    const int n = valid ? 4 : 0;
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+                 :: "r"(s), "l"(src), "r"(n) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait() {
+    asm volatile("cp.async.wait_group %0;\n" :: "n"(STAGES - 1) : "memory");
+}
+
+// Issue the loads of stage `st` (steps st*T .. st*T + T - 1) into its slot.
+template <bool VEC>
+__device__ __forceinline__ void issue(float* ring_a, float* ring_x, const float* a,
+                                      const float* x, long long base, int st, int S, int R,
+                                      int c0, int lane)
 {
-    const int c = blockIdx.x * THREADS + threadIdx.x;
+    float* da = ring_a + (st % STAGES) * STAGE_FLOATS;
+    float* dx = ring_x + (st % STAGES) * STAGE_FLOATS;
+    const int t0 = st * T;
+    if (VEC) {
+        // a row of CH channels is CH / 4 chunks of 16 bytes; a warp
+        // instruction lands RPI rows
+        constexpr int CPR = CH / 4, RPI = 32 / CPR;
+        const int cc = 4 * (lane % CPR);
+        const bool cok = c0 + cc < R;      // R % 4 == 0: a chunk is all in or all out
+#pragma unroll
+        for (int i = 0; i < T / RPI; ++i) {
+            const int u = RPI * i + lane / CPR;
+            if (t0 + u >= S) break;
+            const long long off = base + (long long)(t0 + u) * R + cc;
+            cp_async16(da + u * CH + cc, cok ? a + off : a, cok);
+            cp_async16(dx + u * CH + cc, cok ? x + off : x, cok);
+        }
+    } else {
+#pragma unroll 8
+        for (int u = 0; u < T; ++u) {
+            if (t0 + u >= S) break;
+#pragma unroll
+            for (int k = 0; k < CPL; ++k) {
+                const int cl = lane + 32 * k;
+                const bool cok = c0 + cl < R;
+                const long long off = base + (long long)(t0 + u) * R + cl;
+                cp_async4(da + u * CH + cl, cok ? a + off : a, cok);
+                cp_async4(dx + u * CH + cl, cok ? x + off : x, cok);
+            }
+        }
+    }
+}
+
+template <bool VEC>
+__global__ void __launch_bounds__(32)
+rg_lru_scan_kernel(const float* __restrict__ x, const float* __restrict__ a,
+                   const float* __restrict__ h0, float* __restrict__ out, int S, int R)
+{
+    extern __shared__ __align__(16) float smem[];
+    float* ring_a = smem;                           // [STAGES][T][CH]
+    float* ring_x = smem + STAGES * STAGE_FLOATS;   // [STAGES][T][CH]
+    const int lane = threadIdx.x;
+    const int c0 = blockIdx.x * CH;
     const int b = blockIdx.y;
-    if (c >= R) return;
-    const long long base = (long long)b * S * R + c;
-    float h = h0[(long long)b * R + c];
-    int t = 0;
-    for (; t + U <= S; t += U) {
-        float av[U], xv[U];
+    const long long base = (long long)b * S * R + c0;   // element (b, 0, c0)
+    const int nst = (S + T - 1) / T;
+
 #pragma unroll
-        for (int u = 0; u < U; ++u) {
-            const long long i = base + (long long)(t + u) * R;
-            av[u] = a[i];
-            xv[u] = x[i];
-        }
+    for (int st = 0; st < STAGES - 1; ++st) {
+        if (st < nst) issue<VEC>(ring_a, ring_x, a, x, base, st, S, R, c0, lane);
+        cp_async_commit();
+    }
+    float h[CPL];
+    bool mine[CPL];
 #pragma unroll
-        for (int u = 0; u < U; ++u) {
-            h = __fadd_rn(__fmul_rn(av[u], h), xv[u]);
-            out[base + (long long)(t + u) * R] = h;
+    for (int k = 0; k < CPL; ++k) {
+        const int c = c0 + lane + 32 * k;
+        mine[k] = c < R;
+        h[k] = mine[k] ? h0[(long long)b * R + c] : 0.f;
+    }
+    float* o = out + base + lane;
+    for (int st = 0; st < nst; ++st) {
+        __syncwarp();     // the slot of stage st - 1 is read by every lane
+        if (st + STAGES - 1 < nst)
+            issue<VEC>(ring_a, ring_x, a, x, base, st + STAGES - 1, S, R, c0, lane);
+        cp_async_commit();
+        cp_async_wait();  // this lane's copies of stage st have landed
+        __syncwarp();     // and so have the other lanes'
+        const float* sa = ring_a + (st % STAGES) * STAGE_FLOATS + lane;
+        const float* sx = ring_x + (st % STAGES) * STAGE_FLOATS + lane;
+        const int t0 = st * T;
+        const int n = min(T, S - t0);
+        if (n == T) {
+#pragma unroll
+            for (int u = 0; u < T; ++u)
+#pragma unroll
+                for (int k = 0; k < CPL; ++k) {
+                    h[k] = __fadd_rn(__fmul_rn(sa[u * CH + 32 * k], h[k]), sx[u * CH + 32 * k]);
+                    if (mine[k]) o[(long long)(t0 + u) * R + 32 * k] = h[k];
+                }
+        } else {
+            for (int u = 0; u < n; ++u)
+#pragma unroll
+                for (int k = 0; k < CPL; ++k) {
+                    h[k] = __fadd_rn(__fmul_rn(sa[u * CH + 32 * k], h[k]), sx[u * CH + 32 * k]);
+                    if (mine[k]) o[(long long)(t0 + u) * R + 32 * k] = h[k];
+                }
         }
     }
-    for (; t < S; ++t) {
-        const long long i = base + (long long)t * R;
-        h = __fadd_rn(__fmul_rn(a[i], h), x[i]);
-        out[i] = h;
-    }
+}
+
+template <bool VEC>
+int launch(const float* x, const float* a, const float* h0, float* out, int B, int S, int R,
+           cudaStream_t stream)
+{
+    cudaError_t err = cudaFuncSetAttribute(
+        rg_lru_scan_kernel<VEC>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM_BYTES);
+    if (err != cudaSuccess) return (int)err;
+    dim3 grid((R + CH - 1) / CH, B);
+    rg_lru_scan_kernel<VEC><<<grid, 32, SMEM_BYTES, stream>>>(x, a, h0, out, S, R);
+    return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -71,7 +180,8 @@ extern "C" int rg_lru_scan_f32(const float* x, const float* a, const float* h0,
                                float* out, int B, int S, int R, void* stream)
 {
     if (B <= 0 || S <= 0 || R <= 0) return (int)cudaSuccess;
-    dim3 grid((R + THREADS - 1) / THREADS, B);
-    rg_lru_scan_kernel<<<grid, THREADS, 0, (cudaStream_t)stream>>>(x, a, h0, out, S, R);
-    return (int)cudaGetLastError();
+    cudaStream_t st = (cudaStream_t)stream;
+    const bool vec = R % 4 == 0 && ((uintptr_t)x | (uintptr_t)a) % 16 == 0;
+    return vec ? launch<true>(x, a, h0, out, B, S, R, st)
+               : launch<false>(x, a, h0, out, B, S, R, st);
 }

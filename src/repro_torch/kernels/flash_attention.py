@@ -24,7 +24,15 @@ kernel; the model never builds one.)
 A CPU tensor runs the plain version (``flash_attention_plain``: repeat K/V,
 then ``ref.flash_attention_ref``); a CUDA tensor launches
 ``csrc/flash_attention.cu`` (head dims 64, 128, 256, float32) or raises.
-``LAUNCHES`` counts kernel launches, incremented only right after one.
+The kernel runs both products on the tensor cores in 3xTF32 (each operand
+split into two tf32 halves, three products summed in FP32), which keeps
+it within the FP32 bar where one TF32 pass would not.  One block owns ``ROWS`` = 128 query rows that share their
+K/V tiles: two query heads of one kv head at 64 positions when ``h / kv`` is
+even, else 128 positions of one head (``heads_per_block``); it walks the
+``BLOCK_K``-key tiles in ``kv_tile_range`` and the grid runs the last query
+tiles first (``block_order``).  These functions state the kernel's schedule
+in Python, for the tests; the CUDA source computes the same.  ``LAUNCHES``
+counts kernel launches, incremented only right after one.
 """
 from __future__ import annotations
 
@@ -45,11 +53,18 @@ __all__ = [
     "flash_attention_cuda",
     "repeat_kv",
     "smem_bytes",
+    "ROWS",
+    "BLOCK_K",
+    "heads_per_block",
+    "block_order",
+    "kv_tile_range",
 ]
 
 NAME = "flash_attention"
 LAUNCHES: Dict[str, int] = {NAME: 0}
 HEAD_DIMS = (64, 128, 256)   # the kernel's template instances
+ROWS = 128                   # query rows (head, position) of one kernel block
+BLOCK_K = 32                 # keys of one K/V tile
 
 
 def reset_launches() -> None:
@@ -70,6 +85,38 @@ def flash_attention_plain(q, k, v, *, causal: bool = True, window: Optional[int]
     rep = q.shape[2] // k.shape[2]
     return flash_attention_ref(q, repeat_kv(k, rep), repeat_kv(v, rep),
                                causal=causal, window=window, softcap=softcap)
+
+
+def heads_per_block(h: int, kv: int) -> int:
+    """Query heads that share one block's K/V tiles: two heads of the same
+    kv head when ``h / kv`` is even, else one."""
+    return 2 if (h // kv) % 2 == 0 else 1
+
+
+def block_order(b: int, s: int, h: int, kv: int, rows: int = ROWS):
+    """The kernel's grid in launch order: ``(first position, batch row,
+    first head, heads)`` of each block.  The last query tiles (the longest
+    causal rows) come first; within a tile, batch rows then head groups."""
+    hpb = heads_per_block(h, kv)
+    pos = rows // hpb
+    nqt = -(-s // pos)
+    return [(qt * pos, bb, hb * hpb, hpb)
+            for qt in reversed(range(nqt)) for bb in range(b) for hb in range(h // hpb)]
+
+
+def kv_tile_range(p0: int, positions: int, s: int, causal: bool, window: Optional[int],
+                  block_k: int = BLOCK_K):
+    """``[begin, end)`` of the K/V tiles that a block of query positions
+    ``p0 .. p0 + positions - 1`` walks: none wholly above the causal diagonal
+    of its newest row, none wholly out of the window of its oldest."""
+    nkt = -(-s // block_k)
+    end = min(nkt, (min(p0 + positions, s) - 1) // block_k + 1) if causal else nkt
+    begin = 0
+    if window:
+        t = p0 - window - block_k + 1
+        if t >= 0:
+            begin = t // block_k + 1
+    return begin, end
 
 
 _LIB = None
@@ -114,8 +161,8 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True, window: Optional[int] 
         raise ValueError(f"{h} query heads are not a multiple of {kv} kv heads")
     if d not in HEAD_DIMS:
         raise ValueError(f"head_dim {d}: the flash kernel takes {HEAD_DIMS}")
-    if h > 65535 or b > 65535:
-        raise ValueError(f"b={b}, h={h}: the kernel's grid takes at most 65535 of each")
+    if b * s >= 2 ** 31:
+        raise ValueError(f"b={b}, s={s}: the kernel counts b * s positions in 32 bits")
     if window is not None and window < 1:
         raise ValueError(f"window must be >= 1, got {window}")
     if softcap is not None and softcap <= 0:

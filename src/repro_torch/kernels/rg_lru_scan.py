@@ -9,11 +9,13 @@ argument order is ``ops.rg_lru_scan(x, a, h0)``, not the ``pallas_call``'s
 The TPU kernel closes each sequence block in log space,
 ``h = A * (h_in + cumsum(x / A))`` with ``A = cumprod(a)``, because the
 TPU's vector unit does cumulative sums well and serial steps badly.  That
-form is not carried over: on the card one thread per channel walks the
-steps in order (``csrc/rg_lru_scan.cu``), and the log-space form would only
-add the ``1 / A`` overflow bound that the TPU docstring warns about.  The
-kernel does a rounded multiply and a rounded add per step, exactly as the
-plain version, so the two agree bit for bit.
+form is not carried over: on the card one warp walks the steps of
+``CHANNELS`` = 64 channels in order (``csrc/rg_lru_scan.cu``) while a ring
+of ``RING_STAGES`` stages of ``STAGE_STEPS`` steps of ``a`` and ``x``
+streams into shared memory ahead of it (``ring_schedule``), and the
+log-space form would only add the ``1 / A`` overflow bound that the TPU
+docstring warns about.  The kernel does a rounded multiply and a rounded add
+per step, exactly as the plain version, so the two agree bit for bit.
 
 A CPU tensor runs the plain version (``ref.rg_lru_ref``); a CUDA tensor
 launches the kernel or raises.  ``LAUNCHES`` counts kernel launches.
@@ -21,16 +23,37 @@ launches the kernel or raises.  ``LAUNCHES`` counts kernel launches.
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Optional
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
 from .ref import rg_lru_ref
 
-__all__ = ["LAUNCHES", "reset_launches", "rg_lru_scan", "rg_lru_scan_plain", "rg_lru_scan_cuda"]
+__all__ = ["LAUNCHES", "CHANNELS", "STAGE_STEPS", "RING_STAGES", "reset_launches", "ring_schedule",
+           "rg_lru_scan", "rg_lru_scan_plain", "rg_lru_scan_cuda"]
 
 NAME = "rg_lru_scan"
 LAUNCHES: Dict[str, int] = {NAME: 0}
+CHANNELS = 64      # channels of one kernel block (one warp, two a lane)
+STAGE_STEPS = 32   # steps of one ring stage
+RING_STAGES = 4    # stages of the ring: 128 steps, 64 KB of a and x a block
+
+
+def ring_schedule(s: int) -> List[Tuple[str, int]]:
+    """One block's order of events over ``s`` steps, as the kernel runs
+    them: ``("issue", st)`` when the loads of stage ``st`` (steps
+    ``st * STAGE_STEPS`` on, the last stage short) go into ring slot
+    ``st % RING_STAGES``, ``("walk", st)`` when the warp walks it.  The
+    first ``RING_STAGES - 1`` stages are issued up front; before walking
+    stage ``st`` the warp issues stage ``st + RING_STAGES - 1`` into the
+    slot that stage ``st - 1`` has just freed."""
+    n = -(-s // STAGE_STEPS)
+    events = [("issue", st) for st in range(min(RING_STAGES - 1, n))]
+    for st in range(n):
+        if st + RING_STAGES - 1 < n:
+            events.append(("issue", st + RING_STAGES - 1))
+        events.append(("walk", st))
+    return events
 
 
 def reset_launches() -> None:

@@ -8,7 +8,10 @@ count) are held against the JAX model's ``_sdpa``; ragged sequence lengths,
 which the TPU wrapper does not take, against ``flash_attention_ref``.
 Tolerances: 3e-5 for attention and 2e-4 for the scan (tests/test_kernels.py's
 f32 bars).  Tests marked ``cuda`` hold the CUDA kernels against the plain
-versions on the card and skip elsewhere.
+versions on the card and skip elsewhere.  The kernels' schedules (head
+pairing, block order, live K/V tiles, the scan's prefetch ring) are checked
+here through their Python statements, and a numpy emulation of tf32 rounding
+records why the flash kernel runs 3xTF32 and not one TF32 pass.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -23,9 +26,18 @@ from repro.models.attention import _mask_bias as j_mask_bias
 from repro.models.attention import _sdpa as j_sdpa
 from repro_torch.kernels import flash_attention as fa_mod
 from repro_torch.kernels import rg_lru_scan as rg_mod
-from repro_torch.kernels.flash_attention import flash_attention, flash_attention_plain, repeat_kv
+from repro_torch.kernels.flash_attention import (
+    BLOCK_K,
+    ROWS,
+    block_order,
+    flash_attention,
+    flash_attention_plain,
+    heads_per_block,
+    kv_tile_range,
+    repeat_kv,
+)
 from repro_torch.kernels.ref import flash_attention_ref, rg_lru_ref
-from repro_torch.kernels.rg_lru_scan import rg_lru_scan
+from repro_torch.kernels.rg_lru_scan import RING_STAGES, STAGE_STEPS, rg_lru_scan, ring_schedule
 
 FLASH_TOL = 3e-5
 SCAN_TOL = 2e-4
@@ -181,12 +193,31 @@ def card():
     return torch.device("cuda")
 
 
+# (b, s, h, kv, d, kw) at the serve heads (recurrentgemma-9b: 16 query heads,
+# MQA, head_dim 256, window 2048)
+SERVE_HEADS = (16, 1, 256, {"window": 2048})
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,s,h,kv,d,kw", [
     *[(b, s, h, h, d, kw) for b, s, h, d, kw in FLASH_CASES],
     (2, 100, 4, 1, 64, {}),
     (1, 200, 4, 2, 128, {"window": 50}),
     (2, 300, 16, 1, 256, {"window": 128}),
+    # heads that do not pair: h = 1, h = 3 with kv = 1, h / kv odd
+    (1, 200, 1, 1, 64, {}),
+    (2, 130, 3, 1, 128, {"window": 40}),
+    (2, 150, 6, 2, 64, {}),
+    (1, 97, 5, 5, 64, {"causal": False}),
+    # lengths ragged under 128-row blocks and 32-key tiles
+    *[(2, n, *SERVE_HEADS[:3], SERVE_HEADS[3]) for n in (1, 31, 129, 3072 + 17)],
+    # windows narrower than one K/V tile
+    (2, 300, 16, 1, 256, {"window": 7}),
+    (1, 200, 3, 1, 64, {"window": 1}),
+    (1, 100, 2, 1, 64, {"window": 5, "causal": False}),
+    # head dims 64 and 128 at the serve length
+    (2, 3072, 16, 1, 64, {"window": 2048}),
+    (2, 3072, 16, 1, 128, {"window": 2048}),
 ])
 def test_cuda_flash_kernel_matches_plain(card, b, s, h, kv, d, kw):
     q, k, v = (_t(a).to(card) for a in _qkv(s + h, b, s, h, kv, d))
@@ -199,7 +230,13 @@ def test_cuda_flash_kernel_matches_plain(card, b, s, h, kv, d, kw):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("b,s,r", [(8, 512, 256), (2, 37, 100), (2, 3072, 4096)])
+@pytest.mark.parametrize("b,s,r", [
+    (8, 512, 256), (2, 37, 100), (2, 3072, 4096),
+    # R not a multiple of the 64-channel block, and not of 4 (4-byte loads)
+    (2, 3072, 4100), (2, 777, 1001),
+    # S shorter than the 128-step ring and not a multiple of a stage; S = 1
+    (4, 100, 256), (2, 1, 64),
+])
 def test_cuda_scan_kernel_matches_plain(card, b, s, r):
     x, a, h0 = (_t(t).to(card) for t in _scan_inputs(s, b, s, r))
     before = rg_mod.LAUNCHES["rg_lru_scan"]
@@ -208,3 +245,140 @@ def test_cuda_scan_kernel_matches_plain(card, b, s, r):
     torch.cuda.synchronize()
     assert rg_mod.LAUNCHES["rg_lru_scan"] == before + 1
     torch.testing.assert_close(out, ref, atol=SCAN_TOL, rtol=SCAN_TOL)
+    # the same rounded multiply and add per step as the plain loop
+    assert torch.equal(out, ref)
+
+
+# ---------------------------------------------------------------------------
+# the kernels' schedules, stated in Python
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("h,kv,pairs", [
+    (16, 1, True), (8, 2, True), (4, 4, False), (1, 1, False), (3, 1, False), (6, 2, False),
+    (12, 3, True), (9, 3, False), (12, 6, True), (10, 2, False),
+])
+def test_heads_pair_only_within_one_kv_head(h, kv, pairs):
+    hpb = heads_per_block(h, kv)
+    assert hpb == (2 if pairs else 1)
+    rep = h // kv
+    for head0 in range(0, h, hpb):
+        assert len({hh // rep for hh in range(head0, head0 + hpb)}) == 1
+
+
+@pytest.mark.parametrize("b,s,h,kv", [
+    (2, 3072, 16, 1), (2, 3089, 16, 1), (1, 1, 16, 1), (2, 31, 16, 1), (1, 129, 3, 1),
+    (2, 150, 6, 2), (1, 200, 1, 1), (3, 64, 2, 2),
+])
+def test_block_order_covers_every_row_once_longest_first(b, s, h, kv):
+    order = block_order(b, s, h, kv)
+    hpb = heads_per_block(h, kv)
+    positions = ROWS // hpb
+    seen = np.zeros((b, h, s), np.int64)
+    for p0, bb, head0, n in order:
+        assert n == hpb and 0 <= p0 < s
+        seen[bb, head0:head0 + n, p0:p0 + positions] += 1
+    assert (seen == 1).all()
+    # last query tiles first; with a causal mask and no window the K/V tiles
+    # each block walks never grow along the launch order
+    starts = [p0 for p0, _, _, _ in order]
+    assert starts == sorted(starts, reverse=True)
+    work = [np.subtract(*kv_tile_range(p0, positions, s, True, None)[::-1]) for p0 in starts]
+    assert all(w1 >= w2 for w1, w2 in zip(work, work[1:]))
+
+
+@pytest.mark.parametrize("s,positions,causal,window", [
+    (3072, 64, True, 2048), (3089, 64, True, 2048), (300, 128, True, 7), (200, 128, True, 1),
+    (100, 128, False, 5), (257, 64, False, None), (129, 128, True, None), (31, 64, True, 2048),
+])
+def test_kv_tile_range_holds_exactly_the_live_tiles(s, positions, causal, window):
+    def kept(i, j):
+        return j < s and (not causal or j <= i) and (window is None or j > i - window)
+
+    for p0 in range(0, s, positions):
+        rows = range(p0, min(p0 + positions, s))
+        begin, end = kv_tile_range(p0, positions, s, causal, window)
+        live = [kt for kt in range(-(-s // BLOCK_K))
+                if any(kept(i, j) for i in rows for j in range(kt * BLOCK_K, (kt + 1) * BLOCK_K))]
+        # every live tile is walked; the walk starts and ends on live tiles
+        assert begin <= live[0] and live[-1] < end
+        assert begin in live and end - 1 in live
+
+
+@pytest.mark.parametrize("s", [1, 31, 32, 100, 127, 128, 129, 255, 1000, 3072])
+def test_scan_ring_issues_each_stage_once_ahead_of_its_walk(s):
+    n = -(-s // STAGE_STEPS)
+    slots = {}                         # ring slot -> stage in it
+    issued, walked = [], []
+    for ev, st in ring_schedule(s):
+        slot = st % RING_STAGES
+        if ev == "issue":
+            # the slot is empty or holds a stage already walked
+            assert slots.get(slot) is None or slots[slot] in walked
+            slots[slot] = st
+            issued.append(st)
+            assert len(issued) - len(walked) <= RING_STAGES
+        else:
+            assert slots[slot] == st and st in issued
+            walked.append(st)
+    assert issued == list(range(n)) and walked == list(range(n))
+    # the stages cover the s steps once: full stages, then a short last one
+    assert (n - 1) * STAGE_STEPS < s <= n * STAGE_STEPS
+
+
+# ---------------------------------------------------------------------------
+# why 3xTF32: a numpy emulation of the kernel's arithmetic against float64
+# ---------------------------------------------------------------------------
+
+def _tf32_rna(x):
+    """Round float32 to tf32 (10 mantissa bits), nearest, ties away from
+    zero: the kernel's integer form of cvt.rna.tf32.f32."""
+    bits = np.ascontiguousarray(x, np.float32).view(np.uint32)
+    return ((bits + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def _tf32_rna_reference(x):
+    """The same rounding from its definition, in float64."""
+    x = np.asarray(x, np.float64)
+    m, e = np.frexp(x)                       # x = m 2^e, 0.5 <= |m| < 1
+    scaled = np.abs(m) * 2.0 ** 11           # 11 significant bits
+    r = np.floor(scaled + 0.5)               # ties away from zero on |m|
+    return (np.sign(m) * r * 2.0 ** (e - 11)).astype(np.float32)
+
+
+def _mm(a, b, passes):
+    """a @ b with both operands rounded to tf32: one pass hi*hi, or three
+    (hi*lo + lo*hi + hi*hi); products summed in float32."""
+    ah, bh = _tf32_rna(a), _tf32_rna(b)
+    if passes == 1:
+        return ah @ bh
+    al, bl = _tf32_rna(a - ah), _tf32_rna(b - bh)
+    return (ah @ bl + al @ bh) + ah @ bh
+
+
+def _attention(q, k, v, matmul):
+    d = q.shape[-1]
+    s = matmul(q, k.T) * np.float32(1 / np.sqrt(d))
+    s = np.where(np.tril(np.ones(s.shape, bool)), s, -np.inf)
+    p = np.exp(s - s.max(-1, keepdims=True))
+    return matmul(p / p.sum(-1, keepdims=True), v)
+
+
+def test_tf32_rounding_matches_its_definition():
+    rng = np.random.default_rng(0)
+    x = np.concatenate([rng.normal(size=4096) * 10.0 ** rng.integers(-6, 6, size=4096),
+                        [0.0, -0.0, 1.0, -1.5, 1 + 2.0 ** -11, 1 + 3 * 2.0 ** -11]]).astype(np.float32)
+    np.testing.assert_array_equal(_tf32_rna(x), _tf32_rna_reference(x))
+    assert _tf32_rna(np.float32(1 + 2.0 ** -11)) == np.float32(1 + 2.0 ** -10)   # tie: away
+
+
+def test_three_tf32_passes_keep_the_f32_bar_and_one_does_not():
+    s, d = 256, 256
+    rng = np.random.default_rng(14)
+    q, k, v = (rng.normal(size=(s, d)).astype(np.float32) for _ in range(3))
+    ref = _attention(q.astype(np.float64), k.astype(np.float64), v.astype(np.float64), np.matmul)
+    top = np.abs(ref).max()
+    err3 = np.abs(_attention(q, k, v, lambda a, b: _mm(a, b, 3)) - ref).max() / top
+    err1 = np.abs(_attention(q, k, v, lambda a, b: _mm(a, b, 1)) - ref).max() / top
+    err32 = np.abs(_attention(q, k, v, np.matmul) - ref).max() / top
+    assert err3 <= FLASH_TOL and err3 <= 4 * err32
+    assert err1 > FLASH_TOL
