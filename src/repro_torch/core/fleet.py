@@ -1,8 +1,18 @@
-"""Resident masked fleet engine: ``[W, ...]`` worker stacks on the device.
+"""Fleet engine: how one round phase of local training is dispatched.
 
-Port of the masked resident engine of ``repro/core/fleet.py``.  Every worker
-stays at base shape; its sub-model is a 0/1 coordinate mask, so the whole
-fleet trains as one stack and a pruning event only rewrites mask rows.
+Port of ``repro/core/fleet.py``, selected by ``engine``:
+
+* ``sequential`` — the reference engine: one ``train_plan`` call per worker,
+  in worker order, on its physically small sub-model;
+* ``bucketed``   — workers whose sub-models share a parameter-shape
+  signature (and shard and plan shapes) train as one stack, one
+  ``train_many`` call per bucket;
+* ``masked``     — the resident engine below.
+
+The first two take a list of ``FleetJob``s (``train_all``).  The masked
+engine keeps the fleet resident instead: every worker stays at base shape;
+its sub-model is a 0/1 coordinate mask, so the whole fleet trains as one
+stack and a pruning event only rewrites mask rows.
 
 * ``scatter_global``  — broadcast-back is a masked scatter ``P = g[None] * M``;
 * ``train_rounds``    — one trainer call over the whole stack, with per-step
@@ -18,7 +28,7 @@ fleet trains as one stack and a pruning event only rewrites mask rows.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Mapping, Optional, Sequence
+from typing import Dict, List, Mapping, Optional, Sequence
 
 import numpy as np
 import torch
@@ -30,6 +40,8 @@ from .masks import GlobalIndex
 from .worker import LocalTrainer, stack_batch_plans
 
 __all__ = [
+    "ENGINES",
+    "FleetJob",
     "FleetEngine",
     "FleetState",
     "bucket_rows",
@@ -38,6 +50,8 @@ __all__ = [
 ]
 
 Tensors = Dict[str, torch.Tensor]
+
+ENGINES = ("sequential", "bucketed", "masked")
 
 
 def bucket_rows(n: int, cap: int) -> int:
@@ -99,17 +113,77 @@ class FleetState:
     gl_sizes: Dict[str, np.ndarray]
 
 
+@dataclasses.dataclass
+class FleetJob:
+    """One worker's local-training work item for a round phase."""
+
+    worker: int
+    params: Tensors           # reconfigured (physically small) sub-model
+    index: GlobalIndex        # its global index I_w (base coordinates)
+    x: np.ndarray             # this worker's data shard
+    y: np.ndarray
+    plan: np.ndarray          # [steps, batch] make_batch_plan output
+
+
 class FleetEngine:
-    """Trains the resident fleet through a ``LocalTrainer``."""
+    """Trains the fleet through a ``LocalTrainer``: a list of jobs on the
+    reconfiguring engines, the resident stacks on the masked one."""
 
     def __init__(self, trainer: LocalTrainer, unit_map: UnitMap,
-                 base_shapes: Mapping[str, tuple], device="cpu"):
+                 base_shapes: Mapping[str, tuple], device="cpu", engine: str = "masked"):
+        if engine not in ENGINES:
+            raise ValueError(f"unknown engine {engine!r}; choose from {ENGINES}")
         self.trainer = trainer
         self.unit_map = unit_map
         self.base_shapes = base_shapes
         self.device = torch.device(device)
-        self.batched_calls = 0           # fleet training calls launched
-        self.buckets_used: set = set()   # sub-stack row counts launched
+        self.engine = engine
+        self.batched_calls = 0           # stacked training calls launched
+        self.buckets_used: set = set()   # resident sub-stack row counts launched
+
+    # ------------------------------------------------------------------
+    # reconfiguring engines: physically small sub-models
+    # ------------------------------------------------------------------
+
+    def train_all(self, jobs: Sequence[FleetJob], lam: float = 0.0) -> List[Tensors]:
+        """Train every job; returns the trained sub-model params aligned
+        with ``jobs`` (a job with an empty plan comes back untouched)."""
+        if self.engine == "masked":
+            raise ValueError(
+                "FleetEngine.train_all on the masked engine (the reference's "
+                "_run_masked, which no run_simulation path reaches) is not "
+                "ported to repro_torch yet (see ROADMAP.md, queue A); the "
+                "masked engine trains its resident stacks with train_rounds"
+            )
+        results: List[Tensors] = [dict(j.params) for j in jobs]
+        live = [i for i, j in enumerate(jobs) if j.plan.shape[0] > 0]
+        if self.engine == "sequential":
+            for i in live:
+                j = jobs[i]
+                results[i], _ = self.trainer.train_plan(
+                    j.params, self.unit_map, j.x, j.y, j.plan, lam
+                )
+        else:
+            buckets: Dict[tuple, List[int]] = {}
+            for i in live:
+                j = jobs[i]
+                shapes = tuple(sorted((k, tuple(v.shape)) for k, v in j.params.items()))
+                buckets.setdefault((shapes, j.x.shape, j.plan.shape), []).append(i)
+            for members in buckets.values():
+                js = [jobs[i] for i in members]
+                trained, _ = self.trainer.train_many(
+                    [j.params for j in js], self.unit_map,
+                    np.stack([j.x for j in js]), np.stack([j.y for j in js]),
+                    np.stack([j.plan for j in js]), lam,
+                )
+                self.batched_calls += 1
+                for i, p in zip(members, trained):
+                    results[i] = p
+        return results
+
+    # ------------------------------------------------------------------
+    # resident masked engine: [W, ...] stacks on the device
+    # ------------------------------------------------------------------
 
     def init_state(self, base_params: Tensors, shards_x: Sequence[np.ndarray],
                    shards_y: Sequence[np.ndarray]) -> FleetState:

@@ -10,8 +10,9 @@ returns a float64 score per prunable unit (higher = keep); ``masks``'s
   * no_adjacent  — one shared random order, constant
   * no_identical — per-worker random rotation, constant (breaks Identical)
   * no_constant  — shared rotation re-drawn each round (breaks Constant)
-
-The data-dependent criteria (l1, taylor, fpgm, hrank) are not ported yet.
+  * l1 / taylor / fpgm / hrank — data/sub-model-dependent criteria (break
+    both), read from ``worker.local_unit_stats`` of the worker's own
+    sub-model and shard
 """
 from __future__ import annotations
 
@@ -30,11 +31,16 @@ DATA_DEPENDENT = ("l1", "taylor", "fpgm", "hrank")
 @dataclasses.dataclass
 class ImportanceContext:
     """What a criterion may consult: base unit counts, the frozen global
-    scales (CIG), and the (worker, round, seed) the seed-derived criteria
-    draw from."""
+    scales (CIG), the local sub-model's signals scattered to base units
+    (-inf where a unit is absent): per-unit weight-group L2 norms, Taylor
+    |g.w| terms and mean |activation|, and the (worker, round, seed) the
+    seed-derived criteria draw from."""
 
     unit_counts: Mapping[str, int]
     scales: Optional[Scores] = None
+    weight_norms: Optional[Scores] = None
+    grads: Optional[Scores] = None
+    activations: Optional[Scores] = None
     worker: int = 0
     round: int = 0
     seed: int = 0
@@ -80,10 +86,44 @@ def _no_constant(ctx: ImportanceContext) -> Scores:
     }
 
 
+def _l1(ctx: ImportanceContext) -> Scores:
+    if ctx.weight_norms is None:
+        raise ValueError("l1 needs weight_norms")
+    return {k: np.asarray(v, np.float64) for k, v in ctx.weight_norms.items()}
+
+
+def _taylor(ctx: ImportanceContext) -> Scores:
+    if ctx.grads is None:
+        raise ValueError("taylor needs grads")
+    return {k: np.asarray(v, np.float64) for k, v in ctx.grads.items()}
+
+
+def _fpgm(ctx: ImportanceContext) -> Scores:
+    """Geometric-median distance proxy: |norm - median(norm)| per layer
+    (the reference's cheap surrogate of FPGM's filter distances)."""
+    if ctx.weight_norms is None:
+        raise ValueError("fpgm needs weight_norms")
+    out = {}
+    for k, v in ctx.weight_norms.items():
+        v = np.asarray(v, np.float64)
+        out[k] = np.abs(v - np.median(v))
+    return out
+
+
+def _hrank(ctx: ImportanceContext) -> Scores:
+    if ctx.activations is None:
+        raise ValueError("hrank needs activations")
+    return {k: np.asarray(v, np.float64) for k, v in ctx.activations.items()}
+
+
 METHODS: Dict[str, Callable[[ImportanceContext], Scores]] = {
     "cig_bnscalor": cig_scores_from_scales,
     "index": _index,
     "no_adjacent": _shared_random,
     "no_identical": _no_identical,
     "no_constant": _no_constant,
+    "l1": _l1,
+    "taylor": _taylor,
+    "fpgm": _fpgm,
+    "hrank": _hrank,
 }

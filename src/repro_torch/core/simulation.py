@@ -1,19 +1,31 @@
 """Multi-worker collaborative-learning simulator (AdaptCL §IV), on PyTorch.
 
-Port of ``repro/core/simulation.py`` for the synchronous methods on the
-resident masked engine:
+Port of ``repro/core/simulation.py`` for the synchronous methods:
 
   * ``adaptcl``  — Algorithm 1 driven by Algorithm 2 pruned-rate learning
   * ``fedavg``   — McMahan et al. BSP
   * ``fedavg_s`` — + group-lasso sparse training
 
 W workers with heterogeneous bandwidths (the Eq. 6/7 channel model) train
-pruned copies of a VGG as ``[W, ...]`` base-shape stacks on the device
-(``core.fleet``); a sub-model is a 0/1 mask, pruning rewrites mask rows, and
-aggregation reads the stacks.  ``compute="block_skip"`` sends every conv and
-the head through the hand-written block-skip CUDA kernel, so a pruned
-worker's device FLOPs follow its retention; ``compute="dense"`` runs grouped
-convs at base shape (the oracle).
+pruned copies of a VGG or ResNet.  ``SimConfig.engine`` picks how
+(``core.fleet``):
+
+  * ``"sequential"`` (the default, as in the reference) — each worker holds
+    a physically small sub-model, extracted from the global model, trained
+    one call per worker, pruned by slicing, and embedded back for the
+    float64 aggregation;
+  * ``"bucketed"`` — the same, with same-shaped workers stacked into one
+    call;
+  * ``"masked"`` — the resident engine: ``[W, ...]`` base-shape stacks on
+    the device, a sub-model is a 0/1 mask, pruning rewrites mask rows, and
+    aggregation reads the stacks.  ``compute="block_skip"`` (masked only)
+    sends every conv and the head through the hand-written block-skip CUDA
+    kernel, so a pruned worker's device FLOPs follow its retention;
+    ``compute="dense"`` runs grouped convs at base shape (the oracle).
+
+Importance is a static criterion (cig_bnscalor, index, no_adjacent,
+no_identical, no_constant) or a data-dependent one (l1, taylor, fpgm, hrank),
+scored on the worker's own trained sub-model and shard at its pruning event.
 
 All host randomness is numpy and is consumed in the reference's order (batch
 plans per active worker, then one jitter draw per active worker), so the
@@ -52,19 +64,21 @@ from repro_torch.models.cnn import (
 )
 
 from .aggregation import (
+    aggregate_by_unit,
     aggregate_by_unit_stacked,
+    aggregate_by_worker,
     aggregate_by_worker_stacked,
     extract_subparams,
     roundtrip_total,
     subparam_shapes,
 )
-from .fleet import FleetEngine
+from .fleet import ENGINES, FleetEngine, FleetJob
 from .importance import DATA_DEPENDENT, METHODS, ImportanceContext
 from .masks import full_index, payload_bytes, prune_to_budget, retention, similarity
 from .pruned_rate import PrunedRateConfig, WorkerHistory, learn_pruned_rates
 from .scenario import full_participation
 from .timing import HeterogeneityConfig, heterogeneity_from_times, make_bandwidths
-from .worker import LocalTrainer, make_batch_plan, plan_steps
+from .worker import LocalTrainer, local_unit_stats, make_batch_plan, plan_steps
 
 __all__ = ["SimConfig", "SimResult", "run_simulation", "default_cnn", "validate_config"]
 
@@ -97,16 +111,18 @@ class SimConfig:
     time_jitter: float = 0.02
     noniid_s: float = 0.0               # paper's s%: 0 (IID) or 80
     fixed_pruned_rates: Optional[List[List[float]]] = None  # Tab. IX mode
-    # fields of the reference this slice does not run yet; each is refused
+    # local-training engine: "sequential" | "bucketed" | "masked" (core.fleet)
+    engine: str = "sequential"
+    # fields of the reference the port does not run yet; each is refused
     # by name unless left at its default
     dgc_sparsity: float = 0.0
     regrow: Optional[object] = None
-    engine: str = "masked"              # only the resident masked engine
     resident_momentum: bool = False
     scenario: Optional[object] = None
     robust: Optional[object] = None
     mesh: Optional[object] = None
-    # device compute path: "block_skip" (the CUDA kernel) or "dense"
+    # device compute path of the masked engine: "block_skip" (the CUDA
+    # kernel; needs engine="masked") or "dense"
     compute: str = "dense"
     # kernel block sizes (block_m, block_n, block_k): skip granularity; on
     # the card each must be a multiple of the kernel's 64-wide tile
@@ -135,10 +151,10 @@ class SimResult:
     recompiles: int                              # distinct training signatures
     similarity_traj: List[Tuple[int, float]]     # Eq. 3 between two workers
     update_times: List[List[float]]              # per round, per worker
-    engine: str = "masked"
-    batched_calls: int = 0                       # fleet training calls
+    engine: str = "sequential"
+    batched_calls: int = 0                       # stacked fleet training calls
     walltime_s: float = 0.0
-    host_roundtrips: int = 0                     # extract_subparams in the loop
+    host_roundtrips: int = 0                     # extract/embed in the loop
     bucket_sizes: List[int] = dataclasses.field(default_factory=list)
     compute: str = "dense"
     # training-FLOPs ledger, per scheduled plan step x batch images:
@@ -174,8 +190,16 @@ def validate_config(sim: SimConfig) -> None:
         raise _refuse("method", f"async method {sim.method!r}")
     if sim.method not in SYNC_METHODS:
         raise ValueError(f"SimConfig.method: unknown method {sim.method!r}")
-    if sim.engine != "masked":
-        raise _refuse("engine", f"engine={sim.engine!r} (only 'masked' runs)")
+    if sim.engine == "fused":
+        raise _refuse("engine", "engine='fused' (device round fusion)")
+    if sim.engine not in ENGINES:
+        raise ValueError(f"SimConfig.engine: unknown engine {sim.engine!r}")
+    if sim.compute == "block_skip" and sim.engine != "masked":
+        raise ValueError(
+            "SimConfig.compute='block_skip' needs engine='masked': the "
+            "kernel's block-keep flags come from the 0/1 mask stacks, and the "
+            "reconfigured engines already run physically small models"
+        )
     if sim.scenario is not None:
         raise _refuse("scenario", "client sampling / dropout / churn / faults")
     if sim.regrow is not None:
@@ -188,12 +212,10 @@ def validate_config(sim: SimConfig) -> None:
         raise _refuse("mesh", "the mesh-sharded fleet")
     if sim.resident_momentum:
         raise _refuse("resident_momentum", "cross-round resident momentum")
-    if sim.importance in DATA_DEPENDENT:
-        raise _refuse("importance", f"data-dependent importance {sim.importance!r}")
     if sim.importance not in METHODS:
         raise ValueError(f"SimConfig.importance: unknown criterion {sim.importance!r}")
-    if sim.cnn.kind == "resnet":
-        raise _refuse("cnn", "cnn.kind == 'resnet'")
+    if sim.cnn.kind not in ("vgg", "resnet"):
+        raise ValueError(f"SimConfig.cnn: unknown kind {sim.cnn.kind!r}")
     if sim.aggregation not in ("by_worker", "by_unit"):
         raise ValueError(f"SimConfig.aggregation: unknown {sim.aggregation!r}")
     if sim.compute not in ("dense", "block_skip"):
@@ -269,7 +291,9 @@ class _Env:
             sim.cnn, lr=sim.lr, compute=sim.compute,
             compute_blocks=sim.compute_blocks, device=self.device,
         )
-        self.fleet = FleetEngine(self.trainer, self.unit_map, self.base_shapes, self.device)
+        self.fleet = FleetEngine(
+            self.trainer, self.unit_map, self.base_shapes, self.device, engine=sim.engine
+        )
         self.rng = np.random.default_rng(sim.seed + 17)
         self.x_test = torch.as_tensor(self.task.x_test, device=self.device)
         self.flops_executed = 0.0
@@ -295,9 +319,12 @@ class _Env:
                 }
                 bc = cnn_block_compute(self.sim.cnn, masks, self.sim.compute_blocks)
                 cached = (bc["flops"], ideal, bc["blocks"])
-            else:
+            elif self.sim.engine == "masked":
                 # dense masked programs run the base shapes regardless of masks
                 cached = (self.full_flops, ideal, 0.0)
+            else:
+                # physically reconfigured models execute exactly their size
+                cached = (ideal, ideal, 0.0)
             self._acct_cache[key] = cached
         return cached
 
@@ -357,6 +384,7 @@ def _run_sync(sim: SimConfig, env: _Env) -> SimResult:
     sparse = sim.method in ("fedavg_s", "adaptcl")
     adapt = sim.method == "adaptcl"
     lam = sim.lam if sparse else 0.0
+    resident = sim.engine == "masked"
 
     global_params = dict(env.base_params)
     indices = [full_index(env.space) for _ in range(W)]
@@ -367,16 +395,19 @@ def _run_sync(sim: SimConfig, env: _Env) -> SimResult:
     prune_round_count = 0
     prune_events: List[Tuple[int, int, Dict[str, tuple]]] = []
 
-    shard_x, shard_y = zip(*(env.shard_xy(w) for w in range(W)))
-    state = env.fleet.init_state(env.base_params, list(shard_x), list(shard_y))
-    # constant per-phase step pads: every sub-stack shares one plan shape
-    pad_a = max(
-        plan_steps(len(env.shards[w]), sim.batch_size, sim.local_epochs) for w in range(W)
-    )
-    pad_b = max(
-        plan_steps(len(env.shards[w]), sim.batch_size, (1 - sim.beta) * sim.local_epochs)
-        for w in range(W)
-    )
+    state = None
+    pad_a = pad_b = None
+    if resident:
+        shard_x, shard_y = zip(*(env.shard_xy(w) for w in range(W)))
+        state = env.fleet.init_state(env.base_params, list(shard_x), list(shard_y))
+        # constant per-phase step pads: every sub-stack shares one plan shape
+        pad_a = max(
+            plan_steps(len(env.shards[w]), sim.batch_size, sim.local_epochs) for w in range(W)
+        )
+        pad_b = max(
+            plan_steps(len(env.shards[w]), sim.batch_size, (1 - sim.beta) * sim.local_epochs)
+            for w in range(W)
+        )
 
     clock = 0.0
     comm_bytes = 0.0
@@ -413,15 +444,27 @@ def _run_sync(sim: SimConfig, env: _Env) -> SimResult:
         pending_rates = list(rates)
         interval_phis = [[] for _ in range(W)]
 
-    def _scores_for(worker: int):
+    def _scores_for(worker: int, params_w):
+        """Scores in base coordinates for this worker's pruning event.  The
+        data-dependent criteria read the worker's trained sub-model: on the
+        resident engine its stack row, extracted here (one round trip)."""
         if sim.importance == "cig_bnscalor":
             if cig_scores is None:
                 raise RuntimeError("CIG order not yet frozen")
             return cig_scores
-        return METHODS[sim.importance](ImportanceContext(
-            unit_counts=env.space.unit_counts, worker=worker,
-            round=prune_round_count, seed=sim.seed,
-        ))
+        ctx_kw = dict(unit_counts=env.space.unit_counts, worker=worker,
+                      round=prune_round_count, seed=sim.seed)
+        if sim.importance in DATA_DEPENDENT:
+            if params_w is None:
+                row = {k: v[worker] for k, v in state.params.items()}
+                params_w = extract_subparams(row, indices[worker], env.unit_map)
+            x, y = env.shard_xy(worker)
+            stats = local_unit_stats(
+                env.trainer, params_w, indices[worker], env.space, env.unit_map, x, y
+            )
+            ctx_kw.update(weight_norms=stats["weight_norms"], grads=stats["grads"],
+                          activations=stats["activations"])
+        return METHODS[sim.importance](ImportanceContext(**ctx_kw))
 
     for t in range(1, sim.rounds + 1):
         events = full_participation(W)
@@ -444,24 +487,54 @@ def _run_sync(sim: SimConfig, env: _Env) -> SimResult:
         for w in active_ws:   # FLOPs ledger: phase A runs at the pre-prune index
             env.account_train(indices[w], plans_a[w].shape[0])
 
-        # phase A: broadcast-back as a masked scatter, one fleet call
-        env.fleet.scatter_global(state, global_params)
-        env.fleet.train_rounds(state, plans_a, lam, pad_steps=pad_a)
+        # phase A.  Resident: broadcast-back as a masked scatter, one fleet
+        # call.  Reconfiguring: each worker's sub-model extracted from the
+        # global model, the jobs trained by the engine.
+        worker_params: Dict[int, Dict[str, torch.Tensor]] = {}
+        if resident:
+            env.fleet.scatter_global(state, global_params)
+            env.fleet.train_rounds(state, plans_a, lam, pad_steps=pad_a)
+        else:
+            jobs_a = []
+            for w in active_ws:
+                x, y = env.shard_xy(w)
+                jobs_a.append(FleetJob(
+                    worker=w, params=extract_subparams(global_params, indices[w], env.unit_map),
+                    index=indices[w], x=x, y=y, plan=plans_a[w],
+                ))
+            for w, p in zip(active_ws, env.fleet.train_all(jobs_a, lam)):
+                worker_params[w] = p
 
-        # phase B: pruning workers rewrite their mask rows, then finish
+        # phase B: pruning workers prune at position beta (resident: a mask
+        # row rewrite; reconfiguring: slice the sub-model), then finish
+        jobs_b: List[FleetJob] = []
         pruned_any = False
         for w in active_ws:
             if not prune_now[w]:
                 continue
-            indices[w] = prune_to_budget(indices[w], _scores_for(w), pending_rates[w], env.space)
-            pruned_any = True
+            scores = _scores_for(w, worker_params.get(w))
+            if resident:
+                indices[w] = prune_to_budget(indices[w], scores, pending_rates[w], env.space)
+                pruned_any = True
+            else:
+                worker_params[w], indices[w] = env.trainer.prune_and_reconfigure(
+                    worker_params[w], indices[w], scores, pending_rates[w],
+                    env.space, env.unit_map,
+                )
+                if plans_b[w].shape[0] > 0:
+                    x, y = env.shard_xy(w)
+                    jobs_b.append(FleetJob(worker=w, params=worker_params[w], index=indices[w],
+                                           x=x, y=y, plan=plans_b[w]))
             prune_events.append((t, int(w), {k: tuple(map(int, v)) for k, v in indices[w].items()}))
-        if pruned_any:
+        if resident and pruned_any:
             env.fleet.refresh_masks(state, indices)
             env.fleet.train_rounds(
                 state, [plans_b[w] if prune_now[w] else None for w in range(W)],
                 lam, pad_steps=pad_b,
             )
+        elif jobs_b:
+            for job, trained in zip(jobs_b, env.fleet.train_all(jobs_b, lam)):
+                worker_params[job.worker] = trained
         for w in active_ws:   # FLOPs ledger: phase B runs at the pruned index
             if prune_now[w]:
                 env.account_train(indices[w], plans_b[w].shape[0])
@@ -470,7 +543,10 @@ def _run_sync(sim: SimConfig, env: _Env) -> SimResult:
         submitters = events.submitters
         phis = np.full(W, np.nan)
         for w in active_ws:
-            shapes_w = subparam_shapes(indices[w], env.unit_map, env.base_shapes)
+            if resident:
+                shapes_w = subparam_shapes(indices[w], env.unit_map, env.base_shapes)
+            else:
+                shapes_w = {k: tuple(v.shape) for k, v in worker_params[w].items()}
             phi_w = env.phi(w, shapes_w, jitter=True)
             phis[w] = phi_w
             interval_phis[w].append(phi_w)
@@ -486,10 +562,14 @@ def _run_sync(sim: SimConfig, env: _Env) -> SimResult:
             sim_traj.append((t, similarity(indices[1], indices[3])))
 
         t0 = _time.perf_counter()
-        if sim.aggregation == "by_unit":
+        if resident and sim.aggregation == "by_unit":
             agg = aggregate_by_unit_stacked(state.params, state.masks, submitters)
-        else:
+        elif resident:
             agg = aggregate_by_worker_stacked(state.params, submitters / submitters.sum())
+        else:
+            submissions = [(worker_params[w], indices[w]) for w in active_ws if submitters[w]]
+            aggregate = aggregate_by_unit if sim.aggregation == "by_unit" else aggregate_by_worker
+            agg = aggregate(submissions, env.unit_map, env.base_shapes)
         global_params = {k: v.float() for k, v in agg.items()}
         if adapt and t % sim.prune_interval == 0:
             _learn_rates()

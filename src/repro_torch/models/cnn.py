@@ -1,12 +1,16 @@
-"""The VGG family of the AdaptCL reproduction, on PyTorch.
+"""The CNNs of the AdaptCL reproduction, VGG and ResNet, on PyTorch.
 
-Port of the VGG parts of ``repro/models/cnn.py``.  Parameters are flat
-``{path: tensor}`` dicts in the JAX package's layout — conv weights HWIO
-``[kh, kw, cin, cout]``, BN ``[cout]``, head ``[cin, classes]`` — so every
-``unit_map`` axis stays valid; the port converts to NCHW/OIHW only at the op
-boundary.  Every function also takes worker stacks: params with a leading
-worker dimension ``[B, ...]`` and images ``[B, n, H, W, 3]``, which is how
-the resident fleet trains W workers in one call (the JAX package vmaps).
+Port of ``repro/models/cnn.py``.  Parameters are flat ``{path: tensor}``
+dicts in the JAX package's layout — conv weights HWIO ``[kh, kw, cin,
+cout]``, BN ``[cout]``, head ``[cin, classes]`` — so every ``unit_map`` axis
+stays valid; the port converts to NCHW/OIHW only at the op boundary.  Every
+function also takes worker stacks: params with a leading worker dimension
+``[B, ...]`` and images ``[B, n, H, W, 3]``, which is how the resident fleet
+trains W workers in one call (the JAX package vmaps).
+
+Pruning protocol (paper Appendix B): VGG — every conv prunes, the head does
+not; ResNet — the stem, the last conv of each residual block and the
+shortcuts are kept whole, the interior convs prune.
 
 **Compute paths** (``cnn_apply(compute=...)``):
 
@@ -14,16 +18,22 @@ the resident fleet trains W workers in one call (the JAX package vmaps).
   stack (``groups=B``); an unbatched call is a plain ``F.conv2d``.
 * ``"block_skip"`` lowers every conv to im2col patches (``F.unfold``, whose
   K order is channel-major like ``conv_general_dilated_patches``, so a
-  pruned channel prefix stays a K prefix) times ``w`` reshaped to
-  ``[cin*kh*kw, cout]``, through ``kernels.pruned_matmul`` with per-worker
-  unit masks wired along ``conv_mask_wiring``.  The head rides the same
-  kernel.  Device FLOPs then track retention; ``cnn_block_compute`` is the
-  host-side count of what that dispatch executes.
+  pruned channel prefix stays a K prefix; a 1x1 conv is a strided view)
+  times ``w`` reshaped to ``[cin*kh*kw, cout]``, through
+  ``kernels.pruned_matmul`` with per-worker unit masks wired along
+  ``conv_mask_wiring``.  The head rides the same kernel.  Device FLOPs then
+  track retention; ``cnn_block_compute`` is the host-side count of what that
+  dispatch executes.
+
+Convolutions pad like JAX's ``"SAME"``: stride s gives ``ceil(H/s)``
+outputs and ``max((ceil(H/s) - 1) * s + k - H, 0)`` padding, the smaller
+half before, so a 3x3 stride-2 conv on an even input pads (0, 1), not
+torch's (1, 1).  Uneven padding is an explicit ``F.pad``.
 
 BatchNorm always uses the batch statistics of each worker row (biased
 variance, eps 1e-5), evaluation included, as the reference's ``_bn`` does.
-Max-pool is 2x2 VALID and the head a global mean.  Only VGG nets are ported;
-``kind == "resnet"`` raises.
+Max-pool is 2x2 VALID, a ResNet shortcut without its own conv subsamples
+``x[::s, ::s]``, and the head is a global mean.
 """
 from __future__ import annotations
 
@@ -40,7 +50,11 @@ from repro_torch.kernels.pruned_matmul import pruned_matmul
 __all__ = [
     "CNNConfig",
     "vgg_config",
+    "resnet_config",
     "VGG16_CIFAR",
+    "VGG11_SMALL",
+    "RESNET50_TINY",
+    "RESNET20_SMALL",
     "init_cnn",
     "cnn_apply",
     "conv_mask_wiring",
@@ -56,28 +70,62 @@ __all__ = [
 @dataclasses.dataclass(frozen=True)
 class CNNConfig:
     name: str
-    kind: str                      # "vgg" ("resnet" is not ported yet)
+    kind: str                      # "vgg" | "resnet"
     num_classes: int
     image_size: int
-    plan: Tuple = ()               # ints (conv width) or "M" (maxpool)
+    plan: Tuple = ()               # vgg: ints (conv width) or "M" (maxpool)
+    # resnet: stem width + (block_count, width) per stage
+    stem: int = 64
+    stages: Tuple[Tuple[int, int], ...] = ()
+    bottleneck: bool = True
 
 
 def vgg_config(name, plan, num_classes=10, image_size=32) -> CNNConfig:
     return CNNConfig(name=name, kind="vgg", plan=tuple(plan), num_classes=num_classes, image_size=image_size)
 
 
+def resnet_config(name, stem, stages, num_classes=200, image_size=64, bottleneck=True) -> CNNConfig:
+    return CNNConfig(
+        name=name, kind="resnet", stem=stem, stages=tuple(tuple(s) for s in stages),
+        num_classes=num_classes, image_size=image_size, bottleneck=bottleneck,
+    )
+
+
 VGG16_CIFAR = vgg_config(
     "vgg16_cifar",
     [64, 64, "M", 128, 128, "M", 256, 256, 256, "M", 512, 512, 512, "M", 512, 512, 512, "M"],
 )
+# reduced same-family net for fast CPU simulation
+VGG11_SMALL = vgg_config("vgg11_small", [16, "M", 32, "M", 64, 64, "M", 64, 64, "M"])
+RESNET50_TINY = resnet_config("resnet50_tiny", 64, [(3, 64), (4, 128), (6, 256), (3, 512)])
+RESNET20_SMALL = resnet_config(
+    "resnet20_small", 16, [(2, 16), (2, 32), (2, 64)], num_classes=10, image_size=32, bottleneck=False
+)
 
 
-def _require_vgg(cfg: CNNConfig) -> None:
-    if cfg.kind != "vgg":
-        raise ValueError(
-            f"cnn.kind={cfg.kind!r}: only the VGG family is ported to "
-            "repro_torch so far (ResNet is the next slice, see ROADMAP.md)"
-        )
+def _blocks(cfg: CNNConfig) -> List[Tuple[str, int, int, int, int]]:
+    """[(prefix, cin, width, out_width, stride)] of every residual block; a
+    stage after the first opens with stride 2."""
+    out = []
+    cin = cfg.stem
+    for si, (nblocks, width) in enumerate(cfg.stages):
+        out_w = width * (4 if cfg.bottleneck else 1)
+        for bi in range(nblocks):
+            out.append((f"s{si}b{bi}", cin, width, out_w, 2 if (bi == 0 and si > 0) else 1))
+            cin = out_w
+    return out
+
+
+def _block_convs(cfg: CNNConfig, cin: int, width: int, out_w: int) -> List[Tuple[str, int, int, int]]:
+    """[(suffix, ksize, cin, cout)] of one block's convs, the shortcut conv
+    ``sc`` only where the block changes width."""
+    if cfg.bottleneck:
+        convs = [("c1", 1, cin, width), ("c2", 3, width, width), ("c3", 1, width, out_w)]
+    else:
+        convs = [("c1", 3, cin, width), ("c2", 3, width, out_w)]
+    if cin != out_w:
+        convs.append(("sc", 1, cin, out_w))
+    return convs
 
 
 # ---------------------------------------------------------------------------
@@ -93,47 +141,78 @@ def init_cnn(
     cfg: CNNConfig, generator: torch.Generator, device="cpu"
 ) -> Dict[str, torch.Tensor]:
     """Truncated normal (±2 std) conv/head weights scaled by sqrt(2/fan_in)
-    (sqrt(1/cin) for the head), BN gamma 1 and beta 0.  Drawn on the CPU
-    from ``generator``, so a seed gives the same init on any device."""
-    _require_vgg(cfg)
+    (sqrt(1/cin) for the head), BN gamma 1 and beta 0, with the reference's
+    keys in its order.  Drawn on the CPU from ``generator``, so a seed gives
+    the same init on any device."""
     params: Dict[str, torch.Tensor] = {}
-    cin = 3
-    i = 0
-    for entry in cfg.plan:
-        if entry == "M":
-            continue
-        cout = int(entry)
-        params[f"conv{i}/w"] = _trunc_normal((3, 3, cin, cout), generator) * np.sqrt(2.0 / (9 * cin))
-        params[f"conv{i}/bn_g"] = torch.ones(cout)
-        params[f"conv{i}/bn_b"] = torch.zeros(cout)
-        cin, i = cout, i + 1
+
+    def add_conv(name, k, cin, cout):
+        params[f"{name}/w"] = _trunc_normal((k, k, cin, cout), generator) * np.sqrt(2.0 / (k * k * cin))
+        params[f"{name}/bn_g"] = torch.ones(cout)
+        params[f"{name}/bn_b"] = torch.zeros(cout)
+        return cout
+
+    if cfg.kind == "vgg":
+        cin = 3
+        for i, width in enumerate(e for e in cfg.plan if e != "M"):
+            cin = add_conv(f"conv{i}", 3, cin, int(width))
+    else:
+        cin = add_conv("stem", 3, 3, cfg.stem)
+        for pre, bcin, width, out_w, _ in _blocks(cfg):
+            for c, k, ci, co in _block_convs(cfg, bcin, width, out_w):
+                add_conv(f"{pre}/{c}", k, ci, co)
+            cin = out_w
     params["fc/w"] = _trunc_normal((cin, cfg.num_classes), generator) * np.sqrt(1.0 / cin)
     params["fc/b"] = torch.zeros(cfg.num_classes)
     return {k: v.to(device) for k, v in params.items()}
 
 
-def _conv_dense(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """Stride-1 SAME conv of every worker row as one grouped conv.
-    x [B, n, C, H, W], w [B, kh, kw, cin, cout] -> [B, n, cout, H, W]."""
+def _same_pads(size: int, k: int, stride: int) -> Tuple[int, int]:
+    """(before, after) padding of JAX's "SAME" along one spatial dim."""
+    out = -(-size // stride)
+    total = max((out - 1) * stride + k - size, 0)
+    return total // 2, total - total // 2
+
+
+def _pad_same(x: torch.Tensor, kh: int, kw: int, stride: int):
+    """``x [N, C, H, W]`` and the symmetric ``padding`` to hand the conv or
+    unfold; uneven SAME padding is applied here with ``F.pad``."""
+    (top, bottom), (left, right) = (_same_pads(x.shape[-2], kh, stride),
+                                    _same_pads(x.shape[-1], kw, stride))
+    if top == bottom and left == right:
+        return x, (top, left)
+    return F.pad(x, (left, right, top, bottom)), (0, 0)
+
+
+def _conv_dense(x: torch.Tensor, w: torch.Tensor, stride: int = 1) -> torch.Tensor:
+    """SAME conv of every worker row as one grouped conv.
+    x [B, n, C, H, W], w [B, kh, kw, cin, cout] -> [B, n, cout, Ho, Wo]."""
     B, n, C, H, Wd = x.shape
     kh, kw, cin, cout = w.shape[1:]
-    xi = x.transpose(0, 1).reshape(n, B * C, H, Wd)
+    xi, pad = _pad_same(x.transpose(0, 1).reshape(n, B * C, H, Wd), kh, kw, stride)
     wt = w.permute(0, 4, 3, 1, 2).reshape(B * cout, cin, kh, kw)
-    y = F.conv2d(xi, wt, padding=(kh // 2, kw // 2), groups=B)
-    return y.reshape(n, B, cout, H, Wd).transpose(0, 1)
+    y = F.conv2d(xi, wt, stride=stride, padding=pad, groups=B)
+    return y.reshape(n, B, cout, *y.shape[-2:]).transpose(0, 1)
 
 
-def _conv_block_skip(x, w, in_vec, out_vec, blocks):
-    """Conv as im2col patches times a block-skip masked matmul.
+def _conv_block_skip(x, w, in_vec, out_vec, stride, blocks):
+    """SAME conv as im2col patches times a block-skip masked matmul.
 
     ``F.unfold`` emits K channel-major (cin * kh * kw, taps minor), so the
     per-channel ``in_vec`` repeats over the kh*kw taps and a pruned channel
-    prefix is a contiguous K prefix."""
+    prefix is a contiguous K prefix.  A 1x1 conv pads nothing under SAME, so
+    its patches are the strided input itself, channels last."""
     B, n, C, H, Wd = x.shape
     kh, kw, cin, cout = w.shape[1:]
-    p = F.unfold(x.reshape(B * n, C, H, Wd), (kh, kw), padding=(kh // 2, kw // 2))
-    L = p.shape[-1]
-    p = p.transpose(1, 2).reshape(B, n * L, C * kh * kw)
+    if kh == kw == 1:
+        xs = x[..., ::stride, ::stride]
+        Ho, Wo = xs.shape[-2:]
+        p = xs.permute(0, 1, 3, 4, 2).reshape(B, n * Ho * Wo, C)
+    else:
+        x4, pad = _pad_same(x.reshape(B * n, C, H, Wd), kh, kw, stride)
+        Ho, Wo = -(-H // stride), -(-Wd // stride)
+        p = F.unfold(x4, (kh, kw), padding=pad, stride=stride)
+        p = p.transpose(1, 2).reshape(B, n * Ho * Wo, C * kh * kw)
     wmat = w.permute(0, 3, 1, 2, 4).reshape(B, cin * kh * kw, cout)
     ones = lambda m: torch.ones((B, m), device=x.device, dtype=torch.float32)
     in_mask = ones(cin * kh * kw) if in_vec is None else torch.repeat_interleave(
@@ -144,7 +223,7 @@ def _conv_block_skip(x, w, in_vec, out_vec, blocks):
         p, wmat, in_mask, out_mask,
         block_m=blocks[0], block_n=blocks[1], block_k=blocks[2],
     )
-    return y.reshape(B, n, H, Wd, cout).permute(0, 1, 4, 2, 3)
+    return y.reshape(B, n, Ho, Wo, cout).permute(0, 1, 4, 2, 3)
 
 
 def _bn(x, g, b, eps=1e-5):
@@ -158,13 +237,25 @@ def _bn(x, g, b, eps=1e-5):
 def conv_mask_wiring(cfg: CNNConfig) -> Dict[str, Tuple[Optional[str], Optional[str]]]:
     """conv/head name -> (input unit layer, output unit layer), ``None`` for
     an unpruned side: a conv's out-mask is its own unit layer, its in-mask
-    its producer's."""
-    _require_vgg(cfg)
-    convs = [e for e in cfg.plan if e != "M"]
+    its producer's.  (Every ResNet block lists an ``sc`` entry, as the
+    reference's does, whether or not the block has that conv.)"""
     wiring: Dict[str, Tuple[Optional[str], Optional[str]]] = {}
-    for i in range(len(convs)):
-        wiring[f"conv{i}"] = (f"conv{i-1}" if i > 0 else None, f"conv{i}")
-    wiring["fc"] = (f"conv{len(convs)-1}" if convs else None, None)
+    if cfg.kind == "vgg":
+        convs = [e for e in cfg.plan if e != "M"]
+        for i in range(len(convs)):
+            wiring[f"conv{i}"] = (f"conv{i-1}" if i > 0 else None, f"conv{i}")
+        wiring["fc"] = (f"conv{len(convs)-1}" if convs else None, None)
+        return wiring
+    wiring["stem"] = (None, None)
+    for pre, *_ in _blocks(cfg):
+        wiring[f"{pre}/c1"] = (None, f"{pre}/c1")
+        if cfg.bottleneck:
+            wiring[f"{pre}/c2"] = (f"{pre}/c1", f"{pre}/c2")
+            wiring[f"{pre}/c3"] = (f"{pre}/c2", None)
+        else:
+            wiring[f"{pre}/c2"] = (f"{pre}/c1", None)
+        wiring[f"{pre}/sc"] = (None, None)
+    wiring["fc"] = (None, None)
     return wiring
 
 
@@ -177,6 +268,7 @@ def cnn_apply(
     params: Mapping[str, torch.Tensor],
     cfg: CNNConfig,
     x: torch.Tensor,
+    stats: Optional[Dict[str, torch.Tensor]] = None,
     compute: str = "dense",
     unit_masks: Optional[Mapping[str, torch.Tensor]] = None,
     blocks: Tuple[int, int, int] = (128, 128, 128),
@@ -184,13 +276,16 @@ def cnn_apply(
     """x ``[n, H, W, 3]`` -> logits ``[n, classes]``; or, for worker stacks,
     params ``[B, ...]`` and x ``[B, n, H, W, 3]`` -> ``[B, n, classes]``.
 
+    If ``stats`` (a dict) is given, each prunable conv's mean |activation|
+    per filter after its ReLU (``[C]``, or ``[B, C]`` for stacks) is
+    recorded into it: the HRank-style importance signal.
+
     ``compute="block_skip"`` dispatches every conv and the head through the
     block-skip kernel with ``unit_masks`` ({prunable layer: [width] or
     [B, width] 0/1}) wired along ``conv_mask_wiring`` — the same function as
     the dense path on masked params, with fully pruned blocks skipped."""
     if compute not in ("dense", "block_skip"):
         raise ValueError(f"unknown compute path {compute!r}")
-    _require_vgg(cfg)
     batched = x.dim() == 5
     if not batched:
         params = {k: v.unsqueeze(0) for k, v in params.items()}
@@ -199,26 +294,52 @@ def cnn_apply(
     bs = compute == "block_skip"
     wiring = conv_mask_wiring(cfg) if bs else {}
     um = unit_masks or {}
+    recorded: Dict[str, torch.Tensor] = {}
 
     def mask_vec(lname):
         return None if lname is None else um.get(lname)
 
-    h = x.permute(0, 1, 4, 2, 3)          # NHWC -> NCHW per worker row
-    i = 0
-    for entry in cfg.plan:
-        if entry == "M":
-            B, n, C, H, Wd = h.shape
-            h = F.max_pool2d(h.reshape(B * n, C, H, Wd), 2, 2).reshape(B, n, C, H // 2, Wd // 2)
-            continue
-        name = f"conv{i}"
+    def cbr(name, h, stride=1, relu=True):
         w = params[f"{name}/w"]
         if bs:
             in_l, out_l = wiring[name]
-            h = _conv_block_skip(h, w, mask_vec(in_l), mask_vec(out_l), blocks)
+            h = _conv_block_skip(h, w, mask_vec(in_l), mask_vec(out_l), stride, blocks)
         else:
-            h = _conv_dense(h, w)
-        h = torch.relu(_bn(h, params[f"{name}/bn_g"], params[f"{name}/bn_b"]))
-        i += 1
+            h = _conv_dense(h, w, stride)
+        h = _bn(h, params[f"{name}/bn_g"], params[f"{name}/bn_b"])
+        return torch.relu(h) if relu else h
+
+    def rec(name, h):
+        if stats is not None:
+            recorded[name] = h.abs().mean(dim=(1, 3, 4))
+        return h
+
+    h = x.permute(0, 1, 4, 2, 3)          # NHWC -> NCHW per worker row
+    if cfg.kind == "vgg":
+        i = 0
+        for entry in cfg.plan:
+            if entry == "M":
+                B, n, C, H, Wd = h.shape
+                h = F.max_pool2d(h.reshape(B * n, C, H, Wd), 2, 2).reshape(B, n, C, H // 2, Wd // 2)
+                continue
+            h = rec(f"conv{i}", cbr(f"conv{i}", h))
+            i += 1
+    else:
+        h = cbr("stem", h)
+        for pre, _, _, _, stride in _blocks(cfg):
+            r = rec(f"{pre}/c1", cbr(f"{pre}/c1", h, stride))
+            if cfg.bottleneck:
+                r = rec(f"{pre}/c2", cbr(f"{pre}/c2", r))
+                r = cbr(f"{pre}/c3", r, relu=False)
+            else:
+                r = cbr(f"{pre}/c2", r, relu=False)
+            if f"{pre}/sc/w" in params:
+                h = cbr(f"{pre}/sc", h, stride, relu=False)
+            elif stride != 1:
+                h = h[:, :, :, ::stride, ::stride]
+            h = torch.relu(h + r)
+    if stats is not None:
+        stats.update(recorded if batched else {k: v[0] for k, v in recorded.items()})
     feat = h.mean(dim=(3, 4))             # [B, n, C]
     if bs:
         in_l, _ = wiring["fc"]
@@ -246,33 +367,37 @@ def cnn_flops(params: Mapping, cfg: CNNConfig) -> float:
 
 
 def cnn_flops_from_shapes(shapes: Mapping[str, tuple], cfg: CNNConfig) -> float:
-    _require_vgg(cfg)
+    """``cnn_flops`` from shape tuples alone: each conv at its base output
+    size with its (reconfigured) weight shape, plus the head."""
     total = 0.0
-    hw = cfg.image_size
-    i = 0
-    for entry in cfg.plan:
-        if entry == "M":
-            hw //= 2
-        else:
-            total += 2.0 * hw * hw * int(np.prod(shapes[f"conv{i}/w"]))
-            i += 1
+    for name, _, _, _, hw in _base_conv_geoms(cfg)[:-1]:
+        total += 2.0 * hw * hw * int(np.prod(shapes[f"{name}/w"]))
     total += 2.0 * int(np.prod(shapes["fc/w"]))
     return total
 
 
 def _base_conv_geoms(cfg: CNNConfig) -> List[Tuple[str, int, int, int, int]]:
-    """[(name, ksize, cin, cout, hw)] per conv at base shapes, plus the
-    ("fc", 1, cin, classes, 1) head: the per-image matmul geometry."""
-    _require_vgg(cfg)
+    """[(name, ksize, cin, cout, hw)] per conv at base shapes (hw the output
+    side), plus the ("fc", 1, cin, classes, 1) head: the per-image matmul
+    geometry."""
     out: List[Tuple[str, int, int, int, int]] = []
     hw = cfg.image_size
-    cin, i = 3, 0
-    for entry in cfg.plan:
-        if entry == "M":
-            hw //= 2
-        else:
-            out.append((f"conv{i}", 3, cin, int(entry), hw))
-            cin, i = int(entry), i + 1
+    if cfg.kind == "vgg":
+        cin, i = 3, 0
+        for entry in cfg.plan:
+            if entry == "M":
+                hw //= 2
+            else:
+                out.append((f"conv{i}", 3, cin, int(entry), hw))
+                cin, i = int(entry), i + 1
+    else:
+        out.append(("stem", 3, 3, cfg.stem, hw))
+        cin = cfg.stem
+        for pre, bcin, width, out_w, stride in _blocks(cfg):
+            hw //= stride
+            for c, k, ci, co in _block_convs(cfg, bcin, width, out_w):
+                out.append((f"{pre}/{c}", k, ci, co, hw))
+            cin = out_w
     out.append(("fc", 1, cin, cfg.num_classes, 1))
     return out
 
@@ -320,14 +445,20 @@ def cnn_block_compute(
 # ---------------------------------------------------------------------------
 
 def _prunable_convs(cfg: CNNConfig) -> List[Tuple[str, int, str]]:
-    """[(conv_name, width, next_consumer)]: every VGG conv's output filters
-    prune; the head is not pruned."""
-    _require_vgg(cfg)
-    convs = [e for e in cfg.plan if e != "M"]
-    return [
-        (f"conv{i}", int(w), f"conv{i+1}" if i + 1 < len(convs) else "fc")
-        for i, w in enumerate(convs)
-    ]
+    """[(conv_name, width, next_consumer)] of the convs whose output filters
+    prune: every VGG conv; a ResNet block's interior convs only."""
+    if cfg.kind == "vgg":
+        convs = [e for e in cfg.plan if e != "M"]
+        return [
+            (f"conv{i}", int(w), f"conv{i+1}" if i + 1 < len(convs) else "fc")
+            for i, w in enumerate(convs)
+        ]
+    out = []
+    for pre, _, width, _, _ in _blocks(cfg):
+        out.append((f"{pre}/c1", width, f"{pre}/c2"))
+        if cfg.bottleneck:
+            out.append((f"{pre}/c2", width, f"{pre}/c3"))
+    return out
 
 
 def build_unit_space(cfg: CNNConfig, params: Mapping) -> Tuple[UnitSpace, Dict[str, list]]:

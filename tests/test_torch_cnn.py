@@ -203,11 +203,3 @@ def test_extract_bn_scales_equal_jax():
     for k in js:
         assert ts[k].dtype == np.float64
         np.testing.assert_array_equal(ts[k], js[k])
-
-
-def test_resnet_is_refused_by_name():
-    cfg = tcnn.CNNConfig(name="r", kind="resnet", num_classes=10, image_size=32)
-    with pytest.raises(ValueError, match="resnet"):
-        tcnn.init_cnn(cfg, torch.Generator().manual_seed(0))
-    with pytest.raises(ValueError, match="ROADMAP"):
-        tcnn.conv_mask_wiring(cfg)

@@ -301,17 +301,23 @@ class _Dummy:
 
 
 @pytest.mark.parametrize("field,value", [
-    ("engine", "sequential"), ("engine", "bucketed"), ("engine", "fused"),
+    ("engine", "fused"),
     ("scenario", _Dummy()), ("regrow", _Dummy()), ("dgc_sparsity", 0.5),
     ("robust", _Dummy()), ("mesh", _Dummy()), ("resident_momentum", True),
     ("method", "fedasync_s"), ("method", "ssp_s"), ("method", "dcasgd_s"),
-    ("importance", "l1"), ("importance", "taylor"), ("importance", "fpgm"),
-    ("importance", "hrank"),
-    ("cnn", __import__("repro_torch.models.cnn", fromlist=["CNNConfig"]).CNNConfig(
-        name="r", kind="resnet", num_classes=10, image_size=32)),
 ])
 def test_out_of_slice_fields_are_refused_by_name(field, value):
     sim = SimConfig(rounds=1, num_workers=2, device="cpu", **{field: value})
     with pytest.raises(ValueError, match=rf"SimConfig\.{field}") as err:
         run_simulation(sim)
     assert "ROADMAP" in str(err.value)
+
+
+@pytest.mark.parametrize("engine", ["sequential", "bucketed"])
+def test_block_skip_needs_the_masked_engine(engine):
+    """The reference's own rule: block-keep flags come from the mask stacks,
+    so compute='block_skip' runs only on engine='masked'."""
+    sim = SimConfig(rounds=1, num_workers=2, device="cpu", engine=engine, compute="block_skip")
+    with pytest.raises(ValueError, match=r"SimConfig\.compute='block_skip' needs engine='masked'"):
+        run_simulation(sim)
+    assert SimConfig().engine == "sequential"
