@@ -22,7 +22,12 @@ stack and a pruning event only rewrites mask rows.
   ``[B, ...]`` sub-stack, B padded to the next power of two, trained, and
   scattered back;
 * ``refresh_masks``   — rewrite the mask stack from the workers' global
-  indices and re-mask the params;
+  indices and re-mask the params (and the momentum carry);
+* ``update_shard``    — a churned-in worker's fresh shard, written into its
+  row of the resident data;
+* ``init_momentum`` / ``zero_momentum_rows`` — the cross-round momentum
+  carry (``SimConfig.resident_momentum``) and its reset on churn and crash
+  recovery;
 * aggregation consumes the stacks directly (``aggregation``).
 """
 from __future__ import annotations
@@ -103,7 +108,8 @@ class FleetState:
     the device.  ``params`` rows are always masked (pruned coordinates
     exactly 0); ``gl_sizes`` holds each worker's sqrt-group-size factors of
     its reconfigured shapes, so the group-lasso penalty equals the
-    physically small twin's."""
+    physically small twin's.  ``momentum`` is the cross-round optimizer
+    carry (``init_momentum``), ``None`` when momentum restarts per phase."""
 
     params: Tensors
     masks: Tensors
@@ -111,6 +117,7 @@ class FleetState:
     ys: torch.Tensor                 # [W, n_max]
     num_workers: int
     gl_sizes: Dict[str, np.ndarray]
+    momentum: Optional[Tensors] = None
 
 
 @dataclasses.dataclass
@@ -215,6 +222,38 @@ class FleetEngine:
             },
         )
 
+    def update_shard(self, state: FleetState, w: int, x: np.ndarray, y: np.ndarray):
+        """Swap worker ``w``'s data shard in place (a churn join); the shard
+        is padded to the resident length, which it must not exceed."""
+        n_max = state.xs.shape[1]
+        if len(x) > n_max:
+            raise ValueError(f"churn shard ({len(x)}) exceeds resident pad ({n_max})")
+        xr = np.zeros((n_max,) + x.shape[1:], np.float32)
+        yr = np.zeros((n_max,), np.int64)
+        xr[: len(x)], yr[: len(y)] = x, y
+        state.xs[w] = torch.as_tensor(xr, device=state.xs.device)
+        state.ys[w] = torch.as_tensor(yr, device=state.ys.device)
+
+    def init_momentum(self, state: FleetState):
+        """Zero momentum stack: the cross-round carry of
+        ``SimConfig.resident_momentum``."""
+        state.momentum = {k: torch.zeros_like(v) for k, v in state.params.items()}
+
+    def zero_momentum_rows(self, state: FleetState, rows: Sequence[int]):
+        """Restart the momentum of these worker rows (churn joins and crash
+        recoveries: velocity accumulated against other parameters)."""
+        if state.momentum is None or not len(rows):
+            return
+        for v in state.momentum.values():
+            v[_row_index(rows, state.num_workers, v.device)] = 0.0
+
+    def params_host(self, state: FleetState) -> Dict[str, np.ndarray]:
+        """Host copy of the param stack (the DGC submission boundary)."""
+        return {k: v.cpu().numpy() for k, v in state.params.items()}
+
+    def masks_host(self, state: FleetState) -> Dict[str, np.ndarray]:
+        return {k: v.cpu().numpy() for k, v in state.masks.items()}
+
     def _unit_dims(self) -> Dict[str, int]:
         dims: Dict[str, int] = {}
         for path, entries in self.unit_map.items():
@@ -240,6 +279,9 @@ class FleetEngine:
                 m = m * torch.as_tensor(presence[lname], device=self.device).reshape(bshape)
             state.masks[path] = m
             state.params[path] = state.params[path] * m
+            if state.momentum is not None:
+                # a pruned unit's velocity dies with it
+                state.momentum[path] = state.momentum[path] * m
         for w in range(W):
             shapes = subparam_shapes(indices[w], self.unit_map, self.base_shapes)
             for lname, s in group_size_sqrt_from_shapes(shapes, self.unit_map).items():
@@ -268,34 +310,43 @@ class FleetEngine:
         }
 
     def train_rounds(self, state: FleetState, plans: Sequence[Optional[np.ndarray]],
-                     lam: float = 0.0, pad_steps: Optional[int] = None) -> Optional[np.ndarray]:
+                     lam: float = 0.0, pad_steps: Optional[int] = None,
+                     carry_momentum: bool = False) -> Optional[np.ndarray]:
         """One trainer call for a whole round phase.  Rows without a plan
         are neither trained nor computed: fewer than W active rows go
-        through ``train_rows``.  Returns per-worker mean losses (idle rows
-        0), or ``None`` if nobody had work."""
+        through ``train_rows``.  ``carry_momentum`` starts the optimizer
+        from ``state.momentum`` and keeps the trained rows' momentum as the
+        next carry.  Returns per-worker mean losses (idle rows 0), or
+        ``None`` if nobody had work."""
         W = state.num_workers
         rows = [w for w, p in enumerate(plans) if p is not None and p.shape[0] > 0]
         if not rows:
             return None
         if len(rows) == W:
             plan_stack, valid = self.stack_plans(plans, pad_steps=pad_steps)
-            state.params, losses = self.trainer.train_resident(
+            state.params, mom, losses = self.trainer.train_resident(
                 state.params, state.masks, self.unit_map, state.xs, state.ys,
                 plan_stack, valid, lam, self._gl(state, range(W)),
+                momentum_in=state.momentum if carry_momentum else None,
             )
+            if carry_momentum:
+                state.momentum = mom
             self.batched_calls += 1
             self.buckets_used.add(W)
             return losses.cpu().numpy()
-        losses = self.train_rows(state, rows, [plans[w] for w in rows], lam, pad_steps)
+        losses = self.train_rows(state, rows, [plans[w] for w in rows], lam, pad_steps,
+                                 carry_momentum=carry_momentum)
         full = np.zeros(W, np.float32)
         full[rows] = losses
         return full
 
     def train_rows(self, state: FleetState, rows: Sequence[int],
                    plans: Sequence[Optional[np.ndarray]], lam: float = 0.0,
-                   pad_steps: Optional[int] = None) -> np.ndarray:
+                   pad_steps: Optional[int] = None, carry_momentum: bool = False) -> np.ndarray:
         """Gather ``rows`` into a bucket-sized sub-stack, train it in one
-        call, scatter the trained rows back.  ``plans`` aligns with ``rows``."""
+        call, scatter the trained rows back.  ``plans`` aligns with ``rows``.
+        Bucket padding repeats ``rows[0]`` with an all-invalid plan: it is
+        computed and discarded."""
         W = state.num_workers
         B = len(rows)
         bucket = bucket_rows(B, W)
@@ -309,12 +360,15 @@ class FleetEngine:
         sub_params = gather_stack_rows(state.params, rows_pad, W)
         sub_masks = gather_stack_rows(state.masks, rows_pad, W)
         idx = _row_index(rows_pad, W, self.device)
-        out, losses = self.trainer.train_resident(
+        mom_in = gather_stack_rows(state.momentum, rows_pad, W) if carry_momentum else None
+        out, mom, losses = self.trainer.train_resident(
             sub_params, sub_masks, self.unit_map,
             torch.index_select(state.xs, 0, idx), torch.index_select(state.ys, 0, idx),
-            plan_stack, valid, lam, self._gl(state, rows_pad),
+            plan_stack, valid, lam, self._gl(state, rows_pad), momentum_in=mom_in,
         )
         self.batched_calls += 1
         self.buckets_used.add(bucket)
         state.params = scatter_stack_rows(state.params, rows, out, W)
+        if carry_momentum:
+            state.momentum = scatter_stack_rows(state.momentum, rows, mom, W)
         return losses.cpu().numpy()[:B]

@@ -27,10 +27,24 @@ Importance is a static criterion (cig_bnscalor, index, no_adjacent,
 no_identical, no_constant) or a data-dependent one (l1, taylor, fpgm, hrank),
 scored on the worker's own trained sub-model and shard at its pruning event.
 
+The fleet need not be whole or still (``SimConfig.scenario``,
+``core.scenario``): per-round client sampling, straggler dropout with the
+server's timeout, churn (a slot restarts as a fresh worker on a fresh
+shard), explicit schedules, Dirichlet label skew, and the ``core.faults``
+families drift, crash/recovery, regional outage and participation wave.  A
+round whose fault survivors fall below ``min_participants`` is skipped: the
+clock waits out the straggler deadline and nothing trains.  On the resident
+engine a partial cohort trains as a power-of-two row bucket gathered from
+the stacks.  ``dgc_sparsity`` commits only the largest deltas at the
+submission boundary (DGC, host numpy as in the reference), and
+``resident_momentum`` carries the masked engine's momentum across phases
+and rounds.
+
 All host randomness is numpy and is consumed in the reference's order (batch
-plans per active worker, then one jitter draw per active worker), so the
-virtual clock and the prune events equal the JAX package's for the same
-seed.  The JAX package draws its init from ``jax.random``; pass that init as
+plans per active worker, then one jitter draw per active worker; the
+scenario and fault streams in ``core.scenario``), so the virtual clock and
+the prune events equal the JAX package's for the same seed.  The JAX
+package draws its init from ``jax.random``; pass that init as
 ``run_simulation(sim, base_params=...)`` to start from the same weights
 (otherwise ``init_cnn`` draws from a ``torch.Generator`` seeded with
 ``sim.seed``).
@@ -50,7 +64,7 @@ import numpy as np
 import torch
 
 from repro_torch.convert import params_from_numpy, params_to_numpy
-from repro_torch.data.synthetic import SyntheticImageTask, partition_noniid
+from repro_torch.data.synthetic import SyntheticImageTask, partition_dirichlet, partition_noniid
 from repro_torch.models.cnn import (
     CNNConfig,
     build_unit_space,
@@ -72,11 +86,12 @@ from .aggregation import (
     roundtrip_total,
     subparam_shapes,
 )
+from .faults import fault_ledger
 from .fleet import ENGINES, FleetEngine, FleetJob
 from .importance import DATA_DEPENDENT, METHODS, ImportanceContext
 from .masks import full_index, payload_bytes, prune_to_budget, retention, similarity
 from .pruned_rate import PrunedRateConfig, WorkerHistory, learn_pruned_rates
-from .scenario import full_participation
+from .scenario import ScenarioConfig, ScenarioEngine, full_participation
 from .timing import HeterogeneityConfig, heterogeneity_from_times, make_bandwidths
 from .worker import LocalTrainer, local_unit_stats, make_batch_plan, plan_steps
 
@@ -113,12 +128,18 @@ class SimConfig:
     fixed_pruned_rates: Optional[List[List[float]]] = None  # Tab. IX mode
     # local-training engine: "sequential" | "bucketed" | "masked" (core.fleet)
     engine: str = "sequential"
+    # AdaptCL+DGC (Appendix E / Tab. XVII): commit only the largest
+    # (1-sparsity) fraction of each weight delta; the rest accumulates
+    # locally until it crosses the threshold
+    dgc_sparsity: float = 0.0
+    # cross-round momentum: the masked engine's momentum stack is carried
+    # across phases and rounds instead of restarting per phase
+    resident_momentum: bool = False
+    # client sampling / dropout / churn / skew / faults (core.scenario)
+    scenario: Optional[ScenarioConfig] = None
     # fields of the reference the port does not run yet; each is refused
     # by name unless left at its default
-    dgc_sparsity: float = 0.0
     regrow: Optional[object] = None
-    resident_momentum: bool = False
-    scenario: Optional[object] = None
     robust: Optional[object] = None
     mesh: Optional[object] = None
     # device compute path of the masked engine: "block_skip" (the CUDA
@@ -174,6 +195,21 @@ class SimResult:
         default_factory=list
     )
     device: str = "cpu"
+    # (round, n_active, n_dropped, n_joined) per round when a scenario ran
+    scenario_rounds: List[Tuple[int, int, int, int]] = dataclasses.field(
+        default_factory=list
+    )
+    # fault ledger (core.faults.fault_ledger): all zeros on fault-free runs
+    drift_events: int = 0        # drift-multiplier changes (re-learning triggers)
+    rounds_degraded: int = 0     # rounds aggregating a fault-reduced cohort
+    rounds_skipped: int = 0      # rounds skipped: submitters < min_participants
+    workers_recovered: int = 0   # offline -> online transitions
+    retry_total: int = 0         # re-join rounds trained without aggregation
+    byz_commits: int = 0         # byzantine and channel families: refused
+    lost_commits: int = 0        # until robust aggregation is ported, so 0
+    dup_commits: int = 0
+    corrupt_commits: int = 0
+    quarantined_commits: int = 0
     global_params: Optional[Dict[str, np.ndarray]] = None
 
 
@@ -200,18 +236,30 @@ def validate_config(sim: SimConfig) -> None:
             "kernel's block-keep flags come from the 0/1 mask stacks, and the "
             "reconfigured engines already run physically small models"
         )
-    if sim.scenario is not None:
-        raise _refuse("scenario", "client sampling / dropout / churn / faults")
+    faults = sim.scenario.faults if sim.scenario is not None else None
+    for fam in ("byzantine", "channel"):
+        if faults is not None and getattr(faults, fam) is not None:
+            raise _refuse(f"scenario.faults.{fam}",
+                          f"the {fam} fault family needs robust aggregation (A9)")
     if sim.regrow is not None:
         raise _refuse("regrow", "FedDST mask regrowth")
-    if sim.dgc_sparsity > 0.0:
-        raise _refuse("dgc_sparsity", "DGC delta compression")
     if sim.robust is not None:
         raise _refuse("robust", "robust aggregation")
     if sim.mesh is not None:
         raise _refuse("mesh", "the mesh-sharded fleet")
-    if sim.resident_momentum:
-        raise _refuse("resident_momentum", "cross-round resident momentum")
+    if sim.resident_momentum and sim.engine != "masked":
+        raise ValueError(
+            "SimConfig.resident_momentum needs the resident engine "
+            "(engine='masked'; the reference's fused engine is not ported, "
+            "see ROADMAP.md, queue A): the cross-round carry is the fleet "
+            "state's momentum stack"
+        )
+    if sim.scenario is not None and sim.scenario.skew is not None and sim.noniid_s > 0.0:
+        raise ValueError(
+            "ScenarioConfig.skew (Dirichlet label concentration) and "
+            f"SimConfig.noniid_s={sim.noniid_s} are competing Non-IID "
+            "partitioners — set exactly one"
+        )
     if sim.importance not in METHODS:
         raise ValueError(f"SimConfig.importance: unknown criterion {sim.importance!r}")
     if sim.cnn.kind not in ("vgg", "resnet"):
@@ -270,8 +318,12 @@ class _Env:
             num_classes=sim.cnn.num_classes, image_size=sim.cnn.image_size,
             train_size=1280, test_size=512, seed=sim.seed,
         )
-        self.shards = partition_noniid(
-            self.task.y_train, sim.num_workers, sim.noniid_s, seed=sim.seed
+        skew = sim.scenario.skew if sim.scenario is not None else None
+        self.shards = (
+            partition_dirichlet(self.task.y_train, sim.num_workers, skew, seed=sim.seed)
+            if skew is not None
+            else partition_noniid(self.task.y_train, sim.num_workers, sim.noniid_s,
+                                  seed=sim.seed)
         )
         if base_params is None:
             gen = torch.Generator().manual_seed(sim.seed)
@@ -339,20 +391,24 @@ class _Env:
         self.blocks_executed += images * blocks
         self.images_trained += images
 
-    def phi(self, worker: int, shapes: Mapping[str, tuple], jitter: bool) -> float:
+    def phi(self, worker: int, shapes: Mapping[str, tuple], jitter: bool,
+            payload_factor: float = 1.0, time_mult: float = 1.0) -> float:
         """Eq. 6/7 channel-model update time of a sub-model of these
         (reconfigured) shapes; ``jitter`` draws one multiplicative factor
-        from ``env.rng``, in the reference's order."""
+        from ``env.rng``, in the reference's order.  ``payload_factor``
+        scales the payload (DGC); ``time_mult`` (capability drift) joins the
+        jitter in one factor, ``t * (jitter * time_mult)``, the reference's
+        float grouping."""
         sim = self.sim
-        bytes_raw = sum(int(np.prod(s)) * 4 for s in shapes.values())
+        bytes_w = payload_factor * sum(int(np.prod(s)) * 4 for s in shapes.values())
         rel = cnn_flops_from_shapes(shapes, sim.cnn) / self.full_flops
         jmult = (
             float(np.exp(self.rng.normal(0, sim.time_jitter)))
             if jitter and sim.time_jitter > 0 else 1.0
         )
         t_train = sim.t_train_full * ((1 - sim.train_sens) + sim.train_sens * rel)
-        t = 2.0 * bytes_raw / self.bandwidths[worker] + t_train * sim.local_epochs
-        return t * jmult
+        t = 2.0 * bytes_w / self.bandwidths[worker] + t_train * sim.local_epochs
+        return t * (jmult * time_mult)
 
     def shard_xy(self, w):
         sh = self.shards[w]
@@ -379,12 +435,154 @@ def _env_accuracy(env: _Env, params) -> float:
     return correct / len(y)
 
 
+# ---------------------------------------------------------------------------
+# synchronous methods: fedavg / fedavg_s / adaptcl
+# ---------------------------------------------------------------------------
+
+def _dgc_compress(delta: Dict[str, np.ndarray], residual: Dict[str, np.ndarray],
+                  sparsity: float):
+    """Top-|.| delta sparsification with local residual accumulation ([11]).
+
+    Returns (committed delta, new residual, kept-fraction payload factor).
+
+    A reconfiguration that changed a tensor's shape restarts DGC's
+    accumulators for it (momentum-factor-masking semantics): the stale
+    residual is dropped AND the tensor commits densely this round, so the
+    kept-fraction accounting is reset too — the payload factor honestly
+    reflects the dense warm-up commit instead of silently reporting the
+    steady-state sparsity."""
+    committed, new_res = {}, {}
+    kept = total = 0
+    for k, d in delta.items():
+        r = residual.get(k)
+        restarted = r is not None and r.shape != d.shape
+        if r is not None and not restarted:
+            d = d + r
+        if restarted:
+            committed[k], new_res[k] = d, np.zeros_like(d)
+            kept += d.size
+            total += d.size
+            continue
+        flat = np.abs(d).ravel()
+        # keep budget in float32 — the SAME rounding the reference's device
+        # compressor (aggregation.dgc_compress_jnp) performs, so keep sets
+        # can't diverge on half-integer budgets
+        n_keep = max(
+            1, int(np.round(np.float32(flat.size) * np.float32(1.0 - sparsity)))
+        )
+        if n_keep >= flat.size:
+            committed[k], new_res[k] = d, np.zeros_like(d)
+            kept += flat.size
+        else:
+            thr = np.partition(flat, flat.size - n_keep)[flat.size - n_keep]
+            mask = np.abs(d) >= thr
+            committed[k] = d * mask
+            new_res[k] = d * (1.0 - mask)
+            # ties at the threshold all commit (>=), so count the REALIZED
+            # mask — n_keep undercounts exactly when |delta| values collide
+            kept += int(mask.sum())
+        total += flat.size
+    # payload: kept values + their indices (~1.25x values, as in DGC)
+    return committed, new_res, 1.25 * kept / max(total, 1)
+
+
+def _dgc_compress_stacked(
+    delta: Dict[str, np.ndarray],        # {path: [W, ...]} base-coord deltas
+    residual: Dict[str, np.ndarray],     # {path: [W, ...]} accumulators
+    sparsity: float,
+    masks: Optional[Dict[str, np.ndarray]] = None,   # {path: [W, ...]} 0/1
+    rows: Optional[np.ndarray] = None,               # bool [W]: rows to commit
+):
+    """Vectorized DGC over the resident ``[W, ...]`` delta stacks.
+
+    Per tensor, the top-|.| threshold is computed per worker row in one
+    ``np.sort`` over the flattened ``[W, N]`` view.  ``masks`` makes the
+    compressor mask-aware: each worker's keep budget is a fraction of its
+    RETAINED coordinate count (matching the per-worker compressor applied to
+    the reconfigured tensor), pruned coordinates are never committed, and the
+    residual is kept only on retained coordinates (pruning zeroes a worker's
+    residual on the units it lost — nothing else restarts, unlike the
+    shape-changing per-worker path, because resident shapes never change).
+    ``rows`` limits commits to the submitting workers; others keep their
+    residual untouched and report payload factor 1.0.
+
+    Returns (committed stacks, new residual stacks, factors ``[W]``)."""
+    W = next(iter(delta.values())).shape[0]
+    rows = np.ones(W, bool) if rows is None else np.asarray(rows, bool)
+    committed: Dict[str, np.ndarray] = {}
+    new_res: Dict[str, np.ndarray] = {}
+    kept = np.zeros(W)
+    total = np.zeros(W)
+    for k, d in delta.items():
+        r = residual.get(k)
+        acc = d if r is None else d + r
+        flat = acc.reshape(W, -1)
+        absf = np.abs(flat)
+        if masks is not None:
+            valid = masks[k].reshape(W, -1) > 0
+            sizes = valid.sum(axis=1)
+            absf = np.where(valid, absf, -1.0)
+        else:
+            valid = None
+            sizes = np.full(W, flat.shape[1])
+        # float32 keep budgets, matching the reference's device compressor
+        # (aggregation.dgc_compress_jnp) exactly
+        n_keep = np.maximum(
+            1,
+            np.round(
+                sizes.astype(np.float32) * np.float32(1.0 - sparsity)
+            ).astype(np.int64),
+        )
+        n_keep = np.minimum(n_keep, np.maximum(sizes, 1))
+        order = np.sort(absf, axis=1)[:, ::-1]
+        thr = order[np.arange(W), n_keep - 1]
+        keep = absf >= thr[:, None]
+        if valid is not None:
+            keep &= valid
+        com = np.where(keep, flat, 0.0)
+        res = np.where(keep, 0.0, flat)
+        if valid is not None:
+            res = np.where(valid, res, 0.0)
+        old_res = np.zeros_like(flat) if r is None else r.reshape(W, -1)
+        rowsf = rows[:, None]
+        committed[k] = np.where(rowsf, com, 0.0).reshape(d.shape).astype(d.dtype)
+        new_res[k] = np.where(rowsf, res, old_res).reshape(d.shape).astype(d.dtype)
+        # realized per-row commit counts: ties at the threshold all pass the
+        # >= test, and a fully-masked row (sizes == 0) commits nothing — the
+        # keep mask already reflects both, n_keep reflects neither
+        kept += np.where(rows, keep.sum(axis=1), 0)
+        total += np.where(rows, sizes, 0)
+    factors = np.where(rows, 1.25 * kept / np.maximum(total, 1), 1.0)
+    return committed, new_res, factors
+
+
+def _skip_round_time(env: _Env, scen: ScenarioEngine, indices, round_t: int) -> float:
+    """Clock advance of a SKIPPED round (too few fault survivors): the
+    server waits out the straggler deadline, ``timeout_factor`` x the slowest
+    nominal update time at the current sub-models.  Jitter-free and
+    RNG-free."""
+    mults = scen.drift_mults(round_t)
+    phis = [
+        env.phi(w, subparam_shapes(indices[w], env.unit_map, env.base_shapes),
+                jitter=False, time_mult=float(mults[w]))
+        for w in range(len(indices))
+    ]
+    return scen.cfg.timeout_factor * max(phis)
+
+
+def _to_device(arrays: Mapping[str, np.ndarray], device) -> Dict[str, torch.Tensor]:
+    return {k: torch.as_tensor(v, device=device) for k, v in arrays.items()}
+
+
 def _run_sync(sim: SimConfig, env: _Env) -> SimResult:
     W = sim.num_workers
     sparse = sim.method in ("fedavg_s", "adaptcl")
     adapt = sim.method == "adaptcl"
     lam = sim.lam if sparse else 0.0
     resident = sim.engine == "masked"
+    scen = ScenarioEngine(sim.scenario, W) if sim.scenario is not None else None
+    dgc_residuals: List[Dict[str, np.ndarray]] = [{} for _ in range(W)]
+    dgc_res_stack: Optional[Dict[str, np.ndarray]] = None
 
     global_params = dict(env.base_params)
     indices = [full_index(env.space) for _ in range(W)]
@@ -400,7 +598,10 @@ def _run_sync(sim: SimConfig, env: _Env) -> SimResult:
     if resident:
         shard_x, shard_y = zip(*(env.shard_xy(w) for w in range(W)))
         state = env.fleet.init_state(env.base_params, list(shard_x), list(shard_y))
-        # constant per-phase step pads: every sub-stack shares one plan shape
+        if sim.resident_momentum:
+            env.fleet.init_momentum(state)
+        # constant per-phase step pads (churn keeps shard sizes fixed): every
+        # sub-stack shares one plan shape per phase
         pad_a = max(
             plan_steps(len(env.shards[w]), sim.batch_size, sim.local_epochs) for w in range(W)
         )
@@ -408,16 +609,24 @@ def _run_sync(sim: SimConfig, env: _Env) -> SimResult:
             plan_steps(len(env.shards[w]), sim.batch_size, (1 - sim.beta) * sim.local_epochs)
             for w in range(W)
         )
+        if sim.dgc_sparsity > 0.0:
+            dgc_res_stack = {
+                k: np.zeros((W,) + tuple(s), np.float32) for k, s in env.base_shapes.items()
+            }
 
     clock = 0.0
     comm_bytes = 0.0
     server_overhead = 0.0
     acc_time, het_traj, sim_traj, upd_times = [], [], [], []
+    scen_rows: List[Tuple[int, int, int, int]] = []
+    events_log: List = []
     acc_time.append((0.0, _env_accuracy(env, global_params)))
     rt_base = roundtrip_total()
 
-    def _learn_rates():
-        """One Alg. 2 server step at a pruning-interval boundary."""
+    def _learn_rates(t: int, drift_trigger: bool):
+        """One Alg. 2 server step (a pruning-interval boundary or a drift
+        event).  A drift event first invalidates the drifted worker's
+        (gamma, phi) history: it re-enters through the bootstrap path."""
         nonlocal prune_round_count, cig_scores, pending_rates, interval_phis
         prune_round_count += 1
         if cig_scores is None and sim.importance == "cig_bnscalor":
@@ -425,11 +634,14 @@ def _run_sync(sim: SimConfig, env: _Env) -> SimResult:
                 unit_counts=env.space.unit_counts,
                 scales=extract_bn_scales(global_params, sim.cnn),
             ))
+        if drift_trigger:
+            histories[sim.scenario.faults.drift.worker].invalidate()
+        mults = scen.drift_mults(t) if scen is not None else np.ones(W)
         gammas_now = [retention(indices[w], env.space) for w in range(W)]
         phis_now = [
             float(np.mean(interval_phis[w])) if interval_phis[w]
             else env.phi(w, subparam_shapes(indices[w], env.unit_map, env.base_shapes),
-                         jitter=False)
+                         jitter=False, time_mult=float(mults[w]))
             for w in range(W)
         ]
         for w in range(W):
@@ -466,11 +678,61 @@ def _run_sync(sim: SimConfig, env: _Env) -> SimResult:
                           activations=stats["activations"])
         return METHODS[sim.importance](ImportanceContext(**ctx_kw))
 
-    for t in range(1, sim.rounds + 1):
-        events = full_participation(W)
-        active_ws = [int(w) for w in np.flatnonzero(events.active)]
+    def _restart_residuals(w: int):
+        dgc_residuals[w] = {}
+        if dgc_res_stack is not None:
+            for k in dgc_res_stack:
+                dgc_res_stack[k][w] = 0.0
 
-        # batch plans, drawn in worker order up front (the reference's order)
+    for t in range(1, sim.rounds + 1):
+        events = scen.draw(t) if scen is not None else full_participation(W)
+        events_log.append(events)
+        # churn: a replaced slot restarts as a fresh full-model worker on a
+        # fresh shard (one fresh_shard draw per joined slot, ascending)
+        if events.joined.any():
+            joined = [int(w) for w in np.flatnonzero(events.joined)]
+            for w in joined:
+                indices[w] = full_index(env.space)
+                histories[w] = WorkerHistory()
+                pending_rates[w] = 0.0
+                interval_phis[w] = []
+                _restart_residuals(w)
+                env.shards[w] = scen.fresh_shard(len(env.shards[w]), len(env.task.y_train))
+                if resident:
+                    env.fleet.update_shard(state, w, *env.shard_xy(w))
+            if resident:
+                env.fleet.zero_momentum_rows(state, joined)
+                env.fleet.refresh_masks(state, indices)
+        # crash recovery: a returning worker refetches the global (the
+        # ordinary broadcast-back) with its last mask and history, but its
+        # momentum and DGC residual restart
+        if events.recovered is not None and events.recovered.any():
+            recovered = [int(w) for w in np.flatnonzero(events.recovered)]
+            for w in recovered:
+                _restart_residuals(w)
+            if resident:
+                env.fleet.zero_momentum_rows(state, recovered)
+        active_ws = [int(w) for w in np.flatnonzero(events.active)]
+        if scen is not None:
+            scen_rows.append(
+                (t, len(active_ws), int(events.dropped.sum()), int(events.joined.sum()))
+            )
+
+        # too few fault survivors: nothing trains, the global is untouched,
+        # the clock waits out the deadline; Alg. 2 and evals still run
+        if events.skip:
+            clock += _skip_round_time(env, scen, indices, t)
+            upd_times.append([float("nan")] * W)
+            t0 = _time.perf_counter()
+            if adapt and (t % sim.prune_interval == 0 or events.drift_changed):
+                _learn_rates(t, events.drift_changed)
+            server_overhead += _time.perf_counter() - t0
+            if t % sim.eval_every == 0:
+                acc_time.append((clock, _env_accuracy(env, global_params)))
+            continue
+
+        # batch plans of the active workers, drawn in worker order up front
+        # (the reference's order)
         plans_a: List[Optional[np.ndarray]] = [None] * W
         plans_b: List[Optional[np.ndarray]] = [None] * W
         prune_now = [False] * W
@@ -488,12 +750,14 @@ def _run_sync(sim: SimConfig, env: _Env) -> SimResult:
             env.account_train(indices[w], plans_a[w].shape[0])
 
         # phase A.  Resident: broadcast-back as a masked scatter, one fleet
-        # call.  Reconfiguring: each worker's sub-model extracted from the
-        # global model, the jobs trained by the engine.
+        # call (a row bucket when only part of the fleet is active).
+        # Reconfiguring: each worker's sub-model extracted from the global
+        # model, the jobs trained by the engine.
         worker_params: Dict[int, Dict[str, torch.Tensor]] = {}
         if resident:
             env.fleet.scatter_global(state, global_params)
-            env.fleet.train_rounds(state, plans_a, lam, pad_steps=pad_a)
+            env.fleet.train_rounds(state, plans_a, lam, pad_steps=pad_a,
+                                   carry_momentum=sim.resident_momentum)
         else:
             jobs_a = []
             for w in active_ws:
@@ -530,7 +794,7 @@ def _run_sync(sim: SimConfig, env: _Env) -> SimResult:
             env.fleet.refresh_masks(state, indices)
             env.fleet.train_rounds(
                 state, [plans_b[w] if prune_now[w] else None for w in range(W)],
-                lam, pad_steps=pad_b,
+                lam, pad_steps=pad_b, carry_momentum=sim.resident_momentum,
             )
         elif jobs_b:
             for job, trained in zip(jobs_b, env.fleet.train_all(jobs_b, lam)):
@@ -539,23 +803,56 @@ def _run_sync(sim: SimConfig, env: _Env) -> SimResult:
             if prune_now[w]:
                 env.account_train(indices[w], plans_b[w].shape[0])
 
-        # submission boundary: the channel model
+        # submission boundary: DGC (host numpy, as in the reference), then
+        # the channel model
         submitters = events.submitters
+        payload = np.ones(W)
+        agg_stacks = state.params if resident else None
+        if sim.dgc_sparsity > 0.0 and resident:
+            P = env.fleet.params_host(state)
+            M = env.fleet.masks_host(state)
+            g = {k: v.cpu().numpy() for k, v in global_params.items()}
+            deltas = {k: P[k] - g[k][None] * M[k] for k in P}
+            committed, dgc_res_stack, payload = _dgc_compress_stacked(
+                deltas, dgc_res_stack, sim.dgc_sparsity, masks=M, rows=submitters,
+            )
+            agg_stacks = _to_device({k: g[k][None] * M[k] + committed[k] for k in P}, env.device)
+        elif sim.dgc_sparsity > 0.0:
+            for w in active_ws:
+                if not submitters[w]:
+                    continue
+                received = {k: v.cpu().numpy() for k, v in
+                            extract_subparams(global_params, indices[w], env.unit_map).items()}
+                delta = {k: worker_params[w][k].cpu().numpy() - received[k]
+                         for k in worker_params[w]}
+                committed_w, dgc_residuals[w], payload[w] = _dgc_compress(
+                    delta, dgc_residuals[w], sim.dgc_sparsity
+                )
+                worker_params[w] = _to_device(
+                    {k: received[k] + committed_w[k] for k in delta}, env.device
+                )
+
         phis = np.full(W, np.nan)
+        dm = events.drift_mult
         for w in active_ws:
+            pf = float(payload[w]) if submitters[w] else 1.0
             if resident:
                 shapes_w = subparam_shapes(indices[w], env.unit_map, env.base_shapes)
             else:
                 shapes_w = {k: tuple(v.shape) for k, v in worker_params[w].items()}
-            phi_w = env.phi(w, shapes_w, jitter=True)
+            phi_w = env.phi(w, shapes_w, jitter=True, payload_factor=pf,
+                            time_mult=float(dm[w]) if dm is not None else 1.0)
             phis[w] = phi_w
             interval_phis[w].append(phi_w)
             if submitters[w]:
                 bytes_w = sum(int(np.prod(s)) * 4 for s in shapes_w.values())
-                comm_bytes += 2.0 * bytes_w
+                comm_bytes += 2.0 * pf * bytes_w
             pending_rates[w] = 0.0
         sub_phis = phis[submitters]
-        clock += float(sub_phis.max())          # BSP: the slowest gates
+        round_time = float(sub_phis.max())
+        if events.dropped.any() and scen is not None:
+            round_time *= scen.cfg.timeout_factor   # the server waits out the deadline
+        clock += round_time                     # BSP: the slowest received gates
         upd_times.append(list(phis))
         het_traj.append((t, heterogeneity_from_times(sub_phis)))
         if W > 3:
@@ -563,16 +860,16 @@ def _run_sync(sim: SimConfig, env: _Env) -> SimResult:
 
         t0 = _time.perf_counter()
         if resident and sim.aggregation == "by_unit":
-            agg = aggregate_by_unit_stacked(state.params, state.masks, submitters)
+            agg = aggregate_by_unit_stacked(agg_stacks, state.masks, submitters)
         elif resident:
-            agg = aggregate_by_worker_stacked(state.params, submitters / submitters.sum())
+            agg = aggregate_by_worker_stacked(agg_stacks, submitters / submitters.sum())
         else:
             submissions = [(worker_params[w], indices[w]) for w in active_ws if submitters[w]]
             aggregate = aggregate_by_unit if sim.aggregation == "by_unit" else aggregate_by_worker
             agg = aggregate(submissions, env.unit_map, env.base_shapes)
         global_params = {k: v.float() for k, v in agg.items()}
-        if adapt and t % sim.prune_interval == 0:
-            _learn_rates()
+        if adapt and (t % sim.prune_interval == 0 or events.drift_changed):
+            _learn_rates(t, events.drift_changed)
         server_overhead += _time.perf_counter() - t0
 
         if t % sim.eval_every == 0:
@@ -588,14 +885,16 @@ def _run_sync(sim: SimConfig, env: _Env) -> SimResult:
         global_params=global_params, host_roundtrips=host_roundtrips,
         flops_per_image_final=float(np.mean([c[0] for c in final_costs])),
         blocks_per_image_final=float(np.mean([c[2] for c in final_costs])),
-        prune_events=prune_events,
+        prune_events=prune_events, scenario_rounds=scen_rows,
+        fault_ledger=fault_ledger(events_log),
     )
 
 
 def _finalize(sim, env, acc_time, het_traj, sim_traj, upd_times, retentions,
               worker_params, comm_bytes, server_overhead, clock,
               global_params, host_roundtrips, flops_per_image_final,
-              blocks_per_image_final, prune_events) -> SimResult:
+              blocks_per_image_final, prune_events, scenario_rounds,
+              fault_ledger) -> SimResult:
     accs = np.array([a for _, a in acc_time])
     times = np.array([t for t, _ in acc_time])
     best = int(np.argmax(accs))
@@ -624,6 +923,8 @@ def _finalize(sim, env, acc_time, het_traj, sim_traj, upd_times, retentions,
         host_dispatches=env.trainer.dispatch_count,
         compile_walltime_s=env.trainer.compile_walltime_s,
         prune_events=prune_events,
+        scenario_rounds=scenario_rounds,
+        **fault_ledger,
         bucket_sizes=sorted(env.fleet.buckets_used),
         compute=sim.compute,
         flops_executed=env.flops_executed,

@@ -16,8 +16,10 @@ a Python loop over steps):
   non-participating rows share one call.
 
 Momentum restarts at zero per call (per phase), as in the reference
-engines.  ``gradient`` and ``local_unit_stats`` give the data-dependent
-importance signals; ``prune_and_reconfigure`` slices a sub-model down.
+engines, unless ``train_resident`` is handed a momentum stack to carry
+(``SimConfig.resident_momentum``).  ``gradient`` and ``local_unit_stats``
+give the data-dependent importance signals; ``prune_and_reconfigure``
+slices a sub-model down.
 
 Counters, defined for PyTorch (which has no jit):
 
@@ -211,18 +213,24 @@ class LocalTrainer:
     def _plan_sig(self, params: Mapping[str, torch.Tensor], extra, lam: float) -> tuple:
         return (tuple(sorted((k, tuple(v.shape)) for k, v in params.items())), extra, float(lam))
 
-    def _train_stack(self, params, masks, unit_map, xs, ys, plans, valid, lam, gl_sizes):
+    def _train_stack(self, params, masks, unit_map, xs, ys, plans, valid, lam, gl_sizes,
+                     momentum_in=None):
         """SGD + momentum over a ``[B, ...]`` stack through its ``[B, S,
         batch]`` plans.  ``masks`` (0/1 stacks) runs the masked base-shape
         model, the unit masks read off the ``bn_g`` rows; ``None`` runs the
         params as they are.  ``valid`` ([B, S]) gates each step, ``None``
         runs them all.  ``gl_sizes`` ({lname: [B]}) sets the group-lasso
-        factors, ``None`` takes them from the params' shapes."""
+        factors, ``None`` takes them from the params' shapes.  The momentum
+        starts from ``momentum_in`` when given, else from zeros.  Returns
+        ``(params, momentum, mean losses [B])``."""
         opt = momentum(self.lr, self.beta)
         B, S, _ = plans.shape
         rows = torch.arange(B, device=xs.device)[:, None]
         p = {k: v.detach() for k, v in params.items()}
-        st = opt.init(p)
+        if momentum_in is None:
+            st = opt.init(p)
+        else:
+            st = {k: v.detach() for k, v in momentum_in.items()}
         loss_sum = torch.zeros(B, device=xs.device)
         self.steps_run += S
         for s in range(S):
@@ -260,7 +268,7 @@ class LocalTrainer:
             if masks is not None:
                 p = {k: v * masks[k] for k, v in p.items()}
             steps = torch.full((B,), float(S), device=xs.device) if valid is None else valid.sum(1)
-            return p, loss_sum / torch.clamp_min(steps, 1.0)
+            return p, st, loss_sum / torch.clamp_min(steps, 1.0)
 
     def _device_data(self, x, y) -> Tuple[torch.Tensor, torch.Tensor]:
         return (torch.as_tensor(x, device=self.device),
@@ -280,7 +288,7 @@ class LocalTrainer:
         plans = torch.as_tensor(plan[None], device=self.device)
 
         def run():
-            out, losses = self._train_stack(
+            out, _, losses = self._train_stack(
                 {k: v.unsqueeze(0) for k, v in params.items()}, None, unit_map,
                 xs, ys, plans, None, lam, None,
             )
@@ -304,7 +312,7 @@ class LocalTrainer:
         )
         xt, yt = self._device_data(xs, ys)
         pt = torch.as_tensor(plans, device=self.device)
-        out, losses = self.dispatch(
+        out, _, losses = self.dispatch(
             sig, self._train_stack, stacked, None, unit_map, xt, yt, pt, None, lam, None
         )
         return [{k: v[i] for k, v in out.items()} for i in range(B)], losses
@@ -342,13 +350,19 @@ class LocalTrainer:
         valid: torch.Tensor,              # [B, steps] 1.0 = real step
         lam: float,
         gl_sizes: Mapping[str, torch.Tensor],   # {lname: [B]} sqrt-group-size factors
+        momentum_in: Optional[Tensors] = None,  # [B, ...] cross-round carry
     ):
         """One counted call over a whole worker stack.  Returns
-        ``(params_stack, losses[B])``, both on the device."""
-        sig = ("resident", tuple(xs.shape), tuple(plans.shape), float(lam))
+        ``(params_stack, momentum_stack, losses[B])``, all on the device.
+        With ``momentum_in`` the optimizer starts from that stack instead of
+        zeros (cross-round resident momentum); the returned stack is the
+        next carry.  Pruned coordinates get zero gradients, so momentum that
+        is zero there stays exactly zero."""
+        sig = ("resident", tuple(xs.shape), tuple(plans.shape), momentum_in is not None,
+               float(lam))
         return self.dispatch(
             sig, self._train_stack, params_stack, masks_stack, unit_map,
-            xs, ys, plans, valid, lam, gl_sizes,
+            xs, ys, plans, valid, lam, gl_sizes, momentum_in,
         )
 
 

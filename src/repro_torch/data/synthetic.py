@@ -6,7 +6,9 @@ so both packages train on byte-identical images and shards.
 
 Non-IID partition follows AdaptCL §IV-A: (1-s%) of the data is split IID
 across workers; the remaining s% is sorted by label and dealt sequentially —
-every worker has the same amount of data but skewed classes.
+every worker has the same amount of data but skewed classes.  The scenario
+layer's Dirichlet label skew (``partition_dirichlet``) is the other
+partitioner.
 """
 from __future__ import annotations
 
@@ -15,7 +17,7 @@ from typing import List
 
 import numpy as np
 
-__all__ = ["SyntheticImageTask", "partition_noniid"]
+__all__ = ["SyntheticImageTask", "partition_dirichlet", "partition_noniid"]
 
 
 @dataclasses.dataclass
@@ -69,3 +71,44 @@ def partition_noniid(
         hi = (w + 1) * chunk if w < num_workers - 1 else len(skew_part)
         shards[w].extend(skew_part[lo:hi])
     return [np.array(sh, dtype=np.int64) for sh in shards]
+
+
+def partition_dirichlet(
+    y: np.ndarray, num_workers: int, alpha: float, seed: int = 0
+) -> List[np.ndarray]:
+    """Dirichlet label-concentration Non-IID split (``ScenarioConfig.skew``).
+
+    Each worker draws a class mixture ``p_w ~ Dir(alpha)`` (small alpha =
+    near single-class shards, large alpha = IID); floor quotas per class are
+    filled from shuffled per-class pools, then the leftover indices are dealt
+    shuffled so every shard has EXACTLY ``n // num_workers`` samples — the
+    resident engines stack shard data into ``[W, n_shard, ...]`` arrays and
+    require equal sizes.  Pure host numpy on one dedicated ``default_rng``
+    stream, so the assignment is a function of ``(y, W, alpha, seed)`` alone
+    and every engine sees identical shards."""
+    n = len(y)
+    rng = np.random.default_rng(seed)
+    classes = np.unique(y)
+    pools = {
+        int(c): rng.permutation(np.flatnonzero(y == c)).tolist()
+        for c in classes
+    }
+    n_shard = n // num_workers
+    mix = rng.dirichlet(np.full(len(classes), alpha), size=num_workers)
+    shards: List[List[int]] = [[] for _ in range(num_workers)]
+    for w in range(num_workers):
+        quota = np.floor(mix[w] * n_shard).astype(np.int64)
+        for ci, c in enumerate(classes):
+            pool = pools[int(c)]
+            take = min(int(quota[ci]), len(pool), n_shard - len(shards[w]))
+            if take > 0:
+                shards[w].extend(pool[:take])
+                del pool[:take]
+    leftover = [i for c in classes for i in pools[int(c)]]
+    rng.shuffle(leftover)
+    pos = 0
+    for w in range(num_workers):
+        need = n_shard - len(shards[w])
+        shards[w].extend(leftover[pos : pos + need])
+        pos += need
+    return [np.sort(np.array(sh, dtype=np.int64)) for sh in shards]

@@ -300,11 +300,27 @@ class _Dummy:
     pass
 
 
+def _byzantine_scenario():
+    from repro_torch.core.faults import ByzantineConfig, FaultConfig
+    from repro_torch.core.scenario import ScenarioConfig
+
+    return ScenarioConfig(faults=FaultConfig(byzantine=ByzantineConfig(workers=(0,))))
+
+
+# explicit ids keep each case's name from before scenarios and DGC were
+# ported; a scenario is refused only for the byzantine and channel families
+# (tests/test_torch_faults.py), and resident_momentum only off the masked
+# engine (the default engine is sequential)
 @pytest.mark.parametrize("field,value", [
-    ("engine", "fused"),
-    ("scenario", _Dummy()), ("regrow", _Dummy()), ("dgc_sparsity", 0.5),
-    ("robust", _Dummy()), ("mesh", _Dummy()), ("resident_momentum", True),
-    ("method", "fedasync_s"), ("method", "ssp_s"), ("method", "dcasgd_s"),
+    pytest.param("engine", "fused", id="engine-fused"),
+    pytest.param("scenario", _byzantine_scenario(), id="scenario-value1"),
+    pytest.param("regrow", _Dummy(), id="regrow-value2"),
+    pytest.param("robust", _Dummy(), id="robust-value4"),
+    pytest.param("mesh", _Dummy(), id="mesh-value5"),
+    pytest.param("resident_momentum", True, id="resident_momentum-True"),
+    pytest.param("method", "fedasync_s", id="method-fedasync_s"),
+    pytest.param("method", "ssp_s", id="method-ssp_s"),
+    pytest.param("method", "dcasgd_s", id="method-dcasgd_s"),
 ])
 def test_out_of_slice_fields_are_refused_by_name(field, value):
     sim = SimConfig(rounds=1, num_workers=2, device="cpu", **{field: value})
