@@ -121,6 +121,38 @@ skew 0.5) and the drift, crash, outage and wave faults:
                     factors below 1 on every submitting row; steady ms per
                     step and peak memory.
 
+Slice 7, the paper's asynchronous baselines and FedDST regrowth, VGG16_CIFAR
+at full width, 10 slots, batch 32 (phase 2 also holds every VGG16_CIFAR
+product on the async window batches' buckets of 1 and 2 rows, and on
+masks whose dead 128-unit blocks a regrow brings back):
+
+17. async       — fedasync_s, ssp_s and dcasgd_s on masked + block_skip
+                  under ASYNC_FLEET (a cohort of 8, dropout 0.1, crashes at
+                  0.15 out for 2 update times), 3 commits a participant,
+                  window ASYNC_WINDOW (buckets 1, 2 and 4); launch counts
+                  zeroed just before each run, read just after: steady ms
+                  per step, host merge and row-pull ms per commit, launches
+                  per step at each bucket, peak memory.
+18. async_check — the same runs on sequential (cuDNN): identical clocks,
+                  scenario rounds and ledger; params within ENVELOPE_EXCESS
+                  x the one-ulp envelope; after a first window batch of one
+                  SGD step per participant, the merged rows and the global
+                  within FIRST_ROUND_ATOL, which the TF32 control's rows
+                  must exceed.
+19. regrow      — adaptcl, index order, fixed rates, RegrowConfig(interval=2),
+                  6 rounds, masked + block_skip: each readjustment re-adds
+                  the removed mass within one unit cost, its grown units
+                  hold the global's values after broadcast-back, and a
+                  worker whose dead block came back executes more blocks;
+                  one SGD step on the revived masks within 1e-4 of dense.
+                  Against masked dense deciding for itself: identical
+                  events before the first readjustment, and a split of the
+                  grow order only where the paths' grow scores differ by as
+                  much as the split units' distance from the cutoff
+                  (REGROW_SPLIT); against masked dense replaying
+                  block_skip's decisions: identical events and clocks,
+                  params within ENVELOPE_EXCESS x its one-ulp envelope.
+
 Then a ``{"kernels": [...]}`` line, the ``nvidia-smi`` name/power line, and
 as the last line ``{"ok": true, "device": {...}}``.  Details go to
 ``chiprun_out/chip_smoke.json``.  Without a CUDA device, or without the
@@ -344,7 +376,7 @@ def _compare(x, w, im, om, rm, blocks, gen):
 
 def phase_kernel(report):
     import torch
-    from repro_torch.kernels.pruned_matmul import instance_info
+    from repro_torch.kernels.pruned_matmul import instance_info, keep_info
 
     dev = torch.device(DEVICE)
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -436,6 +468,46 @@ def phase_kernel(report):
             x = torch.randn(live, M, K, generator=gen, device=dev)[rows]
             w = (torch.randn(live, K, N, generator=gen, device=dev) / float(np.sqrt(K)))[rows]
             add(f"bucket_{name}({B},{M},{K},{N})", x, w, T(ims[rows]), T(oms[rows]), T(rms))
+    # the async window batches: every VGG16_CIFAR product on sub-stacks of 1
+    # and 2 rows (buckets 1 and 2; async workers never prune, so every mask
+    # is all ones), and a 2-row bucket holding one live row padded with a
+    # copy of row 0 whose row mask is zero, a dead dW contraction there
+    for B, live in ((1, 1), (2, 2), (2, 1)):
+        rows = list(range(live)) + [0] * (B - live)
+        for name, mpi, K, N, *_ in vgg16_layers():
+            M = 32 * mpi
+            rms = np.ones((B, M), np.float32)
+            rms[live:] = 0.0
+            x = torch.randn(live, M, K, generator=gen, device=dev)[rows]
+            w = (torch.randn(live, K, N, generator=gen, device=dev) / float(np.sqrt(K)))[rows]
+            add(f"async_bucket{B}x{live}_{name}({B},{M},{K},{N})", x, w,
+                torch.ones(B, K, device=dev), torch.ones(B, N, device=dev), T(rms))
+    # regrowth: on every VGG16_CIFAR conv 256 or more units wide on both
+    # sides, row 0 has whole 128-unit blocks dead on both sides (the second
+    # input block of the producer, over all its taps, and the second output
+    # block) and row 1 the same masks after a regrow brought 3 units of each
+    # back; the revived blocks must run again
+    revived = []
+    for name, mpi, K, N, cin, taps, in_l, out_l in vgg16_layers():
+        if N < 256 or cin < 256 or not (in_l and out_l):
+            continue
+        M = 32 * mpi
+        rng_m = np.random.default_rng(len(revived))
+        unit_i = (rng_m.random(cin) < 0.8).astype(np.float32)
+        unit_o = (rng_m.random(N) < 0.8).astype(np.float32)
+        dead_i, dead_o = unit_i.copy(), unit_o.copy()
+        dead_i[128:256] = 0.0
+        dead_o[128:256] = 0.0
+        back_i, back_o = dead_i.copy(), dead_o.copy()
+        back_i[[130, 170, 255]] = 1.0
+        back_o[[128, 200, 201]] = 1.0
+        ims = np.stack([np.repeat(dead_i, taps), np.repeat(back_i, taps)])
+        oms = np.stack([dead_o, back_o])
+        revived.append({"case": name,
+                        "in_blocks": [int(keep_info(T(ims[r:r + 1]), 128)[2]) for r in (0, 1)],
+                        "out_blocks": [int(keep_info(T(oms[r:r + 1]), 128)[2]) for r in (0, 1)]})
+        add(f"regrow_{name}(2,{M},{K},{N})", torch.randn(2, M, K, generator=gen, device=dev),
+            torch.randn(2, K, N, generator=gen, device=dev) / float(np.sqrt(K)), T(ims), T(oms))
     # rows whose every K block is dead: in_mask (forward), out_mask (dX's
     # contraction) and row_mask (dW's contraction) all zero in one row each
     B, M, K, N = 4, 200, 1000, 300
@@ -504,6 +576,11 @@ def phase_kernel(report):
            "instances": sorted({f"{pl['instance']},S{'>1' if pl['split'] > 1 else '=1'}"
                                 for c in cases for pl in c["plans"].values()}),
            "max_split": max(pl["split"] for c in cases for pl in c["plans"].values()),
+           # (instance, S) of each direction on the async buckets of 1 and 2 rows
+           "async_bucket_plans": {c["case"].split("(")[0]: {d: f"{pl['instance']},S{pl['split']}"
+                                                            for d, pl in c["plans"].items()}
+                                  for c in cases if c["case"].startswith("async_bucket")},
+           "regrow_blocks": revived,
            "deterministic": determinism}
     report["kernel"] = {**rec, "detail": cases}
     emit(rec)
@@ -515,6 +592,8 @@ def phase_kernel(report):
     ran = {pl["instance"] for c in cases for pl in c["plans"].values()}
     check(built <= ran, f"kernel instances no case exercised: {sorted(built - ran)}")
     check(all(d["bit_identical"] for d in determinism), "two launches differ: " + json.dumps(determinism))
+    check(revived and all(r["in_blocks"][1] > r["in_blocks"][0] and r["out_blocks"][1] > r["out_blocks"][0]
+                          for r in revived), "regrow cases: no block came back to life")
     check(all(any(d["plans"][k]["split"] > 1 for d in determinism) for k in ("fwd", "dx", "dw")),
           "the determinism check ran no split launch in some direction")
     return per_kernel
@@ -695,8 +774,9 @@ def phase_main(report, sim=None, tag="main"):
     return launches, res
 
 
-def pruned_one_step(compute, rates, cnn=None, dtype=None):
-    """One SGD step of every worker on prefix-pruned masks, then the
+def pruned_one_step(compute, rates, cnn=None, dtype=None, indices=None):
+    """One SGD step of every worker on prefix-pruned masks (or on the
+    global ``indices`` given, one per worker), then the
     by-worker average: the round body of ``run_simulation`` after a pruning
     event, driven through the port's fleet engine from the seeded init, so
     both compute paths start from identical params, masks and batches.
@@ -711,12 +791,13 @@ def pruned_one_step(compute, rates, cnn=None, dtype=None):
     from repro_torch.core.worker import make_batch_plan
     from repro_torch.models.cnn import VGG16_CIFAR
 
-    W = len(rates)
+    W = len(rates) if indices is None else len(indices)
     dtype = torch.float32 if dtype is None else dtype
     env = _Env(SimConfig(method="adaptcl", engine="masked", compute=compute, cnn=cnn or VGG16_CIFAR,
                          num_workers=W, importance="index", device=DEVICE))
-    scores = METHODS["index"](ImportanceContext(unit_counts=env.space.unit_counts))
-    indices = [prune_to_budget(full_index(env.space), scores, r, env.space) for r in rates]
+    if indices is None:
+        scores = METHODS["index"](ImportanceContext(unit_counts=env.space.unit_counts))
+        indices = [prune_to_budget(full_index(env.space), scores, r, env.space) for r in rates]
     xs, ys = zip(*(env.shard_xy(w) for w in range(W)))
     state = env.fleet.init_state(env.base_params, list(xs), list(ys))
     env.fleet.refresh_masks(state, indices)
@@ -1529,8 +1610,9 @@ def check_first_round(fr, tag):
 
 
 def bucket_spy():
-    """Record (bucket rows, kernel launches) of every participation-sized
-    sub-stack call of the masked engine; returns (records, undo)."""
+    """Record (bucket rows, trainer steps, launches per kernel) of every
+    participation-sized sub-stack call of the masked engine; returns
+    (records, undo)."""
     from repro_torch.core import fleet
     from repro_torch.kernels.pruned_matmul import LAUNCHES
 
@@ -1538,10 +1620,11 @@ def bucket_spy():
     records = []
 
     def spy(self, state, rows, plans, *a, **kw):
-        before = sum(LAUNCHES.values())
+        before, steps = dict(LAUNCHES), self.trainer.steps_run
         out = real(self, state, rows, plans, *a, **kw)
         records.append({"rows": len(rows), "bucket": fleet.bucket_rows(len(rows), state.num_workers),
-                        "launches": sum(LAUNCHES.values()) - before})
+                        "steps": self.trainer.steps_run - steps,
+                        "launches": {k: LAUNCHES[k] - before[k] for k in LAUNCHES}})
         return out
 
     fleet.FleetEngine.train_rows = spy
@@ -1611,7 +1694,8 @@ def phase_scenario(report):
         "phase": "scenario_check", "rounds": FLEET_ROUNDS, "scenario": FLEET,
         "scenario_rounds": res.scenario_rounds, "ledger": ledger,
         "bucket_sizes": res.bucket_sizes,
-        "sub_stack_calls": len(sub), "sub_stack_launches": sum(r["launches"] for r in sub),
+        "sub_stack_calls": len(sub),
+        "sub_stack_launches": sum(sum(r["launches"].values()) for r in sub),
         "sub_stack_buckets": sorted({r["bucket"] for r in sub}),
         "launches": launches, "launches_per_step": {k: v / max(res.train_steps, 1)
                                                     for k, v in launches.items()},
@@ -1643,7 +1727,7 @@ def phase_scenario(report):
     check(sum(r[3] for r in res.scenario_rounds) > 0, "scenario: no slot churned")
     check(ledger["workers_recovered"] > 0 and ledger["drift_events"] > 0,
           "scenario: no recovery or no drift event")
-    check(sub and all(r["launches"] > 0 for r in sub),
+    check(sub and all(sum(r["launches"].values()) > 0 for r in sub),
           "scenario: the kernel never ran on a sub-stack of fewer than 10 rows")
     check(np.isfinite(seq.final_acc), "scenario: sequential final_acc not finite")
     torch.cuda.empty_cache()
@@ -1773,6 +1857,513 @@ def phase_dgc(report):
     return rec
 
 
+# ---------------------------------------------------------------------------
+# slice 7: the asynchronous baselines (fedasync_s, ssp_s, dcasgd_s) and
+# FedDST regrowth
+# ---------------------------------------------------------------------------
+
+ASYNC_METHODS = ("fedasync_s", "ssp_s", "dcasgd_s")
+# VGG16_CIFAR at full width, 10 slots: a static cohort of 8, 10 % of the
+# commits timed out at the server, crashes at 0.15 a commit keeping a worker
+# out for 2 update times.  Three commits a participant; a 1.0 s virtual
+# window batches the commits into sub-stacks of 1 to 4 rows (buckets 1, 2
+# and 4; planned on the host, PERF.md section 4)
+ASYNC_FLEET = {"participation": 0.8, "dropout": 0.1, "seed": 3}
+ASYNC_CRASH = {"rate": 0.15, "outage_rounds": 2}
+ASYNC_ROUNDS = 3
+ASYNC_WINDOW = 1.0
+
+
+def async_sim(method, **kw):
+    from repro_torch.core.faults import CrashConfig, FaultConfig
+    from repro_torch.core.scenario import ScenarioConfig
+    from repro_torch.core.simulation import SimConfig
+    from repro_torch.models.cnn import VGG16_CIFAR
+
+    base = dict(method=method, engine="masked", compute="block_skip", cnn=VGG16_CIFAR,
+                num_workers=10, batch_size=32, rounds=ASYNC_ROUNDS, async_window=ASYNC_WINDOW,
+                seed=3, device=DEVICE,
+                scenario=ScenarioConfig(faults=FaultConfig(crash=CrashConfig(**ASYNC_CRASH)),
+                                        **ASYNC_FLEET))
+    base.update(kw)
+    return SimConfig(**base)
+
+
+def per_bucket(records):
+    """{bucket: {"calls", "steps", kernel: launches per step}} of spy records."""
+    out = {}
+    for r in records:
+        b = out.setdefault(str(r["bucket"]), {"calls": 0, "steps": 0, "launches": {}})
+        b["calls"] += 1
+        b["steps"] += r["steps"]
+        for k, v in r["launches"].items():
+            b["launches"][k] = b["launches"].get(k, 0) + v
+    for b in out.values():
+        b["launches_per_step"] = {k: v / max(b["steps"], 1) for k, v in b["launches"].items()}
+    return out
+
+
+def commit_bytes(res) -> float:
+    return 2.0 * 4 * sum(v.size for v in res.global_params.values())
+
+
+def phase_async(report):
+    """Each async method on masked + block_skip (launch counts zeroed just
+    before each run, read just after): steady ms per step, host merge and
+    row-pull ms per commit, buckets and launches per step at each, peak
+    memory."""
+    import torch
+    from repro_torch.core.simulation import run_simulation
+    from repro_torch.kernels.pruned_matmul import LAUNCHES, reset_launches
+
+    runs = {}
+    for method in ASYNC_METHODS:
+        records, undo = bucket_spy()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        try:
+            res = run_simulation(async_sim(method))
+        finally:
+            undo()
+        launches = dict(LAUNCHES)
+        events = ASYNC_ROUNDS * res.scenario_rounds[0][1]
+        merged = int(round(res.comm_bytes / commit_bytes(res)))
+        buckets = per_bucket(records)
+        rec = {
+            "phase": "async", "method": method, "cnn": async_sim(method).cnn.name, "slots": 10,
+            "cohort": res.scenario_rounds[0][1], "rounds": ASYNC_ROUNDS, "window": ASYNC_WINDOW,
+            "events": events, "merged_commits": merged, "window_batches": res.batched_calls,
+            "workers_recovered": res.workers_recovered, "final_acc": res.final_acc,
+            "total_time": res.total_time, "bucket_sizes": res.bucket_sizes,
+            "launches": launches, "train_steps": res.train_steps,
+            "launches_per_step": {k: v / max(res.train_steps, 1) for k, v in launches.items()},
+            "buckets": buckets,
+            "steady_ms_per_step": steady_ms(res),
+            "merge_ms_per_commit": res.server_overhead_s / max(merged, 1) * 1e3,
+            "pull_ms_per_commit": res.host_pull_s / max(events, 1) * 1e3,
+            "walltime_s": res.walltime_s, "compile_walltime_s": res.compile_walltime_s,
+            "host_roundtrips": res.host_roundtrips,
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30,
+        }
+        emit(rec)
+        report[f"async_{method}"] = {**rec, "acc_time": res.acc_time, "calls": records}
+        check(all(v > 0 for v in launches.values()), f"async {method}: a kernel never launched")
+        check({1, 2} <= set(res.bucket_sizes) and max(res.bucket_sizes) >= 4,
+              f"async {method}: buckets {res.bucket_sizes} miss 1, 2 or >= 4 rows")
+        check(all(all(v > 0 for v in b["launches"].values()) for b in buckets.values()),
+              f"async {method}: a bucket ran without the kernel")
+        check(res.host_roundtrips == 0, f"async {method}: host round trips on the resident engine")
+        check(res.workers_recovered > 0 and merged < events,
+              f"async {method}: no crash recovery or no timed-out commit")
+        check(all(np.isfinite(v).all() for v in res.global_params.values()),
+              f"async {method}: non-finite params")
+        runs[method] = (res, launches, buckets)
+    return runs
+
+
+@contextlib.contextmanager
+def merge_inputs(store):
+    """Inside, every async commit leaves a copy of its trained params (the
+    merge's input) in ``store``, in commit order."""
+    from repro_torch.core import simulation
+
+    real = simulation.AsyncServer
+
+    class Spy(real):
+        def commit(self, worker, trained, fetched, staleness):
+            store.append({k: np.array(v) for k, v in trained.items()})
+            return super().commit(worker, trained, fetched, staleness)
+
+    simulation.AsyncServer = Spy
+    try:
+        yield
+    finally:
+        simulation.AsyncServer = real
+
+
+def first_batch(method):
+    """One window batch of every participant's first commit, one SGD step
+    each (local_epochs 0.25, a window wider than the run), on masked +
+    block_skip and on sequential cuDNN, the latter also with TF32 products
+    (the control) and from the init one ulp up (the float32 floor): the
+    trained rows the server merged, and the global after the merges."""
+    from repro_torch.core.simulation import run_simulation
+
+    kw = dict(rounds=1, local_epochs=0.25, async_window=1e9)
+    sim, ref = async_sim(method, **kw), async_sim(method, engine="sequential", compute="dense", **kw)
+
+    def run(s, tf32=False, base_params=None):
+        seen = []
+        with tf32_products() if tf32 else contextlib.nullcontext(), merge_inputs(seen):
+            res = run_simulation(s, base_params=base_params)
+        return res, seen
+
+    def dist(x, y):
+        return {"rows": max(float(np.abs(a[k] - b[k]).max()) for a, b in zip(x[1], y[1]) for k in b),
+                "params": param_drift(x[0], y[0])["max"]}
+
+    init = seeded_init(ref)
+    a, b = run(sim), run(ref)
+    c = run(ref, tf32=True)
+    u = run(ref, base_params={k: np.nextafter(v, np.float32(np.inf)) for k, v in init.items()})
+    check(len(a[1]) == len(b[1]) > 0, f"{method} first batch: the merges differ in number")
+    return {"method": method, "batch_rows": a[0].bucket_sizes, "merged": len(a[1]),
+            "atol": FIRST_ROUND_ATOL, "diff": dist(a, b), "tf32_control": dist(c, b),
+            "one_ulp": dist(u, b),
+            "max_update": max(float(np.abs(r[k] - init[k]).max()) for r in b[1] for k in init),
+            "clocks_equal": a[0].acc_time[-1][0] == b[0].acc_time[-1][0]}
+
+
+def phase_async_check(report, runs):
+    """The async runs against the same runs on sequential cuDNN: identical
+    clocks, scenario rounds and ledger; params within ENVELOPE_EXCESS x the
+    one-ulp envelope; the first window batch within FIRST_ROUND_ATOL with the
+    TF32 control beyond it."""
+    import torch
+    from repro_torch.core.simulation import run_simulation
+
+    out = {}
+    for method in ASYNC_METHODS:
+        res = runs[method][0]
+        seq_sim = async_sim(method, engine="sequential", compute="dense")
+        t0 = time.perf_counter()
+        seq = run_simulation(seq_sim)
+        seq_s = time.perf_counter() - t0
+        envelope = one_ulp_envelope(seq_sim, seq)
+        fb = first_batch(method)
+        ledger = {f: getattr(res, f) for f in LEDGER_FIELDS}
+        drift = param_drift(res, seq)
+        rec = {
+            "phase": "async_check", "method": method,
+            "total_time": [res.total_time, seq.total_time],
+            "clocks_identical": [t for t, _ in res.acc_time] == [t for t, _ in seq.acc_time],
+            "scenario_rounds_identical": res.scenario_rounds == seq.scenario_rounds,
+            "ledger": ledger, "ledger_identical": ledger == {f: getattr(seq, f) for f in LEDGER_FIELDS},
+            "final_acc": [res.final_acc, seq.final_acc],
+            "param_drift": drift, "one_ulp_envelope": envelope, "envelope_excess": ENVELOPE_EXCESS,
+            "first_batch": fb, "sequential_walltime_s": seq_s,
+            "sequential_steady_ms_per_step": steady_ms(seq),
+            "sequential_merge_ms_per_commit": seq.server_overhead_s
+            / max(int(round(seq.comm_bytes / commit_bytes(seq))), 1) * 1e3,
+            "sequential_host_roundtrips": seq.host_roundtrips,
+        }
+        emit(rec)
+        report[f"async_check_{method}"] = rec
+        tag = f"async_check {method}"
+        check(res.total_time == seq.total_time, f"{tag}: virtual clocks differ")
+        check(rec["clocks_identical"], f"{tag}: eval clocks differ")
+        check(rec["scenario_rounds_identical"], f"{tag}: scenario rounds differ")
+        check(rec["ledger_identical"], f"{tag}: fault ledgers differ")
+        check(seq.host_roundtrips == int(round(seq.comm_bytes / commit_bytes(seq))),
+              f"{tag}: sequential host round trips are not one a merged commit")
+        check(drift["max"] <= ENVELOPE_EXCESS * envelope["max"],
+              f"{tag}: params differ by {drift['max']} > {ENVELOPE_EXCESS} x {envelope['max']}")
+        check(fb["clocks_equal"], f"{tag}: first-batch clocks differ")
+        for what in ("rows", "params"):
+            check(fb["diff"][what] <= FIRST_ROUND_ATOL,
+                  f"{tag}: first-batch {what} differ by {fb['diff'][what]} > {FIRST_ROUND_ATOL}")
+        check(fb["tf32_control"]["rows"] > FIRST_ROUND_ATOL,
+              f"{tag}: the TF32 control moved the first-batch rows by only "
+              f"{fb['tf32_control']['rows']}, so {FIRST_ROUND_ATOL} cannot tell an error of its grade")
+        check(np.isfinite(seq.final_acc), f"{tag}: sequential final_acc not finite")
+        out[method] = rec
+        torch.cuda.empty_cache()
+    return out
+
+
+REGROW_ROUNDS = 6
+# The grow order ranks |grad| of the dense model at each path's own global.
+# After four rounds of float32 VGG16 training those globals are chaotically
+# apart (a one-ulp change of the init moves them as far), so a readjustment
+# of block_skip and one of cuDNN may grow different units.  Such a split is
+# accepted only where the split units' distance from the grow cutoff is
+# within REGROW_SPLIT x the relative difference of their scores between the
+# two paths, the re-added mass stays within a unit cost, and a one-ulp change
+# of the init splits the dense path too; the kernel is then held on the same
+# decisions, replayed on the dense path.
+REGROW_SPLIT = 1.0
+
+
+def regrow_sim(**kw):
+    from repro_torch.core.simulation import RegrowConfig, SimConfig
+    from repro_torch.models.cnn import VGG16_CIFAR
+
+    # index order prunes each layer's highest units first, so whole 128-unit
+    # blocks die; fixed rates keep both compute paths' budgets equal
+    base = dict(method="adaptcl", engine="masked", compute="block_skip", cnn=VGG16_CIFAR,
+                num_workers=10, batch_size=32, rounds=REGROW_ROUNDS, prune_interval=2,
+                importance="index", fixed_pruned_rates=[DGC_RATES, DGC_RATES],
+                regrow=RegrowConfig(interval=2), device=DEVICE)
+    base.update(kw)
+    return SimConfig(**base)
+
+
+def regrow_spy(store):
+    """Inside, record each readjustment (round, worker, index before and
+    after, the grow and shrink scores), and after the next broadcast-back
+    the largest |row - global| over the units a readjustment grew (the bn
+    scale and shift, and each conv's output slice under the row's mask);
+    returns undo."""
+    import torch
+    from repro_torch.core import fleet, simulation
+
+    real_step, real_scatter = simulation._regrow_step, fleet.FleetEngine.scatter_global
+    real_grow, real_shrink = simulation.grad_magnitude_scores, simulation._weight_magnitude_scores
+    pending = []
+
+    def grow(*a, **kw):
+        out = real_grow(*a, **kw)
+        store["grow_scores"].append(out)
+        return out
+
+    def shrink(*a, **kw):
+        out = real_shrink(*a, **kw)
+        store["shrink_scores"].append(out)
+        return out
+
+    def step(sim, env, global_params, indices, t):
+        before = [{k: np.array(v) for k, v in i.items()} for i in indices]
+        out = real_step(sim, env, global_params, indices, t)
+        for w, idx in out:
+            grown = {k: np.setdiff1d(idx[k], before[w][k]) for k in idx}
+            store["events"].append({"round": t, "worker": w, "before": before[w],
+                                    "after": {k: np.array(v) for k, v in idx.items()},
+                                    "grown": grown})
+            pending.append((w, grown))
+        return out
+
+    def scatter(self, state, global_params):
+        real_scatter(self, state, global_params)
+        while pending:
+            w, grown = pending.pop()
+            worst, units = 0.0, 0
+            for lname, u in grown.items():
+                if not len(u):
+                    continue
+                ui = torch.as_tensor(u, device=self.device)
+                units += len(u)
+                for path in (f"{lname}/bn_g", f"{lname}/bn_b", f"{lname}/w"):
+                    axis = next(a for l, a in self.unit_map[path] if l == lname)
+                    row = torch.index_select(state.params[path][w], axis, ui)
+                    want = torch.index_select(global_params[path] * state.masks[path][w], axis, ui)
+                    worst = max(worst, float((row - want).abs().max()))
+                    if path.endswith("/bn_g"):
+                        # a grown unit is live again: its mask is one there
+                        worst = max(worst, float((torch.index_select(
+                            state.masks[path][w], 0, ui) - 1.0).abs().max()))
+            store["broadcast"].append({"worker": w, "grown_units": units, "max_abs_diff": worst})
+
+    simulation._regrow_step, fleet.FleetEngine.scatter_global = step, scatter
+    simulation.grad_magnitude_scores, simulation._weight_magnitude_scores = grow, shrink
+
+    def undo():
+        simulation._regrow_step, fleet.FleetEngine.scatter_global = real_step, real_scatter
+        simulation.grad_magnitude_scores, simulation._weight_magnitude_scores = real_grow, real_shrink
+
+    return undo
+
+
+def dead_blocks(space, index, block=128):
+    """(layer, block) pairs of ``block`` units with none retained."""
+    out = set()
+    for l in space.layers:
+        keep = np.isin(np.arange(l.num_units), index[l.name])
+        for b0 in range(0, l.num_units, block):
+            if not keep[b0:b0 + block].any():
+                out.add((l.name, b0 // block))
+    return out
+
+
+@contextlib.contextmanager
+def regrow_replay(events):
+    """Inside, every readjustment takes the indices recorded in ``events``
+    (a ``regrow_spy`` store's) instead of deciding: the same masks on
+    another compute path."""
+    from repro_torch.core import simulation
+
+    real = simulation._regrow_step
+    table = {}
+    for e in events:
+        table.setdefault(e["round"], []).append((e["worker"], e["after"]))
+
+    def replay(sim, env, global_params, indices, t):
+        out = []
+        for w, idx in table.get(t, []):
+            indices[w] = {k: np.array(v) for k, v in idx.items()}
+            out.append((w, indices[w]))
+        return out
+
+    simulation._regrow_step = replay
+    try:
+        yield
+    finally:
+        simulation._regrow_step = real
+
+
+def regrow_split(a, b, space):
+    """Where two runs' readjustments first part (both ``regrow_spy``
+    stores): the worker; the units retained on one side only, split into
+    grow-side units (absent before: only the grow order put them there) and
+    shrink-side ones; for the grow side, their distance from the weaker
+    side's grow cutoff relative to the cutoff score, beside the relative
+    difference of their scores between the runs; for the shrink side, the
+    relative difference of their weight-magnitude scores; each side's
+    retained mass."""
+    for i, (ea, eb) in enumerate(zip(a["events"], b["events"])):
+        if ea["worker"] != eb["worker"] or any(
+                not np.array_equal(ea["after"][k], eb["after"][k]) for k in ea["after"]):
+            break
+    else:
+        return None
+    flat = lambda sc: np.concatenate([np.asarray(sc[l.name], np.float64) for l in space.layers])
+    off = np.cumsum([0] + [l.num_units for l in space.layers])
+    pos = lambda idx: np.concatenate([off[j] + np.asarray(idx[l.name], np.int64)
+                                      for j, l in enumerate(space.layers)])
+    rel = lambda x, y: float((np.abs(x - y) / np.maximum(np.abs(y), 1e-30)).max()) if len(x) else 0.0
+    sa, sb = flat(a["grow_scores"][i]), flat(b["grow_scores"][i])
+    before, ga, gb = pos(ea["before"]), pos(ea["after"]), pos(eb["after"])
+    only = np.setxor1d(ga, gb)
+    grow_side, shrink_side = np.setdiff1d(only, before), np.intersect1d(only, before)
+    cut = float(sa[np.setdiff1d(ga, before)].min())
+    r = sorted({e["round"] for e in a["events"]}).index(ea["round"])
+    wa, wb = flat(a["shrink_scores"][r]), flat(b["shrink_scores"][r])
+    mass = lambda idx: sum(len(idx[l.name]) * l.unit_param_cost for l in space.layers)
+    return {"event": i, "round": ea["round"], "worker": ea["worker"],
+            "grow_side_units": int(len(grow_side)), "shrink_side_units": int(len(shrink_side)),
+            "mass": [mass(ea["after"]), mass(eb["after"])],
+            "cutoff_gap_rel": rel(sa[grow_side], np.full(len(grow_side), cut)),
+            "grow_score_rel_diff": rel(sa[grow_side], sb[grow_side]),
+            "shrink_score_rel_diff": rel(wa[shrink_side], wb[shrink_side])}
+
+
+def phase_regrow(report):
+    """adaptcl with FedDST regrowth on masked + block_skip against masked
+    dense.  Each readjustment re-adds the removed mass within one unit
+    cost, its grown units hold the global's values after broadcast-back,
+    and where a dead block came back the worker's executed blocks rose.
+    The dense run with its own decisions: identical events up to the first
+    readjustment, and where the grow order parts, the split recorded and
+    bounded (REGROW_SPLIT).  The dense run replaying block_skip's decisions:
+    identical events and clocks, params within ENVELOPE_EXCESS x its
+    one-ulp envelope."""
+    import torch
+    from repro_torch.core.masks import full_index
+    from repro_torch.core.simulation import _Env, run_simulation
+    from repro_torch.kernels.pruned_matmul import LAUNCHES, reset_launches
+
+    def run(compute, replay=None, base_params=None):
+        store = {"events": [], "broadcast": [], "grow_scores": [], "shrink_scores": []}
+        undo = regrow_spy(store)
+        reset_launches()
+        try:
+            with regrow_replay(replay) if replay is not None else contextlib.nullcontext():
+                res = run_simulation(regrow_sim(compute=compute), base_params=base_params)
+        finally:
+            undo()
+        return res, store, dict(LAUNCHES)
+
+    bs, bst, launches = run("block_skip")
+    dn, dst, _ = run("dense")
+    up = {k: np.nextafter(v, np.float32(np.inf)) for k, v in seeded_init(regrow_sim()).items()}
+    _, dst_up, _ = run("dense", base_params=up)
+    rp, _, _ = run("dense", replay=bst["events"])
+    rp_up, _, _ = run("dense", replay=bst["events"], base_params=up)
+    down = {k: np.nextafter(v, np.float32(-np.inf)) for k, v in seeded_init(regrow_sim()).items()}
+    rp_down, _, _ = run("dense", replay=bst["events"], base_params=down)
+    sim = regrow_sim()
+    env = _Env(sim)
+    # the workers' masks just after the first readjustment, revived blocks
+    # included: one SGD step on them from identical params and batches
+    first = min(e["round"] for e in bst["events"]) if bst["events"] else REGROW_ROUNDS + 1
+    post = [full_index(env.space) for _ in range(sim.num_workers)]
+    for t, w, idx in bs.prune_events:
+        if t < first:
+            post[w] = {k: np.asarray(v, np.int64) for k, v in idx.items()}
+    for e in bst["events"]:
+        if e["round"] == first:
+            post[e["worker"]] = e["after"]
+    (_, st_bs, st_ret, st_upd), (_, st_dn, _, _) = (
+        pruned_one_step("block_skip", None, indices=post), pruned_one_step("dense", None, indices=post))
+    step_diff = max(float(np.abs(st_bs[k] - st_dn[k]).max()) for k in st_dn)
+    cost = max(l.unit_param_cost for l in env.space.layers)
+    retained = lambda idx: sum(len(idx[l.name]) * l.unit_param_cost for l in env.space.layers)
+    events = []
+    for e in bst["events"]:
+        revived = sorted(dead_blocks(env.space, e["before"]) - dead_blocks(env.space, e["after"]))
+        events.append({
+            "round": e["round"], "worker": e["worker"],
+            "mass_before": retained(e["before"]), "mass_after": retained(e["after"]),
+            "grown_units": int(sum(len(u) for u in e["grown"].values())),
+            "revived_blocks": [f"{l}[{b}]" for l, b in revived],
+            # kernel block cells per image at the index (the run's ledger)
+            "blocks_before": env.cost_for_index(e["before"])[2],
+            "blocks_after": env.cost_for_index(e["after"])[2],
+        })
+    before_regrow = lambda r: [e for e in r.prune_events if e[0] < first]
+    drift = param_drift(bs, rp)
+    # the replayed dense run's one-ulp envelope, both ways (one reading of
+    # a chaotic distance is noisy: PERF.md section 6, PR 17)
+    env_up, env_down = param_drift(rp_up, rp), param_drift(rp_down, rp)
+    envelope = {**max(env_up, env_down, key=lambda d: d["max"]), "up": env_up["max"],
+                "down": env_down["max"],
+                "events_identical": rp_up.prune_events == rp.prune_events == rp_down.prune_events}
+    rec = {
+        "phase": "regrow", "rounds": REGROW_ROUNDS, "rates": DGC_RATES, "importance": "index",
+        "launches": launches, "steady_ms_per_step": steady_ms(bs),
+        "events": events, "unit_cost_max": cost, "broadcast": bst["broadcast"],
+        "revived_one_step": {"param_max_abs_diff": step_diff, "atol": ONE_STEP_ATOL,
+                             "retentions": st_ret, "min_weight_update": st_upd},
+        "blocks_executed": bs.blocks_executed, "final_acc": [bs.final_acc, rp.final_acc],
+        # the dense run deciding for itself, and from the init one ulp up
+        "own_events_identical": bs.prune_events == dn.prune_events,
+        "own_events_identical_before_regrow": before_regrow(bs) == before_regrow(dn),
+        "own_split": regrow_split(bst, dst, env.space),
+        "one_ulp_split": regrow_split(dst, dst_up, env.space),
+        "own_param_drift": param_drift(bs, dn),
+        # the dense run replaying block_skip's decisions
+        "replay_events_identical": bs.prune_events == rp.prune_events,
+        "replay_update_times_equal": same_clock(bs, rp),
+        "total_time": [bs.total_time, rp.total_time],
+        "param_drift": drift, "one_ulp_envelope": envelope, "envelope_excess": ENVELOPE_EXCESS,
+    }
+    emit(rec)
+    report["regrow"] = rec
+    check(events, "regrow: no readjustment ran")
+    check(all(e["mass_before"] <= e["mass_after"] < e["mass_before"] + cost for e in events),
+          "regrow: a readjustment did not re-add the removed mass within one unit cost")
+    check(len(rec["broadcast"]) == len(events) and all(
+        b["max_abs_diff"] == 0.0 for b in rec["broadcast"]),
+          "regrow: grown units differ from the global after broadcast-back")
+    check(any(e["revived_blocks"] for e in events), "regrow: no dead block came back to life")
+    check(all(e["blocks_after"] > e["blocks_before"] for e in events if e["revived_blocks"]),
+          "regrow: executed blocks did not rise where a block came back")
+    check(step_diff <= ONE_STEP_ATOL and st_upd > ONE_STEP_ATOL,
+          f"regrow: one step on the revived masks differs by {step_diff} (bar {ONE_STEP_ATOL}, "
+          f"smallest weight update {st_upd})")
+    check(rec["own_events_identical_before_regrow"], "regrow: prune events differ before regrowth")
+    split = rec["own_split"]
+    if split is not None:
+        # a split must sit where the grow signals of the two paths differ
+        # by as much as the units' distance from the cutoff, keep the mass
+        # within one unit cost, and be no rarer than a one-ulp change of the
+        # init makes it
+        check(split["cutoff_gap_rel"] <= REGROW_SPLIT * split["grow_score_rel_diff"],
+              f"regrow: the grow order split beyond the paths' score difference: {split}")
+        check(abs(split["mass"][0] - split["mass"][1]) < cost,
+              f"regrow: the split moved the re-added mass by a unit cost or more: {split}")
+        check(rec["one_ulp_split"] is not None,
+              "regrow: the paths split although a one-ulp change of the init does not")
+    check(rec["replay_events_identical"], "regrow: replayed events differ")
+    check(rec["replay_update_times_equal"] and bs.total_time == rp.total_time,
+          "regrow: replayed clocks differ")
+    check(drift["max"] <= ENVELOPE_EXCESS * envelope["max"],
+          f"regrow: params differ by {drift['max']} > {ENVELOPE_EXCESS} x {envelope['max']}")
+    check(all(v > 0 for v in launches.values()), f"regrow: a kernel was never launched: {launches}")
+    torch.cuda.empty_cache()
+    return rec
+
+
 def main() -> int:
     try:
         import torch
@@ -1828,9 +2419,18 @@ def main() -> int:
         s_launches, s_res = phase_scenario(report)
         save(report)
         phase_dgc(report)
+        save(report)
+        a_runs = phase_async(report)
+        save(report)
+        phase_async_check(report, a_runs)
+        save(report)
+        phase_regrow(report)
     steps = max(res.train_steps, 1)
     s_steps = max(s_res.train_steps, 1)
     r_steps = max(r_res.train_steps, 1)
+    a_steps = sum(r.train_steps for r, _, _ in a_runs.values())
+    a_buckets = per_bucket([{"bucket": int(b), "steps": v["steps"], "launches": v["launches"]}
+                            for _, _, bk in a_runs.values() for b, v in bk.items()])
     kernels = []
     for kname, short in (("pruned_matmul_fwd", "fwd"), ("pruned_matmul_bwd_dx", "dx"),
                          ("pruned_matmul_bwd_dw", "dw")):
@@ -1856,6 +2456,15 @@ def main() -> int:
                          "path": "run_simulation, VGG16_CIFAR, 10 slots under the fleet "
                                  "scenario (sampling, dropout, churn, skew, drift, crash, "
                                  "outage, wave), masked + block_skip, 8 rounds"},
+            "async": {"launches": sum(l[kname] for _, l, _ in a_runs.values()),
+                      "launches_per_step": sum(l[kname] for _, l, _ in a_runs.values()) / a_steps,
+                      "per_bucket": {b: {"steps": v["steps"], "launches": v["launches"][kname],
+                                         "launches_per_step": v["launches_per_step"][kname]}
+                                     for b, v in sorted(a_buckets.items(), key=lambda i: int(i[0]))},
+                      "path": "run_simulation, VGG16_CIFAR, 10 slots, fedasync_s, ssp_s and "
+                              "dcasgd_s under the async fleet (cohort 8, dropout, crash), "
+                              f"masked + block_skip, {ASYNC_ROUNDS} commits a participant, "
+                              f"window {ASYNC_WINDOW} s"},
         })
     for kname in ("flash_attention", "rg_lru_scan"):
         t = llm_times[kname]

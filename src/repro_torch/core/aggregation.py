@@ -1,6 +1,7 @@
-"""Server aggregation: By-worker vs By-unit (AdaptCL §III-B).
+"""Server aggregation: By-worker vs By-unit (AdaptCL §III-B), and the
+async servers' per-commit merges.
 
-Port of the synchronous parts of ``repro/core/aggregation.py``.  Two
+Port of ``repro/core/aggregation.py`` without the robust layer.  Two
 representations, both aggregated in float64 like the reference's host
 aggregation and cast to float32 by the caller:
 
@@ -16,11 +17,16 @@ aggregation and cast to float32 by the caller:
 Both run on the params' device (the card, for a run there).
 ``ROUNDTRIP_COUNTS`` counts ``extract_subparams`` and ``embed_params``
 calls, the reference's host round-trip metric: the resident round loop makes
-none, the reconfiguring engines one per worker and phase.
+none, the reconfiguring engines one per worker and phase.  The per-worker
+async loop adds one ``async_merge`` per merged commit (``tally_roundtrip``).
+
+``AsyncServer`` merges one commit at a time for fedasync_s, ssp_s and
+dcasgd_s in host numpy float32, in the reference's own expression order, so
+the same trained rows give bit-identical globals in both packages.
 """
 from __future__ import annotations
 
-from typing import Dict, Mapping, Sequence, Tuple
+from typing import Dict, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -31,6 +37,7 @@ __all__ = [
     "UnitMap",
     "ROUNDTRIP_COUNTS",
     "roundtrip_total",
+    "tally_roundtrip",
     "extract_subparams",
     "embed_params",
     "coordinate_mask",
@@ -39,16 +46,25 @@ __all__ = [
     "aggregate_by_unit",
     "aggregate_by_worker_stacked",
     "aggregate_by_unit_stacked",
+    "fedasync_weight",
+    "AsyncServer",
 ]
 
 UnitMap = Mapping[str, Sequence[Tuple[str, int]]]
 Params = Dict[str, torch.Tensor]
 
-ROUNDTRIP_COUNTS: Dict[str, int] = {"extract_subparams": 0, "embed_params": 0}
+ROUNDTRIP_COUNTS: Dict[str, int] = {"extract_subparams": 0, "embed_params": 0,
+                                    "async_merge": 0}
 
 
 def roundtrip_total() -> int:
     return sum(ROUNDTRIP_COUNTS.values())
+
+
+def tally_roundtrip(kind: str, n: int = 1) -> None:
+    """Count host round trips that do not go through extract/embed (the
+    per-worker async loop's per-commit param-dict merges)."""
+    ROUNDTRIP_COUNTS[kind] = ROUNDTRIP_COUNTS.get(kind, 0) + n
 
 
 def extract_subparams(
@@ -177,3 +193,89 @@ def aggregate_by_unit_stacked(
         den = torch.tensordot(sub, mask_stacks[path].double(), dims=1)
         out[path] = num / torch.clamp_min(den, 1.0)
     return out
+
+
+# ---------------------------------------------------------------------------
+# async server merges (fedasync_s / ssp_s / dcasgd_s)
+# ---------------------------------------------------------------------------
+
+def fedasync_weight(a0: float, staleness: float) -> float:
+    """Xie et al. polynomial staleness weighting: ``a0 * (s + 1)^-0.5``."""
+    return float(a0 * (staleness + 1.0) ** -0.5)
+
+
+class AsyncServer:
+    """Per-commit server state of the asynchronous schedulers, host numpy.
+
+    ``commit`` applies one worker's commit in base coordinates:
+
+    * ``fedasync_s`` — ``theta <- (1-a) theta + a theta_w``,
+      ``a = fedasync_weight(a0, s)``;
+    * ``ssp_s``      — ``theta <- theta + (theta_w - fetched_w) / N``, N the
+      committing cohort's size (``cohort_size``, default ``num_workers``);
+    * ``dcasgd_s``   — DC-ASGD-a: the commit's "gradient" is the local update
+      over lr, compensated by ``lam_t * g^2 * (theta - w_bak)`` with a
+      mean-square-adaptive ``lam_t``.
+
+    ``backup`` holds every slot's ``w_bak`` as a ``{path: [W, ...]}`` stack
+    (slot ids index it even when only a cohort commits) and ``dc_m`` the
+    running mean square.  ``commit`` rebinds ``params`` to a fresh dict and
+    never writes an array in place, so callers may keep references to
+    fetched snapshots."""
+
+    def __init__(
+        self,
+        method: str,
+        global_params: Mapping[str, np.ndarray],
+        num_workers: int,
+        *,
+        cohort_size: Optional[int] = None,
+        fedasync_a: float = 0.5,
+        lr: float = 0.05,
+        dcasgd_lambda: float = 2.0,
+        dcasgd_m: float = 0.95,
+    ):
+        self.method = method
+        self.params: Dict[str, np.ndarray] = dict(global_params)
+        self.num_workers = num_workers
+        self.cohort_size = num_workers if cohort_size is None else cohort_size
+        self.version = 0
+        self.fedasync_a = fedasync_a
+        self.lr = lr
+        self.dcasgd_lambda = dcasgd_lambda
+        self.dcasgd_m = dcasgd_m
+        self.backup: Optional[Dict[str, np.ndarray]] = None
+        self.dc_m: Optional[Dict[str, np.ndarray]] = None
+        if method == "dcasgd_s":
+            self.backup = {
+                k: np.repeat(np.asarray(v)[None], num_workers, axis=0)
+                for k, v in global_params.items()
+            }
+            self.dc_m = {k: np.zeros_like(v) for k, v in global_params.items()}
+
+    def commit(
+        self, worker: int, trained: Mapping[str, np.ndarray],
+        fetched: Mapping[str, np.ndarray], staleness: int,
+    ) -> Dict[str, np.ndarray]:
+        """Apply one worker's commit; returns (and rebinds) the new global."""
+        g = self.params
+        if self.method == "fedasync_s":
+            a = fedasync_weight(self.fedasync_a, staleness)
+            new = {k: (1 - a) * g[k] + a * trained[k] for k in g}
+        elif self.method == "ssp_s":
+            new = {k: g[k] + (trained[k] - fetched[k]) / self.cohort_size for k in g}
+        elif self.method == "dcasgd_s":
+            new = {}
+            for k in g:
+                grad = (fetched[k] - trained[k]) / self.lr
+                self.dc_m[k] = self.dcasgd_m * self.dc_m[k] + (1 - self.dcasgd_m) * grad * grad
+                lam_t = self.dcasgd_lambda / np.sqrt(np.mean(self.dc_m[k]) + 1e-12)
+                comp = grad + lam_t * grad * grad * (g[k] - self.backup[k][worker])
+                new[k] = g[k] - self.lr * comp
+            for k in new:
+                self.backup[k][worker] = new[k]
+        else:
+            raise ValueError(f"unknown async method {self.method!r}")
+        self.params = new
+        self.version += 1
+        return new

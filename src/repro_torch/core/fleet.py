@@ -15,12 +15,15 @@ its sub-model is a 0/1 coordinate mask, so the whole fleet trains as one
 stack and a pruning event only rewrites mask rows.
 
 * ``scatter_global``  — broadcast-back is a masked scatter ``P = g[None] * M``;
+* ``scatter_global_rows`` — the async refetch: each committing row takes the
+  global snapshot it fetched, ``P[w] = g_w * M[w]``;
 * ``train_rounds``    — one trainer call over the whole stack, with per-step
   validity masks so ragged plans never change shapes;
 * ``train_rows``      — participation-sized training: when only some slots
   have work (the phase-B pruners), their rows are gathered into a
   ``[B, ...]`` sub-stack, B padded to the next power of two, trained, and
-  scattered back;
+  scattered back (``to_host``: the trained rows also come back in one host
+  copy, the async schedulers' merge input);
 * ``refresh_masks``   — rewrite the mask stack from the workers' global
   indices and re-mask the params (and the momentum carry);
 * ``update_shard``    — a churned-in worker's fresh shard, written into its
@@ -33,7 +36,8 @@ stack and a pruning event only rewrites mask rows.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Mapping, Optional, Sequence
+import time as _time
+from typing import Dict, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -42,7 +46,7 @@ from repro_torch.optim.group_lasso import group_size_sqrt_from_shapes
 
 from .aggregation import UnitMap, subparam_shapes
 from .masks import GlobalIndex
-from .worker import LocalTrainer, stack_batch_plans
+from .worker import LocalTrainer, _sync, stack_batch_plans
 
 __all__ = [
     "ENGINES",
@@ -147,6 +151,7 @@ class FleetEngine:
         self.engine = engine
         self.batched_calls = 0           # stacked training calls launched
         self.buckets_used: set = set()   # resident sub-stack row counts launched
+        self.pull_walltime_s = 0.0       # train_rows(to_host=True) copies, after a sync
 
     # ------------------------------------------------------------------
     # reconfiguring engines: physically small sub-models
@@ -292,6 +297,20 @@ class FleetEngine:
         for path, g in global_params.items():
             state.params[path] = g.unsqueeze(0) * state.masks[path]
 
+    def scatter_global_rows(self, state: FleetState, rows: Sequence[int],
+                            globals_list: Sequence[Mapping[str, np.ndarray]]):
+        """Masked scatter of per-row global snapshots (host arrays): row
+        ``rows[i]`` becomes ``globals_list[i] * M[rows[i]]``.  Each async
+        committer refetched its own global version, so the snapshots are
+        stacked on the host and written with one device op per tensor."""
+        idx = _row_index(rows, state.num_workers, self.device)
+        for path in state.params:
+            g = torch.as_tensor(np.stack([np.asarray(gl[path]) for gl in globals_list]),
+                                device=self.device)
+            v = state.params[path].clone()
+            v[idx] = g * torch.index_select(state.masks[path], 0, idx)
+            state.params[path] = v
+
     def stack_plans(self, plans, pad_rows: Optional[int] = None,
                     pad_steps: Optional[int] = None):
         """Per-row plans -> device ``[R, S, batch]`` plan stack + ``[R, S]``
@@ -334,19 +353,22 @@ class FleetEngine:
             self.batched_calls += 1
             self.buckets_used.add(W)
             return losses.cpu().numpy()
-        losses = self.train_rows(state, rows, [plans[w] for w in rows], lam, pad_steps,
-                                 carry_momentum=carry_momentum)
+        losses, _ = self.train_rows(state, rows, [plans[w] for w in rows], lam, pad_steps,
+                                    carry_momentum=carry_momentum)
         full = np.zeros(W, np.float32)
         full[rows] = losses
         return full
 
     def train_rows(self, state: FleetState, rows: Sequence[int],
                    plans: Sequence[Optional[np.ndarray]], lam: float = 0.0,
-                   pad_steps: Optional[int] = None, carry_momentum: bool = False) -> np.ndarray:
+                   pad_steps: Optional[int] = None, carry_momentum: bool = False,
+                   to_host: bool = False) -> Tuple[np.ndarray, Optional[Dict[str, np.ndarray]]]:
         """Gather ``rows`` into a bucket-sized sub-stack, train it in one
         call, scatter the trained rows back.  ``plans`` aligns with ``rows``.
         Bucket padding repeats ``rows[0]`` with an all-invalid plan: it is
-        computed and discarded."""
+        computed and discarded.  Returns ``(losses[len(rows)], trained)``:
+        with ``to_host`` the trained ``{path: [len(rows), ...]}`` rows in
+        one host copy, else ``None`` (also when no row has a step)."""
         W = state.num_workers
         B = len(rows)
         bucket = bucket_rows(B, W)
@@ -355,7 +377,7 @@ class FleetEngine:
         stacked = self.stack_plans(list(plans) + [None] * (bucket - B),
                                    pad_rows=bucket, pad_steps=pad_steps)
         if stacked is None:
-            return np.zeros(B, np.float32)
+            return np.zeros(B, np.float32), None
         plan_stack, valid = stacked
         sub_params = gather_stack_rows(state.params, rows_pad, W)
         sub_masks = gather_stack_rows(state.masks, rows_pad, W)
@@ -371,4 +393,10 @@ class FleetEngine:
         state.params = scatter_stack_rows(state.params, rows, out, W)
         if carry_momentum:
             state.momentum = scatter_stack_rows(state.momentum, rows, mom, W)
-        return losses.cpu().numpy()[:B]
+        trained = None
+        if to_host:
+            _sync(self.device)
+            t0 = _time.perf_counter()
+            trained = {k: v[:B].cpu().numpy() for k, v in out.items()}
+            self.pull_walltime_s += _time.perf_counter() - t0
+        return losses.cpu().numpy()[:B], trained

@@ -13,15 +13,17 @@ returns a float64 score per prunable unit (higher = keep); ``masks``'s
   * l1 / taylor / fpgm / hrank — data/sub-model-dependent criteria (break
     both), read from ``worker.local_unit_stats`` of the worker's own
     sub-model and shard
+
+``grad_magnitude_scores`` is FedDST regrowth's grow signal.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, Mapping, Optional
+from typing import Callable, Dict, Mapping, Optional, Sequence
 
 import numpy as np
 
-__all__ = ["ImportanceContext", "METHODS", "DATA_DEPENDENT"]
+__all__ = ["ImportanceContext", "METHODS", "DATA_DEPENDENT", "grad_magnitude_scores"]
 
 Scores = Dict[str, np.ndarray]
 
@@ -114,6 +116,29 @@ def _hrank(ctx: ImportanceContext) -> Scores:
     if ctx.activations is None:
         raise ValueError("hrank needs activations")
     return {k: np.asarray(v, np.float64) for k, v in ctx.activations.items()}
+
+
+def grad_magnitude_scores(
+    grads: Mapping[str, np.ndarray],
+    unit_map: Mapping[str, Sequence],
+    unit_counts: Mapping[str, int],
+) -> Scores:
+    """FedDST/RigL grow signal: per-unit group sums of |grad| of the DENSE
+    model in base coordinates (pruned slots carry real gradients there),
+    accumulated in float64 so grow orders do not depend on the device's
+    accumulation."""
+    acc: Dict[str, np.ndarray] = {k: np.zeros(n, np.float64) for k, n in unit_counts.items()}
+    for path, entries in unit_map.items():
+        g = grads.get(path)
+        if g is None:
+            continue
+        g = np.abs(np.asarray(g, np.float64))
+        for lname, axis in entries:
+            if lname not in acc:
+                continue
+            axes = tuple(i for i in range(g.ndim) if i != axis)
+            acc[lname] += g.sum(axis=axes)
+    return acc
 
 
 METHODS: Dict[str, Callable[[ImportanceContext], Scores]] = {

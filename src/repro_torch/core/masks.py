@@ -6,6 +6,10 @@ for each prunable layer, the sorted ids of the retained units with respect
 to the base model.  Each layer advertises a per-unit parameter cost so pruned
 rates are enforced in parameter space (the paper's budget is a fraction of
 model size).
+
+FedDST regrowth works on a flat view of the unit space (``UnitFlat``): a
+0/1 presence vector per worker, walked in a grow order (descending score,
+``(layer, unit)`` tie-break) by ``regrow_index``.
 """
 from __future__ import annotations
 
@@ -23,6 +27,12 @@ __all__ = [
     "payload_bytes",
     "prune_to_budget",
     "similarity",
+    "UnitFlat",
+    "flatten_unit_space",
+    "presence_from_index",
+    "index_from_presence",
+    "grow_order",
+    "regrow_index",
 ]
 
 GlobalIndex = Dict[str, np.ndarray]
@@ -135,3 +145,112 @@ def similarity(i1: GlobalIndex, i2: GlobalIndex) -> float:
             continue
         vals.append(len(a & b) / len(union))
     return float(np.mean(vals)) if vals else 1.0
+
+
+# ---------------------------------------------------------------------------
+# flattened unit space + FedDST regrowth (host)
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class UnitFlat:
+    """A :class:`UnitSpace` flattened into per-unit arrays.
+
+    Unit ``j`` of layer ``names[l]`` lives at flat slot ``offsets[l] + j``.
+    ``tiebreak[u]`` is the rank of slot ``u`` in ascending ``(layer_name,
+    unit_id)`` order: the tie-break ``prune_to_budget`` applies between
+    equal scores."""
+
+    names: tuple                 # layer names, in space.layers order
+    sizes: np.ndarray            # [L] units per layer
+    offsets: np.ndarray          # [L] flat offset of each layer
+    layer_of: np.ndarray         # [U] int32 layer id per flat slot
+    unit_id: np.ndarray          # [U] int32 unit id within its layer
+    costs: np.ndarray            # [U] int32 per-unit parameter cost
+    min_units: np.ndarray        # [L] int32
+    fixed_params: int
+    tiebreak: np.ndarray         # [U] int32 (layer_name, unit) rank
+
+    @property
+    def num_units(self) -> int:
+        return int(self.layer_of.shape[0])
+
+
+def flatten_unit_space(space: UnitSpace) -> UnitFlat:
+    names = tuple(l.name for l in space.layers)
+    sizes = np.array([l.num_units for l in space.layers], np.int64)
+    offsets = np.concatenate([[0], np.cumsum(sizes)[:-1]]).astype(np.int64)
+    layer_of = np.concatenate(
+        [np.full(l.num_units, i, np.int32) for i, l in enumerate(space.layers)]
+    )
+    unit_id = np.concatenate([np.arange(l.num_units, dtype=np.int32) for l in space.layers])
+    costs = np.concatenate(
+        [np.full(l.num_units, l.unit_param_cost, np.int32) for l in space.layers]
+    )
+    min_units = np.array([l.min_units for l in space.layers], np.int32)
+    # rank in ascending (layer_name, unit) order: the host sort's tie-break
+    name_rank = np.argsort(np.argsort(np.array(names)))
+    tiebreak = np.lexsort((unit_id, name_rank[layer_of]))
+    rank = np.empty_like(tiebreak)
+    rank[tiebreak] = np.arange(len(tiebreak))
+    return UnitFlat(
+        names=names, sizes=sizes, offsets=offsets, layer_of=layer_of,
+        unit_id=unit_id, costs=costs, min_units=min_units,
+        fixed_params=int(space.fixed_params), tiebreak=rank.astype(np.int32),
+    )
+
+
+def presence_from_index(index: GlobalIndex, flat: UnitFlat) -> np.ndarray:
+    """[U] float32 0/1 flat presence vector of a global index."""
+    p = np.zeros(flat.num_units, np.float32)
+    for l, name in enumerate(flat.names):
+        p[flat.offsets[l] + np.asarray(index[name], np.int64)] = 1.0
+    return p
+
+
+def index_from_presence(presence: np.ndarray, flat: UnitFlat) -> GlobalIndex:
+    """Inverse of ``presence_from_index`` (retained slots, ascending)."""
+    presence = np.asarray(presence)
+    out: GlobalIndex = {}
+    for l, name in enumerate(flat.names):
+        seg = presence[flat.offsets[l] : flat.offsets[l] + flat.sizes[l]]
+        out[name] = np.flatnonzero(seg > 0).astype(np.int64)
+    return out
+
+
+def grow_order(scores: Mapping[str, np.ndarray], flat: UnitFlat) -> np.ndarray:
+    """[U] grow-order permutation: descending float64 score, ties broken by
+    ascending ``(layer_name, unit)`` (a lexsort over the negated scores;
+    negation is exact, so equal scores stay equal)."""
+    flat_scores = np.concatenate([
+        np.asarray(scores[name], np.float64)[: flat.sizes[l]]
+        for l, name in enumerate(flat.names)
+    ])
+    if flat_scores.shape[0] != flat.num_units:
+        raise ValueError("scores do not cover the unit space")
+    return np.lexsort((flat.tiebreak, -flat_scores)).astype(np.int32)
+
+
+def regrow_index(
+    index: GlobalIndex,
+    scores: Mapping[str, np.ndarray],
+    budget_params: int,
+    space: UnitSpace,
+) -> GlobalIndex:
+    """Add absent units in ``grow_order`` until ``budget_params`` parameters
+    (an integer: the mass a preceding shrink removed) have come back; the
+    mirror of ``prune_to_budget``'s greedy."""
+    if budget_params <= 0:
+        return {k: np.asarray(v, np.int64).copy() for k, v in index.items()}
+    flat = flatten_unit_space(space)
+    order = grow_order(scores, flat)
+    present = presence_from_index(index, flat) > 0
+    added = 0
+    for u in order:
+        if added >= budget_params:
+            break
+        u = int(u)
+        if present[u]:
+            continue
+        present[u] = True
+        added += int(flat.costs[u])
+    return index_from_presence(present.astype(np.float32), flat)

@@ -1,7 +1,6 @@
 """Scenario layer: client sampling, dropout, churn, and the fault overlay.
 
-Port of ``repro/core/scenario.py`` for the synchronous methods (host numpy,
-no device).  Each round's participation is a ``RoundEvents`` record —
+Port of ``repro/core/scenario.py`` (host numpy, no device).  Each round's participation is a ``RoundEvents`` record —
 boolean masks over a FIXED worker slot space — so the resident masked
 engine applies it as row selections of its ``[W, ...]`` stacks and device
 shapes never change.  Semantics (implemented by
@@ -27,9 +26,13 @@ The RNG order is the contract: ``ScenarioEngine.rng`` (seed + 9173) takes
 the churn draw, the cohort ``choice``, the dropout draw, then one
 ``fresh_shard`` per joined slot in ascending order; ``fault_rng`` (seed +
 40961) takes the crash, byzantine and channel blocks.  ``draw_all``
-replays the same order into a ``ScenarioPlan``.  The async cohort
-(``static_participants``), ``AsyncEventPlan`` and ``shard_cohorts`` belong
-to the async and mesh slices (ROADMAP.md, A8 and A10).
+replays the same order into a ``ScenarioPlan``.
+
+The async schedulers draw their cohort once, at run start
+(``static_participants``, one ``rng.choice``), and replay a whole
+pre-simulated event stream (``AsyncEventPlan``, built by
+``core.simulation._plan_async_events``).  ``shard_cohorts`` belongs to the
+mesh slice (ROADMAP.md, A10).
 """
 from __future__ import annotations
 
@@ -41,6 +44,7 @@ import numpy as np
 from .faults import FaultConfig
 
 __all__ = [
+    "AsyncEventPlan",
     "FaultConfig",
     "RoundEvents",
     "ScenarioConfig",
@@ -316,6 +320,14 @@ class ScenarioEngine:
         return int(np.clip(round(part * self.W),
                            cfg.min_participants, self.W))
 
+    def static_participants(self) -> np.ndarray:
+        """Slot ids of an ASYNC run's cohort, drawn once at run start: a
+        ``cohort_size()`` subset joins the event loop, the rest idles for
+        the whole run.  Sorted ascending, so the initial schedule runs in
+        slot order as under full participation."""
+        k = self.cohort_size()
+        return np.sort(self.rng.choice(self.W, size=k, replace=False)).astype(np.int64)
+
     def fresh_shard(self, size: int, train_len: int) -> np.ndarray:
         """Index set for a churned-in worker (uniform over the task's pool)."""
         return self.rng.choice(train_len, size=size, replace=False).astype(np.int64)
@@ -375,3 +387,34 @@ class ScenarioPlan:
             events=[full_participation(num_workers) for _ in range(rounds)],
             fresh_shards=[{} for _ in range(rounds)],
         )
+
+
+@dataclasses.dataclass
+class AsyncEventPlan:
+    """A whole async run's pre-simulated discrete-event stream.
+
+    Built by ``simulation._plan_async_events`` from a host replay of the
+    heap loop with training removed: async workers never prune, so event
+    timing does not depend on trained params.  Every array is indexed by
+    event ``i`` in heap pop order (= commit order); ``batch_starts``
+    delimits the window batches the engines train as one call.
+    ``push_seq`` is the order each event was pushed into the pending queue
+    (what a device-side queue pop would replay)."""
+
+    workers: np.ndarray        # int64 [E]: committing worker, heap pop order
+    finishes: np.ndarray       # f64 [E]: event finish time (heap key)
+    push_seq: np.ndarray       # int64 [E]: global push counter at schedule()
+    staleness: np.ndarray      # int64 [E]: server.version - fetched_ver[w]
+    versions: np.ndarray       # int64 [E]: server version AFTER the event
+    dropped: np.ndarray        # bool [E]: commit timed out (no merge)
+    refetch: np.ndarray        # bool [E, W]: rows refetching the new global
+    evals: np.ndarray          # bool [E]: accuracy eval after this commit
+    clocks: np.ndarray         # f64 [E]: running-max virtual clock
+    batch_starts: np.ndarray   # int64 [B+1]: window-batch event offsets
+    plans: List[np.ndarray]    # per-event batch plans, env.rng draw order
+    # crash accounting baked at plan time (None when faults are off)
+    fault_ledger: Optional[Dict[str, int]] = None
+
+    @property
+    def num_events(self) -> int:
+        return len(self.workers)

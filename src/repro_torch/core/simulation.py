@@ -1,10 +1,13 @@
 """Multi-worker collaborative-learning simulator (AdaptCL §IV), on PyTorch.
 
-Port of ``repro/core/simulation.py`` for the synchronous methods:
+Port of ``repro/core/simulation.py``, all six frameworks:
 
-  * ``adaptcl``  — Algorithm 1 driven by Algorithm 2 pruned-rate learning
-  * ``fedavg``   — McMahan et al. BSP
-  * ``fedavg_s`` — + group-lasso sparse training
+  * ``adaptcl``    — Algorithm 1 driven by Algorithm 2 pruned-rate learning
+  * ``fedavg``     — McMahan et al. BSP
+  * ``fedavg_s``   — + group-lasso sparse training
+  * ``fedasync_s`` — Xie et al. async with polynomial staleness weighting
+  * ``ssp_s``      — stale-synchronous parallel (threshold ``ssp_threshold``)
+  * ``dcasgd_s``   — DC-ASGD-a (delay-compensated async gradients)
 
 W workers with heterogeneous bandwidths (the Eq. 6/7 channel model) train
 pruned copies of a VGG or ResNet.  ``SimConfig.engine`` picks how
@@ -38,12 +41,28 @@ engine a partial cohort trains as a power-of-two row bucket gathered from
 the stacks.  ``dgc_sparsity`` commits only the largest deltas at the
 submission boundary (DGC, host numpy as in the reference), and
 ``resident_momentum`` carries the masked engine's momentum across phases
-and rounds.
+and rounds.  ``regrow`` (``RegrowConfig``, sync methods) readjusts each
+pruned worker's mask every few rounds, FedDST-style: shrink by the global's
+weight magnitude, grow the same parameter mass back by dense-gradient
+magnitude, at the round start so grown units take the global's values.
+
+The async schedulers' event timeline does not depend on trained params
+(async workers never prune; SSP blocks on commit counts), so
+``_plan_async_events`` replays the whole heap loop on the host first into a
+``scenario.AsyncEventPlan`` and every engine replays that one plan.  Commits
+landing within ``async_window`` virtual seconds train as one fleet call: on
+the resident engine each committing row takes the global snapshot it
+fetched (``FleetEngine.scatter_global_rows``), the batch trains as one
+bucket-sized sub-stack and comes back in one host copy; the per-commit
+merges are ``aggregation.AsyncServer``'s, host numpy.  Async runs honour
+client sampling (a static cohort), dropout (a timed-out commit trains but
+is not merged) and crash faults; the sync-only families are refused.
 
 All host randomness is numpy and is consumed in the reference's order (batch
 plans per active worker, then one jitter draw per active worker; the
-scenario and fault streams in ``core.scenario``), so the virtual clock and
-the prune events equal the JAX package's for the same seed.  The JAX
+scenario and fault streams in ``core.scenario``; the async planner's order
+in ``_plan_async_events``), so the virtual clock and the prune events equal
+the JAX package's for the same seed.  The JAX
 package draws its init from ``jax.random``; pass that init as
 ``run_simulation(sim, base_params=...)`` to start from the same weights
 (otherwise ``init_cnn`` draws from a ``torch.Generator`` seeded with
@@ -57,6 +76,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import heapq
 import time as _time
 from typing import Dict, List, Mapping, Optional, Tuple
 
@@ -78,6 +98,7 @@ from repro_torch.models.cnn import (
 )
 
 from .aggregation import (
+    AsyncServer,
     aggregate_by_unit,
     aggregate_by_unit_stacked,
     aggregate_by_worker,
@@ -85,17 +106,21 @@ from .aggregation import (
     extract_subparams,
     roundtrip_total,
     subparam_shapes,
+    tally_roundtrip,
 )
 from .faults import fault_ledger
 from .fleet import ENGINES, FleetEngine, FleetJob
-from .importance import DATA_DEPENDENT, METHODS, ImportanceContext
-from .masks import full_index, payload_bytes, prune_to_budget, retention, similarity
+from .importance import DATA_DEPENDENT, METHODS, ImportanceContext, grad_magnitude_scores
+from .masks import (
+    full_index, payload_bytes, prune_to_budget, regrow_index, retention, similarity,
+)
 from .pruned_rate import PrunedRateConfig, WorkerHistory, learn_pruned_rates
-from .scenario import ScenarioConfig, ScenarioEngine, full_participation
+from .scenario import AsyncEventPlan, ScenarioConfig, ScenarioEngine, full_participation
 from .timing import HeterogeneityConfig, heterogeneity_from_times, make_bandwidths
 from .worker import LocalTrainer, local_unit_stats, make_batch_plan, plan_steps
 
-__all__ = ["SimConfig", "SimResult", "run_simulation", "default_cnn", "validate_config"]
+__all__ = ["SimConfig", "SimResult", "RegrowConfig", "run_simulation", "default_cnn",
+           "validate_config"]
 
 SYNC_METHODS = ("adaptcl", "fedavg", "fedavg_s")
 ASYNC_METHODS = ("fedasync_s", "ssp_s", "dcasgd_s")
@@ -104,6 +129,32 @@ ASYNC_METHODS = ("fedasync_s", "ssp_s", "dcasgd_s")
 def default_cnn() -> CNNConfig:
     """Small VGG used by the CPU-budget simulations (same family as VGG16)."""
     return vgg_config("vgg_sim", [32, "M", 64, "M", 64], num_classes=10, image_size=16)
+
+
+@dataclasses.dataclass(frozen=True)
+class RegrowConfig:
+    """FedDST-style mask readjustment (arXiv:2112.09824).
+
+    Every ``interval`` rounds, each worker with retention < 1 prunes
+    ``alpha_t`` of its retained parameters by the GLOBAL model's weight
+    magnitude, then grows the same parameter budget back from its absent
+    units, ranked by the gradient magnitude of the dense model at the
+    global on the worker's own shard.  ``alpha_t`` follows FedDST's cosine
+    anneal ``0.5 * alpha0 * (1 + cos(pi * (t-1) / T))`` (``"cosine"``) or
+    stays ``alpha0`` (``"constant"``).  It happens at the START of a round,
+    before broadcast-back, so grown units take the global's values."""
+
+    interval: int = 4          # R_adj: rounds between mask readjustments
+    alpha0: float = 0.3        # initial readjust fraction
+    schedule: str = "cosine"   # "cosine" | "constant"
+
+    def __post_init__(self):
+        if self.interval < 1:
+            raise ValueError(f"regrow interval {self.interval} must be >= 1")
+        if not (0.0 < self.alpha0 < 1.0):
+            raise ValueError(f"regrow alpha0 {self.alpha0} outside (0, 1)")
+        if self.schedule not in ("cosine", "constant"):
+            raise ValueError(f"regrow schedule {self.schedule!r} not in cosine/constant")
 
 
 @dataclasses.dataclass
@@ -125,6 +176,13 @@ class SimConfig:
     train_sens: float = 0.1             # Appendix E: GPU-like ~0, CPU-like ~1
     time_jitter: float = 0.02
     noniid_s: float = 0.0               # paper's s%: 0 (IID) or 80
+    ssp_threshold: int = 2
+    fedasync_a: float = 0.5
+    dcasgd_lambda: float = 2.0
+    dcasgd_m: float = 0.95
+    # async engines: commits landing within this virtual window train as
+    # ONE fleet call (0.0 = serial)
+    async_window: float = 0.0
     fixed_pruned_rates: Optional[List[List[float]]] = None  # Tab. IX mode
     # local-training engine: "sequential" | "bucketed" | "masked" (core.fleet)
     engine: str = "sequential"
@@ -135,11 +193,13 @@ class SimConfig:
     # cross-round momentum: the masked engine's momentum stack is carried
     # across phases and rounds instead of restarting per phase
     resident_momentum: bool = False
-    # client sampling / dropout / churn / skew / faults (core.scenario)
+    # client sampling / dropout / churn / skew / faults (core.scenario);
+    # async methods take sampling, dropout and crash only
     scenario: Optional[ScenarioConfig] = None
+    # FedDST mask regrowth (sync methods); None = monotone pruning only
+    regrow: Optional[RegrowConfig] = None
     # fields of the reference the port does not run yet; each is refused
     # by name unless left at its default
-    regrow: Optional[object] = None
     robust: Optional[object] = None
     mesh: Optional[object] = None
     # device compute path of the masked engine: "block_skip" (the CUDA
@@ -168,7 +228,7 @@ class SimResult:
     param_reduction: float
     flops_reduction: float
     comm_bytes: float
-    server_overhead_s: float                     # Alg.2 + aggregation walltime
+    server_overhead_s: float                     # Alg.2 + aggregation (async: merges) walltime
     recompiles: int                              # distinct training signatures
     similarity_traj: List[Tuple[int, float]]     # Eq. 3 between two workers
     update_times: List[List[float]]              # per round, per worker
@@ -211,6 +271,9 @@ class SimResult:
     corrupt_commits: int = 0
     quarantined_commits: int = 0
     global_params: Optional[Dict[str, np.ndarray]] = None
+    # async on the resident engine: walltime of the one-copy pulls of the
+    # trained rows to the host (server_overhead_s holds the merges')
+    host_pull_s: float = 0.0
 
 
 def _refuse(field: str, why: str) -> ValueError:
@@ -222,11 +285,12 @@ def _refuse(field: str, why: str) -> ValueError:
 
 def validate_config(sim: SimConfig) -> None:
     """Raise ``ValueError`` naming the first field outside this slice."""
-    if sim.method in ASYNC_METHODS:
-        raise _refuse("method", f"async method {sim.method!r}")
-    if sim.method not in SYNC_METHODS:
+    if sim.method not in SYNC_METHODS + ASYNC_METHODS:
         raise ValueError(f"SimConfig.method: unknown method {sim.method!r}")
     if sim.engine == "fused":
+        if sim.method in ASYNC_METHODS:
+            raise _refuse("engine", f"engine='fused' for async method {sim.method!r} "
+                                    "(the device event queue, run_async_fused; A7)")
         raise _refuse("engine", "engine='fused' (device round fusion)")
     if sim.engine not in ENGINES:
         raise ValueError(f"SimConfig.engine: unknown engine {sim.engine!r}")
@@ -241,12 +305,18 @@ def validate_config(sim: SimConfig) -> None:
         if faults is not None and getattr(faults, fam) is not None:
             raise _refuse(f"scenario.faults.{fam}",
                           f"the {fam} fault family needs robust aggregation (A9)")
-    if sim.regrow is not None:
-        raise _refuse("regrow", "FedDST mask regrowth")
+    if sim.regrow is not None and sim.method not in SYNC_METHODS:
+        raise ValueError(
+            "SimConfig.regrow (FedDST mask readjustment) applies to the "
+            "synchronous methods only — async workers never prune, so "
+            "there is nothing to regrow"
+        )
     if sim.robust is not None:
         raise _refuse("robust", "robust aggregation")
     if sim.mesh is not None:
         raise _refuse("mesh", "the mesh-sharded fleet")
+    if sim.method in ASYNC_METHODS:
+        _validate_async(sim)
     if sim.resident_momentum and sim.engine != "masked":
         raise ValueError(
             "SimConfig.resident_momentum needs the resident engine "
@@ -268,6 +338,55 @@ def validate_config(sim: SimConfig) -> None:
         raise ValueError(f"SimConfig.aggregation: unknown {sim.aggregation!r}")
     if sim.compute not in ("dense", "block_skip"):
         raise ValueError(f"SimConfig.compute: unknown {sim.compute!r}")
+
+
+def _validate_async(sim: SimConfig) -> None:
+    """The reference's refusals for the async schedulers, in its order and
+    with its messages: the sync-only scenario parts and fault families."""
+    if sim.resident_momentum:
+        raise ValueError(
+            "resident_momentum is a synchronous-round carry; the async "
+            "schedulers restart momentum per commit like their per-worker "
+            "twins"
+        )
+    cfg = sim.scenario
+    if cfg is None:
+        return
+    if cfg.schedule is not None:
+        raise ValueError(
+            "async schedulers draw their own event stream; per-round "
+            "scripted schedules apply to the synchronous methods only"
+        )
+    if cfg.churn > 0.0:
+        raise ValueError(
+            "async schedulers reject scenario churn — slot replacement "
+            "resets host bookkeeping the event queue does not model; churn "
+            "applies to the synchronous methods only"
+        )
+    f = cfg.faults
+    if f is None:
+        return
+    if f.outage is not None:
+        raise ValueError(
+            "async schedulers reject the outage fault family — a "
+            "coordinated regional blackout is a synchronous-round "
+            "concept (outage is sync-only for now); crash/recovery "
+            "faults are supported under the async schedulers"
+        )
+    if f.drift is not None:
+        raise ValueError(
+            "async schedulers reject the drift fault family — "
+            "capability drift exists to trigger prune-rate re-learning "
+            "and async workers never prune; drift applies to the "
+            "synchronous methods only"
+        )
+    if f.wave is not None:
+        raise ValueError(
+            "async schedulers reject the wave fault family — async "
+            "client sampling is a static cohort drawn once at run "
+            "start, not a per-round C(t); wave applies to the "
+            "synchronous methods only"
+        )
 
 
 def resolve_device(name: str, what: str = "SimConfig.device") -> torch.device:
@@ -409,6 +528,14 @@ class _Env:
         t_train = sim.t_train_full * ((1 - sim.train_sens) + sim.train_sens * rel)
         t = 2.0 * bytes_w / self.bandwidths[worker] + t_train * sim.local_epochs
         return t * (jmult * time_mult)
+
+    def phi_from_index(self, worker: int, index, payload_factor: float = 1.0,
+                       jitter: bool = True, time_mult: float = 1.0) -> float:
+        """``phi`` of the sub-model at this global index (shapes from
+        ``subparam_shapes``, nothing materialized); draws its jitter from
+        ``env.rng`` as the reference's does."""
+        return self.phi(worker, subparam_shapes(index, self.unit_map, self.base_shapes),
+                        jitter, payload_factor=payload_factor, time_mult=time_mult)
 
     def shard_xy(self, w):
         sh = self.shards[w]
@@ -556,17 +683,85 @@ def _dgc_compress_stacked(
     return committed, new_res, factors
 
 
+def _regrow_alpha(cfg: RegrowConfig, t: int, rounds: int) -> float:
+    """Readjust fraction in force at the start of round t (FedDST anneal)."""
+    if cfg.schedule == "constant":
+        return cfg.alpha0
+    return float(0.5 * cfg.alpha0 * (1.0 + np.cos(np.pi * (t - 1) / max(rounds, 1))))
+
+
+def _regrow_round(sim: SimConfig, t: int) -> bool:
+    """Does a readjustment fire at the START of round t?  Every
+    ``interval`` completed rounds: the first is round ``interval + 1``."""
+    return sim.regrow is not None and t > 1 and (t - 1) % sim.regrow.interval == 0
+
+
+def _weight_magnitude_scores(params, unit_map, unit_counts) -> Dict[str, np.ndarray]:
+    """Per-unit L2 group norms of a base-coordinate host param dict, float64:
+    the shrink order of a readjustment, one per regrow round for every
+    worker."""
+    acc = {k: np.zeros(n, np.float64) for k, n in unit_counts.items()}
+    for path, entries in unit_map.items():
+        arr = params.get(path)
+        if arr is None:
+            continue
+        sq = np.asarray(arr, np.float64) ** 2
+        for lname, axis in entries:
+            if lname not in acc:
+                continue
+            axes = tuple(i for i in range(sq.ndim) if i != axis)
+            acc[lname] += sq.sum(axis=axes)
+    return {k: np.sqrt(v) for k, v in acc.items()}
+
+
+def _regrow_step(sim: SimConfig, env: _Env, global_params, indices, t: int
+                 ) -> List[Tuple[int, Dict[str, np.ndarray]]]:
+    """One FedDST readjustment at the start of round t.
+
+    Per worker with retention < 1: ``prune_to_budget`` removes ``alpha_t``
+    of its retained mass by the global's weight magnitude, then
+    ``regrow_index`` adds the same integer parameter budget back, ranked by
+    |grad| of the dense model at the global on the worker's first 64
+    images (``trainer.gradient``, one call a readjusted worker).  Draws
+    nothing from ``env.rng``, so a run without regrowth is unchanged.
+    Rewrites ``indices`` in place; returns ``[(worker, new_index)]``."""
+    alpha_t = _regrow_alpha(sim.regrow, t, sim.rounds)
+    if alpha_t <= 0.0:
+        return []
+    shrink_scores = None
+    out: List[Tuple[int, Dict[str, np.ndarray]]] = []
+    for w in range(sim.num_workers):
+        if retention(indices[w], env.space) >= 1.0:
+            continue   # full model: no absent units to grow back
+        if shrink_scores is None:
+            shrink_scores = _weight_magnitude_scores(
+                params_to_numpy(global_params), env.unit_map, env.space.unit_counts
+            )
+        shrunk = prune_to_budget(indices[w], shrink_scores, alpha_t, env.space)
+        budget = sum(
+            (len(indices[w][l.name]) - len(shrunk[l.name])) * l.unit_param_cost
+            for l in env.space.layers
+        )
+        if budget <= 0:
+            continue
+        x, y = env.shard_xy(w)
+        grads = env.trainer.gradient(global_params, env.unit_map, x[:64], y[:64])
+        grow_scores = grad_magnitude_scores(
+            params_to_numpy(grads), env.unit_map, env.space.unit_counts
+        )
+        indices[w] = regrow_index(shrunk, grow_scores, budget, env.space)
+        out.append((w, indices[w]))
+    return out
+
+
 def _skip_round_time(env: _Env, scen: ScenarioEngine, indices, round_t: int) -> float:
     """Clock advance of a SKIPPED round (too few fault survivors): the
     server waits out the straggler deadline, ``timeout_factor`` x the slowest
     nominal update time at the current sub-models.  Jitter-free and
     RNG-free."""
     mults = scen.drift_mults(round_t)
-    phis = [
-        env.phi(w, subparam_shapes(indices[w], env.unit_map, env.base_shapes),
-                jitter=False, time_mult=float(mults[w]))
-        for w in range(len(indices))
-    ]
+    phis = [env.phi_from_index(w, indices[w], jitter=False, time_mult=float(mults[w]))
+            for w in range(len(indices))]
     return scen.cfg.timeout_factor * max(phis)
 
 
@@ -640,8 +835,7 @@ def _run_sync(sim: SimConfig, env: _Env) -> SimResult:
         gammas_now = [retention(indices[w], env.space) for w in range(W)]
         phis_now = [
             float(np.mean(interval_phis[w])) if interval_phis[w]
-            else env.phi(w, subparam_shapes(indices[w], env.unit_map, env.base_shapes),
-                         jitter=False, time_mult=float(mults[w]))
+            else env.phi_from_index(w, indices[w], jitter=False, time_mult=float(mults[w]))
             for w in range(W)
         ]
         for w in range(W):
@@ -717,6 +911,15 @@ def _run_sync(sim: SimConfig, env: _Env) -> SimResult:
             scen_rows.append(
                 (t, len(active_ws), int(events.dropped.sum()), int(events.joined.sum()))
             )
+
+        # FedDST readjustment at the round start, before broadcast-back, so
+        # grown units take the global's values (resident: a mask rewrite)
+        if _regrow_round(sim, t):
+            regrown = _regrow_step(sim, env, global_params, indices, t)
+            for w, idx_w in regrown:
+                prune_events.append((t, int(w), {k: tuple(map(int, v)) for k, v in idx_w.items()}))
+            if resident and regrown:
+                env.fleet.refresh_masks(state, indices)
 
         # too few fault survivors: nothing trains, the global is untouched,
         # the clock waits out the deadline; Alg. 2 and evals still run
@@ -890,6 +1093,230 @@ def _run_sync(sim: SimConfig, env: _Env) -> SimResult:
     )
 
 
+# ---------------------------------------------------------------------------
+# asynchronous methods: fedasync_s / ssp_s / dcasgd_s
+# ---------------------------------------------------------------------------
+
+def _plan_async_events(sim: SimConfig, env: _Env, scen: Optional[ScenarioEngine],
+                       participants: np.ndarray) -> AsyncEventPlan:
+    """Pre-simulate the whole async discrete-event run (no training).
+
+    The reference's RNG and heap order: the initial ``schedule`` per
+    participant ascending (one jitter draw each), then per window batch: the
+    heap pops (``(time, worker)`` tuples, so equal finish times pop the lower
+    worker first), one ``make_batch_plan`` per popped row in pop order, one
+    ``scen.rng`` dropout draw per popped row (only when dropout > 0), one
+    ``fault_rng`` crash draw per popped row (only when crash is on), then
+    the per-commit walk: clock running max, staleness before the version
+    bump, the SSP block/unblock walk with its reschedule jitter draws, eval
+    flags.
+
+    A dropped (timed-out) commit trains, counts toward ``rounds_done`` and
+    refetches, but is never merged: no version bump, no bytes.  A crashed
+    worker's commit lands; its next schedule waits ``outage_rounds``
+    jitter-free update times."""
+    W = sim.num_workers
+    method = sim.method
+    idx = full_index(env.space)
+    n_part = len(participants)
+    drop_p = scen.cfg.dropout if scen is not None else 0.0
+    crash = scen.cfg.faults.crash if scen is not None and scen.cfg.faults is not None else None
+    n_crashes = 0
+
+    fetched_ver = np.zeros(W, np.int64)
+    rounds_done = np.zeros(W, np.int64)
+    last_push = np.zeros(W, np.int64)
+    version = 0
+    push_counter = 0
+    total_commits = n_part * sim.rounds
+    commits = 0
+    clock = 0.0
+    heap: List[Tuple[float, int]] = []
+
+    def schedule(w, now):
+        nonlocal push_counter
+        heapq.heappush(heap, (now + env.phi_from_index(w, idx), w))
+        last_push[w] = push_counter
+        push_counter += 1
+
+    for w in participants:
+        schedule(int(w), 0.0)
+
+    workers, finishes, push_seq, staleness, versions = [], [], [], [], []
+    dropped, refetch, evals, clocks, plans = [], [], [], [], []
+    batch_starts = [0]
+    blocked: List[int] = []
+    window = sim.async_window
+    while commits < total_commits and heap:
+        batch = [heapq.heappop(heap)]
+        while (window > 0.0 and heap and len(batch) < total_commits - commits
+               and heap[0][0] <= batch[0][0] + window):
+            batch.append(heapq.heappop(heap))
+        batch_plans = [
+            make_batch_plan(len(env.shards[w]), sim.batch_size, sim.local_epochs, env.rng)
+            for _, w in batch
+        ]
+        drops = ([bool(scen.rng.random() < drop_p) for _ in batch]
+                 if drop_p > 0.0 else [False] * len(batch))
+        crashes = ([bool(scen.fault_rng.random() < crash.rate) for _ in batch]
+                   if crash is not None else [False] * len(batch))
+        for (finish, w), plan, drop, crashed in zip(batch, batch_plans, drops, crashes):
+            clock = max(clock, finish)
+            s = int(version - fetched_ver[w])
+            if not drop:
+                version += 1
+            commits += 1
+            rounds_done[w] += 1
+            ref = np.zeros(W, bool)
+            ref[w] = True
+            fetched_ver[w] = version
+            delay = 0.0
+            if crashed:
+                n_crashes += 1
+                delay = crash.outage_rounds * env.phi_from_index(w, idx, jitter=False)
+            if method == "ssp_s" and rounds_done[w] >= int(
+                rounds_done[participants].min()
+            ) + sim.ssp_threshold:
+                blocked.append(w)
+            elif rounds_done[w] < sim.rounds:
+                schedule(w, clock + delay)
+            if method == "ssp_s" and blocked:
+                min_done = int(rounds_done[participants].min())
+                still = []
+                for bw in blocked:
+                    if (rounds_done[bw] < min_done + sim.ssp_threshold
+                            and rounds_done[bw] < sim.rounds):
+                        ref[bw] = True
+                        fetched_ver[bw] = version
+                        schedule(bw, clock)
+                    else:
+                        still.append(bw)
+                blocked = [b for b in still if rounds_done[b] < sim.rounds]
+            workers.append(int(w))
+            finishes.append(float(finish))
+            push_seq.append(int(last_push[w]))
+            staleness.append(s)
+            versions.append(version)
+            dropped.append(drop)
+            refetch.append(ref)
+            evals.append(commits % n_part == 0)
+            clocks.append(clock)
+            plans.append(plan)
+        batch_starts.append(commits)
+
+    return AsyncEventPlan(
+        workers=np.asarray(workers, np.int64),
+        finishes=np.asarray(finishes, np.float64),
+        push_seq=np.asarray(push_seq, np.int64),
+        staleness=np.asarray(staleness, np.int64),
+        versions=np.asarray(versions, np.int64),
+        dropped=np.asarray(dropped, bool),
+        refetch=np.stack(refetch) if refetch else np.zeros((0, W), bool),
+        evals=np.asarray(evals, bool),
+        clocks=np.asarray(clocks, np.float64),
+        batch_starts=np.asarray(batch_starts, np.int64),
+        plans=plans,
+        fault_ledger=(
+            dict(drift_events=0, rounds_degraded=0, rounds_skipped=0,
+                 workers_recovered=n_crashes, retry_total=n_crashes)
+            if crash is not None else None
+        ),
+    )
+
+
+def _run_async(sim: SimConfig, env: _Env) -> SimResult:
+    """Replay the pre-simulated event plan, one window batch per fleet call.
+
+    Resident (``masked``): the batch's rows take their fetched snapshots,
+    train as one sub-stack and come back in one host copy; no host round
+    trip is counted.  Per-worker (``sequential``, ``bucketed``): one job per
+    commit from its fetched snapshot, and one ``async_merge`` round trip per
+    merged commit.  The merges are ``AsyncServer``'s, in commit order."""
+    W = sim.num_workers
+    scen = ScenarioEngine(sim.scenario, W) if sim.scenario is not None else None
+    participants = scen.static_participants() if scen is not None else np.arange(W)
+    n_part = len(participants)
+    plan = _plan_async_events(sim, env, scen, participants)
+
+    resident = sim.engine == "masked"
+    idx = full_index(env.space)
+    global_params = params_to_numpy(env.base_params)
+    server = AsyncServer(
+        sim.method, global_params, W, cohort_size=n_part, fedasync_a=sim.fedasync_a,
+        lr=sim.lr, dcasgd_lambda=sim.dcasgd_lambda, dcasgd_m=sim.dcasgd_m,
+    )
+    # the server rebinds a fresh dict per commit, so snapshots are references
+    fetched = [dict(global_params) for _ in range(W)]
+    state = None
+    pad_steps = None
+    if resident:
+        shard_x, shard_y = zip(*(env.shard_xy(w) for w in range(W)))
+        state = env.fleet.init_state(env.base_params, list(shard_x), list(shard_y))
+        pad_steps = max(
+            plan_steps(len(env.shards[w]), sim.batch_size, sim.local_epochs) for w in participants
+        )
+    # async commits move base-shape payloads (workers never prune)
+    commit_bytes = 2.0 * sum(int(np.prod(s)) * 4 for s in env.base_shapes.values())
+    comm_bytes = 0.0
+    merge_s = 0.0
+    acc_time = [(0.0, _env_accuracy(env, env.base_params))]
+    rt_base = roundtrip_total()
+
+    for b in range(len(plan.batch_starts) - 1):
+        s0, e0 = int(plan.batch_starts[b]), int(plan.batch_starts[b + 1])
+        rows = [int(w) for w in plan.workers[s0:e0]]
+        batch_plans = plan.plans[s0:e0]
+        for p in batch_plans:   # async workers all train at the full index
+            env.account_train(idx, p.shape[0])
+        if resident:
+            env.fleet.scatter_global_rows(state, rows, [fetched[w] for w in rows])
+            _, pulled = env.fleet.train_rows(state, rows, batch_plans, sim.lam,
+                                             pad_steps=pad_steps, to_host=True)
+            if pulled is None:
+                # no-step plans (local_epochs <= 0): commit the fetched params
+                trained_batch = [fetched[w] for w in rows]
+            else:
+                trained_batch = [{k: v[i] for k, v in pulled.items()} for i in range(len(rows))]
+        else:
+            jobs = []
+            for w, p in zip(rows, batch_plans):
+                x, y = env.shard_xy(w)
+                jobs.append(FleetJob(worker=w, params=_to_device(fetched[w], env.device),
+                                     index=idx, x=x, y=y, plan=p))
+            trained_batch = [params_to_numpy(t) for t in env.fleet.train_all(jobs, sim.lam)]
+        for i, trained in zip(range(s0, e0), trained_batch):
+            w = int(plan.workers[i])
+            if not plan.dropped[i]:
+                t0 = _time.perf_counter()
+                global_params = server.commit(w, trained, fetched[w], int(plan.staleness[i]))
+                merge_s += _time.perf_counter() - t0
+                if not resident:
+                    # per-worker path: each merged commit crosses the host
+                    # boundary as a whole param dict
+                    tally_roundtrip("async_merge")
+                comm_bytes += commit_bytes
+            if server.version != int(plan.versions[i]):
+                raise RuntimeError("async replay diverged from the pre-simulated event plan")
+            for rw in np.flatnonzero(plan.refetch[i]):
+                fetched[int(rw)] = dict(global_params)
+            if plan.evals[i]:
+                acc_time.append((float(plan.clocks[i]),
+                                 _env_accuracy(env, _to_device(global_params, env.device))))
+
+    clock = float(plan.clocks[-1]) if plan.num_events else 0.0
+    final = _to_device(global_params, env.device)
+    final_cost = env.cost_for_index(idx)
+    result = _finalize(
+        sim, env, acc_time, [], [], [], [1.0] * W, [final] * W, comm_bytes, merge_s, clock,
+        global_params=final, host_roundtrips=roundtrip_total() - rt_base,
+        flops_per_image_final=final_cost[0], blocks_per_image_final=final_cost[2],
+        prune_events=[], scenario_rounds=[(0, n_part, 0, 0)] if scen is not None else [],
+        fault_ledger=plan.fault_ledger or {},
+    )
+    result.host_pull_s = env.fleet.pull_walltime_s
+    return result
+
+
 def _finalize(sim, env, acc_time, het_traj, sim_traj, upd_times, retentions,
               worker_params, comm_bytes, server_overhead, clock,
               global_params, host_roundtrips, flops_per_image_final,
@@ -947,7 +1374,7 @@ def run_simulation(
     t0 = _time.perf_counter()
     with ieee_f32():
         env = _Env(sim, base_params)
-        result = _run_sync(sim, env)
+        result = (_run_async if sim.method in ASYNC_METHODS else _run_sync)(sim, env)
         if env.device.type == "cuda":
             torch.cuda.synchronize(env.device)
     result.walltime_s = _time.perf_counter() - t0

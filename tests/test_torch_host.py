@@ -314,19 +314,34 @@ def _byzantine_scenario():
 @pytest.mark.parametrize("field,value", [
     pytest.param("engine", "fused", id="engine-fused"),
     pytest.param("scenario", _byzantine_scenario(), id="scenario-value1"),
-    pytest.param("regrow", _Dummy(), id="regrow-value2"),
     pytest.param("robust", _Dummy(), id="robust-value4"),
     pytest.param("mesh", _Dummy(), id="mesh-value5"),
     pytest.param("resident_momentum", True, id="resident_momentum-True"),
-    pytest.param("method", "fedasync_s", id="method-fedasync_s"),
-    pytest.param("method", "ssp_s", id="method-ssp_s"),
-    pytest.param("method", "dcasgd_s", id="method-dcasgd_s"),
 ])
 def test_out_of_slice_fields_are_refused_by_name(field, value):
     sim = SimConfig(rounds=1, num_workers=2, device="cpu", **{field: value})
     with pytest.raises(ValueError, match=rf"SimConfig\.{field}") as err:
         run_simulation(sim)
     assert "ROADMAP" in str(err.value)
+
+
+@pytest.mark.parametrize("method", ["fedasync_s", "ssp_s", "dcasgd_s"])
+def test_async_on_the_fused_engine_is_refused_by_name(method):
+    """The async methods run on every engine but ``fused`` (ROADMAP A7)."""
+    sim = SimConfig(method=method, engine="fused", rounds=1, num_workers=2, device="cpu")
+    with pytest.raises(ValueError, match=r"SimConfig\.engine") as err:
+        run_simulation(sim)
+    assert "ROADMAP" in str(err.value) and "A7" in str(err.value)
+
+
+@pytest.mark.parametrize("method", ["fedasync_s", "ssp_s", "dcasgd_s"])
+def test_regrow_on_an_async_method_is_refused(method):
+    """The reference's rule: async workers never prune, nothing regrows."""
+    from repro_torch.core.simulation import RegrowConfig
+
+    sim = SimConfig(method=method, regrow=RegrowConfig(), rounds=1, num_workers=2, device="cpu")
+    with pytest.raises(ValueError, match=r"SimConfig\.regrow .* synchronous methods only"):
+        run_simulation(sim)
 
 
 @pytest.mark.parametrize("engine", ["sequential", "bucketed"])
