@@ -153,6 +153,45 @@ masks whose dead 128-unit blocks a regrow brings back):
                   block_skip's decisions: identical events and clocks,
                   params within ENVELOPE_EXCESS x its one-ulp envelope.
 
+Slice 8, the fused round engine (``engine="fused"``, dense as in the
+reference, so no kernel of the repo runs on it), VGG16_CIFAR at full width,
+10 slots, batch 32:
+
+20. fused        — adaptcl under FLEET, 8 rounds, round_fusion 4, PI 2, index
+                   order, against masked dense: identical scenario rounds,
+                   prune events, ledger and clocks; params within
+                   ENVELOPE_EXCESS x masked dense's one-ulp envelope; a
+                   one-step first live round within FIRST_ROUND_ATOL (the
+                   TF32 control beyond it); host dispatches = chunks + eval
+                   batches; the second chunk under
+                   ``torch.cuda.set_sync_debug_mode("error")`` (any host
+                   synchronisation inside a chunk raises); ms a round beside
+                   masked dense's.
+21. fused_dgc    — ``dgc``'s runs (DGC 0.9, resident momentum, fixed rates) on
+                   the fused engine: ms a step beside ``dgc``'s masked ones;
+                   the first live round's kept counts equal to the host
+                   compressor's (KEPT_TIE_FRACTION), clocks equal but for
+                   threshold ties, identical prune events, params within
+                   ENVELOPE_EXCESS x ``dgc``'s dense one-ulp envelope.
+22. fused_scores — one prune event per device criterion (l1, taylor) on 10
+                   workers retaining 60-100 % of the units: device scores
+                   (under the sync check) against the host's
+                   ``local_unit_stats`` of the same params, held as
+                   ``importance`` holds the card (SCORE_REL_TOL, or for an
+                   ill-conditioned criterion twice the host's distance from
+                   a float64 recompute), device vs host orders and pruned
+                   sets (differences only on near-ties); ms per prune event
+                   and of the greedy alone.
+23. async_fused  — each async method of ``async`` on the fused engine
+                   (round_fusion 2): the device queue's pop order and
+                   staleness pass the plan check, clocks, scenario rounds,
+                   ledger and merges equal to the masked run, params within
+                   ENVELOPE_EXCESS x ``async_check``'s one-ulp envelope of
+                   their distance from sequential cuDNN; the second chunk
+                   under the sync check; ms a commit beside masked's, and
+                   one device merge (``async_commit_dev``) at full size
+                   beside the host server's merge.
+
 Then a ``{"kernels": [...]}`` line, the ``nvidia-smi`` name/power line, and
 as the last line ``{"ok": true, "device": {...}}``.  Details go to
 ``chiprun_out/chip_smoke.json``.  Without a CUDA device, or without the
@@ -1854,7 +1893,7 @@ def phase_dgc(report):
     check(all(v > 0 for v in launches.values()), f"dgc: a kernel was never launched: {launches}")
     check(all(np.isfinite(v).all() for v in bs.global_params.values()), "dgc: non-finite params")
     torch.cuda.empty_cache()
-    return rec
+    return rec, dn, dn_dgc
 
 
 # ---------------------------------------------------------------------------
@@ -2067,7 +2106,7 @@ def phase_async_check(report, runs):
               f"{tag}: the TF32 control moved the first-batch rows by only "
               f"{fb['tf32_control']['rows']}, so {FIRST_ROUND_ATOL} cannot tell an error of its grade")
         check(np.isfinite(seq.final_acc), f"{tag}: sequential final_acc not finite")
-        out[method] = rec
+        out[method] = (rec, seq)
         torch.cuda.empty_cache()
     return out
 
@@ -2364,6 +2403,413 @@ def phase_regrow(report):
     return rec
 
 
+
+# ---------------------------------------------------------------------------
+# slice 8: the fused round engine (sync chunks, the async device event queue)
+# ---------------------------------------------------------------------------
+
+FUSED_ROUND_FUSION = 4
+FUSED_PRUNE_RATE = 0.3
+
+
+@contextlib.contextmanager
+def sync_checked_chunk(cls, call=2):
+    """Inside, the ``call``-th chunk of ``cls`` (``fused._SyncChunk`` or
+    ``_AsyncChunk``) runs under ``torch.cuda.set_sync_debug_mode("error")``:
+    any host synchronisation inside it raises.  Yields the count of chunks
+    checked."""
+    import torch
+
+    real = cls.__call__
+    seen = {"calls": 0, "checked": 0}
+
+    def spy(self, *a, **kw):
+        seen["calls"] += 1
+        if seen["calls"] != call:
+            return real(self, *a, **kw)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            out = real(self, *a, **kw)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        seen["checked"] += 1
+        return out
+
+    cls.__call__ = spy
+    try:
+        yield seen
+    finally:
+        cls.__call__ = real
+
+
+def per_round_ms(res) -> float:
+    return res.walltime_s / max(len(res.update_times), 1) * 1e3
+
+
+def fused_fleet_sim(**kw):
+    return fleet_sim(engine="fused", compute="dense", round_fusion=FUSED_ROUND_FUSION, **kw)
+
+
+def phase_fused(report):
+    """adaptcl on the fused engine under the fleet scenario (8 rounds,
+    round_fusion 4, PI 2, index order) against masked dense: identical
+    scenario rounds, prune events, ledger and clocks; params within
+    ENVELOPE_EXCESS x masked dense's one-ulp envelope; after a one-step
+    first live round within FIRST_ROUND_ATOL (the TF32 control beyond it);
+    host dispatches = chunks + evals; the second chunk under
+    ``set_sync_debug_mode("error")``."""
+    import torch
+    from repro_torch.core import fused
+    from repro_torch.core.simulation import run_simulation
+    from repro_torch.kernels.pruned_matmul import LAUNCHES, reset_launches
+
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    with sync_checked_chunk(fused._SyncChunk) as seen:
+        res = run_simulation(fused_fleet_sim())
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    launches = dict(LAUNCHES)
+    again = run_simulation(fused_fleet_sim())
+    mas = run_simulation(fleet_sim(compute="dense"))
+    envelope = one_ulp_envelope(fleet_sim(compute="dense"), mas)
+    live = first_live_round(mas)
+    fr = first_round(fused_fleet_sim(rounds=live, local_epochs=0.25),
+                     fleet_sim(rounds=live, local_epochs=0.25, compute="dense"))
+    evals = len(res.acc_time) * -(-512 // 256)
+    ledger = {f: getattr(res, f) for f in LEDGER_FIELDS}
+    drift = param_drift(res, mas)
+    rec = {
+        "phase": "fused", "rounds": FLEET_ROUNDS, "round_fusion": FUSED_ROUND_FUSION,
+        "scenario": FLEET, "fused_chunks": res.fused_chunks,
+        "host_dispatches": [res.host_dispatches, mas.host_dispatches], "evals": evals,
+        "recompiles": res.recompiles, "host_roundtrips": res.host_roundtrips,
+        "sync_checked_chunks": seen["checked"], "kernel_launches": launches,
+        "prune_events": len(res.prune_events),
+        "prune_events_identical": res.prune_events == mas.prune_events,
+        "first_event_diff": first_event_diff(res, mas),
+        "scenario_rounds_identical": res.scenario_rounds == mas.scenario_rounds,
+        "ledger": ledger,
+        "ledger_identical": ledger == {f: getattr(mas, f) for f in LEDGER_FIELDS},
+        "update_times_equal": same_clock(res, mas),
+        "total_time": [res.total_time, mas.total_time],
+        "final_acc": [res.final_acc, mas.final_acc],
+        "param_drift": drift, "one_ulp_envelope": envelope, "envelope_excess": ENVELOPE_EXCESS,
+        "first_round": fr,
+        # walltime per round of a whole run (first chunk included), the
+        # repeat with everything warm, and masked dense's
+        "ms_per_round": per_round_ms(res), "ms_per_round_again": per_round_ms(again),
+        "masked_dense_ms_per_round": per_round_ms(mas),
+        "steady_ms_per_step": steady_ms(again), "masked_dense_steady_ms_per_step": steady_ms(mas),
+        "peak_mem_gb": peak,
+    }
+    emit(rec)
+    report["fused"] = {**rec, "update_times": res.update_times, "acc_time": res.acc_time}
+    check(seen["checked"] == 1, "fused: no chunk ran under the sync check")
+    check(res.fused_chunks >= 3 and res.host_dispatches == res.fused_chunks + evals,
+          f"fused: {res.host_dispatches} dispatches for {res.fused_chunks} chunks and "
+          f"{evals} eval batches")
+    check(res.host_roundtrips == 0, "fused: host round trips")
+    check(not any(launches.values()), "fused: the dense path launched the block-skip kernel")
+    check(rec["scenario_rounds_identical"], "fused: scenario rounds differ")
+    check(rec["prune_events_identical"] and res.prune_events, "fused: prune events differ")
+    check(rec["ledger_identical"], "fused: fault ledgers differ")
+    check(rec["update_times_equal"] and res.total_time == mas.total_time,
+          "fused: clocks differ")
+    check(envelope["events_identical"], "fused: the one-ulp run pruned otherwise")
+    check(drift["max"] <= ENVELOPE_EXCESS * envelope["max"],
+          f"fused: params differ by {drift['max']} > {ENVELOPE_EXCESS} x {envelope['max']}")
+    check_first_round(fr, "fused")
+    check(all(np.isfinite(v).all() for v in res.global_params.values()), "fused: non-finite params")
+    torch.cuda.empty_cache()
+    return rec
+
+
+def fused_dgc_spy():
+    """Record the realized kept and total counts ``[W]`` of every call of the
+    device compressor inside fused chunks; returns (records, undo)."""
+    from repro_torch.core import fused
+
+    real = fused.dgc_compress_dev
+    records = []
+
+    def spy(*a, **kw):
+        out = real(*a, **kw)
+        records.append({"kept": out[2].cpu().numpy().tolist(), "total": out[3].cpu().numpy().tolist()})
+        return out
+
+    fused.dgc_compress_dev = spy
+    return records, lambda: setattr(fused, "dgc_compress_dev", real)
+
+
+def phase_fused_dgc(report, dgc_rec, dense, dense_dgc):
+    """The ``dgc`` runs (DGC 0.9, resident momentum, fixed rates) on the
+    fused engine: ms a step beside masked's; identical prune events and
+    scenario rounds; the first live round's kept counts equal to the host
+    compressor's (masked dense), with PR 16's tie allowance
+    (KEPT_TIE_FRACTION); clocks equal but on rows whose kept count moved by
+    a tie; params within ENVELOPE_EXCESS x masked dense's one-ulp envelope."""
+    import torch
+    from repro_torch.core.simulation import run_simulation
+
+    kw = dict(dgc_sparsity=0.9, resident_momentum=True, fixed_pruned_rates=[DGC_RATES, DGC_RATES])
+    records, undo = fused_dgc_spy()
+    try:
+        res = run_simulation(fused_fleet_sim(**kw))
+    finally:
+        undo()
+    again = run_simulation(fused_fleet_sim(**kw))
+    ut = np.array(res.update_times)
+    live = [i for i in range(len(ut)) if not np.isnan(ut[i]).all()]
+    # one compressor call per live round (skipped rounds do not compress)
+    check(len(records) == len(live) == len(dense_dgc), "fused_dgc: one DGC call per live round")
+    first = {"rows": dense_dgc[0]["rows"],
+             "fused": [records[0]["kept"][w] for w in dense_dgc[0]["rows"]],
+             "host": [dense_dgc[0]["kept"][w] for w in dense_dgc[0]["rows"]]}
+    first_ok = all(abs(a - b) <= KEPT_TIE_FRACTION * max(a, b)
+                   for a, b in zip(first["fused"], first["host"]))
+    mism = []
+    ud = np.array(dense.update_times)
+    for n, i in enumerate(live):
+        for w in range(ut.shape[1]):
+            if not (ut[i, w] == ud[i, w] or (np.isnan(ut[i, w]) and np.isnan(ud[i, w]))):
+                sub = w in dense_dgc[n]["rows"]
+                mism.append((i + 1, w, records[n]["kept"][w] if sub else None,
+                             dense_dgc[n]["kept"][w] if sub else None))
+    envelope = dgc_rec["one_ulp_envelope"]
+    drift = param_drift(res, dense)
+    rec = {
+        "phase": "fused_dgc", "dgc_sparsity": 0.9, "resident_momentum": True,
+        "fused_chunks": res.fused_chunks, "host_dispatches": res.host_dispatches,
+        "steady_ms_per_step": steady_ms(again),
+        "masked_block_skip_steady_ms_per_step": dgc_rec["steady_ms_per_step"],
+        "masked_dense_steady_ms_per_step": dgc_rec["dense_steady_ms_per_step"],
+        "ms_per_round": per_round_ms(again), "masked_dense_ms_per_round": per_round_ms(dense),
+        "first_live_round_kept": first, "first_round_kept_equal": first["fused"] == first["host"],
+        "clock_mismatches": mism, "kept_tie_fraction": KEPT_TIE_FRACTION,
+        "prune_events_identical": res.prune_events == dense.prune_events,
+        "scenario_rounds_identical": res.scenario_rounds == dense.scenario_rounds,
+        "comm_bytes": [res.comm_bytes, dense.comm_bytes],
+        "final_acc": [res.final_acc, dense.final_acc],
+        "param_drift": drift, "one_ulp_envelope": envelope, "envelope_excess": ENVELOPE_EXCESS,
+    }
+    emit(rec)
+    report["fused_dgc"] = {**rec, "kept": records}
+    check(first_ok, f"fused_dgc: first-round kept counts {first}")
+    check(rec["prune_events_identical"] and res.prune_events, "fused_dgc: prune events differ")
+    check(rec["scenario_rounds_identical"], "fused_dgc: scenario rounds differ")
+    check(all(ka is not None and ka != kb
+              and abs(ka - kb) <= max(1.0, KEPT_TIE_FRACTION * max(ka, kb))
+              for _, _, ka, kb in mism),
+          f"fused_dgc: update times differ beyond threshold ties: {mism}")
+    check(mism or res.total_time == dense.total_time, "fused_dgc: virtual clocks differ")
+    check(drift["max"] <= ENVELOPE_EXCESS * envelope["max"],
+          f"fused_dgc: params differ by {drift['max']} > {ENVELOPE_EXCESS} x {envelope['max']}")
+    check(all(np.isfinite(v).all() for v in res.global_params.values()),
+          "fused_dgc: non-finite params")
+    torch.cuda.empty_cache()
+    return rec
+
+
+def phase_fused_scores(report):
+    """One prune event of the fused engine, per criterion: l1 and taylor
+    scored on the card (``_SyncChunk.device_scores``, under
+    ``set_sync_debug_mode("error")``), ordered and pruned by the device
+    greedy, against the port's host scores of the same params
+    (``worker.local_unit_stats``, float64) ordered by ``prune_order`` and
+    pruned by ``prune_to_budget``; ms per prune event on the card (scores,
+    order, greedy, masks) and of the greedy alone."""
+    import torch
+    from repro_torch.core import fused
+    from repro_torch.core.aggregation import extract_subparams
+    from repro_torch.core.fleet import masks_from_presence
+    from repro_torch.core.masks import (flatten_unit_space, index_from_presence,
+                                        presence_from_index, prune_budget_units, prune_order,
+                                        prune_presence_rows, prune_to_budget)
+    from repro_torch.core.simulation import _Env
+    from repro_torch.core.worker import LocalTrainer, local_unit_stats
+
+    def layer_rel(a, b):
+        """max over layers of max|a - b| / max|b| over the retained units"""
+        return max(float(np.abs(a[n][np.isfinite(b[n])] - b[n][np.isfinite(b[n])]).max()
+                         / max(np.abs(b[n][np.isfinite(b[n])]).max(), 1e-30)) for n in b)
+
+    out = {}
+    for imp in ("l1", "taylor"):
+        sim = fused_fleet_sim(importance=imp)
+        env = _Env(sim)
+        W = sim.num_workers
+        flat = flatten_unit_space(env.space)
+        rng = np.random.default_rng(11)
+        # each worker keeps a random 60-100 % of every layer's units
+        indices = []
+        for w in range(W):
+            keep = 0.6 + 0.4 * w / (W - 1)
+            indices.append({l.name: np.sort(rng.choice(l.num_units, max(1, int(keep * l.num_units)),
+                                                       replace=False))
+                            for l in env.space.layers})
+        xs, ys = zip(*(env.shard_xy(w) for w in range(W)))
+        state = env.fleet.init_state(env.base_params, list(xs), list(ys))
+        pres = torch.as_tensor(np.stack([presence_from_index(i, flat) for i in indices]),
+                               device=DEVICE)
+        masks = masks_from_presence(pres, flat, env.unit_map, env.base_shapes)
+        gen = torch.Generator(device=DEVICE).manual_seed(5)
+        params = {k: (v + 0.01 * torch.randn(v.shape, generator=gen, device=DEVICE)) * masks[k]
+                  for k, v in state.params.items()}
+        sizes = torch.as_tensor([len(s) for s in env.shards], device=DEVICE)
+        chunk = fused._SyncChunk(env.trainer, env.unit_map, env.base_shapes, flat, 0.0,
+                                 by_unit=False, importance=imp, resident_momentum=False,
+                                 has_phase_b=False, dgc_sparsity=0.0, device=env.device)
+        budgets = torch.as_tensor([prune_budget_units(i, FUSED_PRUNE_RATE, env.space)
+                                   for i in indices], device=DEVICE)
+
+        def event():
+            s = chunk.device_scores(params, masks, pres, state.xs, state.ys, sizes)
+            order = fused.device_order(s, chunk.tiebreak_perm)
+            p2 = prune_presence_rows(pres, order, budgets, flat, chunk.walk)
+            return s, order, p2, masks_from_presence(p2, flat, env.unit_map, env.base_shapes)
+
+        event()
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            scores, order, p2, _ = event()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        event_ms = time_ms(event)
+        greedy_ms = time_ms(lambda: prune_presence_rows(pres, order, budgets, flat, chunk.walk))
+        scores, order, p2 = scores.cpu().numpy(), order.cpu().numpy(), p2.cpu().numpy()
+        kind = "weight_norms" if imp == "l1" else "grads"
+        f64_trainer = LocalTrainer(sim.cnn, device=DEVICE)
+        errs, errs64, host64, order_diff, set_diff, near_tie = [], [], [], 0, 0, True
+        for w in range(W):
+            row = {k: v[w] for k, v in params.items()}
+            x, y = env.shard_xy(w)
+            sub = extract_subparams(row, indices[w], env.unit_map)
+            host = local_unit_stats(env.trainer, sub, indices[w], env.space, env.unit_map,
+                                    x, y)[kind]
+            ref = local_unit_stats(f64_trainer, {k: v.double() for k, v in sub.items()},
+                                   indices[w], env.space, env.unit_map,
+                                   np.asarray(x, np.float64), y)[kind]
+            hflat = np.concatenate([host[n] for n in flat.names])
+            live = np.isfinite(hflat)
+            check(np.array_equal(live, np.isfinite(scores[w])),
+                  f"fused_scores {imp}: -inf slots differ on worker {w}")
+            dev = {n: scores[w][flat.offsets[l]: flat.offsets[l] + flat.sizes[l]]
+                   for l, n in enumerate(flat.names)}
+            errs.append(layer_rel(dev, host))
+            errs64.append(layer_rel(dev, ref))
+            host64.append(layer_rel(host, ref))
+            err = float(np.abs(scores[w][live] - hflat[live]).max() / np.abs(hflat[live]).max())
+            horder = prune_order(host, flat)
+            order_diff += int((horder != order[w]).sum())
+            hidx = prune_to_budget(indices[w], host, FUSED_PRUNE_RATE, env.space)
+            didx = index_from_presence(p2[w], flat)
+            diff_units = [(n, int(u)) for n in hidx
+                          for u in set(map(int, hidx[n])) ^ set(map(int, didx[n]))]
+            if diff_units:
+                set_diff += len(diff_units)
+                removed = [hflat[flat.offsets[flat.names.index(n)] + u]
+                           for n in hidx for u in set(map(int, indices[w][n])) - set(map(int, hidx[n]))]
+                cutoff = max(removed)
+                scale = np.abs(hflat[live]).max()
+                near_tie &= all(abs(hflat[flat.offsets[flat.names.index(n)] + u] - cutoff)
+                                <= 2 * err * scale for n, u in diff_units)
+        # ``importance``'s bar: within SCORE_REL_TOL of the host's float32
+        # scores per layer, or, where the criterion is ill-conditioned in
+        # float32 (taylor's gradient through 13 BN layers: the host's own
+        # float32 scores lie farther than that from a float64 recompute), at
+        # most twice the host's distance from float64
+        ok = max(errs) <= SCORE_REL_TOL or (
+            max(host64) > SCORE_REL_TOL / 2 and max(errs64) <= 2 * max(host64))
+        rec = {"phase": "fused_scores", "importance": imp, "workers": W, "units": flat.num_units,
+               "rate": FUSED_PRUNE_RATE, "max_rel_err": max(errs), "tol": SCORE_REL_TOL,
+               "device_vs_fp64": max(errs64), "host_vs_fp64": max(host64),
+               "order_positions_differing": order_diff, "pruned_units_differing": set_diff,
+               "differences_on_near_ties": bool(near_tie),
+               "ms_per_prune_event": event_ms, "greedy_ms": greedy_ms}
+        emit(rec)
+        out[imp] = rec
+        check(ok, f"fused_scores {imp}: device scores {max(errs)} from the host's, "
+                  f"{max(errs64)} from float64 (host: {max(host64)})")
+        check(set_diff == 0 or near_tie, f"fused_scores {imp}: pruned sets differ off near-ties")
+        check((p2.sum(1) < pres.cpu().numpy().sum(1)).all(), f"fused_scores {imp}: a row did not prune")
+        del state, params, masks
+        torch.cuda.empty_cache()
+    report["fused_scores"] = out
+    return out
+
+
+def phase_async_fused(report, runs, checks):
+    """Each async method on the fused engine under ASYNC_FLEET: the plan's
+    pop and staleness check passing (it raises otherwise), clocks, scenario
+    rounds and ledger equal to the masked run, params within
+    ENVELOPE_EXCESS x the sequential run's one-ulp envelope of its distance
+    from sequential cuDNN; the second chunk under the sync check; ms a
+    commit beside the host server's, and one device merge timed at full
+    size."""
+    import torch
+    from repro_torch.core import fused
+    from repro_torch.core.aggregation import async_commit_dev
+    from repro_torch.core.simulation import run_simulation
+
+    out = {}
+    for method in ASYNC_METHODS:
+        mas, _, _ = runs[method]
+        seq_rec, seq = checks[method]
+        with sync_checked_chunk(fused._AsyncChunk) as seen:
+            res = run_simulation(async_sim(method, engine="fused", compute="dense", round_fusion=2))
+        again = run_simulation(async_sim(method, engine="fused", compute="dense", round_fusion=2))
+        events = ASYNC_ROUNDS * res.scenario_rounds[0][1]
+        merged = int(round(res.comm_bytes / commit_bytes(res)))
+        g = {k: torch.as_tensor(v, device=DEVICE) for k, v in res.global_params.items()}
+        gen = torch.Generator(device=DEVICE).manual_seed(7)
+        noise = lambda: {k: v + 1e-3 * torch.randn(v.shape, generator=gen, device=DEVICE)
+                         for k, v in g.items()}
+        trained, fetched = noise(), noise()
+        dc = method == "dcasgd_s"
+        backup = noise() if dc else {}
+        dc_m = {k: torch.zeros_like(v) for k, v in g.items()} if dc else {}
+        stale = torch.tensor(2, device=DEVICE)
+        merge_ms = time_ms(lambda: async_commit_dev(
+            method, g, trained, fetched, stale, backup, dc_m, cohort_size=8, fedasync_a=0.5,
+            lr=0.05, dcasgd_lambda=2.0, dcasgd_m=0.95), iters=20)
+        ledger = {f: getattr(res, f) for f in LEDGER_FIELDS}
+        drift = param_drift(res, seq)
+        envelope = seq_rec["one_ulp_envelope"]
+        rec = {
+            "phase": "async_fused", "method": method, "events": events, "merged_commits": merged,
+            "fused_chunks": res.fused_chunks, "host_dispatches": res.host_dispatches,
+            "sync_checked_chunks": seen["checked"],
+            "clocks_identical": [t for t, _ in res.acc_time] == [t for t, _ in mas.acc_time]
+            and res.total_time == mas.total_time,
+            "scenario_rounds_identical": res.scenario_rounds == mas.scenario_rounds,
+            "ledger": ledger, "ledger_identical": ledger == {f: getattr(mas, f) for f in LEDGER_FIELDS},
+            "final_acc": [res.final_acc, mas.final_acc, seq.final_acc],
+            "param_drift_vs_sequential": drift, "one_ulp_envelope": envelope,
+            "param_drift_vs_masked": param_drift(res, mas),
+            "ms_per_commit": again.walltime_s / events * 1e3,
+            "masked_ms_per_commit": mas.walltime_s / events * 1e3,
+            "device_merge_ms_per_commit": merge_ms,
+            "host_merge_ms_per_commit": mas.server_overhead_s / max(merged, 1) * 1e3,
+        }
+        emit(rec)
+        report[f"async_fused_{method}"] = rec
+        tag = f"async_fused {method}"
+        check(seen["checked"] == 1, f"{tag}: no chunk ran under the sync check")
+        check(res.fused_chunks >= 2 and res.host_roundtrips == 0, f"{tag}: chunks or round trips")
+        check(rec["clocks_identical"], f"{tag}: clocks differ")
+        check(rec["scenario_rounds_identical"], f"{tag}: scenario rounds differ")
+        check(rec["ledger_identical"], f"{tag}: fault ledgers differ")
+        check(merged == int(round(mas.comm_bytes / commit_bytes(mas))), f"{tag}: merges differ")
+        check(drift["max"] <= ENVELOPE_EXCESS * envelope["max"],
+              f"{tag}: params differ by {drift['max']} > {ENVELOPE_EXCESS} x {envelope['max']}")
+        check(np.isfinite(res.final_acc), f"{tag}: final_acc not finite")
+        out[method] = rec
+        torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -2418,13 +2864,21 @@ def main() -> int:
         save(report)
         s_launches, s_res = phase_scenario(report)
         save(report)
-        phase_dgc(report)
+        dgc_rec, dgc_dense, dgc_dense_kept = phase_dgc(report)
         save(report)
         a_runs = phase_async(report)
         save(report)
-        phase_async_check(report, a_runs)
+        a_checks = phase_async_check(report, a_runs)
         save(report)
         phase_regrow(report)
+        save(report)
+        phase_fused(report)
+        save(report)
+        phase_fused_dgc(report, dgc_rec, dgc_dense, dgc_dense_kept)
+        save(report)
+        phase_fused_scores(report)
+        save(report)
+        phase_async_fused(report, a_runs, a_checks)
     steps = max(res.train_steps, 1)
     s_steps = max(s_res.train_steps, 1)
     r_steps = max(r_res.train_steps, 1)

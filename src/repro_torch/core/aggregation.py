@@ -23,6 +23,13 @@ async loop adds one ``async_merge`` per merged commit (``tally_roundtrip``).
 ``AsyncServer`` merges one commit at a time for fedasync_s, ssp_s and
 dcasgd_s in host numpy float32, in the reference's own expression order, so
 the same trained rows give bit-identical globals in both packages.
+
+The fused round engine (``core.fused``) keeps the server on the device, in
+float32 as the reference's fused engine does: ``aggregate_by_worker_stacked_dev``
+and ``aggregate_by_unit_stacked_dev`` aggregate the stacks,
+``dgc_compress_dev`` is ``simulation._dgc_compress_stacked`` with the keep
+sets of the host compressor, and ``async_commit_dev`` is
+``AsyncServer.commit`` for one commit.  None of them synchronises the host.
 """
 from __future__ import annotations
 
@@ -48,6 +55,10 @@ __all__ = [
     "aggregate_by_unit_stacked",
     "fedasync_weight",
     "AsyncServer",
+    "aggregate_by_worker_stacked_dev",
+    "aggregate_by_unit_stacked_dev",
+    "dgc_compress_dev",
+    "async_commit_dev",
 ]
 
 UnitMap = Mapping[str, Sequence[Tuple[str, int]]]
@@ -279,3 +290,124 @@ class AsyncServer:
         self.params = new
         self.version += 1
         return new
+
+
+# ---------------------------------------------------------------------------
+# the server on the device (fused engine), float32
+# ---------------------------------------------------------------------------
+
+def aggregate_by_worker_stacked_dev(
+    param_stacks: Mapping[str, torch.Tensor],   # {path: [W, ...]} masked stacks
+    weights: torch.Tensor,                      # [W] float32; 0 for non-submitters
+) -> Params:
+    """By-worker aggregation in float32 on the stacks' device."""
+    return {path: torch.tensordot(weights, stack, dims=1)
+            for path, stack in param_stacks.items()}
+
+
+def aggregate_by_unit_stacked_dev(
+    param_stacks: Mapping[str, torch.Tensor],
+    mask_stacks: Mapping[str, torch.Tensor],
+    submitters: torch.Tensor,                   # [W] float32 0/1
+) -> Params:
+    """Per-coordinate mean over the submitting rows holding the coordinate,
+    float32 on the device."""
+    out: Params = {}
+    for path, stack in param_stacks.items():
+        num = torch.tensordot(submitters, stack, dims=1)
+        den = torch.tensordot(submitters, mask_stacks[path], dims=1)
+        out[path] = num / torch.clamp_min(den, 1.0)
+    return out
+
+
+def dgc_compress_dev(
+    deltas: Mapping[str, torch.Tensor],      # {path: [W, ...]} param - global * mask
+    residual: Mapping[str, torch.Tensor],    # {path: [W, ...]} carried residuals
+    sparsity: float,
+    masks: Optional[Mapping[str, torch.Tensor]],   # {path: [W, ...]} 0/1, or None
+    rows: torch.Tensor,                      # [W] float 0/1 submitter gate
+):
+    """Top-|.| delta compression of the ``[W, ...]`` stacks on the device.
+
+    Per tensor the accumulated delta (``delta + residual``) is viewed as
+    ``[W, N]``; pruned coordinates drop to -1 so each row's keep budget
+    counts its retained coordinates only; the row's ``n_keep``-th largest
+    |value| is the threshold and ``>= thr`` keeps, ties included.  The keep
+    budget is ``max(1, round(f32(size) * f32(1 - sparsity)))``, rounding half
+    to even, as the host compressor computes it, so both keep the same sets.
+    Rows with ``rows == 0`` commit nothing and keep their residual.  Returns
+    ``(committed, new_residual, kept [W], total [W])``, the realized int32
+    counts."""
+    W = rows.shape[0]
+    dev = rows.device
+    kept = torch.zeros(W, dtype=torch.int32, device=dev)
+    total = torch.zeros(W, dtype=torch.int32, device=dev)
+    gate = rows > 0
+    keep_frac = float(np.float32(1.0 - sparsity))
+    committed: Params = {}
+    new_res: Params = {}
+    for k, d in deltas.items():
+        flat = (d + residual[k]).reshape(W, -1)
+        absf = flat.abs()
+        if masks is not None:
+            valid = masks[k].reshape(W, -1) > 0
+            sizes = valid.sum(dim=1).to(torch.int32)
+            absf = torch.where(valid, absf, torch.full_like(absf, -1.0))
+        else:
+            valid = None
+            sizes = torch.full((W,), flat.shape[1], dtype=torch.int32, device=dev)
+        n_keep = torch.clamp_min(torch.round(sizes.float() * keep_frac).to(torch.int32), 1)
+        n_keep = torch.minimum(n_keep, torch.clamp_min(sizes, 1))
+        desc = torch.sort(absf, dim=1, descending=True).values
+        thr = torch.gather(desc, 1, (n_keep - 1).long().unsqueeze(1))
+        keep = absf >= thr
+        if valid is not None:
+            keep = keep & valid
+        zero = torch.zeros_like(flat)
+        com = torch.where(keep, flat, zero)
+        res = torch.where(keep, zero, flat)
+        if valid is not None:
+            res = torch.where(valid, res, zero)
+        g = gate.unsqueeze(1)
+        committed[k] = torch.where(g, com, zero).reshape(d.shape)
+        new_res[k] = torch.where(g, res, residual[k].reshape(W, -1)).reshape(d.shape)
+        kept = kept + torch.where(gate, keep.sum(dim=1).to(torch.int32), 0)
+        total = total + torch.where(gate, sizes, 0)
+    return committed, new_res, kept, total
+
+
+def async_commit_dev(
+    method: str,
+    g: Mapping[str, torch.Tensor],           # global params
+    trained: Mapping[str, torch.Tensor],     # the committing worker's trained params
+    fetched_w: Mapping[str, torch.Tensor],   # the global it fetched before training
+    staleness: torch.Tensor,                 # 0-d int
+    backup_w: Mapping[str, torch.Tensor],    # dcasgd: its w_bak row ({} otherwise)
+    dc_m: Mapping[str, torch.Tensor],        # dcasgd accumulator ({} otherwise)
+    *,
+    cohort_size: int,
+    fedasync_a: float,
+    lr: float,
+    dcasgd_lambda: float,
+    dcasgd_m: float,
+):
+    """``AsyncServer.commit`` for one commit, float32 on the device, the
+    reference fused engine's expression order.  Ungated: the caller keeps
+    or discards the result.  Returns ``(new global, new dc_m)``; under
+    dcasgd_s the new global is also the worker's new ``w_bak`` row."""
+    if method == "fedasync_s":
+        a = fedasync_a * (staleness.float() + 1.0) ** -0.5
+        return {k: (1 - a) * g[k] + a * trained[k] for k in g}, dict(dc_m)
+    if method == "ssp_s":
+        return {k: g[k] + (trained[k] - fetched_w[k]) / cohort_size for k in g}, dict(dc_m)
+    if method == "dcasgd_s":
+        new: Params = {}
+        dc_m2: Params = {}
+        for k in g:
+            grad = (fetched_w[k] - trained[k]) / lr
+            dc_m2[k] = dcasgd_m * dc_m[k] + (1 - dcasgd_m) * grad * grad
+            lam_t = dcasgd_lambda / torch.sqrt(torch.mean(dc_m2[k]) + 1e-12)
+            comp = grad + lam_t * grad * grad * (g[k] - backup_w[k])
+            new[k] = g[k] - lr * comp
+        return new, dc_m2
+    raise ValueError(f"unknown async method {method!r}")

@@ -32,6 +32,12 @@ stack and a pruning event only rewrites mask rows.
   carry (``SimConfig.resident_momentum``) and its reset on churn and crash
   recovery;
 * aggregation consumes the stacks directly (``aggregation``).
+
+The fused round engine (``core.fused``) keeps the same stacks but rebuilds
+them on the device: ``masks_from_presence`` (the mask stacks from a ``[W,
+U]`` flat presence matrix), ``gl_factors_from_counts`` (the group-lasso
+factors from retained counts) and ``refetch_rows`` (the async refetch of the
+flagged rows), all free of host synchronisation.
 """
 from __future__ import annotations
 
@@ -45,7 +51,7 @@ import torch
 from repro_torch.optim.group_lasso import group_size_sqrt_from_shapes
 
 from .aggregation import UnitMap, subparam_shapes
-from .masks import GlobalIndex
+from .masks import GlobalIndex, UnitFlat
 from .worker import LocalTrainer, _sync, stack_batch_plans
 
 __all__ = [
@@ -56,11 +62,16 @@ __all__ = [
     "bucket_rows",
     "gather_stack_rows",
     "scatter_stack_rows",
+    "masks_from_presence",
+    "gl_factors_from_counts",
+    "refetch_rows",
 ]
 
 Tensors = Dict[str, torch.Tensor]
 
-ENGINES = ("sequential", "bucketed", "masked")
+# "fused" shares the masked engine's resident stacks; its rounds run as
+# chunks on the device (core.fused)
+ENGINES = ("sequential", "bucketed", "masked", "fused")
 
 
 def bucket_rows(n: int, cap: int) -> int:
@@ -103,6 +114,75 @@ def scatter_stack_rows(
         v = v.clone()
         v[_row_index(rows, num_rows, v.device)] = sub[k][:n]
         out[k] = v
+    return out
+
+
+def masks_from_presence(
+    presence: torch.Tensor,                    # [W, U] flat 0/1
+    flat: UnitFlat,
+    unit_map: UnitMap,
+    base_shapes: Mapping[str, tuple],
+) -> Tensors:
+    """The ``[W, ...]`` 0/1 mask stacks of a flat presence matrix, on its
+    device: ``refresh_masks``'s product over governed axes."""
+    W = presence.shape[0]
+    rows = {
+        name: presence[:, int(flat.offsets[l]) : int(flat.offsets[l] + flat.sizes[l])]
+        for l, name in enumerate(flat.names)
+    }
+    masks: Tensors = {}
+    for path, shape in base_shapes.items():
+        m = torch.ones((W,) + tuple(shape), dtype=torch.float32, device=presence.device)
+        for lname, axis in unit_map.get(path, ()):
+            bshape = [W] + [1] * len(shape)
+            bshape[1 + axis] = shape[axis]
+            m = m * rows[lname].reshape(bshape)
+        masks[path] = m
+    return masks
+
+
+def gl_factors_from_counts(
+    counts: Mapping[str, torch.Tensor],        # {lname: [W] retained counts, float32}
+    unit_map: UnitMap,
+    base_shapes: Mapping[str, tuple],
+) -> Tensors:
+    """Per-worker sqrt-group-size factors from retained counts alone, in
+    float32 (``group_size_sqrt_from_shapes`` of the reconfigured shapes): a
+    path's reconfigured numel is its base numel with each governed axis
+    rescaled by ``count / base``, and a layer's group size sums ``numel /
+    count`` over the paths it governs."""
+    numel: Tensors = {}
+    for path, shape in base_shapes.items():
+        val = None
+        for lname, axis in unit_map.get(path, ()):
+            c = counts[lname]
+            if val is None:
+                val = torch.full_like(c, float(np.prod(shape)))
+            val = val / float(shape[axis]) * c
+        if val is not None:
+            numel[path] = val
+    sizes: Tensors = {}
+    for path, entries in unit_map.items():
+        if path not in base_shapes:
+            continue
+        for lname, axis in entries:
+            contrib = numel[path] / torch.clamp_min(counts[lname], 1.0)
+            sizes[lname] = contrib if lname not in sizes else sizes[lname] + contrib
+    return {lname: torch.sqrt(v) for lname, v in sizes.items()}
+
+
+def refetch_rows(
+    fetched: Mapping[str, torch.Tensor],       # {path: [W, ...]} fetched snapshots
+    refetch_mask: torch.Tensor,                # [W] 0/1: rows taking the global
+    global_p: Mapping[str, torch.Tensor],      # {path: [...]} current global
+) -> Tensors:
+    """Masked refetch: flagged rows take the current global, the others keep
+    their snapshot (the fused async engine's ``fetched[w] = global``; the
+    mask is a device tensor, so SSP's releases stay on the device)."""
+    out: Tensors = {}
+    for k, v in fetched.items():
+        sel = refetch_mask.reshape((-1,) + (1,) * (v.dim() - 1)) > 0
+        out[k] = torch.where(sel, global_p[k].unsqueeze(0), v)
     return out
 
 
@@ -160,7 +240,7 @@ class FleetEngine:
     def train_all(self, jobs: Sequence[FleetJob], lam: float = 0.0) -> List[Tensors]:
         """Train every job; returns the trained sub-model params aligned
         with ``jobs`` (a job with an empty plan comes back untouched)."""
-        if self.engine == "masked":
+        if self.engine in ("masked", "fused"):
             raise ValueError(
                 "FleetEngine.train_all on the masked engine (the reference's "
                 "_run_masked, which no run_simulation path reaches) is not "

@@ -15,6 +15,14 @@ returns a float64 score per prunable unit (higher = keep); ``masks``'s
     sub-model and shard
 
 ``grad_magnitude_scores`` is FedDST regrowth's grow signal.
+
+The fused round engine (``core.fused``) prunes inside a chunk of rounds on
+the device.  The ``STATIC_METHODS`` depend only on (seed, worker, prune
+round, frozen global scales), so their removal orders are computed on the
+host at a chunk boundary; the ``DEVICE_METHODS`` (l1, taylor) read the
+worker's current sub-model and are scored on the device in float32 as
+``[W, U]`` flat rows (``flat_scores``), non-retained slots at -inf as in
+``worker.local_unit_stats``.
 """
 from __future__ import annotations
 
@@ -22,8 +30,11 @@ import dataclasses
 from typing import Callable, Dict, Mapping, Optional, Sequence
 
 import numpy as np
+import torch
 
-__all__ = ["ImportanceContext", "METHODS", "DATA_DEPENDENT", "grad_magnitude_scores"]
+__all__ = ["ImportanceContext", "METHODS", "DATA_DEPENDENT", "CIG_METHODS", "STATIC_METHODS",
+           "DEVICE_METHODS", "grad_magnitude_scores", "flat_scores", "l1_scores",
+           "taylor_scores"]
 
 Scores = Dict[str, np.ndarray]
 
@@ -152,3 +163,35 @@ METHODS: Dict[str, Callable[[ImportanceContext], Scores]] = {
     "fpgm": _fpgm,
     "hrank": _hrank,
 }
+
+# the criteria that satisfy the Identical and Constant principles (nested
+# sub-models)
+CIG_METHODS = frozenset({"cig_bnscalor", "index", "no_adjacent"})
+
+# data-independent criteria: their removal orders are host-exact integer
+# permutations at a fused chunk boundary
+STATIC_METHODS = CIG_METHODS | {"no_identical", "no_constant"}
+
+# data-dependent criteria the fused engine scores on the device
+DEVICE_METHODS = frozenset({"l1", "taylor"})
+
+
+def flat_scores(
+    per_layer: Mapping[str, torch.Tensor],   # {lname: [W, n_l]}
+    layer_names: Sequence[str],
+    presence: torch.Tensor,                  # [W, U] 0/1 flat presence
+) -> torch.Tensor:
+    """Per-layer score rows concatenated in flat-slot order, non-retained
+    slots at -inf."""
+    flat = torch.cat([per_layer[name] for name in layer_names], dim=1)
+    return torch.where(presence > 0, flat, torch.full_like(flat, -np.inf))
+
+
+def l1_scores(weight_norms, layer_names, presence) -> torch.Tensor:
+    """L1 on the device: per-unit group norms of the masked stacks."""
+    return flat_scores(weight_norms, layer_names, presence)
+
+
+def taylor_scores(grad_weight, layer_names, presence) -> torch.Tensor:
+    """Taylor |g.w| on the device."""
+    return flat_scores(grad_weight, layer_names, presence)

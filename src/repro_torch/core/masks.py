@@ -10,13 +10,29 @@ model size).
 FedDST regrowth works on a flat view of the unit space (``UnitFlat``): a
 0/1 presence vector per worker, walked in a grow order (descending score,
 ``(layer, unit)`` tie-break) by ``regrow_index``.
+
+**Device pruning** (the fused round engine, ``core.fused``): ``prune_order``
+turns scores into ``prune_to_budget``'s exact removal order (float64,
+``(score, layer, unit)`` tie-break), ``prune_budget_units`` turns the
+float64 budget into the exact integer threshold of the greedy, and
+``prune_presence_rows`` / ``regrow_presence_rows`` replay the greedy walks
+over the ``[W, U]`` presence rows of the whole fleet on the device.  The
+reference walks each row's order serially (a ``lax.scan`` over U); here the
+walk is closed-form: along the order, a unit is removed iff it is retained,
+fewer than ``count - min_units`` units of its layer came before it, and the
+cost of the units removed before it is under the budget.  The removed cost
+before a position is an exclusive prefix sum of the eligible costs, which is
+non-decreasing, so "under the budget" holds on a prefix and the greedy's
+early stop falls out of one comparison.  A few tensor ops per event instead
+of a launch chain per unit; the sets are the walk's exactly.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Mapping, Sequence
+from typing import Dict, List, Mapping, Optional, Sequence
 
 import numpy as np
+import torch
 
 __all__ = [
     "GlobalIndex",
@@ -33,6 +49,10 @@ __all__ = [
     "index_from_presence",
     "grow_order",
     "regrow_index",
+    "prune_order",
+    "prune_budget_units",
+    "prune_presence_rows",
+    "regrow_presence_rows",
 ]
 
 GlobalIndex = Dict[str, np.ndarray]
@@ -254,3 +274,91 @@ def regrow_index(
         present[u] = True
         added += int(flat.costs[u])
     return index_from_presence(present.astype(np.float32), flat)
+
+
+# ---------------------------------------------------------------------------
+# device pruning: host-exact orders and budgets, closed-form greedy walks
+# ---------------------------------------------------------------------------
+
+def prune_order(scores: Mapping[str, np.ndarray], flat: UnitFlat) -> np.ndarray:
+    """[U] removal-order permutation of ``prune_to_budget``'s sort:
+    ascending float64 score, ties broken by ``(layer_name, unit)``.  Slots a
+    worker no longer retains are skipped by the walk, as the host loop never
+    lists them."""
+    flat_scores = np.concatenate([
+        np.asarray(scores[name], np.float64)[: flat.sizes[l]]
+        for l, name in enumerate(flat.names)
+    ])
+    if flat_scores.shape[0] != flat.num_units:
+        raise ValueError("scores do not cover the unit space")
+    return np.lexsort((flat.tiebreak, flat_scores)).astype(np.int32)
+
+
+def prune_budget_units(index: GlobalIndex, rate: float, space: UnitSpace) -> int:
+    """Exact integer removal threshold of one worker's prune event:
+    ``removed < rate * current`` over integer costs equals ``removed <
+    ceil(budget)`` (or ``< budget`` when it is integral), so no float32
+    drift on the device can flip a removal."""
+    budget = float(rate) * _retained_params(index, space)
+    ceil_b = int(np.ceil(budget))
+    return int(budget) if budget == np.floor(budget) else ceil_b
+
+
+def _walk_tensors(flat: UnitFlat, device) -> Dict[str, torch.Tensor]:
+    return {
+        "layer_of": torch.as_tensor(flat.layer_of.astype(np.int64), device=device),
+        "costs": torch.as_tensor(flat.costs.astype(np.int64), device=device),
+        "min_units": torch.as_tensor(flat.min_units.astype(np.int64), device=device),
+    }
+
+
+def _exclusive_cumsum(x: torch.Tensor, dim: int) -> torch.Tensor:
+    return torch.cumsum(x, dim=dim) - x
+
+
+def prune_presence_rows(
+    presence: torch.Tensor,      # [W, U] float32 0/1
+    orders: torch.Tensor,        # [W, U] int removal order per worker
+    budgets: torch.Tensor,       # [W] int (prune_budget_units per worker)
+    flat: UnitFlat,
+    consts: Optional[Dict[str, torch.Tensor]] = None,
+) -> torch.Tensor:
+    """Device ``prune_to_budget`` over worker rows.  A slot is removed iff
+    the budget is not yet met, its layer stays above ``min_units`` and the
+    worker retains it; ``budgets == 0`` rows come back unchanged.  No host
+    synchronisation.  ``consts`` caches ``flat``'s device arrays."""
+    c = consts if consts is not None else _walk_tensors(flat, presence.device)
+    orders = orders.long()
+    L = len(flat.names)
+    layer = c["layer_of"][orders]                                  # [W, U]
+    present = torch.gather(presence, 1, orders) > 0                # [W, U]
+    onehot = torch.nn.functional.one_hot(layer, L) * present.unsqueeze(-1).long()
+    counts = onehot.sum(dim=1)                                     # [W, L]
+    cap = counts - c["min_units"].unsqueeze(0)                     # removable per layer
+    before = torch.gather(_exclusive_cumsum(onehot, 1), 2, layer.unsqueeze(-1)).squeeze(-1)
+    eligible = present & (before < torch.gather(cap, 1, layer))
+    cost = torch.where(eligible, c["costs"][orders], torch.zeros_like(layer))
+    removed = eligible & (_exclusive_cumsum(cost, 1) < budgets.long().unsqueeze(1))
+    out = presence.clone()
+    out.scatter_(1, orders, torch.where(removed, 0.0, torch.gather(presence, 1, orders)))
+    return out
+
+
+def regrow_presence_rows(
+    presence: torch.Tensor,      # [W, U] float32 0/1
+    orders: torch.Tensor,        # [W, U] int grow order per worker
+    budgets: torch.Tensor,       # [W] int parameter budgets to re-add
+    flat: UnitFlat,
+    consts: Optional[Dict[str, torch.Tensor]] = None,
+) -> torch.Tensor:
+    """Device ``regrow_index`` over worker rows: walking each grow order, a
+    slot is added iff the budget is not yet met and the worker does not
+    retain it; ``budgets == 0`` rows come back unchanged."""
+    c = consts if consts is not None else _walk_tensors(flat, presence.device)
+    orders = orders.long()
+    absent = torch.gather(presence, 1, orders) == 0
+    cost = torch.where(absent, c["costs"][orders], torch.zeros_like(orders))
+    added = absent & (_exclusive_cumsum(cost, 1) < budgets.long().unsqueeze(1))
+    out = presence.clone()
+    out.scatter_(1, orders, torch.where(added, 1.0, torch.gather(presence, 1, orders)))
+    return out

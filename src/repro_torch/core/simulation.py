@@ -25,6 +25,10 @@ pruned copies of a VGG or ResNet.  ``SimConfig.engine`` picks how
     sends every conv and the head through the hand-written block-skip CUDA
     kernel, so a pruned worker's device FLOPs follow its retention;
     ``compute="dense"`` runs grouped convs at base shape (the oracle).
+  * ``"fused"`` — the resident stacks with whole rounds on the device:
+    chunks of rounds between learning events run without a host boundary
+    (device prune greedy, DGC and float32 aggregation), and the async event
+    queue runs as chunks of window batches (``core.fused``); dense only.
 
 Importance is a static criterion (cig_bnscalor, index, no_adjacent,
 no_identical, no_constant) or a data-dependent one (l1, taylor, fpgm, hrank),
@@ -110,6 +114,7 @@ from .aggregation import (
 )
 from .faults import fault_ledger
 from .fleet import ENGINES, FleetEngine, FleetJob
+from .fused import run_async_fused, run_sync_fused, validate_fused_config
 from .importance import DATA_DEPENDENT, METHODS, ImportanceContext, grad_magnitude_scores
 from .masks import (
     full_index, payload_bytes, prune_to_budget, regrow_index, retention, similarity,
@@ -185,13 +190,18 @@ class SimConfig:
     async_window: float = 0.0
     fixed_pruned_rates: Optional[List[List[float]]] = None  # Tab. IX mode
     # local-training engine: "sequential" | "bucketed" | "masked" (core.fleet)
+    # | "fused" (core.fused)
     engine: str = "sequential"
+    # fused engine: rounds (async: window batches) per chunk; 0 = until the
+    # next learning event (adaptcl) or 8
+    round_fusion: int = 0
     # AdaptCL+DGC (Appendix E / Tab. XVII): commit only the largest
     # (1-sparsity) fraction of each weight delta; the rest accumulates
     # locally until it crosses the threshold
     dgc_sparsity: float = 0.0
-    # cross-round momentum: the masked engine's momentum stack is carried
-    # across phases and rounds instead of restarting per phase
+    # cross-round momentum: the resident engines' (masked, fused) momentum
+    # stack is carried across phases and rounds instead of restarting per
+    # phase
     resident_momentum: bool = False
     # client sampling / dropout / churn / skew / faults (core.scenario);
     # async methods take sampling, dropout and crash only
@@ -203,7 +213,7 @@ class SimConfig:
     robust: Optional[object] = None
     mesh: Optional[object] = None
     # device compute path of the masked engine: "block_skip" (the CUDA
-    # kernel; needs engine="masked") or "dense"
+    # kernel; needs engine="masked") or "dense" (the only one on "fused")
     compute: str = "dense"
     # kernel block sizes (block_m, block_n, block_k): skip granularity; on
     # the card each must be a multiple of the kernel's 64-wide tile
@@ -274,6 +284,7 @@ class SimResult:
     # async on the resident engine: walltime of the one-copy pulls of the
     # trained rows to the host (server_overhead_s holds the merges')
     host_pull_s: float = 0.0
+    fused_chunks: int = 0        # device chunks the fused engine ran
 
 
 def _refuse(field: str, why: str) -> ValueError:
@@ -287,13 +298,10 @@ def validate_config(sim: SimConfig) -> None:
     """Raise ``ValueError`` naming the first field outside this slice."""
     if sim.method not in SYNC_METHODS + ASYNC_METHODS:
         raise ValueError(f"SimConfig.method: unknown method {sim.method!r}")
-    if sim.engine == "fused":
-        if sim.method in ASYNC_METHODS:
-            raise _refuse("engine", f"engine='fused' for async method {sim.method!r} "
-                                    "(the device event queue, run_async_fused; A7)")
-        raise _refuse("engine", "engine='fused' (device round fusion)")
     if sim.engine not in ENGINES:
         raise ValueError(f"SimConfig.engine: unknown engine {sim.engine!r}")
+    if sim.engine == "fused":
+        validate_fused_config(sim)
     if sim.compute == "block_skip" and sim.engine != "masked":
         raise ValueError(
             "SimConfig.compute='block_skip' needs engine='masked': the "
@@ -312,16 +320,16 @@ def validate_config(sim: SimConfig) -> None:
             "there is nothing to regrow"
         )
     if sim.robust is not None:
-        raise _refuse("robust", "robust aggregation")
+        raise _refuse("robust", "robust aggregation: clip, trimmed mean, quarantine "
+                                "(A9), on every engine")
     if sim.mesh is not None:
-        raise _refuse("mesh", "the mesh-sharded fleet")
+        raise _refuse("mesh", "the mesh-sharded fleet on the fused engine (A10)")
     if sim.method in ASYNC_METHODS:
         _validate_async(sim)
-    if sim.resident_momentum and sim.engine != "masked":
+    if sim.resident_momentum and sim.engine not in ("masked", "fused"):
         raise ValueError(
-            "SimConfig.resident_momentum needs the resident engine "
-            "(engine='masked'; the reference's fused engine is not ported, "
-            "see ROADMAP.md, queue A): the cross-round carry is the fleet "
+            "SimConfig.resident_momentum needs the resident engines "
+            "(engine='masked' or 'fused'): the cross-round carry is the fleet "
             "state's momentum stack"
         )
     if sim.scenario is not None and sim.scenario.skew is not None and sim.noniid_s > 0.0:
@@ -490,7 +498,7 @@ class _Env:
                 }
                 bc = cnn_block_compute(self.sim.cnn, masks, self.sim.compute_blocks)
                 cached = (bc["flops"], ideal, bc["blocks"])
-            elif self.sim.engine == "masked":
+            elif self.sim.engine in ("masked", "fused"):
                 # dense masked programs run the base shapes regardless of masks
                 cached = (self.full_flops, ideal, 0.0)
             else:
@@ -519,15 +527,26 @@ class _Env:
         jitter in one factor, ``t * (jitter * time_mult)``, the reference's
         float grouping."""
         sim = self.sim
-        bytes_w = payload_factor * sum(int(np.prod(s)) * 4 for s in shapes.values())
-        rel = cnn_flops_from_shapes(shapes, sim.cnn) / self.full_flops
         jmult = (
             float(np.exp(self.rng.normal(0, sim.time_jitter)))
             if jitter and sim.time_jitter > 0 else 1.0
         )
+        return self.phi_from_cost(
+            worker, sum(int(np.prod(s)) * 4 for s in shapes.values()),
+            cnn_flops_from_shapes(shapes, sim.cnn), payload_factor, jmult * time_mult,
+        )
+
+    def phi_from_cost(self, worker: int, bytes_raw: int, flops_w: float,
+                      payload_factor: float = 1.0, jitter_mult: float = 1.0) -> float:
+        """The channel model from payload bytes and FLOPs: the one
+        implementation behind ``phi`` and the fused engine's cached costs
+        (jitter pre-drawn), so their clocks agree to the bit."""
+        sim = self.sim
+        bytes_w = payload_factor * bytes_raw
+        rel = flops_w / self.full_flops
         t_train = sim.t_train_full * ((1 - sim.train_sens) + sim.train_sens * rel)
         t = 2.0 * bytes_w / self.bandwidths[worker] + t_train * sim.local_epochs
-        return t * (jmult * time_mult)
+        return t * jitter_mult
 
     def phi_from_index(self, worker: int, index, payload_factor: float = 1.0,
                        jitter: bool = True, time_mult: float = 1.0) -> float:
@@ -1237,6 +1256,8 @@ def _run_async(sim: SimConfig, env: _Env) -> SimResult:
     participants = scen.static_participants() if scen is not None else np.arange(W)
     n_part = len(participants)
     plan = _plan_async_events(sim, env, scen, participants)
+    if sim.engine == "fused":
+        return run_async_fused(sim, env, scen, participants, plan)
 
     resident = sim.engine == "masked"
     idx = full_index(env.space)
@@ -1321,7 +1342,7 @@ def _finalize(sim, env, acc_time, het_traj, sim_traj, upd_times, retentions,
               worker_params, comm_bytes, server_overhead, clock,
               global_params, host_roundtrips, flops_per_image_final,
               blocks_per_image_final, prune_events, scenario_rounds,
-              fault_ledger) -> SimResult:
+              fault_ledger, fused_chunks: int = 0) -> SimResult:
     accs = np.array([a for _, a in acc_time])
     times = np.array([t for t, _ in acc_time])
     best = int(np.argmax(accs))
@@ -1363,6 +1384,7 @@ def _finalize(sim, env, acc_time, het_traj, sim_traj, upd_times, retentions,
         blocks_per_image_final=blocks_per_image_final,
         device=str(env.device),
         global_params=params_to_numpy(global_params),
+        fused_chunks=fused_chunks,
     )
 
 
@@ -1374,7 +1396,12 @@ def run_simulation(
     t0 = _time.perf_counter()
     with ieee_f32():
         env = _Env(sim, base_params)
-        result = (_run_async if sim.method in ASYNC_METHODS else _run_sync)(sim, env)
+        if sim.method in ASYNC_METHODS:
+            result = _run_async(sim, env)     # routes engine="fused" itself
+        elif sim.engine == "fused":
+            result = run_sync_fused(sim, env)
+        else:
+            result = _run_sync(sim, env)
         if env.device.type == "cuda":
             torch.cuda.synchronize(env.device)
     result.walltime_s = _time.perf_counter() - t0

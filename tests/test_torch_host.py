@@ -273,6 +273,7 @@ def _port_files():
 def test_port_imports_neither_jax_nor_the_jax_package():
     files = _port_files()
     assert len(files) > 10
+    assert ROOT / "src" / "repro_torch" / "core" / "fused.py" in files
     for path in files:
         tree = ast.parse(path.read_text(), filename=str(path))
         for node in ast.walk(tree):
@@ -307,31 +308,36 @@ def _byzantine_scenario():
     return ScenarioConfig(faults=FaultConfig(byzantine=ByzantineConfig(workers=(0,))))
 
 
-# explicit ids keep each case's name from before scenarios and DGC were
-# ported; a scenario is refused only for the byzantine and channel families
-# (tests/test_torch_faults.py), and resident_momentum only off the masked
-# engine (the default engine is sequential)
-@pytest.mark.parametrize("field,value", [
-    pytest.param("engine", "fused", id="engine-fused"),
-    pytest.param("scenario", _byzantine_scenario(), id="scenario-value1"),
-    pytest.param("robust", _Dummy(), id="robust-value4"),
-    pytest.param("mesh", _Dummy(), id="mesh-value5"),
-    pytest.param("resident_momentum", True, id="resident_momentum-True"),
+# explicit ids keep each case's name from before scenarios, DGC and the fused
+# engine were ported; a scenario is refused only for the byzantine and
+# channel families (tests/test_torch_faults.py), resident_momentum only off
+# the resident engines (the default engine is sequential), and on the fused
+# engine (ported) the mesh stays refused (A10)
+@pytest.mark.parametrize("field,value,extra,why", [
+    pytest.param("mesh", _Dummy(), dict(engine="fused"), "ROADMAP", id="engine-fused"),
+    pytest.param("scenario", _byzantine_scenario(), {}, "ROADMAP", id="scenario-value1"),
+    pytest.param("robust", _Dummy(), {}, "ROADMAP", id="robust-value4"),
+    pytest.param("mesh", _Dummy(), {}, "ROADMAP", id="mesh-value5"),
+    pytest.param("resident_momentum", True, {}, "engine='masked' or 'fused'",
+                 id="resident_momentum-True"),
 ])
-def test_out_of_slice_fields_are_refused_by_name(field, value):
-    sim = SimConfig(rounds=1, num_workers=2, device="cpu", **{field: value})
+def test_out_of_slice_fields_are_refused_by_name(field, value, extra, why):
+    sim = SimConfig(rounds=1, num_workers=2, device="cpu", **{field: value}, **extra)
     with pytest.raises(ValueError, match=rf"SimConfig\.{field}") as err:
         run_simulation(sim)
-    assert "ROADMAP" in str(err.value)
+    assert why in str(err.value)
 
 
 @pytest.mark.parametrize("method", ["fedasync_s", "ssp_s", "dcasgd_s"])
 def test_async_on_the_fused_engine_is_refused_by_name(method):
-    """The async methods run on every engine but ``fused`` (ROADMAP A7)."""
-    sim = SimConfig(method=method, engine="fused", rounds=1, num_workers=2, device="cpu")
-    with pytest.raises(ValueError, match=r"SimConfig\.engine") as err:
+    """The async methods run on every engine, ``fused`` included; the async
+    server's robust layer (clip_norm, quarantine) stays refused there by
+    name (ROADMAP A9)."""
+    sim = SimConfig(method=method, engine="fused", robust=_Dummy(), rounds=1, num_workers=2,
+                    device="cpu")
+    with pytest.raises(ValueError, match=r"SimConfig\.robust") as err:
         run_simulation(sim)
-    assert "ROADMAP" in str(err.value) and "A7" in str(err.value)
+    assert "ROADMAP" in str(err.value) and "A9" in str(err.value)
 
 
 @pytest.mark.parametrize("method", ["fedasync_s", "ssp_s", "dcasgd_s"])
