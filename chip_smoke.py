@@ -192,8 +192,41 @@ reference, so no kernel of the repo runs on it), VGG16_CIFAR at full width,
                    one device merge (``async_commit_dev``) at full size
                    beside the host server's merge.
 
-Then a ``{"kernels": [...]}`` line, the ``nvidia-smi`` name/power line, and
-as the last line ``{"ok": true, "device": {...}}``.  Details go to
+Slice 9, byzantine and lossy-channel faults with the robust server
+(VGG16_CIFAR at full width, 10 slots, batch 32, 6 rounds, PI 2, index
+order at fixed rates; tests/test_robust.py's BYZ, workers 0 and 1 sending
+-10x their deltas, and CHAN, drop 0.2, dup 0.2, corrupt 0.1 with std 10,
+in one FaultConfig; DEFENSE: clip 5, trim 0.2, quarantine with probation
+100):
+
+24. robust       — adaptcl on masked + block_skip (launch counts zeroed just
+                   before, read just after) against the same run on masked
+                   dense (cuDNN): identical prune events, scenario rounds,
+                   ledger (quarantined commits included) and clocks; params
+                   within ENVELOPE_EXCESS x masked dense's one-ulp envelope;
+                   a one-step first live round within FIRST_ROUND_ATOL (the
+                   TF32 control beyond it); the pre-clip norm of every row
+                   at the first aggregated round; ms of one robust server
+                   round (noise, norms, health, clip, trimmed mean over the
+                   [10, ~15 M] stacks) beside the plain by-worker mean on
+                   the same stacks, and of the noise draw alone; launches
+                   per step; peak memory.
+25. robust_fused — the same world on the fused engine (dense): events,
+                   ledger, quarantine and clocks identical to masked dense,
+                   params within its envelope, the second chunk under the
+                   sync check, ms a round beside masked dense's.
+26. async_robust — fedasync_s under ASYNC_FLEET with clip 0.5 and a
+                   hair-trigger quarantine (threshold 1, one strike,
+                   probation 2) on masked + block_skip, masked dense and
+                   fused: clocks equal; every quarantine verdict equal to
+                   fused's up to the first split, and that split a tie (the
+                   margin within the paths' disagreement on the inputs);
+                   quarantined commits > 0; final_acc within the
+                   reference's own 0.01.
+
+Then a ``{"phase": "done"}`` line with the script's seconds, a
+``{"kernels": [...]}`` line, the ``nvidia-smi`` name/power line, and as the
+last line ``{"ok": true, "device": {...}}``.  Details go to
 ``chiprun_out/chip_smoke.json``.  Without a CUDA device, or without the
 repository beside it, it exits non-zero and prints no result.
 """
@@ -2810,6 +2843,365 @@ def phase_async_fused(report, runs, checks):
     return out
 
 
+# ---------------------------------------------------------------------------
+# slice 9: byzantine and lossy-channel faults with the robust server
+# ---------------------------------------------------------------------------
+
+ROBUST_ROUNDS = 6
+ROBUST_LEDGER = ("retry_total", "byz_commits", "lost_commits", "dup_commits", "corrupt_commits",
+                 "quarantined_commits")
+ROBUST_CLIP = 5.0
+
+
+def robust_world():
+    """tests/test_robust.py's BYZ and CHAN in one FaultConfig, and DEFENSE."""
+    from repro_torch.core.aggregation import QuarantineConfig, RobustAggConfig
+    from repro_torch.core.faults import ByzantineConfig, ChannelConfig, FaultConfig
+    from repro_torch.core.scenario import ScenarioConfig
+
+    faults = FaultConfig(
+        byzantine=ByzantineConfig(workers=(0, 1), mode="scale", scale=-10.0),
+        channel=ChannelConfig(drop=0.2, dup=0.2, corrupt=0.1, corrupt_std=10.0),
+    )
+    return dict(scenario=ScenarioConfig(faults=faults, seed=3),
+                robust=RobustAggConfig(clip=ROBUST_CLIP, trim=0.2,
+                                       quarantine=QuarantineConfig(probation=100)))
+
+
+def robust_sim(**kw):
+    from repro_torch.core.simulation import SimConfig
+    from repro_torch.models.cnn import VGG16_CIFAR
+
+    base = dict(method="adaptcl", engine="masked", compute="block_skip", cnn=VGG16_CIFAR,
+                num_workers=10, batch_size=32, rounds=ROBUST_ROUNDS, prune_interval=2,
+                importance="index", fixed_pruned_rates=[DGC_RATES, DGC_RATES], device=DEVICE,
+                **robust_world())
+    base.update(kw)
+    return SimConfig(**base)
+
+
+@contextlib.contextmanager
+def first_norms(store):
+    """Inside, the first call of ``aggregation.delta_norms_dev`` (the first
+    robust round's pre-clip norms, on the masked loop) leaves its ``[W]``
+    norms in ``store``."""
+    from repro_torch.core import aggregation
+
+    real = aggregation.delta_norms_dev
+
+    def spy(deltas):
+        out = real(deltas)
+        if not store:
+            store.extend(out.cpu().numpy().tolist())
+        return out
+
+    aggregation.delta_norms_dev = spy
+    try:
+        yield
+    finally:
+        aggregation.delta_norms_dev = real
+
+
+def robust_round_ms(global_params, seed):
+    """One robust server round at full width, timed: the DEFENSE round with
+    two attacked rows, one corrupted, one lost and one duplicated over
+    ``[10, ...]`` stacks around ``global_params``, beside the plain
+    by-worker mean on the same stacks, and the corrupted row's noise draw
+    alone."""
+    import torch
+    from repro_torch.core import aggregation as agg
+
+    W = 10
+    g = {k: torch.as_tensor(v, device=DEVICE) for k, v in global_params.items()}
+    gen = torch.Generator(device=DEVICE).manual_seed(11)
+    stacks = {k: v.unsqueeze(0) + 1e-3 * torch.randn((W,) + tuple(v.shape), generator=gen,
+                                                        device=DEVICE) for k, v in g.items()}
+    masks = {k: torch.ones_like(v) for k, v in stacks.items()}
+    mult = torch.tensor([1, 1, 1, 0, 1, 2, 1, 1, 1, 1], dtype=torch.float32, device=DEVICE)
+    weights = mult / mult.sum()
+    byz = np.zeros(W, bool)
+    byz[[0, 1]] = True
+    cor = np.zeros(W, bool)
+    cor[5] = True
+    zeros = torch.zeros(W, dtype=torch.int32, device=DEVICE)
+    world = robust_world()
+    rb = world["robust"]
+    keys = agg.noise_key(seed + 51721, 1), agg.noise_key(seed + 51722, 1)
+
+    def robust():
+        return agg.robust_submission_step_dev(
+            stacks, masks, g, mult, weights, byz, cor, *keys, zeros, zeros,
+            byz_mode="scale", byz_scale=-10.0, corrupt_std=10.0, clip=rb.clip, trim=rb.trim,
+            quarantine=rb.quarantine)
+
+    def noise():
+        return [agg._stack_noise(keys[1], 1000 + i, stacks[k], None, None, [5])
+                for i, k in enumerate(sorted(stacks))]
+
+    out = {"params": int(sum(v.numel() for v in g.values())), "rows": W,
+           "robust_ms": time_ms(robust, iters=3, warm=1),
+           "plain_mean_ms": time_ms(lambda: agg.aggregate_by_worker_stacked_dev(stacks, weights),
+                                    iters=5, warm=1),
+           "noise_row_ms": time_ms(noise, iters=3, warm=1)}
+    del stacks, masks
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_robust(report):
+    """The robust world on masked + block_skip (launch counts zeroed just
+    before, read just after) against masked dense: identical prune events,
+    scenario rounds, ledger and clocks; params within ENVELOPE_EXCESS x the
+    dense run's one-ulp envelope; the one-step first live round within
+    FIRST_ROUND_ATOL; the first round's pre-clip norms; ms of a robust
+    server round beside the plain mean."""
+    import torch
+    from repro_torch.core.simulation import run_simulation
+
+    norms = []
+    with first_norms(norms):
+        launches, res = phase_main(report, robust_sim(), "robust")
+    peak = report["robust"]["peak_mem_gb"]
+    dense = run_simulation(robust_sim(compute="dense"))
+    envelope = one_ulp_envelope(robust_sim(compute="dense"), dense)
+    live = first_live_round(dense)
+    fr = first_round(robust_sim(rounds=live, local_epochs=0.25),
+                     robust_sim(rounds=live, local_epochs=0.25, compute="dense"))
+    ledger = {f: getattr(res, f) for f in ROBUST_LEDGER}
+    drift = param_drift(res, dense)
+    seed = robust_sim().seed
+    times = robust_round_ms(res.global_params, seed)
+    rec = {
+        "phase": "robust_check", "rounds": ROBUST_ROUNDS, "seed": seed,
+        "ledger": ledger, "launches": launches,
+        "launches_per_step": {k: v / max(res.train_steps, 1) for k, v in launches.items()},
+        "first_round_norms": norms, "clip": ROBUST_CLIP,
+        "rows_clipped_first_round": int(sum(n > ROBUST_CLIP for n in norms)),
+        "prune_events": len(res.prune_events),
+        "prune_events_identical": res.prune_events == dense.prune_events,
+        "first_event_diff": first_event_diff(res, dense),
+        "scenario_rounds_identical": res.scenario_rounds == dense.scenario_rounds,
+        "ledger_identical": ledger == {f: getattr(dense, f) for f in ROBUST_LEDGER},
+        "update_times_equal": same_clock(res, dense),
+        "total_time": [res.total_time, dense.total_time],
+        "comm_bytes": [res.comm_bytes, dense.comm_bytes],
+        "final_acc": [res.final_acc, dense.final_acc],
+        "param_drift": drift, "one_ulp_envelope": envelope, "envelope_excess": ENVELOPE_EXCESS,
+        "first_round": fr, "server_round": times,
+        "steady_ms_per_step": steady_ms(res), "dense_steady_ms_per_step": steady_ms(dense),
+        "peak_mem_gb": peak,
+    }
+    emit(rec)
+    report["robust_check"] = {**rec, "update_times": res.update_times}
+    check(len(norms) == 10 and all(np.isfinite(norms)), "robust: no first-round norms")
+    check(rec["prune_events_identical"] and res.prune_events, "robust: prune events differ")
+    check(rec["scenario_rounds_identical"], "robust: scenario rounds differ")
+    check(rec["ledger_identical"], f"robust: ledgers differ: {ledger}")
+    check(rec["update_times_equal"] and res.total_time == dense.total_time, "robust: clocks differ")
+    check(res.comm_bytes == dense.comm_bytes, "robust: comm bytes differ")
+    check(ledger["byz_commits"] > 0 and ledger["quarantined_commits"] > 0,
+          f"robust: no attack or no quarantine: {ledger}")
+    check(ledger["retry_total"] + ledger["dup_commits"] + ledger["corrupt_commits"] > 0,
+          f"robust: the channel never acted: {ledger}")
+    check(envelope["events_identical"], "robust: the one-ulp run pruned otherwise")
+    check(drift["max"] <= ENVELOPE_EXCESS * envelope["max"],
+          f"robust: params differ by {drift['max']} > {ENVELOPE_EXCESS} x {envelope['max']}")
+    check_first_round(fr, "robust")
+    torch.cuda.empty_cache()
+    return launches, res, dense, envelope
+
+
+def phase_robust_fused(report, dense, envelope):
+    """The robust world on the fused engine (dense) against masked dense:
+    identical events, ledger and clocks, params within the envelope, the
+    second chunk under the sync check, ms a round."""
+    import torch
+    from repro_torch.core import fused
+    from repro_torch.core.simulation import run_simulation
+
+    torch.cuda.reset_peak_memory_stats()
+    with sync_checked_chunk(fused._SyncChunk) as seen:
+        res = run_simulation(robust_sim(engine="fused", compute="dense"))
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    again = run_simulation(robust_sim(engine="fused", compute="dense"))
+    ledger = {f: getattr(res, f) for f in ROBUST_LEDGER}
+    drift = param_drift(res, dense)
+    rec = {
+        "phase": "robust_fused", "fused_chunks": res.fused_chunks,
+        "sync_checked_chunks": seen["checked"], "host_roundtrips": res.host_roundtrips,
+        "ledger": ledger,
+        "ledger_identical": ledger == {f: getattr(dense, f) for f in ROBUST_LEDGER},
+        "prune_events_identical": res.prune_events == dense.prune_events,
+        "scenario_rounds_identical": res.scenario_rounds == dense.scenario_rounds,
+        "update_times_equal": same_clock(res, dense),
+        "total_time": [res.total_time, dense.total_time],
+        "final_acc": [res.final_acc, dense.final_acc],
+        "param_drift": drift, "one_ulp_envelope": envelope,
+        "ms_per_round": per_round_ms(res), "ms_per_round_again": per_round_ms(again),
+        "masked_dense_ms_per_round": per_round_ms(dense), "peak_mem_gb": peak,
+    }
+    emit(rec)
+    report["robust_fused"] = rec
+    check(seen["checked"] == 1, "robust_fused: no chunk ran under the sync check")
+    check(res.fused_chunks >= 2 and res.host_roundtrips == 0, "robust_fused: chunks or round trips")
+    check(rec["prune_events_identical"] and res.prune_events, "robust_fused: prune events differ")
+    check(rec["scenario_rounds_identical"], "robust_fused: scenario rounds differ")
+    check(rec["ledger_identical"], f"robust_fused: ledgers differ: {ledger}")
+    check(rec["update_times_equal"] and res.total_time == dense.total_time,
+          "robust_fused: clocks differ")
+    check(drift["max"] <= ENVELOPE_EXCESS * envelope["max"],
+          f"robust_fused: params differ by {drift['max']} > {ENVELOPE_EXCESS} x {envelope['max']}")
+    check(all(np.isfinite(v).all() for v in res.global_params.values()),
+          "robust_fused: non-finite params")
+    torch.cuda.empty_cache()
+    return rec
+
+
+def health_margin(last_norms, seen, norm, w, threshold):
+    """The async health step's reading of one commit from its inputs: the
+    lower median of the slots' last norms, the MAD floor and the relative
+    margin ``(|norm - med| - threshold * floor) / (threshold * floor)``
+    (> 0 is an outlier), in the server's float32."""
+    n2 = np.asarray(last_norms, np.float32).copy()
+    n2[w] = norm
+    s2 = np.asarray(seen, bool).copy()
+    s2[w] = True
+    k = max(int(s2.sum()) - 1, 0) // 2
+    med = np.sort(np.where(s2, n2, np.inf).astype(np.float32))[k]
+    mad = np.sort(np.where(s2, np.abs(n2 - med), np.inf).astype(np.float32))[k]
+    floor = np.maximum(mad, np.float32(1e-6 * abs(med) + 1e-12))
+    line = np.float32(threshold) * floor
+    return {"w": int(w), "norm": float(norm), "med": float(med), "floor": float(floor),
+            "margin": float((abs(np.float32(norm) - med) - line) / line)}
+
+
+@contextlib.contextmanager
+def health_readings(host, device, plans):
+    """Inside, every async health step leaves its reading (``health_margin``
+    and the verdict) in ``host`` (``AsyncServer``, merged commits) or
+    ``device`` (the fused chunk, every event: tensors kept on the card and
+    read after the run), and each run's event plan in ``plans``."""
+    from repro_torch.core import aggregation, fused, simulation
+
+    real_host, real_dev = aggregation.AsyncServer._health_step, fused.async_health_step_dev
+    real_plan = simulation._plan_async_events
+
+    def host_spy(self, norm, worker):
+        rec = health_margin(self.last_norms, self.seen, norm, worker, self.quarantine.threshold)
+        reject = real_host(self, norm, worker)
+        host.append({**rec, "reject": bool(reject)})
+        return reject
+
+    def dev_spy(norm, worker, strikes, quar, last_norms, seen, **kw):
+        out = real_dev(norm, worker, strikes, quar, last_norms, seen, **kw)
+        device.append((norm, worker, last_norms, seen, out[0], kw["threshold"]))
+        return out
+
+    def plan_spy(*a):
+        plans.append(real_plan(*a))
+        return plans[-1]
+
+    aggregation.AsyncServer._health_step = host_spy
+    fused.async_health_step_dev = dev_spy
+    simulation._plan_async_events = plan_spy
+    try:
+        yield
+    finally:
+        aggregation.AsyncServer._health_step = real_host
+        fused.async_health_step_dev = real_dev
+        simulation._plan_async_events = real_plan
+
+
+def first_verdict_split(a, b):
+    """The first merged commit whose quarantine verdicts differ between two
+    runs' readings, with both readings and ``tie``: whether each run's
+    margin lies within the two runs' disagreement on the step's inputs
+    (norm, median, floor; relative to the line), so that an input change of
+    that size flips the verdict.  None when every verdict agrees."""
+    for i, (x, y) in enumerate(zip(a, b)):
+        if x["reject"] != y["reject"]:
+            line = min(x["floor"], y["floor"])
+            spread = (abs(x["norm"] - y["norm"]) + abs(x["med"] - y["med"])
+                      + abs(x["floor"] - y["floor"])) / line
+            return {"commit": i, "a": x, "b": y, "input_spread": float(spread),
+                    "tie": bool(x["w"] == y["w"]
+                                and max(abs(x["margin"]), abs(y["margin"])) <= spread)}
+    return None
+
+
+# At VGG16 width a threshold of 1 MAD puts a commit on the quarantine line in
+# most windows (the slot whose deviation is the MAD sits exactly on it), and
+# the paths' norms part at the third digit within a few commits (float32
+# chaos: block_skip against cuDNN, a float64 host server against the card's
+# float32 one).  So ``async_robust`` holds the verdicts commit by commit up to
+# the first split, and that split only where it is a tie (first_verdict_split).
+def phase_async_robust(report):
+    """fedasync_s under ASYNC_FLEET with clip 0.5 and a hair-trigger
+    quarantine, on masked + block_skip (launch counts zeroed just before,
+    read just after), on masked dense and on fused: identical clocks, every
+    quarantine verdict equal up to the first split and that split a tie,
+    quarantined commits > 0, final_acc within 0.01 (the reference's own bar
+    between its host float64 and device float32 servers)."""
+    import torch
+    from repro_torch.core import fused
+    from repro_torch.core.aggregation import QuarantineConfig, RobustAggConfig
+    from repro_torch.core.simulation import run_simulation
+    from repro_torch.kernels.pruned_matmul import LAUNCHES, reset_launches
+
+    rb = RobustAggConfig(clip=0.5, quarantine=QuarantineConfig(threshold=1.0, strikes=1,
+                                                               probation=2))
+    bs_h, dn_h, dev, plans = [], [], [], []
+    with health_readings(bs_h, dev, plans):
+        reset_launches()
+        mas = run_simulation(async_sim("fedasync_s", robust=rb))
+        launches = dict(LAUNCHES)
+        with sync_checked_chunk(fused._AsyncChunk) as seen:
+            fus = run_simulation(async_sim("fedasync_s", engine="fused", compute="dense",
+                                           round_fusion=2, robust=rb))
+    with health_readings(dn_h, [], []):
+        dense = run_simulation(async_sim("fedasync_s", compute="dense", robust=rb))
+    fus_h = []
+    for (norm, w, last, sn, reject, thr), dropped in zip(dev, plans[1].dropped):
+        if not dropped:     # the chunk gates a dropped commit's health step away
+            rec = health_margin(last.cpu().numpy(), sn.cpu().numpy(), np.float32(norm.item()),
+                                int(w), thr)
+            fus_h.append({**rec, "reject": bool(reject)})
+    events = ASYNC_ROUNDS * mas.scenario_rounds[0][1]
+    split, split_dense = first_verdict_split(bs_h, fus_h), first_verdict_split(dn_h, fus_h)
+    rec = {
+        "phase": "async_robust", "method": "fedasync_s", "events": events,
+        "merged_commits": len(bs_h),
+        "quarantined_commits": {"block_skip": mas.quarantined_commits,
+                                "fused": fus.quarantined_commits,
+                                "masked_dense": dense.quarantined_commits},
+        "first_split_block_skip_fused": split, "first_split_dense_fused": split_dense,
+        "launches": launches, "train_steps": mas.train_steps,
+        "sync_checked_chunks": seen["checked"],
+        "clocks_identical": [t for t, _ in mas.acc_time] == [t for t, _ in fus.acc_time]
+        == [t for t, _ in dense.acc_time] and mas.total_time == fus.total_time == dense.total_time,
+        "final_acc": [mas.final_acc, fus.final_acc, dense.final_acc],
+        "param_drift": param_drift(mas, fus),
+        "ms_per_commit": [mas.walltime_s / events * 1e3, fus.walltime_s / events * 1e3],
+        "host_merge_ms_per_commit": mas.server_overhead_s / events * 1e3,
+    }
+    emit(rec)
+    report["async_robust"] = {**rec, "readings": {"block_skip": bs_h, "fused": fus_h,
+                                                  "masked_dense": dn_h}}
+    check(seen["checked"] == 1, "async_robust: no chunk ran under the sync check")
+    check(len(bs_h) == len(fus_h) == len(dn_h) > 0, "async_robust: merged commits differ")
+    check(mas.quarantined_commits > 0 and fus.quarantined_commits > 0,
+          f"async_robust: nothing quarantined: {rec['quarantined_commits']}")
+    for tag, sp, a, b in (("block_skip", split, mas, fus), ("masked dense", split_dense, dense, fus)):
+        check(sp is not None or a.quarantined_commits == b.quarantined_commits,
+              f"async_robust: {tag} and fused agree on every verdict but count otherwise")
+        check(sp is None or sp["tie"], f"async_robust: {tag} and fused split off a tie: {sp}")
+    check(rec["clocks_identical"], "async_robust: clocks differ")
+    check(max(rec["final_acc"]) - min(rec["final_acc"]) <= 0.01, f"async_robust: {rec['final_acc']}")
+    check(all(v > 0 for v in launches.values()), f"async_robust: a kernel never ran: {launches}")
+    torch.cuda.empty_cache()
+    return launches, mas
+
+
 def main() -> int:
     try:
         import torch
@@ -2879,7 +3271,14 @@ def main() -> int:
         phase_fused_scores(report)
         save(report)
         phase_async_fused(report, a_runs, a_checks)
+        save(report)
+        rb_launches, rb_res, rb_dense, rb_envelope = phase_robust(report)
+        save(report)
+        phase_robust_fused(report, rb_dense, rb_envelope)
+        save(report)
+        ar_launches, ar_res = phase_async_robust(report)
     steps = max(res.train_steps, 1)
+    rb_steps = max(rb_res.train_steps, 1)
     s_steps = max(s_res.train_steps, 1)
     r_steps = max(r_res.train_steps, 1)
     a_steps = sum(r.train_steps for r, _, _ in a_runs.values())
@@ -2919,6 +3318,14 @@ def main() -> int:
                               "dcasgd_s under the async fleet (cohort 8, dropout, crash), "
                               f"masked + block_skip, {ASYNC_ROUNDS} commits a participant, "
                               f"window {ASYNC_WINDOW} s"},
+            "robust": {"launches": rb_launches[kname],
+                       "launches_per_step": rb_launches[kname] / rb_steps,
+                       "async_launches": ar_launches[kname],
+                       "async_launches_per_step": ar_launches[kname] / max(ar_res.train_steps, 1),
+                       "path": "run_simulation, VGG16_CIFAR, 10 slots, adaptcl under byzantine "
+                               "workers and a lossy channel with clip, trimmed mean and "
+                               f"quarantine, masked + block_skip, {ROBUST_ROUNDS} rounds; "
+                               "fedasync_s with clip and quarantine under the async fleet"},
         })
     for kname in ("flash_attention", "rg_lru_scan"):
         t = llm_times[kname]
@@ -2940,6 +3347,7 @@ def main() -> int:
     report["card"] = card
     report["seconds"] = time.perf_counter() - t0
     save(report)
+    emit({"phase": "done", "seconds": report["seconds"]})
     emit({"kernels": kernels})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

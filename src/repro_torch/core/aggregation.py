@@ -1,9 +1,9 @@
 """Server aggregation: By-worker vs By-unit (AdaptCL §III-B), and the
 async servers' per-commit merges.
 
-Port of ``repro/core/aggregation.py`` without the robust layer.  Two
-representations, both aggregated in float64 like the reference's host
-aggregation and cast to float32 by the caller:
+Port of ``repro/core/aggregation.py``.  Two representations, both
+aggregated in float64 like the reference's host aggregation and cast to
+float32 by the caller:
 
 * **per-worker lists** (``aggregate_by_worker`` / ``aggregate_by_unit``):
   the reconfigured engines' submissions, physically small params plus their
@@ -30,17 +30,46 @@ and ``aggregate_by_unit_stacked_dev`` aggregate the stacks,
 ``dgc_compress_dev`` is ``simulation._dgc_compress_stacked`` with the keep
 sets of the host compressor, and ``async_commit_dev`` is
 ``AsyncServer.commit`` for one commit.  None of them synchronises the host.
+
+**The robust layer** (``SimConfig.robust``, ``RobustAggConfig``) defends
+the by-worker server against the byzantine and lossy-channel fault
+families.  ``robust_submission_step_dev`` is one server round at the
+submission boundary, shared by every sync engine as in the reference: the
+byzantine transform and the channel's payload corruption (noise from
+``core.prng``, the reference's own threefry stream), the pre-clip delta
+norms, the MAD-outlier quarantine (``health_step_dev``), the L2 norm clip,
+then the plain weighted mean or the presence-aware coordinate-wise trimmed
+mean (``trimmed_mean_stacked_dev``).  Float32 on the stacks' device, free
+of host synchronisation, so the fused chunk runs it in place; the rows to
+garble are host flags (each flagged row's noise is drawn alone, at its own
+counters).  The async servers take the clip and the quarantine per commit
+(``AsyncServer`` on the host, ``async_commit_dev`` and
+``async_health_step_dev`` in the fused chunk).
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Dict, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from . import prng
 from .masks import GlobalIndex
 
 __all__ = [
+    "QuarantineConfig",
+    "RobustAggConfig",
+    "noise_key",
+    "byzantine_transform_dev",
+    "corrupt_transform_dev",
+    "delta_norms_dev",
+    "clip_deltas_dev",
+    "health_step_dev",
+    "async_health_step_dev",
+    "trimmed_mean_stacked_dev",
+    "robust_aggregate_stacked_dev",
+    "robust_submission_step_dev",
     "UnitMap",
     "ROUNDTRIP_COUNTS",
     "roundtrip_total",
@@ -232,7 +261,14 @@ class AsyncServer:
     (slot ids index it even when only a cohort commits) and ``dc_m`` the
     running mean square.  ``commit`` rebinds ``params`` to a fresh dict and
     never writes an array in place, so callers may keep references to
-    fetched snapshots."""
+    fetched snapshots.
+
+    The robust layer's async half: ``clip_norm`` L2-clips the commit's
+    delta (``trained - fetched``, float64) before the merge, and
+    ``quarantine`` runs the per-commit MAD-outlier tracker over each slot's
+    last commit norm (float32, the fused engine's twin); a rejected commit
+    is discarded but still bumps the version, which the event plan fixed,
+    and counts in ``rejected_commits``."""
 
     def __init__(
         self,
@@ -245,6 +281,8 @@ class AsyncServer:
         lr: float = 0.05,
         dcasgd_lambda: float = 2.0,
         dcasgd_m: float = 0.95,
+        clip_norm: Optional[float] = None,
+        quarantine: Optional["QuarantineConfig"] = None,
     ):
         self.method = method
         self.params: Dict[str, np.ndarray] = dict(global_params)
@@ -263,12 +301,62 @@ class AsyncServer:
                 for k, v in global_params.items()
             }
             self.dc_m = {k: np.zeros_like(v) for k, v in global_params.items()}
+        self.clip_norm = clip_norm
+        self.quarantine = quarantine
+        self.strikes = np.zeros(num_workers, dtype=np.int32)
+        self.quar_left = np.zeros(num_workers, dtype=np.int32)
+        self.last_norms = np.zeros(num_workers, dtype=np.float32)
+        self.seen = np.zeros(num_workers, dtype=bool)
+        self.rejected_commits = 0
+
+    @staticmethod
+    def _delta_norm(delta: Mapping[str, np.ndarray]) -> np.float32:
+        """Float32 ``delta_norms_dev`` of one worker's delta dict."""
+        tot = np.float32(0.0)
+        for k in sorted(delta):
+            d = np.asarray(delta[k], np.float32).ravel()
+            tot = np.float32(tot + np.float32(np.sum(d * d, dtype=np.float32)))
+        return np.float32(np.sqrt(tot))
+
+    def _health_step(self, norm: np.float32, worker: int) -> bool:
+        """Host ``async_health_step_dev``: returns whether to reject."""
+        q = self.quarantine
+        self.last_norms[worker] = norm
+        self.seen[worker] = True
+        quar_now = bool(self.quar_left[worker] > 0)
+        n = int(self.seen.sum())
+        x = np.where(self.seen, self.last_norms, np.inf).astype(np.float32)
+        med = np.sort(x)[max(n - 1, 0) // 2]
+        dev = np.where(self.seen, np.abs(self.last_norms - med), np.inf).astype(np.float32)
+        mad = np.sort(dev)[max(n - 1, 0) // 2]
+        floor = np.maximum(mad, np.float32(1e-6 * abs(med) + 1e-12))
+        outlier = bool(abs(norm - med) > np.float32(q.threshold) * floor)
+        s_w = self.strikes[worker] + 1 if (outlier and not quar_now) else 0
+        enter = (not quar_now) and s_w >= q.strikes
+        self.strikes[worker] = 0 if enter else s_w
+        self.quar_left[worker] = q.probation if enter else max(self.quar_left[worker] - 1, 0)
+        return quar_now or enter
 
     def commit(
         self, worker: int, trained: Mapping[str, np.ndarray],
         fetched: Mapping[str, np.ndarray], staleness: int,
     ) -> Dict[str, np.ndarray]:
         """Apply one worker's commit; returns (and rebinds) the new global."""
+        if self.clip_norm is not None or self.quarantine is not None:
+            delta = {k: np.asarray(trained[k], np.float64) - np.asarray(fetched[k], np.float64)
+                     for k in trained}
+            norm = self._delta_norm(delta)
+            if self.quarantine is not None and self._health_step(norm, worker):
+                self.rejected_commits += 1
+                self.version += 1
+                return self.params
+            if self.clip_norm is not None:
+                scale = float(np.minimum(
+                    np.float32(1.0),
+                    np.float32(self.clip_norm) / np.maximum(norm, np.float32(1e-30)),
+                ))
+                trained = {k: np.asarray(fetched[k], np.float64) + delta[k] * scale
+                           for k in trained}
         g = self.params
         if self.method == "fedasync_s":
             a = fedasync_weight(self.fedasync_a, staleness)
@@ -390,11 +478,19 @@ def async_commit_dev(
     lr: float,
     dcasgd_lambda: float,
     dcasgd_m: float,
+    clip_norm: Optional[float] = None,
 ):
     """``AsyncServer.commit`` for one commit, float32 on the device, the
     reference fused engine's expression order.  Ungated: the caller keeps
     or discards the result.  Returns ``(new global, new dc_m)``; under
-    dcasgd_s the new global is also the worker's new ``w_bak`` row."""
+    dcasgd_s the new global is also the worker's new ``w_bak`` row.
+    ``clip_norm`` L2-clips the commit's delta ``trained - fetched_w``
+    before the merge."""
+    if clip_norm is not None:
+        delta = {k: trained[k] - fetched_w[k] for k in trained}
+        norm = delta_norms_dev({k: d.unsqueeze(0) for k, d in delta.items()})[0]
+        scale = torch.clamp_max(_over(clip_norm, torch.clamp_min(norm, 1e-30)), 1.0)
+        trained = {k: fetched_w[k] + delta[k] * scale for k in trained}
     if method == "fedasync_s":
         a = fedasync_a * (staleness.float() + 1.0) ** -0.5
         return {k: (1 - a) * g[k] + a * trained[k] for k in g}, dict(dc_m)
@@ -411,3 +507,417 @@ def async_commit_dev(
             new[k] = g[k] - lr * comp
         return new, dc_m2
     raise ValueError(f"unknown async method {method!r}")
+
+
+# ---------------------------------------------------------------------------
+# the robust aggregation layer (clip / trimmed mean / quarantine)
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class QuarantineConfig:
+    """Server-side health tracker: quarantine repeated MAD-outlier workers.
+
+    Each aggregated round the server takes the median and the median
+    absolute deviation (MAD) of the eligible submitters' pre-clip update
+    norms; a worker whose norm deviates more than ``threshold`` MADs strikes
+    (a clean round resets its strikes).  ``strikes`` consecutive strikes
+    quarantine it for ``probation`` aggregated rounds: its commits are
+    excluded from aggregation (it still trains, and its phi still gates the
+    round clock), then it is readmitted with a clean record."""
+
+    threshold: float = 3.0  # MAD multiples before a norm counts as an outlier
+    strikes: int = 2        # consecutive outlier rounds before quarantine
+    probation: int = 3      # aggregated rounds excluded once quarantined
+
+    def __post_init__(self):
+        if not (self.threshold > 0.0):
+            raise ValueError(f"quarantine threshold {self.threshold} must be > 0")
+        if self.strikes < 1:
+            raise ValueError(f"quarantine strikes {self.strikes} must be >= 1")
+        if self.probation < 1:
+            raise ValueError(f"quarantine probation {self.probation} must be >= 1")
+
+
+@dataclasses.dataclass(frozen=True)
+class RobustAggConfig:
+    """The robust server aggregation layer (``SimConfig.robust``).
+
+    ``clip`` bounds each commit's L2 delta norm (None = no clipping);
+    ``trim`` is the per-end coordinate-wise trimmed-mean fraction (0 = the
+    plain weighted mean, by a static branch); ``quarantine`` enables the
+    MAD-outlier health tracker.  ``RobustAggConfig()`` is a no-op."""
+
+    clip: Optional[float] = None
+    trim: float = 0.0
+    quarantine: Optional[QuarantineConfig] = None
+
+    def __post_init__(self):
+        if self.clip is not None and not (self.clip > 0.0):
+            raise ValueError(f"robust clip {self.clip} must be > 0")
+        if not (0.0 <= self.trim < 0.5):
+            raise ValueError(f"robust trim {self.trim} outside [0, 0.5)")
+
+    @property
+    def any_active(self) -> bool:
+        return self.clip is not None or self.trim > 0.0 or self.quarantine is not None
+
+
+def _f32(x: float) -> float:
+    """A Python constant as the float32 value the reference computes with."""
+    return float(np.float32(x))
+
+
+def _over(c: float, t: torch.Tensor) -> torch.Tensor:
+    """``float32(c) / t`` as a true division (torch's ``scalar / tensor`` is
+    a reciprocal times the scalar, which rounds differently)."""
+    return torch.full_like(t, _f32(c)) / t
+
+
+def _row_bcast(row: torch.Tensor, ndim: int) -> torch.Tensor:
+    return row.reshape((row.shape[0],) + (1,) * (ndim - 1))
+
+
+def _take(t: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``t[idx]`` for a 0-d index tensor, without reading it on the host."""
+    return t.index_select(0, idx.reshape(1))[0]
+
+
+def noise_key(seed: int, round_t: int) -> prng.Key:
+    """Per-round noise key of the byzantine and corruption garbling:
+    ``fold_in(PRNGKey(seed), round_t)``, a host key (``core.prng``)."""
+    return prng.fold_in(prng.prng_key(seed), round_t)
+
+
+def _leaf_noise(key: prng.Key, leaf_idx: int, shape, device, offset: int = 0) -> torch.Tensor:
+    return prng.normal(prng.fold_in(key, leaf_idx), shape, offset, device)
+
+
+def _stack_noise(key: prng.Key, leaf_idx: int, leaf: torch.Tensor, full_rows: Optional[int],
+                 row_offset: Optional[int], rows: Optional[Sequence[int]] = None
+                 ) -> torch.Tensor:
+    """Noise rows for ``leaf`` (``[W_local, ...]``), drawn at full fleet
+    width: local row ``r`` takes the counters of global row ``row_offset +
+    r`` of a ``[full_rows, ...]`` draw, so every mesh size sees the same
+    noise per global slot.  ``rows`` (local row ids, host ints) draws only
+    those rows, stacked in that order; the default draws all of them."""
+    n_loc = leaf.shape[0]
+    total = n_loc if full_rows is None else full_rows
+    off = 0 if row_offset is None else int(row_offset)
+    if off + n_loc > total:
+        raise ValueError(f"rows {off}..{off + n_loc} outside a {total}-row fleet")
+    rows = range(n_loc) if rows is None else rows
+    per_row = int(np.prod(leaf.shape[1:]))
+    return torch.stack([
+        _leaf_noise(key, leaf_idx, tuple(leaf.shape[1:]), leaf.device, (off + r) * per_row)
+        for r in rows
+    ]) if len(rows) else leaf.new_zeros((0,) + tuple(leaf.shape[1:]))
+
+
+def _garble_rows(deltas: Mapping[str, torch.Tensor], masks, flagged, fn) -> Params:
+    """Rewrite the flagged rows (host bool ``[W]``) of every leaf, in sorted
+    key order: row ``r`` becomes ``fn(i, k, r, delta[r])``, times its mask
+    row.  Unflagged rows pass through bit-untouched, and a stack with no
+    flagged row is returned as it is."""
+    rows = [int(r) for r in np.flatnonzero(np.asarray(flagged, bool))]
+    out: Params = {}
+    for i, k in enumerate(sorted(deltas)):
+        d = deltas[k]
+        if not rows:
+            out[k] = d
+            continue
+        new = d.clone()
+        for r in rows:
+            bad = fn(i, k, r, d[r])
+            new[r] = bad * masks[k][r] if masks is not None else bad
+        out[k] = new
+    return out
+
+
+def byzantine_transform_dev(
+    deltas: Mapping[str, torch.Tensor],           # {path: [W, ...]} committed deltas
+    masks: Optional[Mapping[str, torch.Tensor]],  # {path: [W, ...]} 0/1, or None
+    byz_row,                                      # host bool [W]: compromised this round
+    *,
+    mode: str,
+    scale: float,
+    noise_std: float,
+    key: Optional[prng.Key],
+    full_rows: Optional[int] = None,
+    row_offset: Optional[int] = None,
+) -> Params:
+    """The byzantine attack on the compromised rows of a delta stack:
+    ``sign_flip`` sends ``-delta``, ``scale`` sends ``scale * delta``,
+    ``noise`` sends ``delta + noise_std * N(0, 1)`` (leaf ``i``'s noise
+    from ``fold_in(key, i)``).  Attacked rows are masked back to their live
+    coordinates; honest rows pass through bit-untouched."""
+    std, sc = _f32(noise_std), _f32(scale)
+
+    def attack(i, k, r, d):
+        if mode == "sign_flip":
+            return -d
+        if mode == "scale":
+            return sc * d
+        noise = _stack_noise(key, i, deltas[k], full_rows, row_offset, [r])[0]
+        return d + std * noise
+
+    return _garble_rows(deltas, masks, byz_row, attack)
+
+
+def corrupt_transform_dev(
+    deltas: Mapping[str, torch.Tensor],
+    masks: Optional[Mapping[str, torch.Tensor]],
+    corrupt_row,                                  # host bool [W]: payload garbled
+    *,
+    corrupt_std: float,
+    key: Optional[prng.Key],
+    full_rows: Optional[int] = None,
+    row_offset: Optional[int] = None,
+) -> Params:
+    """The lossy channel's payload corruption: ``delta + corrupt_std * N``
+    on the corrupted rows, masked to their live coordinates.  Leaf ``i``
+    draws from ``fold_in(key, 1000 + i)``, away from the attack stream."""
+    std = _f32(corrupt_std)
+
+    def garble(i, k, r, d):
+        return d + std * _stack_noise(key, 1000 + i, deltas[k], full_rows, row_offset, [r])[0]
+
+    return _garble_rows(deltas, masks, corrupt_row, garble)
+
+
+def delta_norms_dev(deltas: Mapping[str, torch.Tensor]) -> torch.Tensor:
+    """Per-row L2 norm of a delta stack over all leaves, ``[W]`` float32;
+    leaves add up in sorted-key order, as in the reference."""
+    total = None
+    for k in sorted(deltas):
+        d = deltas[k].float()
+        sq = (d.reshape(d.shape[0], -1) ** 2).sum(dim=1)
+        total = sq if total is None else total + sq
+    return torch.sqrt(total)
+
+
+def clip_deltas_dev(deltas: Mapping[str, torch.Tensor], norms: torch.Tensor,
+                    clip: float) -> Params:
+    """Per-commit L2 clipping: rows with ``norm > clip`` are scaled onto the
+    clip sphere; the others are multiplied by exactly 1.0."""
+    scale = torch.clamp_max(_over(clip, torch.clamp_min(norms, 1e-30)), 1.0)
+    return {k: d * _row_bcast(scale.to(d.dtype), d.dim()) for k, d in deltas.items()}
+
+
+def _lower_median(x: torch.Tensor, n: torch.Tensor) -> torch.Tensor:
+    """The lower median of the ``n`` finite entries of ``x`` (the rest
+    +inf): ``sort(x)[(max(n, 1) - 1) // 2]``, indexed on the device."""
+    return _take(torch.sort(x).values, torch.div(torch.clamp_min(n - 1, 0), 2,
+                                                 rounding_mode="floor"))
+
+
+def health_step_dev(
+    norms: torch.Tensor,      # [W] float32: this round's update norms
+    eligible: torch.Tensor,   # [W] bool: submitted and delivered this round
+    strikes: torch.Tensor,    # [W] int32 carry
+    quar_left: torch.Tensor,  # [W] int32 carry: probation rounds remaining
+    *,
+    threshold: float,
+    strikes_needed: int,
+    probation: int,
+    gate: Optional[bool] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One aggregated round of the MAD-outlier health tracker.
+
+    Returns ``(quar_now, strikes', quar_left')``, ``quar_now`` the rows
+    quarantined at the round's start (excluded from its aggregation).
+    Median and MAD are lower medians over the eligible, non-quarantined rows;
+    the MAD floor ``max(MAD, 1e-6 |median| + 1e-12)`` keeps an all-identical
+    honest cohort from flagging on float32 dust.  ``gate=False`` (a dead
+    round) leaves the carries as they were."""
+    quar_now = quar_left > 0
+    elig = eligible & ~quar_now
+    n = elig.sum()
+    inf = torch.full_like(norms, float("inf"))
+    med = _lower_median(torch.where(elig, norms, inf), n)
+    dev_abs = (norms - med).abs()
+    mad = _lower_median(torch.where(elig, dev_abs, inf), n)
+    floor = torch.maximum(mad, 1e-6 * med.abs() + 1e-12)
+    outlier = elig & (dev_abs > _f32(threshold) * floor) & (n > 0)
+    zero = torch.zeros_like(strikes)
+    strikes2 = torch.where(elig, torch.where(outlier, strikes + 1, zero), strikes)
+    enter = elig & (strikes2 >= strikes_needed)
+    quar2 = torch.where(enter, torch.full_like(quar_left, probation),
+                        torch.clamp_min(quar_left - 1, 0))
+    strikes2 = torch.where(enter, zero, strikes2)
+    if gate is not None and not gate:
+        return quar_now, strikes, quar_left
+    return quar_now, strikes2, quar2
+
+
+def async_health_step_dev(
+    norm: torch.Tensor,        # 0-d float32: this commit's update norm
+    worker: torch.Tensor,      # 0-d int64 slot id
+    strikes: torch.Tensor,     # [W] int32 carry
+    quar_left: torch.Tensor,   # [W] int32 carry
+    last_norms: torch.Tensor,  # [W] float32 carry: last commit norm per slot
+    seen: torch.Tensor,        # [W] bool carry: the slot has committed before
+    *,
+    threshold: float,
+    strikes_needed: int,
+    probation: int,
+):
+    """The per-commit health step of the fused async engine (the device
+    twin of ``AsyncServer._health_step``): the median and MAD run over each
+    slot's last commit norm.  Returns ``(reject, strikes', quar_left',
+    last_norms', seen')``; ``reject`` marks a commit from a quarantined slot
+    (its probation counts down per rejected commit) or the commit that
+    triggers quarantine."""
+    w = worker.reshape(1)
+    norms2 = last_norms.index_copy(0, w, norm.reshape(1))
+    seen2 = seen.index_fill(0, w, True)
+    q_w = _take(quar_left, worker)
+    quar_now = q_w > 0
+    n = seen2.sum()
+    inf = torch.full_like(norms2, float("inf"))
+    med = _lower_median(torch.where(seen2, norms2, inf), n)
+    mad = _lower_median(torch.where(seen2, (norms2 - med).abs(), inf), n)
+    floor = torch.maximum(mad, 1e-6 * med.abs() + 1e-12)
+    outlier = (norm - med).abs() > _f32(threshold) * floor
+    s_w = torch.where(outlier & ~quar_now, _take(strikes, worker) + 1,
+                      torch.zeros((), dtype=strikes.dtype, device=strikes.device))
+    enter = ~quar_now & (s_w >= strikes_needed)
+    strikes2 = strikes.index_copy(0, w, torch.where(enter, torch.zeros_like(s_w), s_w)
+                                  .reshape(1).to(strikes.dtype))
+    quar2 = quar_left.index_copy(0, w, torch.where(
+        enter, torch.full_like(q_w, probation), torch.clamp_min(q_w - 1, 0))
+        .reshape(1).to(quar_left.dtype))
+    return quar_now | enter, strikes2, quar2, norms2, seen2
+
+
+def trimmed_mean_stacked_dev(
+    param_stacks: Mapping[str, torch.Tensor],            # {path: [W, ...]} masked stacks
+    mask_stacks: Optional[Mapping[str, torch.Tensor]],   # presence, or None
+    eligible: torch.Tensor,                              # [W] bool: votes counted
+    trim: float,
+) -> Params:
+    """Coordinate-wise trimmed mean over a stack, presence-aware.
+
+    Per coordinate only holder votes (eligible rows whose mask keeps it)
+    enter the order statistics; ``k = floor(f32(trim) * n_c)`` votes drop
+    from each end of the ``n_c`` holder votes, the survivors are averaged
+    and rescaled by ``n_c / |eligible|`` (the zero-vote shrinkage of
+    by-worker averaging)."""
+    elig_n = torch.clamp_min(eligible.sum().float(), 1.0)
+    W = eligible.shape[0]
+    ranks = torch.arange(W, device=eligible.device)
+    out: Params = {}
+    for k in sorted(param_stacks):
+        stack = param_stacks[k].float()
+        valid = _row_bcast(eligible, stack.dim())
+        if mask_stacks is not None:
+            valid = valid & (mask_stacks[k] > 0)
+        else:
+            valid = valid.expand(stack.shape)
+        n_c = valid.sum(dim=0)
+        k_c = torch.floor(_f32(trim) * n_c.float()).to(n_c.dtype)
+        xs = torch.sort(torch.where(valid, stack, torch.full_like(stack, float("inf"))),
+                        dim=0).values
+        r = ranks.reshape((W,) + (1,) * (stack.dim() - 1))
+        keep = (r >= k_c) & (r < n_c - k_c)
+        kept_sum = torch.where(keep, xs, torch.zeros_like(xs)).sum(dim=0)
+        keep_n = torch.clamp_min(n_c - 2 * k_c, 1).float()
+        est = kept_sum * n_c.float() / (keep_n * elig_n)
+        out[k] = torch.where(n_c > 0, est, torch.zeros_like(est))
+    return out
+
+
+def robust_aggregate_stacked_dev(
+    param_stacks: Mapping[str, torch.Tensor],
+    weights: torch.Tensor,                               # [W] float32 multiplicities
+    mask_stacks: Optional[Mapping[str, torch.Tensor]] = None,
+    *,
+    trim: float = 0.0,
+) -> Params:
+    """The robust server's aggregation step.  ``trim == 0`` is
+    ``aggregate_by_worker_stacked_dev`` itself; ``trim > 0`` the trimmed
+    mean, where only ``weights > 0`` counts (a duplicated delivery is one
+    vote)."""
+    if trim == 0.0:
+        return aggregate_by_worker_stacked_dev(param_stacks, weights)
+    return trimmed_mean_stacked_dev(param_stacks, mask_stacks, weights > 0, trim)
+
+
+def robust_submission_step_dev(
+    param_stacks: Mapping[str, torch.Tensor],   # {path: [W, ...]} committed rows
+    mask_stacks: Optional[Mapping[str, torch.Tensor]],
+    global_p: Mapping[str, torch.Tensor],       # {path: [...]} current global
+    mult: torch.Tensor,                         # [W] float32 multiplicity weights
+    weights: torch.Tensor,                      # [W] float32 normalized weights
+    byz_row,                                    # host bool [W], or None
+    corrupt_row,                                # host bool [W], or None
+    byz_key: Optional[prng.Key],
+    corrupt_key: Optional[prng.Key],
+    strikes: Optional[torch.Tensor],            # [W] int32 carry
+    quar_left: Optional[torch.Tensor],          # [W] int32 carry
+    *,
+    byz_mode: str = "sign_flip",
+    byz_scale: float = -10.0,
+    byz_noise_std: float = 1.0,
+    corrupt_std: float = 10.0,
+    clip: Optional[float] = None,
+    trim: float = 0.0,
+    quarantine: Optional[QuarantineConfig] = None,
+    gate: Optional[bool] = None,
+    full_rows: Optional[int] = None,
+    row_offset: Optional[int] = None,
+):
+    """One server round at the submission boundary: attack, defense,
+    aggregate, in the reference's fixed order — byzantine transform, channel
+    corruption, pre-clip norms, health quarantine, norm clip, then the plain
+    weighted mean or the trimmed mean.
+
+    ``mult`` is the channel multiplicity (submit x delivered x (1 + dup))
+    and decides eligibility; ``weights`` is the normalized plain-mean vector
+    used when no quarantine reweights.  Returns ``(new global, strikes',
+    quar_left', quar_now)``; the health carries pass through when
+    ``quarantine`` is None.  A round with no delivered weight keeps the
+    global."""
+    stacks = {k: v.float() for k, v in param_stacks.items()}
+    masks = mask_stacks
+    norms = None
+    if byz_row is not None or corrupt_row is not None or clip is not None \
+            or quarantine is not None:
+        if masks is not None:
+            bcast = {k: global_p[k].unsqueeze(0) * masks[k] for k in stacks}
+        else:
+            bcast = {k: global_p[k].unsqueeze(0).expand(stacks[k].shape) for k in stacks}
+        deltas = {k: stacks[k] - bcast[k] for k in stacks}
+        if byz_row is not None:
+            deltas = byzantine_transform_dev(
+                deltas, masks, byz_row, mode=byz_mode, scale=byz_scale,
+                noise_std=byz_noise_std, key=byz_key, full_rows=full_rows,
+                row_offset=row_offset)
+        if corrupt_row is not None:
+            deltas = corrupt_transform_dev(
+                deltas, masks, corrupt_row, corrupt_std=corrupt_std, key=corrupt_key,
+                full_rows=full_rows, row_offset=row_offset)
+        if clip is not None or quarantine is not None:
+            norms = delta_norms_dev(deltas)
+        if clip is not None:
+            deltas = clip_deltas_dev(deltas, norms, clip)
+        stacks = {k: bcast[k] + deltas[k] for k in stacks}
+    quar_now = None
+    strikes2, quar2 = strikes, quar_left
+    if quarantine is not None:
+        quar_now, strikes2, quar2 = health_step_dev(
+            norms, mult > 0, strikes, quar_left, threshold=quarantine.threshold,
+            strikes_needed=quarantine.strikes, probation=quarantine.probation, gate=gate)
+        w_full = mult * (1.0 - quar_now.float())
+        wsum = w_full.sum()
+        if trim > 0.0:
+            agg = trimmed_mean_stacked_dev(stacks, masks, w_full > 0, trim)
+        else:
+            agg = aggregate_by_worker_stacked_dev(stacks, w_full / torch.clamp_min(wsum, 1e-30))
+    else:
+        wsum = mult.sum()
+        if trim > 0.0:
+            agg = robust_aggregate_stacked_dev(stacks, mult, masks, trim=trim)
+        else:
+            agg = aggregate_by_worker_stacked_dev(stacks, weights)
+    new = {k: torch.where(wsum > 0, agg[k], global_p[k].float()) for k in stacks}
+    return new, strikes2, quar2, quar_now

@@ -18,10 +18,14 @@ Six families overlay the scenario layer (``ScenarioConfig.faults``):
   round aggregates the partial cohort (degraded);
 * **participation wave** (``WaveConfig``) — ``C(t) = C * (1 + amplitude *
   sin(2*pi*(t-1)/period))`` (deterministic);
-* **Byzantine workers** (``ByzantineConfig``) and a **lossy channel**
-  (``ChannelConfig``) — their configs and per-round draws are ported so the
-  fault stream is drawn identically; the simulator refuses them until the
-  robust-aggregation layer is ported (ROADMAP.md, A9).
+* **Byzantine workers** (``ByzantineConfig``) — compromised slots send a
+  sign-flipped, scaled or noised delta at the submission boundary;
+* **a lossy channel** (``ChannelConfig``) — each upload is dropped per
+  attempt and retried with a backoff on the update time (a commit lost
+  after every retry does not aggregate), delivered twice, or garbled with
+  noise.  Both act on per-worker deltas, so they need by_worker
+  aggregation, run on every sync engine through the robust server
+  (``aggregation.robust_submission_step_dev``), and are sync-only.
 
 Deterministic families are pure functions of (config, round); the
 stochastic ones draw from the fault stream (``ScenarioEngine.fault_rng``)

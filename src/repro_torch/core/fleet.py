@@ -382,11 +382,12 @@ class FleetEngine:
         """Masked scatter of per-row global snapshots (host arrays): row
         ``rows[i]`` becomes ``globals_list[i] * M[rows[i]]``.  Each async
         committer refetched its own global version, so the snapshots are
-        stacked on the host and written with one device op per tensor."""
+        stacked on the host and written with one device op per tensor (in
+        float32: a clipped commit leaves the server's params in float64)."""
         idx = _row_index(rows, state.num_workers, self.device)
         for path in state.params:
-            g = torch.as_tensor(np.stack([np.asarray(gl[path]) for gl in globals_list]),
-                                device=self.device)
+            g = torch.as_tensor(np.stack([np.asarray(gl[path], np.float32)
+                                          for gl in globals_list]), device=self.device)
             v = state.params[path].clone()
             v[idx] = g * torch.index_select(state.masks[path], 0, idx)
             state.params[path] = v

@@ -8,18 +8,23 @@ aggregation, host importance scoring and ``prune_to_budget``, a host mask
 rewrite.  Here the whole synchronous round runs on the device: masked
 broadcast-back (``g[None] * M``), training of all W rows with per-step
 validity masks, the prune greedy (``masks.prune_presence_rows``) and
-phase B, DGC (``aggregation.dgc_compress_dev``) and float32 aggregation.
+phase B, DGC (``aggregation.dgc_compress_dev``) and float32 aggregation,
+or under the byzantine and channel families and ``SimConfig.robust`` the
+robust server round (``aggregation.robust_submission_step_dev``, the
+function the masked loop calls) with the quarantine's health carry.
 The reference expresses a chunk of rounds as one ``lax.scan`` program; here
 a chunk is a Python loop over its rounds in which every tensor stays on the
 device and nothing synchronises the host (no ``.item()``, ``.cpu()``,
 ``nonzero`` or boolean-mask indexing).  Every per-round control value the
 scan takes as a traced input is known on the host before the chunk starts
 (which rounds prune, which are real, the budgets, the static-criterion
-orders, crash recoveries, submitters, weights, batch plans), so the scan's
-``lax.cond`` on ``prune_any`` is a host ``if`` here.  After a chunk the host
-reads back, once: the ``[n, W, U]`` presence trail, the globals of its eval
-rounds and the DGC kept/total counts, and does the accounting of the
-reference (ledger, payloads, the channel-model clock, evaluation).
+orders, crash recoveries, submitters, weights, batch plans, the commit
+multiplicities, the attacked and corrupted rows and the rounds the noise
+keys fold in), so the scan's ``lax.cond`` on ``prune_any`` is a host ``if``
+here.  After a chunk the host reads back, once: the ``[n, W, U]`` presence
+trail, the globals of its eval rounds, the DGC kept/total counts and the
+``[n, W]`` quarantine trail, and does the accounting of the reference
+(ledger, payloads, the channel-model clock with its retries, evaluation).
 
 **Chunk boundaries** are the reference's: Newton pruned-rate learning
 (every ``prune_interval`` rounds for adaptcl, and at drift events) stays on
@@ -55,13 +60,13 @@ finish keys; ``async_pop_perm`` re-derives the commit order on the device
 (three stable sorts, the host heap's ``(time, worker)`` order), the batch
 trains as one stack from the gathered snapshots, and each commit merges
 through ``aggregation.async_commit_dev`` with integer staleness counters,
-dropout gating and masked refetch (``fleet.refetch_rows``).  After a chunk
-the host compares the device pop order and staleness with the plan and
-raises on any difference.
+dropout gating, the robust layer's clip and per-commit quarantine
+(``aggregation.async_health_step_dev``) and masked refetch
+(``fleet.refetch_rows``).  After a chunk the host compares the device pop
+order and staleness with the plan and raises on any difference.
 
-Refused by field name (``_refuse``; see ROADMAP.md): the robust submission
-path inside a chunk with the byzantine and channel families (A9), the mesh
-(A10), and ``compute="block_skip"`` (the reference's own rule).
+Refused by field name: the mesh (``simulation.validate_config``, A10 of
+ROADMAP.md) and ``compute="block_skip"`` (the reference's own rule).
 """
 from __future__ import annotations
 
@@ -79,8 +84,12 @@ from .aggregation import (
     aggregate_by_unit_stacked_dev,
     aggregate_by_worker_stacked_dev,
     async_commit_dev,
+    async_health_step_dev,
+    delta_norms_dev,
     dgc_compress_dev,
     extract_subparams,
+    noise_key,
+    robust_submission_step_dev,
     roundtrip_total,
     subparam_shapes,
 )
@@ -176,15 +185,22 @@ def _static_orders(sim, env, flat: UnitFlat, cig_scores, prune_round_count):
 class _SyncChunk:
     """The round body of the sync chunk, applied to the rounds of one chunk.
 
-    Carry: param, mask, presence, global, momentum and DGC-residual stacks.
-    Per-round device inputs arrive as ``[K, ...]`` tensors, the host flags
-    as numpy arrays.  Returns the carry and the per-round outputs the host
-    reads back: ``[n, W, U]`` presence, the globals of the eval rounds, and
-    the ``[n, W]`` DGC kept/total counts."""
+    Carry: param, mask, presence, global, momentum, DGC-residual stacks and
+    the quarantine's health rows.  Per-round device inputs arrive as
+    ``[K, ...]`` tensors, the host flags as numpy arrays.  Returns the carry
+    and the per-round outputs the host reads back: ``[n, W, U]`` presence,
+    the globals of the eval rounds, the ``[n, W]`` DGC kept/total counts and
+    the ``[n, W]`` quarantine trail.
+
+    ``robust`` holds the robust statics, ``(attack on, corruption on,
+    noise seed, robust_submission_step_dev's keyword arguments)``, or is
+    None: a channel with ``corrupt=0`` still takes the robust round, since
+    its multiplicities reshape the weights and an all-lost round must keep
+    the global by the same code as the masked loop."""
 
     def __init__(self, trainer, unit_map, base_shapes, flat: UnitFlat, lam: float, *,
                  by_unit: bool, importance: str, resident_momentum: bool, has_phase_b: bool,
-                 dgc_sparsity: float, device):
+                 dgc_sparsity: float, device, robust=None):
         self.trainer = trainer
         self.unit_map = unit_map
         self.base_shapes = base_shapes
@@ -195,6 +211,7 @@ class _SyncChunk:
         self.resident_momentum = resident_momentum
         self.has_phase_b = has_phase_b
         self.dgc_sparsity = dgc_sparsity
+        self.robust = robust
         self.walk = _walk_tensors(flat, device)
         self.tiebreak_perm = torch.as_tensor(
             np.argsort(flat.tiebreak, kind="stable").astype(np.int64), device=device)
@@ -247,7 +264,24 @@ class _SyncChunk:
                     gw[lname] = term if lname not in gw else gw[lname] + term
         return taylor_scores(gw, self.flat.names, presence)
 
-    def __call__(self, params, momentum, presence, global_p, dgc_res, xs, ys, sizes,
+    def robust_round(self, agg_in, masks, global_p, health, per_round, flags, j):
+        """The robust server round j: ``robust_submission_step_dev`` with the
+        noise keys of the round (seed + 51721 attack, seed + 51722
+        corruption) and the health carry, gated by the round being real."""
+        byz_on, corrupt_on, seed, kw = self.robust
+        rnd = int(flags["rnd"][j])
+        g_new, st2, qu2, quar_row = robust_submission_step_dev(
+            agg_in, masks, global_p, per_round["mult"][j], per_round["weights"][j],
+            flags["byz"][j] if byz_on else None, flags["corrupt"][j] if corrupt_on else None,
+            noise_key(seed + 51721, rnd) if byz_on else None,
+            noise_key(seed + 51722, rnd) if corrupt_on else None,
+            health.get("strikes"), health.get("quar"), gate=bool(flags["real"][j]), **kw,
+        )
+        if kw["quarantine"] is not None:
+            health = {"strikes": st2, "quar": qu2}
+        return g_new, health, quar_row
+
+    def __call__(self, params, momentum, presence, global_p, dgc_res, health, xs, ys, sizes,
                  per_round, flags, orders, n_rounds, eval_rounds, run_dead=False):
         masks = masks_from_presence(presence, self.flat, self.unit_map, self.base_shapes)
         use_dgc = self.dgc_sparsity > 0.0
@@ -255,16 +289,19 @@ class _SyncChunk:
         pres_seq: List[torch.Tensor] = []
         kept_seq: List[torch.Tensor] = []
         total_seq: List[torch.Tensor] = []
+        quar_seq: List[torch.Tensor] = []
         evals: Dict[int, Tensors] = {}
         W = presence.shape[0]
         zeros_w = torch.zeros(W, dtype=torch.int32, device=presence.device)
+        no_quar = torch.zeros(W, dtype=torch.bool, device=presence.device)
         n_run = len(flags["real"]) if run_dead else n_rounds
 
-        def record(j, kept_w, total_w):
+        def record(j, kept_w, total_w, quar_row=None):
             if j < n_rounds:     # padding rounds report nothing
                 pres_seq.append(presence)
                 kept_seq.append(kept_w)
                 total_seq.append(total_w)
+                quar_seq.append(no_quar if quar_row is None else quar_row)
                 if j in eval_rounds:
                     evals[j] = global_p
 
@@ -318,15 +355,20 @@ class _SyncChunk:
             else:
                 agg_in = params
                 kept_w = total_w = zeros_w
+            quar_row = None
             if self.by_unit:
                 g_new = aggregate_by_unit_stacked_dev(agg_in, masks, submitters)
+            elif self.robust is not None:
+                g_new, health, quar_row = self.robust_round(agg_in, masks, global_p, health,
+                                                            per_round, flags, j)
             else:
                 g_new = aggregate_by_worker_stacked_dev(agg_in, per_round["weights"][j])
             if flags["real"][j]:
                 global_p = {k: v.float() for k, v in g_new.items()}
-            record(j, kept_w, total_w)
-        return (params, momentum, presence, global_p, dgc_res,
-                torch.stack(pres_seq), evals, torch.stack(kept_seq), torch.stack(total_seq))
+            record(j, kept_w, total_w, quar_row)
+        return (params, momentum, presence, global_p, dgc_res, health,
+                torch.stack(pres_seq), evals, torch.stack(kept_seq), torch.stack(total_seq),
+                torch.stack(quar_seq))
 
 
 def run_sync_fused(sim, env):
@@ -334,10 +376,13 @@ def run_sync_fused(sim, env):
     doc): ``simulation._run_sync`` decision for decision, with the rounds
     of each chunk on the device and the accounting on the host after it."""
     from .simulation import (   # deferred: simulation routes here
+        _commit_multiplicity,
         _env_accuracy,
         _finalize,
         _regrow_round,
         _regrow_step,
+        _robust_statics,
+        _robust_step_kwargs,
         _skip_round_time,
     )
 
@@ -351,6 +396,9 @@ def run_sync_fused(sim, env):
     base_shapes = env.base_shapes
     flat = flatten_unit_space(env.space)
     U = flat.num_units
+    byz_cfg, ch_cfg, corrupt_on, rb_cfg, robust_on = _robust_statics(sim)
+    quar_cfg = rb_cfg.quarantine if rb_cfg is not None else None
+    quarantined_commits = 0
 
     scen = ScenarioEngine(sim.scenario, W) if sim.scenario is not None else None
     if scen is not None:
@@ -411,16 +459,24 @@ def run_sync_fused(sim, env):
     acc_time.append((0.0, _env_accuracy(env, global_params)))
     rt_base = roundtrip_total()
 
+    robust = None
+    if robust_on:
+        robust = (byz_cfg is not None, corrupt_on, int(sim.seed),
+                  _robust_step_kwargs(byz_cfg, ch_cfg, corrupt_on, rb_cfg))
     sig = (tuple(sorted((k, tuple(v.shape)) for k, v in state.params.items())),
            ("fused", K_pad, pad_a, pad_b, tuple(state.xs.shape), batch, sim.aggregation,
-            sim.importance, bool(sim.resident_momentum), float(sim.dgc_sparsity)),
-           float(lam))
+            sim.importance, bool(sim.resident_momentum), float(sim.dgc_sparsity),
+            None if robust is None else repr(robust)), float(lam))
     chunk_fn = _SyncChunk(
         env.trainer, unit_map, base_shapes, flat, lam,
         by_unit=sim.aggregation == "by_unit", importance=sim.importance,
         resident_momentum=bool(sim.resident_momentum), has_phase_b=pad_b > 0,
-        dgc_sparsity=float(sim.dgc_sparsity), device=dev,
+        dgc_sparsity=float(sim.dgc_sparsity), device=dev, robust=robust,
     )
+    # the quarantine's health carry: [W] strikes and probation rows
+    health_dev = ({"strikes": torch.zeros(W, dtype=torch.int32, device=dev),
+                   "quar": torch.zeros(W, dtype=torch.int32, device=dev)}
+                  if quar_cfg is not None else {})
 
     t = 0
     while t < sim.rounds:
@@ -476,6 +532,10 @@ def run_sync_fused(sim, env):
         real = np.zeros((K_pad,), bool)
         weights = np.zeros((K_pad, W), np.float32)
         submit_m = np.zeros((K_pad, W), np.float32)
+        mult_m = np.zeros((K_pad, W), np.float32)
+        byz_m = np.zeros((K_pad, W), bool)
+        cor_m = np.zeros((K_pad, W), bool)
+        rnd_arr = np.zeros((K_pad,), np.int64)
         jitters = np.ones((K_pad, W))
         recov = np.zeros((K_pad, W), np.float32)
         drmat = np.ones((K_pad, W))
@@ -534,10 +594,17 @@ def run_sync_fused(sim, env):
                 sb = stack_batch_plans(pb, num_rows=W, num_steps=pad_b)
                 if sb is not None:
                     plans_b[j], valid_b[j] = sb
-            sub = ev.submitters.astype(np.float64)
-            submit_m[j] = sub.astype(np.float32)
-            if sim.aggregation != "by_unit" and sub.sum() > 0:
-                weights[j] = (sub / sub.sum()).astype(np.float32)
+            submit_m[j] = ev.submitters.astype(np.float32)
+            # commit multiplicity: the submitter indicator without a channel
+            mult_j = _commit_multiplicity(ev)
+            mult_m[j] = mult_j.astype(np.float32)
+            if sim.aggregation != "by_unit" and mult_j.sum() > 0:
+                weights[j] = (mult_j / mult_j.sum()).astype(np.float32)
+            if ev.byz is not None:
+                byz_m[j] = ev.byz & ev.submitters
+            if corrupt_on and ev.corrupt is not None:
+                cor_m[j] = ev.corrupt & ev.delivered & ev.submitters
+            rnd_arr[j] = rnd
             real[j] = True
             if sim.time_jitter > 0:
                 for w in active_ws:
@@ -564,15 +631,18 @@ def run_sync_fused(sim, env):
         if pad_b > 0:
             per_round["plan_b"] = torch.as_tensor(plans_b, device=dev)
             per_round["valid_b"] = torch.as_tensor(valid_b, device=dev)
-        flags = {"prune_any": prune_any, "real": real, "recov_any": recov.any(axis=1)}
+        flags = {"prune_any": prune_any, "real": real, "recov_any": recov.any(axis=1),
+                 "byz": byz_m, "corrupt": cor_m, "rnd": rnd_arr}
+        if robust_on:
+            per_round["mult"] = torch.as_tensor(mult_m, device=dev)
         momentum_arg = state.momentum if sim.resident_momentum else {}
 
         # ---- ONE counted dispatch for the whole chunk
-        (state.params, mom_out, _, global_dev, dgc_res_dev, pres_seq, evals, kept_seq,
-         total_seq) = env.trainer.dispatch(
+        (state.params, mom_out, _, global_dev, dgc_res_dev, health_dev, pres_seq, evals,
+         kept_seq, total_seq, quar_seq) = env.trainer.dispatch(
             sig, chunk_fn, state.params, momentum_arg, presence_dev, global_params,
-            dgc_res_dev, state.xs, state.ys, sizes_dev, per_round, flags, orders_dev, n,
-            eval_rounds, RUN_DEAD_ROUNDS,
+            dgc_res_dev, health_dev, state.xs, state.ys, sizes_dev, per_round, flags,
+            orders_dev, n, eval_rounds, RUN_DEAD_ROUNDS,
         )
         if sim.resident_momentum:
             state.momentum = mom_out
@@ -584,6 +654,8 @@ def run_sync_fused(sim, env):
         if use_dgc:                                             # [n, W] ints
             kept_np = kept_seq.cpu().numpy()
             total_np = total_seq.cpu().numpy()
+        if quar_cfg is not None:                                # [n, W] bools
+            quar_np = quar_seq.cpu().numpy()
 
         # ---- post-chunk host accounting (ledger, payloads, clock, evals)
         for j, rnd in enumerate(rounds_this):
@@ -607,6 +679,10 @@ def run_sync_fused(sim, env):
                                                        for k, v in indices[w].items()}))
                     if pad_b > 0:   # ledger phase B at the pruned index
                         env.account_train(indices[w], int(steps_b[j, w]))
+            if quar_cfg is not None:
+                # commits the server excluded: a quarantined row whose
+                # payload arrived
+                quarantined_commits += int((quar_np[j] & (mult_m[j] > 0)).sum())
             phis = np.full(W, np.nan)
             for w in active_ws:
                 bytes_w, flops_w = _bytes_flops(indices[w])
@@ -615,11 +691,21 @@ def run_sync_fused(sim, env):
                 pf = 1.0
                 if use_dgc and ev.submitters[w]:
                     pf = 1.25 * float(kept_np[j, w]) / max(float(total_np[j, w]), 1.0)
-                phi_w = env.phi_from_cost(w, bytes_w, flops_w, pf, jitters[j, w] * drmat[j, w])
+                # jitter x (drift x retries) as one product: the lazy loop's
+                # float grouping
+                retry_mult = 1.0
+                if ch_cfg is not None and ev.retries is not None and ev.submitters[w]:
+                    retry_mult = 1.0 + ch_cfg.retry_backoff * float(ev.retries[w])
+                phi_w = env.phi_from_cost(w, bytes_w, flops_w, pf,
+                                          jitters[j, w] * (drmat[j, w] * retry_mult))
                 phis[w] = phi_w
                 interval_phis[w].append(phi_w)
                 if ev.submitters[w]:
-                    comm_bytes += 2.0 * pf * bytes_w
+                    extra = 0.0
+                    if ch_cfg is not None and ev.retries is not None:
+                        extra = (float(ev.retries[w])
+                                 + float(ev.dup[w] & ev.delivered[w])) * pf * bytes_w
+                    comm_bytes += 2.0 * pf * bytes_w + extra
             sub_phis = phis[ev.submitters]
             round_time = float(sub_phis.max())
             if ev.dropped.any() and scen is not None:
@@ -678,7 +764,9 @@ def run_sync_fused(sim, env):
         flops_per_image_final=float(np.mean([c[0] for c in final_costs])),
         blocks_per_image_final=float(np.mean([c[2] for c in final_costs])),
         prune_events=prune_events, scenario_rounds=scen_rows,
-        fault_ledger=fault_ledger(plan_all.events), fused_chunks=fused_chunks,
+        fault_ledger={**fault_ledger(plan_all.events),
+                      "quarantined_commits": quarantined_commits},
+        fused_chunks=fused_chunks,
     )
 
 
@@ -710,27 +798,43 @@ class _AsyncChunk:
     """The window-batch body of the async chunk, applied to the batches of
     one chunk.  Carry: fetched ``[W, ...]`` snapshots, the global, the
     server version, per-slot fetched versions, DC-ASGD's backup rows and
-    mean-square accumulator.  Returns the carry, the popped worker order and
-    staleness ``[nb, BP]`` (positions past a batch's events hold -1), and
-    the globals after each eval commit."""
+    mean-square accumulator, and the quarantine's health (strikes,
+    probation, last norm and seen per slot, the rejected count).  Returns
+    the carry, the popped worker order and staleness ``[nb, BP]``
+    (positions past a batch's events hold -1), and the globals after each
+    eval commit."""
 
     def __init__(self, trainer, unit_map, base_shapes, lam, *, method, BP, cohort_size,
-                 fedasync_a, lr, dcasgd_lambda, dcasgd_m, device):
+                 fedasync_a, lr, dcasgd_lambda, dcasgd_m, device, clip_norm=None,
+                 quarantine=None):
         self.trainer = trainer
         self.unit_map = unit_map
         self.lam = lam
         self.method = method
         self.BP = BP
+        self.quarantine = quarantine
         self.kw = dict(cohort_size=cohort_size, fedasync_a=fedasync_a, lr=lr,
-                       dcasgd_lambda=dcasgd_lambda, dcasgd_m=dcasgd_m)
+                       dcasgd_lambda=dcasgd_lambda, dcasgd_m=dcasgd_m, clip_norm=clip_norm)
         # async workers never prune: all-ones masks, base-shape group-lasso
         self.masks = {k: torch.ones((BP,) + tuple(s), dtype=torch.float32, device=device)
                       for k, s in base_shapes.items()}
         self.gl = {lname: torch.full((BP,), s, dtype=torch.float32, device=device)
                    for lname, s in group_size_sqrt_from_shapes(base_shapes, unit_map).items()}
 
-    def __call__(self, fetched, g, version, fetched_ver, backup, dc_m, xs, ys, per_batch,
-                 lengths, eval_pos):
+    def health_step(self, health, t_row, f_row, w):
+        """The commit's quarantine verdict on its unclipped delta norm; a
+        rejected commit keeps the global (the version still bumps)."""
+        q = self.quarantine
+        norm = delta_norms_dev({k: (t_row[k] - f_row[k]).unsqueeze(0) for k in t_row})[0]
+        reject, st2, qu2, nm2, sn2 = async_health_step_dev(
+            norm, w[0], health["strikes"], health["quar"], health["norms"], health["seen"],
+            threshold=q.threshold, strikes_needed=q.strikes, probation=q.probation)
+        health = {"strikes": st2, "quar": qu2, "norms": nm2, "seen": sn2,
+                  "rejected": health["rejected"] + reject.to(torch.int32)}
+        return health, reject
+
+    def __call__(self, fetched, g, version, fetched_ver, backup, dc_m, health, xs, ys,
+                 per_batch, lengths, eval_pos):
         order_seq, stale_seq = [], []
         evals: Dict[tuple, Tensors] = {}
         BP = self.BP
@@ -759,13 +863,20 @@ class _AsyncChunk:
                 b_row = {k: v.index_select(0, w)[0] for k, v in backup.items()}
                 g2, dc_m2 = async_commit_dev(self.method, g, t_row, f_row, s, b_row, dc_m,
                                              **self.kw)
-                keep = dropped[i] == 0
+                live = dropped[i] == 0
+                keep = live
+                if self.quarantine is not None:
+                    # only merged commits move the tracker: a dropped
+                    # commit leaves it as it was
+                    h2, reject = self.health_step(health, t_row, f_row, w)
+                    health = {k: torch.where(live, h2[k], health[k]) for k in health}
+                    keep = live & ~reject
                 g = {k: torch.where(keep, g2[k], g[k]) for k in g}
                 if backup:
                     for k, v in backup.items():
                         v.index_copy_(0, w, torch.where(keep, g2[k], b_row[k]).unsqueeze(0))
                     dc_m = {k: torch.where(keep, dc_m2[k], dc_m[k]) for k in dc_m}
-                version = version + keep.long()
+                version = version + live.long()
                 # refetch after the bump: a dropped commit refetches the
                 # unchanged global
                 fetched = refetch_rows(fetched, refetch[i], g)
@@ -776,7 +887,7 @@ class _AsyncChunk:
                     evals[(j, i)] = g
             order_seq.append(order)
             stale_seq.append(stale)
-        return (fetched, g, version, fetched_ver, backup, dc_m, torch.stack(order_seq),
+        return (fetched, g, version, fetched_ver, backup, dc_m, health, torch.stack(order_seq),
                 torch.stack(stale_seq), evals)
 
 
@@ -791,6 +902,11 @@ def run_async_fused(sim, env, scen, participants, plan):
     method = sim.method
     n_part = len(participants)
     idx = full_index(env.space)
+    # the robust layer's async half: clip and quarantine (the trimmed mean
+    # is refused for async methods)
+    rb_cfg = sim.robust if sim.robust is not None and sim.robust.any_active else None
+    clip_norm = rb_cfg.clip if rb_cfg is not None else None
+    quar_cfg = rb_cfg.quarantine if rb_cfg is not None else None
 
     global_params = dict(env.base_params)
     acc_time = [(0.0, _env_accuracy(env, global_params))]
@@ -809,7 +925,8 @@ def run_async_fused(sim, env, scen, participants, plan):
                          host_roundtrips=roundtrip_total() - rt_base,
                          flops_per_image_final=final_cost[0],
                          blocks_per_image_final=final_cost[2], prune_events=[],
-                         scenario_rounds=scen_rows, fault_ledger=plan.fault_ledger or {},
+                         scenario_rounds=scen_rows,
+                         fault_ledger={**(plan.fault_ledger or {}), "quarantined_commits": 0},
                          fused_chunks=0)
 
     shard_x, shard_y = zip(*(env.shard_xy(w) for w in range(W)))
@@ -834,16 +951,26 @@ def run_async_fused(sim, env, scen, participants, plan):
         dc_m_dev = {k: torch.zeros_like(v) for k, v in g_dev.items()}
     else:
         backup_dev, dc_m_dev = {}, {}
+    health_dev = ({"strikes": torch.zeros(W, dtype=torch.int32, device=dev),
+                   "quar": torch.zeros(W, dtype=torch.int32, device=dev),
+                   "norms": torch.zeros(W, dtype=torch.float32, device=dev),
+                   "seen": torch.zeros(W, dtype=torch.bool, device=dev),
+                   "rejected": torch.zeros((), dtype=torch.int32, device=dev)}
+                  if quar_cfg is not None else {})
 
+    rb_sig = (None if clip_norm is None else float(clip_norm),
+              None if quar_cfg is None else (float(quar_cfg.threshold), int(quar_cfg.strikes),
+                                             int(quar_cfg.probation)))
     sig = (tuple(sorted((k, tuple(v.shape)) for k, v in state.params.items())),
            ("fused_async", method, KB, BP, S_eff, tuple(state.xs.shape), batch, n_part,
             float(sim.fedasync_a), float(sim.lr), float(sim.dcasgd_lambda),
-            float(sim.dcasgd_m)),
+            float(sim.dcasgd_m), rb_sig),
            float(sim.lam))
     chunk_fn = _AsyncChunk(
         env.trainer, env.unit_map, env.base_shapes, sim.lam, method=method, BP=BP,
         cohort_size=n_part, fedasync_a=float(sim.fedasync_a), lr=float(sim.lr),
         dcasgd_lambda=float(sim.dcasgd_lambda), dcasgd_m=float(sim.dcasgd_m), device=dev,
+        clip_norm=None if clip_norm is None else float(clip_norm), quarantine=quar_cfg,
     )
 
     b = 0
@@ -893,10 +1020,10 @@ def run_async_fused(sim, env, scen, participants, plan):
         }
 
         # ---- ONE counted dispatch for the whole chunk
-        (fetched_dev, g_dev, version_dev, fetched_ver_dev, backup_dev, dc_m_dev, order_seq,
-         stale_seq, evals) = env.trainer.dispatch(
+        (fetched_dev, g_dev, version_dev, fetched_ver_dev, backup_dev, dc_m_dev, health_dev,
+         order_seq, stale_seq, evals) = env.trainer.dispatch(
             sig, chunk_fn, fetched_dev, g_dev, version_dev, fetched_ver_dev, backup_dev,
-            dc_m_dev, state.xs, state.ys, per_batch, lengths, eval_pos,
+            dc_m_dev, health_dev, state.xs, state.ys, per_batch, lengths, eval_pos,
         )
         fused_chunks += 1
         env.fleet.batched_calls += 1
@@ -923,10 +1050,12 @@ def run_async_fused(sim, env, scen, participants, plan):
         b += nc
 
     clock = float(plan.clocks[-1])
+    rejected = int(health_dev["rejected"]) if quar_cfg is not None else 0
     return _finalize(
         sim, env, acc_time, [], [], [], [1.0] * W, [g_dev] * W, comm_bytes, 0.0, clock,
         global_params=g_dev, host_roundtrips=roundtrip_total() - rt_base,
         flops_per_image_final=final_cost[0], blocks_per_image_final=final_cost[2],
-        prune_events=[], scenario_rounds=scen_rows, fault_ledger=plan.fault_ledger or {},
+        prune_events=[], scenario_rounds=scen_rows,
+        fault_ledger={**(plan.fault_ledger or {}), "quarantined_commits": rejected},
         fused_chunks=fused_chunks,
     )

@@ -38,9 +38,15 @@ The fleet need not be whole or still (``SimConfig.scenario``,
 ``core.scenario``): per-round client sampling, straggler dropout with the
 server's timeout, churn (a slot restarts as a fresh worker on a fresh
 shard), explicit schedules, Dirichlet label skew, and the ``core.faults``
-families drift, crash/recovery, regional outage and participation wave.  A
-round whose fault survivors fall below ``min_participants`` is skipped: the
-clock waits out the straggler deadline and nothing trains.  On the resident
+families drift, crash/recovery, regional outage, participation wave,
+byzantine workers and a lossy channel.  A round whose fault survivors fall
+below ``min_participants`` is skipped: the clock waits out the straggler
+deadline and nothing trains.  Under the byzantine and channel families, or
+with ``SimConfig.robust`` (clip, trimmed mean, quarantine), every sync
+engine aggregates through ``aggregation.robust_submission_step_dev`` on
+``[W, ...]`` stacks (the per-worker engines embed their submissions into
+base-shape stacks first), and a channel retry stretches the worker's update
+time and re-sends its upload.  On the resident
 engine a partial cohort trains as a power-of-two row bucket gathered from
 the stacks.  ``dgc_sparsity`` commits only the largest deltas at the
 submission boundary (DGC, host numpy as in the reference), and
@@ -60,7 +66,8 @@ fetched (``FleetEngine.scatter_global_rows``), the batch trains as one
 bucket-sized sub-stack and comes back in one host copy; the per-commit
 merges are ``aggregation.AsyncServer``'s, host numpy.  Async runs honour
 client sampling (a static cohort), dropout (a timed-out commit trains but
-is not merged) and crash faults; the sync-only families are refused.
+is not merged), crash faults, and the robust layer's per-commit clip and
+quarantine; the sync-only families and the trimmed mean are refused.
 
 All host randomness is numpy and is consumed in the reference's order (batch
 plans per active worker, then one jitter draw per active worker; the
@@ -103,11 +110,16 @@ from repro_torch.models.cnn import (
 
 from .aggregation import (
     AsyncServer,
+    RobustAggConfig,
     aggregate_by_unit,
     aggregate_by_unit_stacked,
     aggregate_by_worker,
     aggregate_by_worker_stacked,
+    coordinate_mask,
+    embed_params,
     extract_subparams,
+    noise_key,
+    robust_submission_step_dev,
     roundtrip_total,
     subparam_shapes,
     tally_roundtrip,
@@ -208,9 +220,11 @@ class SimConfig:
     scenario: Optional[ScenarioConfig] = None
     # FedDST mask regrowth (sync methods); None = monotone pruning only
     regrow: Optional[RegrowConfig] = None
-    # fields of the reference the port does not run yet; each is refused
-    # by name unless left at its default
-    robust: Optional[object] = None
+    # robust server aggregation (aggregation.RobustAggConfig): per-commit
+    # norm clip, coordinate-wise trimmed mean, MAD-outlier quarantine;
+    # by_worker only, and the async methods take clip and quarantine only
+    robust: Optional[RobustAggConfig] = None
+    # the mesh-sharded fleet: not ported yet, refused by name unless None
     mesh: Optional[object] = None
     # device compute path of the masked engine: "block_skip" (the CUDA
     # kernel; needs engine="masked") or "dense" (the only one on "fused")
@@ -275,10 +289,12 @@ class SimResult:
     rounds_skipped: int = 0      # rounds skipped: submitters < min_participants
     workers_recovered: int = 0   # offline -> online transitions
     retry_total: int = 0         # re-join rounds trained without aggregation
-    byz_commits: int = 0         # byzantine and channel families: refused
-    lost_commits: int = 0        # until robust aggregation is ported, so 0
-    dup_commits: int = 0
-    corrupt_commits: int = 0
+    byz_commits: int = 0         # commits from compromised workers
+    lost_commits: int = 0        # channel drops surviving every retry
+    dup_commits: int = 0         # delivered commits duplicated by the channel
+    corrupt_commits: int = 0     # delivered commits with garbled payloads
+    # commits the quarantine excluded (sync: quarantined submitter-rounds;
+    # async: rejected commits); 0 without SimConfig.robust.quarantine
     quarantined_commits: int = 0
     global_params: Optional[Dict[str, np.ndarray]] = None
     # async on the resident engine: walltime of the one-copy pulls of the
@@ -308,22 +324,31 @@ def validate_config(sim: SimConfig) -> None:
             "kernel's block-keep flags come from the 0/1 mask stacks, and the "
             "reconfigured engines already run physically small models"
         )
-    faults = sim.scenario.faults if sim.scenario is not None else None
-    for fam in ("byzantine", "channel"):
-        if faults is not None and getattr(faults, fam) is not None:
-            raise _refuse(f"scenario.faults.{fam}",
-                          f"the {fam} fault family needs robust aggregation (A9)")
     if sim.regrow is not None and sim.method not in SYNC_METHODS:
         raise ValueError(
             "SimConfig.regrow (FedDST mask readjustment) applies to the "
             "synchronous methods only — async workers never prune, so "
             "there is nothing to regrow"
         )
-    if sim.robust is not None:
-        raise _refuse("robust", "robust aggregation: clip, trimmed mean, quarantine "
-                                "(A9), on every engine")
     if sim.mesh is not None:
         raise _refuse("mesh", "the mesh-sharded fleet on the fused engine (A10)")
+    if sim.robust is not None and sim.aggregation != "by_worker":
+        raise ValueError(
+            "SimConfig.robust (clip/trimmed-mean/quarantine) requires "
+            "aggregation='by_worker' — the robust layer defends "
+            "per-worker commit deltas, and by_unit's per-coordinate "
+            f"holder counts have no delta to clip; got "
+            f"aggregation={sim.aggregation!r}"
+        )
+    faults = sim.scenario.faults if sim.scenario is not None else None
+    if faults is not None and sim.aggregation != "by_worker":
+        for fam in ("byzantine", "channel"):
+            if getattr(faults, fam) is not None:
+                raise ValueError(
+                    f"FaultConfig.{fam} perturbs per-worker commit deltas and "
+                    "requires aggregation='by_worker'; got "
+                    f"aggregation={sim.aggregation!r}"
+                )
     if sim.method in ASYNC_METHODS:
         _validate_async(sim)
     if sim.resident_momentum and sim.engine not in ("masked", "fused"):
@@ -350,16 +375,27 @@ def validate_config(sim: SimConfig) -> None:
 
 def _validate_async(sim: SimConfig) -> None:
     """The reference's refusals for the async schedulers, in its order and
-    with its messages: the sync-only scenario parts and fault families."""
+    with its messages: the sync-only scenario parts and fault families, and
+    the trimmed mean."""
     if sim.resident_momentum:
         raise ValueError(
             "resident_momentum is a synchronous-round carry; the async "
             "schedulers restart momentum per commit like their per-worker "
             "twins"
         )
-    cfg = sim.scenario
-    if cfg is None:
-        return
+    if sim.scenario is not None:
+        _validate_async_scenario(sim.scenario)
+    rb = sim.robust
+    if rb is not None and rb.any_active and rb.trim > 0.0:
+        raise ValueError(
+            f"RobustAggConfig.trim={rb.trim} (coordinate-wise trimmed "
+            "mean) is a synchronous cohort statistic — async commits arrive "
+            "one at a time with no [W, ...] stack to take order statistics "
+            "over; async servers support clip + quarantine only"
+        )
+
+
+def _validate_async_scenario(cfg: ScenarioConfig) -> None:
     if cfg.schedule is not None:
         raise ValueError(
             "async schedulers draw their own event stream; per-round "
@@ -394,6 +430,21 @@ def _validate_async(sim: SimConfig) -> None:
             "client sampling is a static cohort drawn once at run "
             "start, not a per-round C(t); wave applies to the "
             "synchronous methods only"
+        )
+    if f.byzantine is not None:
+        raise ValueError(
+            "async schedulers reject the byzantine fault family — the "
+            "compromised-cohort draw is a per-round block on the "
+            "synchronous fault stream with no per-commit analogue yet "
+            "(byzantine is sync-only for now)"
+        )
+    if f.channel is not None:
+        raise ValueError(
+            "async schedulers reject the channel fault family — "
+            "drop/duplicate/corrupt delivery is modelled at the "
+            "synchronous submission boundary, and the pre-simulated "
+            "async event plan has no retry clock (channel is sync-only "
+            "for now)"
         )
 
 
@@ -785,7 +836,71 @@ def _skip_round_time(env: _Env, scen: ScenarioEngine, indices, round_t: int) -> 
 
 
 def _to_device(arrays: Mapping[str, np.ndarray], device) -> Dict[str, torch.Tensor]:
-    return {k: torch.as_tensor(v, device=device) for k, v in arrays.items()}
+    """Host params as float32 tensors (a clipped async commit leaves the
+    server's params in float64; the reference's arrays enter JAX as float32)."""
+    return {k: torch.as_tensor(np.asarray(v, np.float32), device=device)
+            for k, v in arrays.items()}
+
+
+def _commit_multiplicity(events) -> np.ndarray:
+    """Per-worker commit weight: submit x delivered x (1 + dup), host
+    float64.  With no channel model it is the submitter indicator, so its
+    normalized weights are the plain mean's."""
+    mult = events.submitters.astype(np.float64)
+    if events.delivered is not None:
+        mult = mult * events.delivered * (1.0 + events.dup)
+    return mult
+
+
+def _robust_statics(sim: SimConfig):
+    """``(byzantine cfg, channel cfg, corruption on, active robust cfg,
+    robust path on)``: all None/False leaves every branch the plain one."""
+    faults = sim.scenario.faults if sim.scenario is not None else None
+    byz_cfg = faults.byzantine if faults is not None else None
+    ch_cfg = faults.channel if faults is not None else None
+    corrupt_on = ch_cfg is not None and ch_cfg.corrupt > 0.0
+    rb_cfg = sim.robust if sim.robust is not None and sim.robust.any_active else None
+    robust_on = byz_cfg is not None or ch_cfg is not None or rb_cfg is not None
+    return byz_cfg, ch_cfg, corrupt_on, rb_cfg, robust_on
+
+
+def _robust_step_kwargs(byz_cfg, ch_cfg, corrupt_on, rb_cfg) -> dict:
+    """The static keyword arguments of ``robust_submission_step_dev`` for
+    this world (the reference's defaults where a family is off)."""
+    return dict(
+        byz_mode=byz_cfg.mode if byz_cfg is not None else "sign_flip",
+        byz_scale=byz_cfg.scale if byz_cfg is not None else -10.0,
+        byz_noise_std=byz_cfg.noise_std if byz_cfg is not None else 1.0,
+        corrupt_std=ch_cfg.corrupt_std if corrupt_on else 10.0,
+        clip=rb_cfg.clip if rb_cfg is not None else None,
+        trim=rb_cfg.trim if rb_cfg is not None else 0.0,
+        quarantine=rb_cfg.quarantine if rb_cfg is not None else None,
+    )
+
+
+def _robust_aggregate(stacks, masks, global_params, mult, events, byz_cfg, ch_cfg,
+                      corrupt_on, rb_cfg, seed: int, t: int, strikes, quar_left):
+    """The reference's ``_robust_aggregate_host``: one robust server round
+    on ``[W, ...]`` stacks (device tensors) through
+    ``robust_submission_step_dev``, the function the fused chunk runs.
+    Returns ``(new global, strikes', quar_left', quar_now)``, ``quar_now`` a
+    host bool ``[W]`` or None."""
+    dev = next(iter(stacks.values())).device
+    ms = mult.sum()
+    weights = (mult / ms).astype(np.float32) if ms > 0 else np.zeros_like(mult, np.float32)
+    byz_row = (events.byz & events.submitters
+               if byz_cfg is not None and events.byz is not None else None)
+    cor_row = (events.corrupt & events.delivered & events.submitters
+               if corrupt_on and events.corrupt is not None else None)
+    new_g, st2, qu2, quar_now = robust_submission_step_dev(
+        stacks, masks, global_params,
+        torch.as_tensor(mult.astype(np.float32), device=dev),
+        torch.as_tensor(weights, device=dev), byz_row, cor_row,
+        noise_key(seed + 51721, t) if byz_cfg is not None else None,
+        noise_key(seed + 51722, t) if corrupt_on else None,
+        strikes, quar_left, **_robust_step_kwargs(byz_cfg, ch_cfg, corrupt_on, rb_cfg),
+    )
+    return new_g, st2, qu2, None if quar_now is None else quar_now.cpu().numpy()
 
 
 def _run_sync(sim: SimConfig, env: _Env) -> SimResult:
@@ -795,6 +910,12 @@ def _run_sync(sim: SimConfig, env: _Env) -> SimResult:
     lam = sim.lam if sparse else 0.0
     resident = sim.engine == "masked"
     scen = ScenarioEngine(sim.scenario, W) if sim.scenario is not None else None
+    byz_cfg, ch_cfg, corrupt_on, rb_cfg, robust_on = _robust_statics(sim)
+    rb_strikes = rb_quar = None
+    if rb_cfg is not None and rb_cfg.quarantine is not None:
+        rb_strikes = torch.zeros(W, dtype=torch.int32, device=env.device)
+        rb_quar = torch.zeros(W, dtype=torch.int32, device=env.device)
+    quarantined_commits = 0
     dgc_residuals: List[Dict[str, np.ndarray]] = [{} for _ in range(W)]
     dgc_res_stack: Optional[Dict[str, np.ndarray]] = None
 
@@ -1062,13 +1183,24 @@ def _run_sync(sim: SimConfig, env: _Env) -> SimResult:
                 shapes_w = subparam_shapes(indices[w], env.unit_map, env.base_shapes)
             else:
                 shapes_w = {k: tuple(v.shape) for k, v in worker_params[w].items()}
+            # channel retries stretch the drift factor first (d * r), then
+            # the jitter joins: the fused engine's float grouping
+            retry_mult = 1.0
+            if ch_cfg is not None and events.retries is not None and submitters[w]:
+                retry_mult = 1.0 + ch_cfg.retry_backoff * float(events.retries[w])
             phi_w = env.phi(w, shapes_w, jitter=True, payload_factor=pf,
-                            time_mult=float(dm[w]) if dm is not None else 1.0)
+                            time_mult=(float(dm[w]) if dm is not None else 1.0) * retry_mult)
             phis[w] = phi_w
             interval_phis[w].append(phi_w)
             if submitters[w]:
                 bytes_w = sum(int(np.prod(s)) * 4 for s in shapes_w.values())
-                comm_bytes += 2.0 * pf * bytes_w
+                # every retry re-sends the upload; a delivered duplicate
+                # arrives twice
+                extra = 0.0
+                if ch_cfg is not None and events.retries is not None:
+                    extra = (float(events.retries[w])
+                             + float(events.dup[w] & events.delivered[w])) * pf * bytes_w
+                comm_bytes += 2.0 * pf * bytes_w + extra
             pending_rates[w] = 0.0
         sub_phis = phis[submitters]
         round_time = float(sub_phis.max())
@@ -1081,14 +1213,42 @@ def _run_sync(sim: SimConfig, env: _Env) -> SimResult:
             sim_traj.append((t, similarity(indices[1], indices[3])))
 
         t0 = _time.perf_counter()
+        quar_now = None
         if resident and sim.aggregation == "by_unit":
             agg = aggregate_by_unit_stacked(agg_stacks, state.masks, submitters)
+        elif resident and robust_on:
+            mult = _commit_multiplicity(events)
+            agg, rb_strikes, rb_quar, quar_now = _robust_aggregate(
+                agg_stacks, state.masks, global_params, mult, events, byz_cfg, ch_cfg,
+                corrupt_on, rb_cfg, sim.seed, t, rb_strikes, rb_quar)
         elif resident:
             agg = aggregate_by_worker_stacked(agg_stacks, submitters / submitters.sum())
+        elif robust_on and sim.aggregation != "by_unit":
+            # the per-worker engines embed their submissions into [W, ...]
+            # base stacks for the same robust round; rows without a commit
+            # carry their masked global (a zero delta), weight 0
+            mult = _commit_multiplicity(events)
+            masks_np = {k: np.stack([coordinate_mask(k, indices[w], env.unit_map, env.base_shapes)
+                                     for w in range(W)]).astype(np.float32)
+                        for k in env.base_shapes}
+            stack_masks = _to_device(masks_np, env.device)
+            rows = []
+            for w in range(W):
+                if w in worker_params:
+                    rows.append(embed_params(worker_params[w], indices[w], env.unit_map,
+                                             env.base_shapes))
+                else:
+                    rows.append({k: global_params[k] * stack_masks[k][w] for k in stack_masks})
+            stacks = {k: torch.stack([r[k].float() for r in rows]) for k in stack_masks}
+            agg, rb_strikes, rb_quar, quar_now = _robust_aggregate(
+                stacks, stack_masks, global_params, mult, events, byz_cfg, ch_cfg,
+                corrupt_on, rb_cfg, sim.seed, t, rb_strikes, rb_quar)
         else:
             submissions = [(worker_params[w], indices[w]) for w in active_ws if submitters[w]]
             aggregate = aggregate_by_unit if sim.aggregation == "by_unit" else aggregate_by_worker
             agg = aggregate(submissions, env.unit_map, env.base_shapes)
+        if quar_now is not None:
+            quarantined_commits += int((quar_now & (mult > 0)).sum())
         global_params = {k: v.float() for k, v in agg.items()}
         if adapt and (t % sim.prune_interval == 0 or events.drift_changed):
             _learn_rates(t, events.drift_changed)
@@ -1108,7 +1268,7 @@ def _run_sync(sim: SimConfig, env: _Env) -> SimResult:
         flops_per_image_final=float(np.mean([c[0] for c in final_costs])),
         blocks_per_image_final=float(np.mean([c[2] for c in final_costs])),
         prune_events=prune_events, scenario_rounds=scen_rows,
-        fault_ledger=fault_ledger(events_log),
+        fault_ledger={**fault_ledger(events_log), "quarantined_commits": quarantined_commits},
     )
 
 
@@ -1262,9 +1422,12 @@ def _run_async(sim: SimConfig, env: _Env) -> SimResult:
     resident = sim.engine == "masked"
     idx = full_index(env.space)
     global_params = params_to_numpy(env.base_params)
+    rb_cfg = sim.robust if sim.robust is not None and sim.robust.any_active else None
     server = AsyncServer(
         sim.method, global_params, W, cohort_size=n_part, fedasync_a=sim.fedasync_a,
         lr=sim.lr, dcasgd_lambda=sim.dcasgd_lambda, dcasgd_m=sim.dcasgd_m,
+        clip_norm=rb_cfg.clip if rb_cfg is not None else None,
+        quarantine=rb_cfg.quarantine if rb_cfg is not None else None,
     )
     # the server rebinds a fresh dict per commit, so snapshots are references
     fetched = [dict(global_params) for _ in range(W)]
@@ -1332,7 +1495,8 @@ def _run_async(sim: SimConfig, env: _Env) -> SimResult:
         global_params=final, host_roundtrips=roundtrip_total() - rt_base,
         flops_per_image_final=final_cost[0], blocks_per_image_final=final_cost[2],
         prune_events=[], scenario_rounds=[(0, n_part, 0, 0)] if scen is not None else [],
-        fault_ledger=plan.fault_ledger or {},
+        fault_ledger={**(plan.fault_ledger or {}),
+                      "quarantined_commits": int(server.rejected_commits)},
     )
     result.host_pull_s = env.fleet.pull_walltime_s
     return result

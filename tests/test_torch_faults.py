@@ -23,7 +23,8 @@ does between the reference's own engines (ROADMAP queue C); the events,
 clocks and ledgers stay exact.
 
 Then the goldens of ``tests/test_faults.py`` mirrored on the port, and the
-byzantine and channel families refused by field name.
+byzantine and channel families refused by field name where the reference
+refuses them (by_unit aggregation).
 """
 import jax
 import numpy as np
@@ -329,11 +330,17 @@ def test_fault_ledger_pure_function():
                                          ("channel", dict(drop=0.2))])
 @pytest.mark.parametrize("engine", ["sequential", "masked"])
 def test_byzantine_and_channel_are_refused_by_name(family, args, engine):
+    """The byzantine and channel families run (tests/test_torch_robust_*.py);
+    the reference refuses them, by name, under by_unit aggregation, which
+    has no per-worker delta to perturb."""
     sim = TSimConfig(rounds=1, num_workers=2, device="cpu", engine=engine,
-                     scenario=scenario("port", faults={family: args}))
-    with pytest.raises(ValueError, match=rf"SimConfig\.scenario\.faults\.{family}") as err:
+                     aggregation="by_unit", scenario=scenario("port", faults={family: args}))
+    with pytest.raises(ValueError, match=rf"FaultConfig\.{family} perturbs per-worker commit"):
         t_run(sim)
-    assert "ROADMAP" in str(err.value)
+    jsim_cfg = JSimConfig(rounds=1, num_workers=2, engine=engine, aggregation="by_unit",
+                          scenario=scenario("jax", faults={family: args}))
+    with pytest.raises(ValueError, match=rf"FaultConfig\.{family} perturbs per-worker commit"):
+        j_run(jsim_cfg)
 
 
 @pytest.mark.parametrize("engine", ["sequential", "bucketed"])

@@ -27,6 +27,7 @@ from repro.core import simulation as jsim
 from repro.core.timing import HeterogeneityConfig as JHet
 from repro.data.synthetic import SyntheticImageTask as JTask
 from repro.models import cnn as jcnn
+from repro_torch.core import aggregation as tagg
 from repro_torch.core import faults as tf
 from repro_torch.core import fused as tfused
 from repro_torch.core import scenario as tsc
@@ -282,13 +283,19 @@ class _Dummy:
     pass
 
 
+# the robust layer and the byzantine and channel families run on the fused
+# engine; the first, third and fourth cases (their ids kept) are now the
+# reference's own async refusals: the trimmed mean, byzantine, channel
 @pytest.mark.parametrize("kw,field,why", [
-    (dict(robust=_Dummy()), "robust", "A9"),
+    pytest.param(dict(method="fedasync_s", robust=tagg.RobustAggConfig(trim=0.2)),
+                 r"RobustAggConfig\.trim=0\.2", "clip + quarantine only", id="kw0-robust-A9"),
     (dict(mesh=_Dummy()), "mesh", "A10"),
-    (dict(scenario=tsc.ScenarioConfig(faults=tf.FaultConfig(
-        byzantine=tf.ByzantineConfig(workers=(0,))))), r"scenario\.faults\.byzantine", "A9"),
-    (dict(scenario=tsc.ScenarioConfig(faults=tf.FaultConfig(
-        channel=tf.ChannelConfig(drop=0.1)))), r"scenario\.faults\.channel", "A9"),
+    pytest.param(dict(method="fedasync_s", scenario=tsc.ScenarioConfig(faults=tf.FaultConfig(
+        byzantine=tf.ByzantineConfig(workers=(0,))))), "byzantine fault family",
+        "byzantine is sync-only", id="kw2-scenario\\.faults\\.byzantine-A9"),
+    pytest.param(dict(method="fedasync_s", scenario=tsc.ScenarioConfig(faults=tf.FaultConfig(
+        channel=tf.ChannelConfig(drop=0.1)))), "channel fault family",
+        "channel is sync-only", id="kw3-scenario\\.faults\\.channel-A9"),
     (dict(compute="block_skip"), "compute", "compute='dense' only"),
     (dict(importance="hrank"), "importance", "host-side statistics"),
     (dict(importance="fpgm"), "importance", "host-side statistics"),

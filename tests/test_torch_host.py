@@ -308,36 +308,48 @@ def _byzantine_scenario():
     return ScenarioConfig(faults=FaultConfig(byzantine=ByzantineConfig(workers=(0,))))
 
 
-# explicit ids keep each case's name from before scenarios, DGC and the fused
-# engine were ported; a scenario is refused only for the byzantine and
-# channel families (tests/test_torch_faults.py), resident_momentum only off
-# the resident engines (the default engine is sequential), and on the fused
-# engine (ported) the mesh stays refused (A10)
-@pytest.mark.parametrize("field,value,extra,why", [
-    pytest.param("mesh", _Dummy(), dict(engine="fused"), "ROADMAP", id="engine-fused"),
-    pytest.param("scenario", _byzantine_scenario(), {}, "ROADMAP", id="scenario-value1"),
-    pytest.param("robust", _Dummy(), {}, "ROADMAP", id="robust-value4"),
-    pytest.param("mesh", _Dummy(), {}, "ROADMAP", id="mesh-value5"),
-    pytest.param("resident_momentum", True, {}, "engine='masked' or 'fused'",
-                 id="resident_momentum-True"),
+def _defense():
+    from repro_torch.core.aggregation import QuarantineConfig, RobustAggConfig
+
+    return RobustAggConfig(clip=5.0, trim=0.2, quarantine=QuarantineConfig())
+
+
+# explicit ids keep each case's name from before scenarios, DGC, the fused
+# engine and the robust layer were ported; the byzantine family and the
+# robust layer are refused only where the reference refuses them (by_unit
+# aggregation), resident_momentum only off the resident engines (the default
+# engine is sequential), and the mesh stays refused (A10)
+@pytest.mark.parametrize("field,value,extra,match,why", [
+    pytest.param("mesh", _Dummy(), dict(engine="fused"), r"SimConfig\.mesh", "ROADMAP",
+                 id="engine-fused"),
+    pytest.param("scenario", _byzantine_scenario(), dict(aggregation="by_unit"),
+                 r"FaultConfig\.byzantine perturbs", "aggregation='by_worker'",
+                 id="scenario-value1"),
+    pytest.param("robust", _defense(), dict(aggregation="by_unit"), r"SimConfig\.robust",
+                 "aggregation='by_worker'", id="robust-value4"),
+    pytest.param("mesh", _Dummy(), {}, r"SimConfig\.mesh", "ROADMAP", id="mesh-value5"),
+    pytest.param("resident_momentum", True, {}, r"SimConfig\.resident_momentum",
+                 "engine='masked' or 'fused'", id="resident_momentum-True"),
 ])
-def test_out_of_slice_fields_are_refused_by_name(field, value, extra, why):
+def test_out_of_slice_fields_are_refused_by_name(field, value, extra, match, why):
     sim = SimConfig(rounds=1, num_workers=2, device="cpu", **{field: value}, **extra)
-    with pytest.raises(ValueError, match=rf"SimConfig\.{field}") as err:
+    with pytest.raises(ValueError, match=match) as err:
         run_simulation(sim)
     assert why in str(err.value)
 
 
 @pytest.mark.parametrize("method", ["fedasync_s", "ssp_s", "dcasgd_s"])
 def test_async_on_the_fused_engine_is_refused_by_name(method):
-    """The async methods run on every engine, ``fused`` included; the async
-    server's robust layer (clip_norm, quarantine) stays refused there by
-    name (ROADMAP A9)."""
-    sim = SimConfig(method=method, engine="fused", robust=_Dummy(), rounds=1, num_workers=2,
-                    device="cpu")
-    with pytest.raises(ValueError, match=r"SimConfig\.robust") as err:
+    """The async methods run on every engine, ``fused`` included, with the
+    robust layer's clip and quarantine; the trimmed mean is refused by name
+    for them, on the fused engine too, as in the reference."""
+    from repro_torch.core.aggregation import RobustAggConfig
+
+    sim = SimConfig(method=method, engine="fused", robust=RobustAggConfig(trim=0.2), rounds=1,
+                    num_workers=2, device="cpu")
+    with pytest.raises(ValueError, match=r"RobustAggConfig\.trim=0\.2") as err:
         run_simulation(sim)
-    assert "ROADMAP" in str(err.value) and "A9" in str(err.value)
+    assert "clip + quarantine only" in str(err.value)
 
 
 @pytest.mark.parametrize("method", ["fedasync_s", "ssp_s", "dcasgd_s"])
