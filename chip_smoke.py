@@ -224,6 +224,25 @@ in one FaultConfig; DEFENSE: clip 5, trim 0.2, quarantine with probation
                    quarantined commits > 0; final_acc within the
                    reference's own 0.01.
 
+Slice 10, the mesh-sharded fleet (``SimConfig.mesh`` on the fused sync
+engine over ``torch.distributed``), each phase on a one-rank NCCL group
+(``launch.mesh.fleet_group``, ``file://`` rendezvous) started and destroyed
+around it; no kernel of the repo runs on it (the fused engine is dense):
+
+27. mesh         — ``fused``'s FLEET run with ``mesh=make_fleet_mesh(1)``:
+                   bitwise equal to the no-mesh fused run (global params,
+                   every chunk's presence trail, prune events, scenario
+                   rounds, ledger, clocks, dispatches) and to ``fused``'s own
+                   run; ``n_devices == fleet_axis_size == 1`` and
+                   ``shard_spec == "PartitionSpec('fleet')"``; the second
+                   chunk under the sync check with its collectives inside;
+                   collective calls a round, ms of the round's ``psum_fleet``
+                   of the VGG16 global and of a chunk's trail gather, the
+                   group's start seconds, ms a round beside fused's.
+28. robust_mesh  — the same for ``robust_fused``'s world (BYZ + CHAN under
+                   DEFENSE: the quarantine's gathers and the trimmed mean's
+                   vote gather inside the chunk).
+
 Then a ``{"phase": "done"}`` line with the script's seconds, a
 ``{"kernels": [...]}`` line, the ``nvidia-smi`` name/power line, and as the
 last line ``{"ok": true, "device": {...}}``.  Details go to
@@ -2555,7 +2574,7 @@ def phase_fused(report):
     check_first_round(fr, "fused")
     check(all(np.isfinite(v).all() for v in res.global_params.values()), "fused: non-finite params")
     torch.cuda.empty_cache()
-    return rec
+    return res, again
 
 
 def fused_dgc_spy():
@@ -3054,6 +3073,155 @@ def phase_robust_fused(report, dense, envelope):
     check(all(np.isfinite(v).all() for v in res.global_params.values()),
           "robust_fused: non-finite params")
     torch.cuda.empty_cache()
+    return res, again
+
+
+# ---------------------------------------------------------------------------
+# slice 10: the mesh-sharded fleet, on a one-rank NCCL group
+# ---------------------------------------------------------------------------
+
+MESH_LEDGER = LEDGER_FIELDS + ("byz_commits", "lost_commits", "dup_commits", "corrupt_commits",
+                               "quarantined_commits")
+
+
+@contextlib.contextmanager
+def presence_trails(store):
+    """Keeps every sync chunk's ``[n, W_local, U]`` presence trail (a device
+    tensor: nothing is read inside a chunk) in ``store``."""
+    from repro_torch.core import fused
+
+    real = fused._SyncChunk.__call__
+
+    def spy(self, *a, **kw):
+        out = real(self, *a, **kw)
+        store.append(out[6])
+        return out
+
+    fused._SyncChunk.__call__ = spy
+    try:
+        yield
+    finally:
+        fused._SyncChunk.__call__ = real
+
+
+def bit_identical(a, b, trails_a=None, trails_b=None):
+    """Which parts of two results are bit-identical."""
+    out = {
+        "global_params": all(np.array_equal(a.global_params[k], b.global_params[k])
+                             for k in a.global_params),
+        "prune_events": a.prune_events == b.prune_events,
+        "scenario_rounds": a.scenario_rounds == b.scenario_rounds,
+        "ledger": all(getattr(a, f) == getattr(b, f) for f in MESH_LEDGER),
+        "clocks": same_clock(a, b) and a.total_time == b.total_time,
+        "acc_time": a.acc_time == b.acc_time,
+        "counters": (a.host_dispatches, a.fused_chunks) == (b.host_dispatches, b.fused_chunks),
+    }
+    if trails_a is not None:
+        out["presence_trail"] = len(trails_a) == len(trails_b) and all(
+            bool(torch_equal(x, y)) for x, y in zip(trails_a, trails_b))
+    return out
+
+
+def torch_equal(x, y) -> bool:
+    import torch
+
+    return x.shape == y.shape and bool(torch.equal(x, y))
+
+
+def collective_ms(mesh, global_params, trail_shape):
+    """One round's aggregation collective at full width (``psum_fleet`` of
+    the VGG16 global) and one chunk's trail gather, timed with CUDA events."""
+    import torch
+    from repro_torch.sharding.collectives import all_gather_fleet, psum_fleet
+
+    g = {k: torch.as_tensor(v, device=DEVICE) for k, v in global_params.items()}
+    trail = torch.zeros(trail_shape, device=DEVICE)
+    return {"psum_global_ms": time_ms(lambda: psum_fleet(g, mesh), iters=10, warm=2),
+            "gather_trail_ms": time_ms(lambda: all_gather_fleet(trail, mesh, dim=1), iters=10,
+                                       warm=2),
+            "global_bytes": int(sum(v.numel() * 4 for v in g.values()))}
+
+
+def mesh_run(tag, sim_fn, ref, ref_again):
+    """``sim_fn()`` without a mesh (presence trails kept) and on a one-rank
+    NCCL mesh: the second chunk under the sync check, collectives counted,
+    then the same run again warm.  Returns the record and the mesh run."""
+    import torch
+    from repro_torch.core import fused
+    from repro_torch.core.simulation import run_simulation
+    from repro_torch.kernels.pruned_matmul import LAUNCHES, reset_launches
+    from repro_torch.launch.mesh import fleet_group, make_fleet_mesh
+    from repro_torch.sharding import collectives
+
+    base_trails, mesh_trails = [], []
+    with presence_trails(base_trails):
+        base = run_simulation(sim_fn())
+    t0 = time.perf_counter()
+    with fleet_group(device=DEVICE):
+        mesh = make_fleet_mesh(1)
+        group_s = time.perf_counter() - t0
+        reset_launches()
+        collectives.reset_calls()
+        with sync_checked_chunk(fused._SyncChunk) as seen, presence_trails(mesh_trails):
+            res = run_simulation(sim_fn(mesh=mesh))
+        calls = dict(collectives.CALLS)
+        launches = dict(LAUNCHES)
+        again = run_simulation(sim_fn(mesh=mesh))
+        trail = (FUSED_ROUND_FUSION,) + tuple(base_trails[0].shape[1:])
+        coll = collective_ms(mesh, res.global_params, trail)
+        backend = mesh.backend
+    rounds = len(res.update_times)
+    same = bit_identical(res, base, mesh_trails, base_trails)
+    same_ref = bit_identical(res, ref)
+    rec = {
+        "phase": tag, "backend": backend, "ranks": 1,
+        "nccl_group_s": group_s, "first_collective_s": mesh.init_s,
+        "n_devices": res.n_devices, "fleet_axis_size": res.fleet_axis_size,
+        "shard_spec": res.shard_spec, "fused_chunks": res.fused_chunks,
+        "host_dispatches": [res.host_dispatches, base.host_dispatches],
+        "sync_checked_chunks": seen["checked"], "kernel_launches": launches,
+        "collective_calls": calls, "collective_calls_per_round": calls["all_gather"] / rounds,
+        "bit_identical": same, "bit_identical_to_earlier_phase": same_ref,
+        "final_acc": [res.final_acc, base.final_acc],
+        **coll,
+        # walltime per round: mesh (first run, warm run) beside the no-mesh
+        # fused runs of this call (the earlier phase's warm run, this one)
+        "ms_per_round": per_round_ms(res), "ms_per_round_again": per_round_ms(again),
+        "fused_ms_per_round_again": per_round_ms(ref_again),
+        "fused_ms_per_round_here": per_round_ms(base),
+    }
+    emit(rec)
+    check(backend == "nccl", f"{tag}: the mesh runs on {backend}, not NCCL")
+    check(seen["checked"] == 1, f"{tag}: no chunk ran under the sync check")
+    check(all(same.values()), f"{tag}: the one-rank mesh differs from no mesh: {same}")
+    check(all(same_ref.values()), f"{tag}: the one-rank mesh differs from the earlier phase's "
+                                  f"fused run: {same_ref}")
+    check((res.n_devices, res.fleet_axis_size, res.shard_spec) == (1, 1, "PartitionSpec('fleet')"),
+          f"{tag}: mesh fields {res.n_devices}, {res.fleet_axis_size}, {res.shard_spec}")
+    check(calls["all_gather"] >= rounds, f"{tag}: {calls} collectives in {rounds} rounds")
+    check(not any(launches.values()), f"{tag}: the dense path launched the block-skip kernel")
+    check(all(np.isfinite(v).all() for v in res.global_params.values()), f"{tag}: non-finite params")
+    torch.cuda.empty_cache()
+    return rec
+
+
+def phase_mesh(report, fused_res, fused_again):
+    """The ``fused`` phase's FLEET run on a one-rank NCCL fleet mesh: bitwise
+    equal to the no-mesh fused run (global params, presence trail, prune
+    events, scenario rounds, ledger, clocks), the second chunk under the
+    sync check with its collectives inside, ms a round beside fused's."""
+    rec = mesh_run("mesh", fused_fleet_sim, fused_res, fused_again)
+    report["mesh"] = rec
+    return rec
+
+
+def phase_robust_mesh(report, rf_res, rf_again):
+    """The ``robust_fused`` world (BYZ + CHAN under DEFENSE) on a one-rank
+    NCCL fleet mesh, bitwise equal to the no-mesh fused run."""
+    rec = mesh_run("robust_mesh", lambda **kw: robust_sim(engine="fused", compute="dense", **kw),
+                   rf_res, rf_again)
+    report["robust_mesh"] = rec
+    check(rec["bit_identical"]["ledger"], "robust_mesh: ledgers differ")
     return rec
 
 
@@ -3264,7 +3432,7 @@ def main() -> int:
         save(report)
         phase_regrow(report)
         save(report)
-        phase_fused(report)
+        f_res, f_again = phase_fused(report)
         save(report)
         phase_fused_dgc(report, dgc_rec, dgc_dense, dgc_dense_kept)
         save(report)
@@ -3274,9 +3442,13 @@ def main() -> int:
         save(report)
         rb_launches, rb_res, rb_dense, rb_envelope = phase_robust(report)
         save(report)
-        phase_robust_fused(report, rb_dense, rb_envelope)
+        rf_res, rf_again = phase_robust_fused(report, rb_dense, rb_envelope)
         save(report)
         ar_launches, ar_res = phase_async_robust(report)
+        save(report)
+        phase_mesh(report, f_res, f_again)
+        save(report)
+        phase_robust_mesh(report, rf_res, rf_again)
     steps = max(res.train_steps, 1)
     rb_steps = max(rb_res.train_steps, 1)
     s_steps = max(s_res.train_steps, 1)

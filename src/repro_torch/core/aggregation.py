@@ -45,6 +45,11 @@ garble are host flags (each flagged row's noise is drawn alone, at its own
 counters).  The async servers take the clip and the quarantine per commit
 (``AsyncServer`` on the host, ``async_commit_dev`` and
 ``async_health_step_dev`` in the fused chunk).
+
+**The mesh-sharded fleet** (``SimConfig.mesh``) passes ``mesh=`` to the
+device server: each rank aggregates its own rows and the ranks meet in
+``sharding.collectives`` — the two-tier sums close with ``psum_fleet``,
+the trimmed mean and the health step all-gather the fleet's votes.
 """
 from __future__ import annotations
 
@@ -53,6 +58,8 @@ from typing import Dict, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+
+from repro_torch.sharding.collectives import all_gather_fleet, psum_fleet, shard_row_slice
 
 from . import prng
 from .masks import GlobalIndex
@@ -387,25 +394,35 @@ class AsyncServer:
 def aggregate_by_worker_stacked_dev(
     param_stacks: Mapping[str, torch.Tensor],   # {path: [W, ...]} masked stacks
     weights: torch.Tensor,                      # [W] float32; 0 for non-submitters
+    mesh=None,
 ) -> Params:
-    """By-worker aggregation in float32 on the stacks' device."""
-    return {path: torch.tensordot(weights, stack, dims=1)
-            for path, stack in param_stacks.items()}
+    """By-worker aggregation in float32 on the stacks' device.  With a
+    ``mesh`` the stacks are this rank's rows: the local weighted sum is the
+    regional tier, and ``psum_fleet`` over the fleet axis the global one."""
+    out = {path: torch.tensordot(weights, stack, dims=1)
+           for path, stack in param_stacks.items()}
+    return out if mesh is None else psum_fleet(out, mesh)
 
 
 def aggregate_by_unit_stacked_dev(
     param_stacks: Mapping[str, torch.Tensor],
     mask_stacks: Mapping[str, torch.Tensor],
     submitters: torch.Tensor,                   # [W] float32 0/1
+    mesh=None,
 ) -> Params:
     """Per-coordinate mean over the submitting rows holding the coordinate,
-    float32 on the device."""
-    out: Params = {}
-    for path, stack in param_stacks.items():
-        num = torch.tensordot(submitters, stack, dims=1)
-        den = torch.tensordot(submitters, mask_stacks[path], dims=1)
-        out[path] = num / torch.clamp_min(den, 1.0)
-    return out
+    float32 on the device.  With a ``mesh`` the numerator and the holder
+    count each sum over the fleet axis before the division, so each
+    coordinate is divided by the fleet's holder count, not the rank's."""
+    num = {path: torch.tensordot(submitters, stack, dims=1)
+           for path, stack in param_stacks.items()}
+    den = {path: torch.tensordot(submitters, mask_stacks[path], dims=1) for path in num}
+    if mesh is not None:
+        both = psum_fleet({**{("num", k): v for k, v in num.items()},
+                           **{("den", k): v for k, v in den.items()}}, mesh)
+        num = {k: both[("num", k)] for k in num}
+        den = {k: both[("den", k)] for k in den}
+    return {path: num[path] / torch.clamp_min(den[path], 1.0) for path in num}
 
 
 def dgc_compress_dev(
@@ -832,14 +849,32 @@ def robust_aggregate_stacked_dev(
     mask_stacks: Optional[Mapping[str, torch.Tensor]] = None,
     *,
     trim: float = 0.0,
+    mesh=None,
 ) -> Params:
     """The robust server's aggregation step.  ``trim == 0`` is
     ``aggregate_by_worker_stacked_dev`` itself; ``trim > 0`` the trimmed
     mean, where only ``weights > 0`` counts (a duplicated delivery is one
-    vote)."""
+    vote).  With a ``mesh`` the trimmed mean all-gathers every rank's rows,
+    masks and weights first (an order statistic needs every vote) and runs
+    on the whole fleet, replicated."""
     if trim == 0.0:
-        return aggregate_by_worker_stacked_dev(param_stacks, weights)
+        return aggregate_by_worker_stacked_dev(param_stacks, weights, mesh)
+    if mesh is not None:
+        param_stacks, mask_stacks, weights = _gather_votes(param_stacks, mask_stacks, weights,
+                                                           mesh)
     return trimmed_mean_stacked_dev(param_stacks, mask_stacks, weights > 0, trim)
+
+
+def _gather_votes(stacks, masks, weights, mesh):
+    """Every rank's rows of the stacks, masks (or None) and ``[W_local]``
+    weights, as full-fleet tensors, in one gather."""
+    tree = {("p", k): v for k, v in stacks.items()}
+    if masks is not None:
+        tree.update({("m", k): masks[k] for k in stacks})
+    tree["w"] = weights
+    full = all_gather_fleet(tree, mesh)
+    return ({k: full[("p", k)] for k in stacks},
+            None if masks is None else {k: full[("m", k)] for k in stacks}, full["w"])
 
 
 def robust_submission_step_dev(
@@ -852,8 +887,8 @@ def robust_submission_step_dev(
     corrupt_row,                                # host bool [W], or None
     byz_key: Optional[prng.Key],
     corrupt_key: Optional[prng.Key],
-    strikes: Optional[torch.Tensor],            # [W] int32 carry
-    quar_left: Optional[torch.Tensor],          # [W] int32 carry
+    strikes: Optional[torch.Tensor],            # [W] int32 carry (the whole fleet's)
+    quar_left: Optional[torch.Tensor],          # [W] int32 carry (the whole fleet's)
     *,
     byz_mode: str = "sign_flip",
     byz_scale: float = -10.0,
@@ -865,6 +900,7 @@ def robust_submission_step_dev(
     gate: Optional[bool] = None,
     full_rows: Optional[int] = None,
     row_offset: Optional[int] = None,
+    mesh=None,
 ):
     """One server round at the submission boundary: attack, defense,
     aggregate, in the reference's fixed order — byzantine transform, channel
@@ -876,9 +912,20 @@ def robust_submission_step_dev(
     used when no quarantine reweights.  Returns ``(new global, strikes',
     quar_left', quar_now)``; the health carries pass through when
     ``quarantine`` is None.  A round with no delivered weight keeps the
-    global."""
+    global.
+
+    With a ``mesh`` the stacks, ``mult``, ``weights`` and the row flags are
+    this rank's ``W_local`` rows, global slots from ``row_offset`` (default
+    ``rank x W_local``) of a ``full_rows``-row fleet, so each row draws its
+    global slot's noise.  The health step runs on the all-gathered norms and
+    multiplicities, replicated over full-fleet ``[W]`` carries; the fleet
+    weight vector is sliced back to this rank's rows, and ``wsum`` and the
+    mean close with ``psum_fleet``."""
     stacks = {k: v.float() for k, v in param_stacks.items()}
     masks = mask_stacks
+    w_local = mult.shape[0]
+    if mesh is not None and row_offset is None:
+        row_offset = mesh.rank * w_local
     norms = None
     if byz_row is not None or corrupt_row is not None or clip is not None \
             or quarantine is not None:
@@ -904,20 +951,34 @@ def robust_submission_step_dev(
     quar_now = None
     strikes2, quar2 = strikes, quar_left
     if quarantine is not None:
+        if mesh is not None:
+            full = all_gather_fleet({"norms": norms, "mult": mult}, mesh)
+            norms_full, mult_full = full["norms"], full["mult"]
+        else:
+            norms_full, mult_full = norms, mult
         quar_now, strikes2, quar2 = health_step_dev(
-            norms, mult > 0, strikes, quar_left, threshold=quarantine.threshold,
+            norms_full, mult_full > 0, strikes, quar_left, threshold=quarantine.threshold,
             strikes_needed=quarantine.strikes, probation=quarantine.probation, gate=gate)
-        w_full = mult * (1.0 - quar_now.float())
+        w_full = mult_full * (1.0 - quar_now.float())
         wsum = w_full.sum()
         if trim > 0.0:
-            agg = trimmed_mean_stacked_dev(stacks, masks, w_full > 0, trim)
+            if mesh is not None:
+                stacks_g, masks_g, _ = _gather_votes(stacks, masks, mult, mesh)
+            else:
+                stacks_g, masks_g = stacks, masks
+            agg = trimmed_mean_stacked_dev(stacks_g, masks_g, w_full > 0, trim)
         else:
-            agg = aggregate_by_worker_stacked_dev(stacks, w_full / torch.clamp_min(wsum, 1e-30))
+            weights_full = w_full / torch.clamp_min(wsum, 1e-30)
+            w_loc = (shard_row_slice(weights_full, w_local, mesh) if mesh is not None
+                     else weights_full)
+            agg = aggregate_by_worker_stacked_dev(stacks, w_loc, mesh)
     else:
         wsum = mult.sum()
+        if mesh is not None:
+            wsum = psum_fleet(wsum, mesh)
         if trim > 0.0:
-            agg = robust_aggregate_stacked_dev(stacks, mult, masks, trim=trim)
+            agg = robust_aggregate_stacked_dev(stacks, mult, masks, trim=trim, mesh=mesh)
         else:
-            agg = aggregate_by_worker_stacked_dev(stacks, weights)
+            agg = aggregate_by_worker_stacked_dev(stacks, weights, mesh)
     new = {k: torch.where(wsum > 0, agg[k], global_p[k].float()) for k in stacks}
     return new, strikes2, quar2, quar_now

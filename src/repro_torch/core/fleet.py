@@ -27,7 +27,8 @@ stack and a pruning event only rewrites mask rows.
 * ``refresh_masks``   — rewrite the mask stack from the workers' global
   indices and re-mask the params (and the momentum carry);
 * ``update_shard``    — a churned-in worker's fresh shard, written into its
-  row of the resident data;
+  row of the resident data (on a mesh-sharded fleet, by the rank owning the
+  slot, at its local row: ``global_to_shard_local``);
 * ``init_momentum`` / ``zero_momentum_rows`` — the cross-round momentum
   carry (``SimConfig.resident_momentum``) and its reset on churn and crash
   recovery;
@@ -60,6 +61,7 @@ __all__ = [
     "FleetEngine",
     "FleetState",
     "bucket_rows",
+    "global_to_shard_local",
     "gather_stack_rows",
     "scatter_stack_rows",
     "masks_from_presence",
@@ -74,15 +76,41 @@ Tensors = Dict[str, torch.Tensor]
 ENGINES = ("sequential", "bucketed", "masked", "fused")
 
 
-def bucket_rows(n: int, cap: int) -> int:
+def bucket_rows(n: int, cap: int, multiple: int = 1) -> int:
     """Sub-stack row bucket for ``n`` active rows: the smallest power of two
-    >= n, capped at the fleet size."""
+    >= n, capped at the fleet size.  ``multiple`` (the shard count of a
+    mesh-sharded fleet) floors the bucket: a bucket below it rounds up to a
+    multiple of it, so a gathered sub-stack divides over the fleet axis."""
     if n < 1:
         raise ValueError(f"bucket_rows needs n >= 1, got {n}")
+    if multiple < 1:
+        raise ValueError(f"bucket_rows needs multiple >= 1, got {multiple}")
     b = 1
     while b < n:
         b <<= 1
-    return min(b, cap)
+    b = min(b, cap)
+    if b % multiple:
+        b = min(-(-b // multiple) * multiple, cap)
+        if b % multiple:
+            raise ValueError(f"fleet size {cap} does not divide over {multiple} shards")
+    return b
+
+
+def global_to_shard_local(rows: Sequence[int], num_workers: int,
+                          num_shards: int) -> Tuple[np.ndarray, np.ndarray]:
+    """Global slot ids to ``(shard, local row)`` under the mesh-sharded
+    fleet's contiguous layout: slot ``w`` lives on shard ``w // W_local`` at
+    local row ``w % W_local``, ``W_local = W / num_shards``.  Out-of-range
+    ids and fleets that do not divide raise instead of wrapping."""
+    if num_shards < 1 or num_workers % num_shards:
+        raise ValueError(f"fleet of {num_workers} does not divide over {num_shards} shards")
+    rows = np.asarray(rows, np.int64)
+    if rows.size and (rows.min() < 0 or rows.max() >= num_workers):
+        raise ValueError(
+            f"slot ids {rows[(rows < 0) | (rows >= num_workers)]} outside [0, {num_workers})"
+        )
+    w_local = num_workers // num_shards
+    return rows // w_local, rows % w_local
 
 
 def _row_index(rows: Sequence[int], num_rows: int, device) -> torch.Tensor:
@@ -193,15 +221,31 @@ class FleetState:
     exactly 0); ``gl_sizes`` holds each worker's sqrt-group-size factors of
     its reconfigured shapes, so the group-lasso penalty equals the
     physically small twin's.  ``momentum`` is the cross-round optimizer
-    carry (``init_momentum``), ``None`` when momentum restarts per phase."""
+    carry (``init_momentum``), ``None`` when momentum restarts per phase.
+
+    On a mesh-sharded fleet the stacks hold only this rank's ``W_local =
+    num_workers / num_shards`` rows, global slots ``[row_offset, row_offset
+    + W_local)``; ``num_workers`` stays the fleet's W."""
 
     params: Tensors
     masks: Tensors
-    xs: torch.Tensor                 # [W, n_max, H, W, 3] padded shards
-    ys: torch.Tensor                 # [W, n_max]
+    xs: torch.Tensor                 # [W_local, n_max, H, W, 3] padded shards
+    ys: torch.Tensor                 # [W_local, n_max]
     num_workers: int
     gl_sizes: Dict[str, np.ndarray]
     momentum: Optional[Tensors] = None
+    num_shards: int = 1
+    row_offset: int = 0
+
+    @property
+    def w_local(self) -> int:
+        return self.num_workers // self.num_shards
+
+    def local_rows(self, rows: Sequence[int]) -> List[int]:
+        """The local rows of the global slots ``rows`` this rank holds."""
+        shard, local = global_to_shard_local(rows, self.num_workers, self.num_shards)
+        mine = self.row_offset // self.w_local
+        return [int(r) for s, r in zip(shard, local) if s == mine]
 
 
 @dataclasses.dataclass
@@ -278,20 +322,26 @@ class FleetEngine:
     # ------------------------------------------------------------------
 
     def init_state(self, base_params: Tensors, shards_x: Sequence[np.ndarray],
-                   shards_y: Sequence[np.ndarray]) -> FleetState:
+                   shards_y: Sequence[np.ndarray], sharding=None) -> FleetState:
         """Stack W full-model replicas + their data shards on the device.
-        Shards are padded to the longest; plans never index the padding."""
+        Shards are padded to the longest; plans never index the padding.
+        ``sharding`` (``sharding.specs.FleetSharding``, or None) keeps only
+        this rank's rows of every stack, padded to the whole fleet's longest
+        shard."""
         W = len(shards_x)
         sizes = np.array([len(x) for x in shards_x], dtype=np.int64)
         n_max = int(sizes.max())
-        xs = np.zeros((W, n_max) + shards_x[0].shape[1:], np.float32)
-        ys = np.zeros((W, n_max), np.int64)
-        for w in range(W):
-            xs[w, : sizes[w]] = shards_x[w]
-            ys[w, : sizes[w]] = shards_y[w]
+        n_shards = 1 if sharding is None else sharding.num_shards
+        lo = 0 if sharding is None else sharding.row_offset(W)
+        rows = range(lo, lo + W // n_shards)
+        xs = np.zeros((len(rows), n_max) + shards_x[0].shape[1:], np.float32)
+        ys = np.zeros((len(rows), n_max), np.int64)
+        for i, w in enumerate(rows):
+            xs[i, : sizes[w]] = shards_x[w]
+            ys[i, : sizes[w]] = shards_y[w]
         dev = self.device
         params = {
-            k: v.to(dev).unsqueeze(0).expand((W,) + tuple(v.shape)).contiguous()
+            k: v.to(dev).unsqueeze(0).expand((len(rows),) + tuple(v.shape)).contiguous()
             for k, v in base_params.items()
         }
         masks = {k: torch.ones_like(v) for k, v in params.items()}
@@ -305,19 +355,22 @@ class FleetEngine:
                     self.base_shapes, self.unit_map
                 ).items()
             },
+            num_shards=n_shards, row_offset=lo,
         )
 
     def update_shard(self, state: FleetState, w: int, x: np.ndarray, y: np.ndarray):
         """Swap worker ``w``'s data shard in place (a churn join); the shard
-        is padded to the resident length, which it must not exceed."""
+        is padded to the resident length, which it must not exceed.  Only
+        the rank holding slot ``w`` writes, at its local row."""
         n_max = state.xs.shape[1]
         if len(x) > n_max:
             raise ValueError(f"churn shard ({len(x)}) exceeds resident pad ({n_max})")
-        xr = np.zeros((n_max,) + x.shape[1:], np.float32)
-        yr = np.zeros((n_max,), np.int64)
-        xr[: len(x)], yr[: len(y)] = x, y
-        state.xs[w] = torch.as_tensor(xr, device=state.xs.device)
-        state.ys[w] = torch.as_tensor(yr, device=state.ys.device)
+        for r in state.local_rows([w]):
+            xr = np.zeros((n_max,) + x.shape[1:], np.float32)
+            yr = np.zeros((n_max,), np.int64)
+            xr[: len(x)], yr[: len(y)] = x, y
+            state.xs[r] = torch.as_tensor(xr, device=state.xs.device)
+            state.ys[r] = torch.as_tensor(yr, device=state.ys.device)
 
     def init_momentum(self, state: FleetState):
         """Zero momentum stack: the cross-round carry of
@@ -329,8 +382,9 @@ class FleetEngine:
         recoveries: velocity accumulated against other parameters)."""
         if state.momentum is None or not len(rows):
             return
+        local = state.local_rows(rows)
         for v in state.momentum.values():
-            v[_row_index(rows, state.num_workers, v.device)] = 0.0
+            v[_row_index(local, state.w_local, v.device)] = 0.0
 
     def params_host(self, state: FleetState) -> Dict[str, np.ndarray]:
         """Host copy of the param stack (the DGC submission boundary)."""

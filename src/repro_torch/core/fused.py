@@ -65,8 +65,22 @@ dropout gating, the robust layer's clip and per-commit quarantine
 (``fleet.refetch_rows``).  After a chunk the host compares the device pop
 order and staleness with the plan and raises on any difference.
 
-Refused by field name: the mesh (``simulation.validate_config``, A10 of
-ROADMAP.md) and ``compute="block_skip"`` (the reference's own rule).
+**The mesh-sharded fleet** (``SimConfig.mesh``, a ``launch.mesh.FleetMesh``
+over ``torch.distributed``) runs the sync chunk on each rank's ``W_local =
+W / n`` rows, as the reference's ``shard_map`` over the ``fleet`` axis
+does.  Every rank replays the same host streams and keeps only its rows of
+the state (params, masks, momentum, DGC residual, data) and of the
+per-round inputs (the reference's ``per_round_specs``: plans, budgets,
+weights, submitters, recoveries, multiplicities, attacked and corrupted
+rows; ``prune_any``, ``real`` and the noise rounds are the fleet's).  The
+ranks meet only in ``sharding.collectives``: the aggregation's
+``psum_fleet`` and the robust layer's all-gathers inside a chunk, then one
+all-gather of the presence and DGC trails after it, so every rank does the
+reference's accounting on the whole fleet and returns the same result.
+The quarantine's health rows are the whole fleet's on every rank.
+
+Refused, as in the reference: ``compute="block_skip"``, and the mesh off
+this engine or with an async method (``simulation.validate_config``).
 """
 from __future__ import annotations
 
@@ -79,6 +93,8 @@ import torch.nn.functional as F
 
 from repro_torch.models.cnn import cnn_flops_from_shapes, extract_bn_scales
 from repro_torch.optim.group_lasso import group_size_sqrt_from_shapes, unit_group_norms
+from repro_torch.sharding.collectives import all_gather_fleet
+from repro_torch.sharding.specs import fleet_sharding
 
 from .aggregation import (
     aggregate_by_unit_stacked_dev,
@@ -137,7 +153,8 @@ RUN_DEAD_ROUNDS = False
 
 
 def validate_fused_config(sim) -> None:
-    """The reference's refusals for the fused engine, with its reasons."""
+    """The reference's refusals for the fused engine, with its reasons, and
+    its checks of a mesh: the fleet axis is there and W divides over it."""
     if sim.compute != "dense":
         raise ValueError(
             "SimConfig.compute: engine='fused' supports compute='dense' only "
@@ -151,6 +168,20 @@ def validate_fused_config(sim) -> None:
             f"{sorted(supported)}; {sim.importance!r} needs host-side statistics "
             "(use engine='masked')"
         )
+    mesh = sim.mesh
+    if mesh is not None:
+        axis = sim.fleet_axis
+        if axis not in mesh.shape:
+            raise ValueError(
+                f"SimConfig.mesh axes {tuple(mesh.shape)} have no fleet axis {axis!r} "
+                "(SimConfig.fleet_axis)"
+            )
+        n_dev = mesh.shape[axis]
+        if sim.num_workers % n_dev:
+            raise ValueError(
+                f"num_workers={sim.num_workers} does not divide over the {n_dev}-way "
+                f"{axis!r} mesh axis (W = n_dev x W_local)"
+            )
 
 
 def device_order(scores: torch.Tensor, tiebreak_perm: torch.Tensor) -> torch.Tensor:
@@ -200,7 +231,7 @@ class _SyncChunk:
 
     def __init__(self, trainer, unit_map, base_shapes, flat: UnitFlat, lam: float, *,
                  by_unit: bool, importance: str, resident_momentum: bool, has_phase_b: bool,
-                 dgc_sparsity: float, device, robust=None):
+                 dgc_sparsity: float, device, robust=None, mesh=None, full_rows=None):
         self.trainer = trainer
         self.unit_map = unit_map
         self.base_shapes = base_shapes
@@ -212,6 +243,8 @@ class _SyncChunk:
         self.has_phase_b = has_phase_b
         self.dgc_sparsity = dgc_sparsity
         self.robust = robust
+        self.mesh = mesh
+        self.full_rows = full_rows
         self.walk = _walk_tensors(flat, device)
         self.tiebreak_perm = torch.as_tensor(
             np.argsort(flat.tiebreak, kind="stable").astype(np.int64), device=device)
@@ -275,7 +308,8 @@ class _SyncChunk:
             flags["byz"][j] if byz_on else None, flags["corrupt"][j] if corrupt_on else None,
             noise_key(seed + 51721, rnd) if byz_on else None,
             noise_key(seed + 51722, rnd) if corrupt_on else None,
-            health.get("strikes"), health.get("quar"), gate=bool(flags["real"][j]), **kw,
+            health.get("strikes"), health.get("quar"), gate=bool(flags["real"][j]),
+            full_rows=self.full_rows, mesh=self.mesh, **kw,
         )
         if kw["quarantine"] is not None:
             health = {"strikes": st2, "quar": qu2}
@@ -293,7 +327,8 @@ class _SyncChunk:
         evals: Dict[int, Tensors] = {}
         W = presence.shape[0]
         zeros_w = torch.zeros(W, dtype=torch.int32, device=presence.device)
-        no_quar = torch.zeros(W, dtype=torch.bool, device=presence.device)
+        # the quarantine trail is the whole fleet's on every rank
+        no_quar = torch.zeros(self.full_rows or W, dtype=torch.bool, device=presence.device)
         n_run = len(flags["real"]) if run_dead else n_rounds
 
         def record(j, kept_w, total_w, quar_row=None):
@@ -357,12 +392,12 @@ class _SyncChunk:
                 kept_w = total_w = zeros_w
             quar_row = None
             if self.by_unit:
-                g_new = aggregate_by_unit_stacked_dev(agg_in, masks, submitters)
+                g_new = aggregate_by_unit_stacked_dev(agg_in, masks, submitters, self.mesh)
             elif self.robust is not None:
                 g_new, health, quar_row = self.robust_round(agg_in, masks, global_p, health,
                                                             per_round, flags, j)
             else:
-                g_new = aggregate_by_worker_stacked_dev(agg_in, per_round["weights"][j])
+                g_new = aggregate_by_worker_stacked_dev(agg_in, per_round["weights"][j], self.mesh)
             if flags["real"][j]:
                 global_p = {k: v.float() for k, v in g_new.items()}
             record(j, kept_w, total_w, quar_row)
@@ -399,6 +434,10 @@ def run_sync_fused(sim, env):
     byz_cfg, ch_cfg, corrupt_on, rb_cfg, robust_on = _robust_statics(sim)
     quar_cfg = rb_cfg.quarantine if rb_cfg is not None else None
     quarantined_commits = 0
+    mesh = sim.mesh
+    if mesh is not None and mesh.device.type != dev.type:
+        raise ValueError(f"SimConfig.mesh lives on {mesh.device.type} ({mesh.backend}) but "
+                         f"SimConfig.device is {sim.device!r}")
 
     scen = ScenarioEngine(sim.scenario, W) if sim.scenario is not None else None
     if scen is not None:
@@ -408,7 +447,12 @@ def run_sync_fused(sim, env):
         plan_all = ScenarioPlan.full(sim.rounds, W)
 
     shard_x, shard_y = zip(*(env.shard_xy(w) for w in range(W)))
-    state = env.fleet.init_state(env.base_params, list(shard_x), list(shard_y))
+    state = env.fleet.init_state(
+        env.base_params, list(shard_x), list(shard_y),
+        sharding=fleet_sharding(mesh, sim.fleet_axis) if mesh is not None else None)
+    # on a mesh this rank holds the global slots [lo, hi)
+    lo, hi = state.row_offset, state.row_offset + state.w_local
+    own = slice(lo, hi)
     if sim.resident_momentum:
         env.fleet.init_momentum(state)
 
@@ -420,9 +464,10 @@ def run_sync_fused(sim, env):
     K_pad = max(1, min(K_pad, sim.rounds))
 
     global_params = dict(env.base_params)
-    sizes_dev = torch.as_tensor(np.asarray([len(s) for s in env.shards], np.int64), device=dev)
+    sizes_dev = torch.as_tensor(np.asarray([len(s) for s in env.shards], np.int64)[own],
+                                device=dev)
     dgc_res_dev = (
-        {k: torch.zeros((W,) + tuple(s), dtype=torch.float32, device=dev)
+        {k: torch.zeros((hi - lo,) + tuple(s), dtype=torch.float32, device=dev)
          for k, s in base_shapes.items()}
         if use_dgc else {}
     )
@@ -466,12 +511,14 @@ def run_sync_fused(sim, env):
     sig = (tuple(sorted((k, tuple(v.shape)) for k, v in state.params.items())),
            ("fused", K_pad, pad_a, pad_b, tuple(state.xs.shape), batch, sim.aggregation,
             sim.importance, bool(sim.resident_momentum), float(sim.dgc_sparsity),
-            None if robust is None else repr(robust)), float(lam))
+            None if robust is None else repr(robust),
+            None if mesh is None else (sim.fleet_axis, mesh.size)), float(lam))
     chunk_fn = _SyncChunk(
         env.trainer, unit_map, base_shapes, flat, lam,
         by_unit=sim.aggregation == "by_unit", importance=sim.importance,
         resident_momentum=bool(sim.resident_momentum), has_phase_b=pad_b > 0,
         dgc_sparsity=float(sim.dgc_sparsity), device=dev, robust=robust,
+        mesh=mesh, full_rows=W if mesh is not None else None,
     )
     # the quarantine's health carry: [W] strikes and probation rows
     health_dev = ({"strikes": torch.zeros(W, dtype=torch.int32, device=dev),
@@ -492,8 +539,9 @@ def run_sync_fused(sim, env):
                 env.shards[w] = plan_all.fresh_shards[t][w]
                 env.fleet.update_shard(state, w, *env.shard_xy(w))
                 if use_dgc:     # a fresh slot carries no residual
-                    for v in dgc_res_dev.values():
-                        v[w] = 0.0
+                    for r in state.local_rows([w]):
+                        for v in dgc_res_dev.values():
+                            v[r] = 0.0
             env.fleet.zero_momentum_rows(state, joined)
         # ---- FedDST readjustment at the chunk boundary (host): a regrow
         # round always opens a chunk; the broadcast-back re-masks the
@@ -505,7 +553,7 @@ def run_sync_fused(sim, env):
                                                      for k, v in idx_w.items()}))
             if regrown and sim.resident_momentum:
                 pres_now = torch.as_tensor(np.stack([presence_from_index(indices[w], flat)
-                                                     for w in range(W)]), device=dev)
+                                                     for w in range(lo, hi)]), device=dev)
                 m_now = masks_from_presence(pres_now, flat, unit_map, base_shapes)
                 state.momentum = {k: v * m_now[k] for k, v in state.momentum.items()}
         # ---- chunk extent: learning events, churn, regrow and drift-change
@@ -615,26 +663,29 @@ def run_sync_fused(sim, env):
         orders_np = None
         if sim.importance in STATIC_METHODS:
             orders_np = _static_orders(sim, env, flat, cig_scores, prune_round_count)
+        # the chunk takes this rank's rows: [W, ...] state and orders on dim
+        # 0, [K, W, ...] per-round inputs on dim 1; prune_any, real and rnd
+        # are the whole fleet's
         orders_dev = torch.as_tensor(
-            (orders_np if orders_np is not None else np.zeros((W, U), np.int32)).astype(np.int64),
-            device=dev)
+            (orders_np if orders_np is not None else np.zeros((W, U), np.int32))[own]
+            .astype(np.int64), device=dev)
         presence_dev = torch.as_tensor(
-            np.stack([presence_from_index(indices[w], flat) for w in range(W)]), device=dev)
+            np.stack([presence_from_index(indices[w], flat) for w in range(lo, hi)]), device=dev)
         per_round = {
-            "plan_a": torch.as_tensor(plans_a, device=dev),
-            "valid_a": torch.as_tensor(valid_a, device=dev),
-            "budgets": torch.as_tensor(budgets, device=dev),
-            "weights": torch.as_tensor(weights, device=dev),
-            "submitters": torch.as_tensor(submit_m, device=dev),
-            "recov": torch.as_tensor(recov, device=dev),
+            "plan_a": torch.as_tensor(plans_a[:, own], device=dev),
+            "valid_a": torch.as_tensor(valid_a[:, own], device=dev),
+            "budgets": torch.as_tensor(budgets[:, own], device=dev),
+            "weights": torch.as_tensor(weights[:, own], device=dev),
+            "submitters": torch.as_tensor(submit_m[:, own], device=dev),
+            "recov": torch.as_tensor(recov[:, own], device=dev),
         }
         if pad_b > 0:
-            per_round["plan_b"] = torch.as_tensor(plans_b, device=dev)
-            per_round["valid_b"] = torch.as_tensor(valid_b, device=dev)
-        flags = {"prune_any": prune_any, "real": real, "recov_any": recov.any(axis=1),
-                 "byz": byz_m, "corrupt": cor_m, "rnd": rnd_arr}
+            per_round["plan_b"] = torch.as_tensor(plans_b[:, own], device=dev)
+            per_round["valid_b"] = torch.as_tensor(valid_b[:, own], device=dev)
+        flags = {"prune_any": prune_any, "real": real, "recov_any": recov[:, own].any(axis=1),
+                 "byz": byz_m[:, own], "corrupt": cor_m[:, own], "rnd": rnd_arr}
         if robust_on:
-            per_round["mult"] = torch.as_tensor(mult_m, device=dev)
+            per_round["mult"] = torch.as_tensor(mult_m[:, own], device=dev)
         momentum_arg = state.momentum if sim.resident_momentum else {}
 
         # ---- ONE counted dispatch for the whole chunk
@@ -650,6 +701,14 @@ def run_sync_fused(sim, env):
         env.fleet.batched_calls += 1
         env.fleet.buckets_used.add(W)
 
+        if mesh is not None:
+            # every rank does the accounting on the whole fleet's trails
+            # (the quarantine trail is already the fleet's)
+            trails = all_gather_fleet({"pres": pres_seq, "kept": kept_seq, "total": total_seq}
+                                      if use_dgc else {"pres": pres_seq}, mesh, dim=1)
+            pres_seq = trails["pres"]
+            if use_dgc:
+                kept_seq, total_seq = trails["kept"], trails["total"]
         pres_seq_np = pres_seq.cpu().numpy()                    # [n, W, U]
         if use_dgc:                                             # [n, W] ints
             kept_np = kept_seq.cpu().numpy()

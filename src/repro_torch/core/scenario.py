@@ -31,8 +31,8 @@ replays the same order into a ``ScenarioPlan``.
 The async schedulers draw their cohort once, at run start
 (``static_participants``, one ``rng.choice``), and replay a whole
 pre-simulated event stream (``AsyncEventPlan``, built by
-``core.simulation._plan_async_events``).  ``shard_cohorts`` belongs to the
-mesh slice (ROADMAP.md, A10).
+``core.simulation._plan_async_events``).  ``shard_cohorts`` splits a cohort
+over the mesh-sharded fleet's shards.
 """
 from __future__ import annotations
 
@@ -51,7 +51,19 @@ __all__ = [
     "ScenarioEngine",
     "ScenarioPlan",
     "full_participation",
+    "shard_cohorts",
 ]
+
+
+def shard_cohorts(rows: Sequence[int], num_workers: int, num_shards: int) -> List[np.ndarray]:
+    """A sampled cohort's global slot ids as per-shard local row sets under
+    the mesh-sharded fleet's contiguous layout (shard ``s`` owns slots
+    ``[s * W_local, (s+1) * W_local)``); ids keep their draw order within a
+    shard, and an id outside the fleet raises."""
+    from .fleet import global_to_shard_local   # deferred: fleet imports torch
+
+    shard_ids, local = global_to_shard_local(rows, num_workers, num_shards)
+    return [np.asarray(local[shard_ids == s], np.int64) for s in range(num_shards)]
 
 
 @dataclasses.dataclass

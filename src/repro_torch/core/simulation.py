@@ -79,9 +79,15 @@ package draws its init from ``jax.random``; pass that init as
 (otherwise ``init_cnn`` draws from a ``torch.Generator`` seeded with
 ``sim.seed``).
 
+The fused sync engine also runs on a mesh-sharded fleet (``SimConfig.mesh``,
+``fleet_axis``; ``launch.mesh``): one process per rank of a
+``torch.distributed`` group, each holding ``W / n`` rows, every rank
+returning the same result (``SimResult.n_devices``, ``fleet_axis_size``,
+``shard_spec``).
+
 The entry points run on the card: ``SimConfig.device`` defaults to
-``"cuda"`` and raises when no card is present.  Configurations outside this
-slice raise ``ValueError`` naming the field (see ROADMAP.md).
+``"cuda"`` and raises when no card is present.  Configurations the
+reference refuses raise ``ValueError`` naming the field.
 """
 from __future__ import annotations
 
@@ -107,6 +113,7 @@ from repro_torch.models.cnn import (
     init_cnn,
     vgg_config,
 )
+from repro_torch.sharding.specs import fleet_pspec
 
 from .aggregation import (
     AsyncServer,
@@ -224,8 +231,12 @@ class SimConfig:
     # norm clip, coordinate-wise trimmed mean, MAD-outlier quarantine;
     # by_worker only, and the async methods take clip and quarantine only
     robust: Optional[RobustAggConfig] = None
-    # the mesh-sharded fleet: not ported yet, refused by name unless None
+    # the mesh-sharded fleet (fused sync engine only): a ``FleetMesh``
+    # (launch.mesh.make_fleet_mesh) whose ``fleet_axis`` shards the [W, ...]
+    # stacks over the ranks of a torch.distributed group, W = n x W_local;
+    # each rank runs its rows' chunk and the aggregation closes on the mesh
     mesh: Optional[object] = None
+    fleet_axis: str = "fleet"
     # device compute path of the masked engine: "block_skip" (the CUDA
     # kernel; needs engine="masked") or "dense" (the only one on "fused")
     compute: str = "dense"
@@ -301,13 +312,11 @@ class SimResult:
     # trained rows to the host (server_overhead_s holds the merges')
     host_pull_s: float = 0.0
     fused_chunks: int = 0        # device chunks the fused engine ran
-
-
-def _refuse(field: str, why: str) -> ValueError:
-    return ValueError(
-        f"SimConfig.{field}: {why} — not ported to repro_torch yet "
-        "(see ROADMAP.md, queue A)"
-    )
+    # the mesh the run executed on (SimConfig.mesh): ranks, fleet-axis size
+    # and the [W, ...] stacks' spec; 1 / 1 / None without a mesh
+    n_devices: int = 1
+    fleet_axis_size: int = 1
+    shard_spec: Optional[str] = None
 
 
 def validate_config(sim: SimConfig) -> None:
@@ -316,6 +325,13 @@ def validate_config(sim: SimConfig) -> None:
         raise ValueError(f"SimConfig.method: unknown method {sim.method!r}")
     if sim.engine not in ENGINES:
         raise ValueError(f"SimConfig.engine: unknown engine {sim.engine!r}")
+    if sim.mesh is not None and (sim.engine != "fused" or sim.method not in SYNC_METHODS):
+        raise ValueError(
+            "SimConfig.mesh (the mesh-sharded fleet) requires the fused "
+            "SYNC engine (engine='fused', method in adaptcl/fedavg/"
+            "fedavg_s) — the sharded path is the per-shard lax.scan "
+            "chunk program with on-mesh aggregation (core.fused)"
+        )
     if sim.engine == "fused":
         validate_fused_config(sim)
     if sim.compute == "block_skip" and sim.engine != "masked":
@@ -330,8 +346,6 @@ def validate_config(sim: SimConfig) -> None:
             "synchronous methods only — async workers never prune, so "
             "there is nothing to regrow"
         )
-    if sim.mesh is not None:
-        raise _refuse("mesh", "the mesh-sharded fleet on the fused engine (A10)")
     if sim.robust is not None and sim.aggregation != "by_worker":
         raise ValueError(
             "SimConfig.robust (clip/trimmed-mean/quarantine) requires "
@@ -1513,6 +1527,12 @@ def _finalize(sim, env, acc_time, het_traj, sim_traj, upd_times, retentions,
     param_sizes = [sum(v.numel() for v in p.values()) for p in worker_params]
     flops = [cnn_flops(p, sim.cnn) for p in worker_params]
     full_size = sum(v.numel() for v in env.base_params.values())
+    if sim.mesh is not None:
+        n_devices = int(np.prod(list(sim.mesh.shape.values())))
+        fleet_axis_size = int(sim.mesh.shape[sim.fleet_axis])
+        shard_spec = fleet_pspec(sim.fleet_axis)
+    else:
+        n_devices, fleet_axis_size, shard_spec = 1, 1, None
     return SimResult(
         method=sim.method,
         acc_time=acc_time,
@@ -1549,6 +1569,9 @@ def _finalize(sim, env, acc_time, het_traj, sim_traj, upd_times, retentions,
         device=str(env.device),
         global_params=params_to_numpy(global_params),
         fused_chunks=fused_chunks,
+        n_devices=n_devices,
+        fleet_axis_size=fleet_axis_size,
+        shard_spec=shard_spec,
     )
 
 

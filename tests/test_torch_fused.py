@@ -279,17 +279,22 @@ def test_dead_rounds_change_no_carried_tensor(monkeypatch):
 # what stays refused on the fused engine
 # ---------------------------------------------------------------------------
 
-class _Dummy:
-    pass
+class _Mesh:
+    """A mesh's shape alone: the guards fire before any collective."""
+
+    def __init__(self, **shape):
+        self.shape = shape
 
 
-# the robust layer and the byzantine and channel families run on the fused
-# engine; the first, third and fourth cases (their ids kept) are now the
-# reference's own async refusals: the trimmed mean, byzantine, channel
+# the robust layer, the byzantine and channel families and the mesh run on
+# the fused engine; the first four cases (their ids kept) are now the
+# reference's own refusals with an async method: the trimmed mean, a mesh,
+# byzantine and channel
 @pytest.mark.parametrize("kw,field,why", [
     pytest.param(dict(method="fedasync_s", robust=tagg.RobustAggConfig(trim=0.2)),
                  r"RobustAggConfig\.trim=0\.2", "clip + quarantine only", id="kw0-robust-A9"),
-    (dict(mesh=_Dummy()), "mesh", "A10"),
+    pytest.param(dict(method="fedasync_s", mesh=_Mesh(fleet=2)), r"SimConfig\.mesh",
+                 "requires the fused SYNC engine", id="kw1-mesh-A10"),
     pytest.param(dict(method="fedasync_s", scenario=tsc.ScenarioConfig(faults=tf.FaultConfig(
         byzantine=tf.ByzantineConfig(workers=(0,))))), "byzantine fault family",
         "byzantine is sync-only", id="kw2-scenario\\.faults\\.byzantine-A9"),

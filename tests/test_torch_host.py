@@ -8,7 +8,6 @@ imports neither ``jax`` nor ``repro``, ``device="cuda"`` never falls back to
 the CPU, and every configuration outside this slice is refused by name.
 """
 import ast
-import dataclasses
 from pathlib import Path
 
 import jax
@@ -296,9 +295,11 @@ def test_cuda_device_never_falls_back_to_cpu():
     assert SimConfig().device == "cuda"
 
 
-@dataclasses.dataclass
-class _Dummy:
-    pass
+class _Mesh:
+    """A mesh's shape alone: the guards fire before any collective."""
+
+    def __init__(self, **shape):
+        self.shape = shape
 
 
 def _byzantine_scenario():
@@ -318,16 +319,18 @@ def _defense():
 # engine and the robust layer were ported; the byzantine family and the
 # robust layer are refused only where the reference refuses them (by_unit
 # aggregation), resident_momentum only off the resident engines (the default
-# engine is sequential), and the mesh stays refused (A10)
+# engine is sequential), and the mesh (ported with A10) where the reference
+# refuses it: a mesh without the fleet axis, and a mesh off the fused engine
 @pytest.mark.parametrize("field,value,extra,match,why", [
-    pytest.param("mesh", _Dummy(), dict(engine="fused"), r"SimConfig\.mesh", "ROADMAP",
-                 id="engine-fused"),
+    pytest.param("mesh", _Mesh(data=2), dict(engine="fused"), r"SimConfig\.mesh axes",
+                 "no fleet axis 'fleet'", id="engine-fused"),
     pytest.param("scenario", _byzantine_scenario(), dict(aggregation="by_unit"),
                  r"FaultConfig\.byzantine perturbs", "aggregation='by_worker'",
                  id="scenario-value1"),
     pytest.param("robust", _defense(), dict(aggregation="by_unit"), r"SimConfig\.robust",
                  "aggregation='by_worker'", id="robust-value4"),
-    pytest.param("mesh", _Dummy(), {}, r"SimConfig\.mesh", "ROADMAP", id="mesh-value5"),
+    pytest.param("mesh", _Mesh(fleet=2), {}, r"SimConfig\.mesh", "requires the fused SYNC engine",
+                 id="mesh-value5"),
     pytest.param("resident_momentum", True, {}, r"SimConfig\.resident_momentum",
                  "engine='masked' or 'fused'", id="resident_momentum-True"),
 ])
