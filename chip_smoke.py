@@ -243,6 +243,39 @@ around it; no kernel of the repo runs on it (the fused engine is dense):
                    DEFENSE: the quarantine's gathers and the trimmed mean's
                    vote gather inside the chunk).
 
+Slice 11, the paper's runners (``repro_torch.bench``) and the masked
+``FleetEngine.train_all``, each run spied for its pruned_matmul launches
+(zeroed just before, read just after):
+
+29. runners      — ``python -m repro_torch.bench.run retention_sweep --cnn
+                   vgg16`` (the reference's cell otherwise: W=2, 3 rounds,
+                   index-prefix order, 64 images at 32x32, retentions 1.0 /
+                   0.5 / 0.25 / 0.125, dense and block_skip) at blocks
+                   (128, 64, 64) with all four of its checks held, and at
+                   (128, 128, 128) with all but quarter_under_half_blocks
+                   (see RUNNER_SWEEPS); every row's steady walltime beside
+                   ``blocks_per_image_final`` and its launches, block_skip
+                   rows through all three kernel directions, dense rows
+                   through none.  The masked ``train_all`` at VGG16_CIFAR
+                   (4 jobs at index-prefix retentions 1.0 / 1.0 / 0.7 /
+                   0.5, one step of 32 images) on block_skip, dense
+                   (cuDNN), dense without cuDNN and dense in float64, one
+                   stacked call each: every block_skip tensor of every
+                   worker within TOL of the float64 step or within
+                   TRAIN_ALL_BAR x cuDNN's own distance from it; every
+                   weight's update above its bar, and the bar failed by
+                   block_skip with one live dW block dropped (each weight
+                   shape in turn); TF32 dense, dense without cuDNN and the
+                   float64 step from a one-ulp init recorded beside it.  Each
+                   block_skip row of both sweeps also holds every captured
+                   product (its own shapes, blocks and final masks)
+                   against the plain version as ``kernel`` does.  ``tables --quick --only table2_main
+                   --cnn vgg16 --engine masked`` and ``tables --quick
+                   --only engines``: every method's and engine's row
+                   present, the adaptcl_speedup lines parse, fedavg_s's
+                   clock equal to the same row's on the CPU
+                   (TABLE2_FEDAVG_S_CPU_CLOCK).
+
 Then a ``{"phase": "done"}`` line with the script's seconds, a
 ``{"kernels": [...]}`` line, the ``nvidia-smi`` name/power line, and as the
 last line ``{"ok": true, "device": {...}}``.  Details go to
@@ -3370,6 +3403,477 @@ def phase_async_robust(report):
     return launches, mas
 
 
+# ---------------------------------------------------------------------------
+# slice 11: the paper's runners (repro_torch.bench) and the masked
+# FleetEngine.train_all, at VGG16_CIFAR width through the block-skip kernel
+# ---------------------------------------------------------------------------
+
+# the card takes only multiples of the kernel's 64-wide tile (the reference
+# sweep's (128, 8, 8) raise there).  At VGG16_CIFAR width the index-prefix
+# order keeps the 64- to 256-unit layers whole down to retention 0.25 and
+# cuts the 512-unit ones to 287 units, so with 128-unit blocks a quarter
+# retention still runs 538 of 962 blocks an image (0.559, the host ledger
+# of models/cnn.cnn_block_compute): the sweep's quarter_under_half_blocks
+# cannot hold there.  The gate runs at the kernel's finest unit grain, 64
+# (0.472); the 128-block sweep is run and recorded beside it, its other
+# three checks held.
+RUNNER_SWEEPS = (("128,64,64", ("blocks_monotone_decreasing", "flops_monotone_decreasing",
+                                "quarter_under_half_blocks", "dense_flops_flat_in_retention")),
+                 ("128,128,128", ("blocks_monotone_decreasing", "flops_monotone_decreasing",
+                                  "dense_flops_flat_in_retention")))
+# pruned rates of the four train_all jobs: index-prefix retentions 1.0 / 1.0 / 0.7 / 0.5
+TRAIN_ALL_RATES = [0.0, 0.0, 0.3, 0.5]
+# One step of a VGG16_CIFAR worker in float32 lands up to ~2.3e-4 from the
+# same step in float64 on both the cuDNN and the block-skip path (a pruned
+# worker's conv3/w; NVIDIA H100 80GB HBM3, 700 W), and the two float32 paths
+# up to 2.1e-4 apart, so block_skip against cuDNN cannot hold TOL per
+# worker.  Each block_skip tensor is held instead within TOL of the float64
+# step, or within TRAIN_ALL_BAR x cuDNN's own distance from it.  The bar is
+# shown to tell a wrong step: every weight's update exceeds its bar, and a
+# dropped dW block of each weight shape must fail it.
+TRAIN_ALL_BAR = 2.0
+# fedavg_s's clock in table2's quick VGG16_CIFAR masked rows follows the
+# channel model only.  A CPU run of one row takes 165-205 s on the 8-core
+# host of an NVIDIA H100 80GB HBM3 (700 W), so the CPU's values are kept
+# here, computed once there by ``fedavg_s_clock(dist, "cpu")`` (bitwise
+# equal to the card's then).
+TABLE2_FEDAVG_S_CPU_CLOCK = {"iid": 63.42557064420125, "noniid": 64.9790912036112}
+TABLE2_METHODS = ("fedavg", "fedavg_s", "fedasync_s", "ssp_s", "dcasgd_s", "adaptcl")
+
+
+def run_spy(module, after=None):
+    """Wrap ``module.run_simulation``: every run's config, result and
+    pruned_matmul launches, zeroed just before it and read just after
+    (then ``after(sim)`` runs, if given); returns (records, undo)."""
+    from repro_torch.kernels.pruned_matmul import LAUNCHES, reset_launches
+
+    real = module.run_simulation
+    records = []
+
+    def spy(sim, **kw):
+        reset_launches()
+        res = real(sim, **kw)
+        records.append((sim, res, dict(LAUNCHES)))
+        if after is not None:
+            after(sim)
+        return res
+
+    module.run_simulation = spy
+    return records, lambda: setattr(module, "run_simulation", real)
+
+
+def runner_cli(module, argv, after=None):
+    """``repro_torch.bench.run.main(argv)`` with ``module.run_simulation``
+    spied; its CSV lines are echoed and returned with the spy's records."""
+    import io
+
+    from repro_torch.bench import run as trun
+
+    records, undo = run_spy(module, after)
+    buf = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(buf):
+            rc = trun.main(argv)
+    finally:
+        undo()
+    print(buf.getvalue(), end="", flush=True)
+    check(rc == 0, f"runners: {' '.join(argv)} returned {rc}")
+    return buf.getvalue().splitlines(), records
+
+
+def csv_rows(lines):
+    return {l.split(",", 2)[0]: l.split(",", 2)[1:] for l in lines if l.count(",") >= 2}
+
+
+@contextlib.contextmanager
+def product_capture(store):
+    """Inside, every block-skip product keeps a copy of its operands, masks
+    and blocks in ``store``, keyed by shapes and blocks: the last product of
+    each shape, so after a run the final sub-models' masks.  A stride-0
+    (shared) operand stays shared, so the copy takes the path's launch plan."""
+    from repro_torch.kernels import pruned_matmul as pm
+
+    real = pm._PrunedMatmul.__dict__["forward"]
+
+    def keep(t):
+        if t.dim() >= 2 and t.shape[0] > 1 and t.stride(0) == 0:
+            return t[:1].detach().clone().expand(t.shape)
+        return t.detach().clone()
+
+    def forward(ctx, x, w, in_mask, out_mask, row_mask, blocks):
+        key = (tuple(x.shape), tuple(w.shape), tuple(blocks))
+        store[key] = tuple(keep(t) for t in (x, w, in_mask, out_mask, row_mask)) + (tuple(blocks),)
+        return real.__func__(ctx, x, w, in_mask, out_mask, row_mask, blocks)
+
+    pm._PrunedMatmul.forward = staticmethod(forward)
+    try:
+        yield
+    finally:
+        pm._PrunedMatmul.forward = real
+
+
+def check_products(store, gen):
+    """Forward, dX and dW of every captured product against the plain
+    version on the same operands and masks (``_compare``: elementwise
+    atol = rtol = TOL, err/max|plain| <= REL_TOL, pruned units exactly 0),
+    with each direction's launch plan; empties ``store``."""
+    import torch
+
+    cases = []
+    for (xs, ws, blocks), (x, w, im, om, rm, _) in sorted(store.items()):
+        errs, rels, refs, ok, zeros = _compare(x, w, im, om, rm, blocks, gen)
+        cases.append({"x": list(xs), "w": list(ws), "blocks": list(blocks), "err": errs,
+                      "rel_err": rels, "ref_max": refs, "allclose": ok,
+                      "rel_ok": max(rels.values()) <= REL_TOL, "pruned_max": zeros,
+                      "plans": {d: pl["instance"] for d, pl in _plans(x, w, blocks).items()}})
+    store.clear()
+    torch.cuda.empty_cache()
+    return cases
+
+
+def runner_retention(report, blocks, held):
+    """retention_sweep at VGG16_CIFAR width through the command line at
+    ``blocks``: the checks ``held``, each row's steady walltime beside its
+    blocks per image and its pruned_matmul launches."""
+    from repro_torch.bench import run as trun
+    from repro_torch.models.cnn import VGG16_CIFAR
+
+    import torch
+
+    tag = "b" + blocks.replace(",", "_")
+    out = ROOT / "chiprun_out" / f"BENCH_port_retention_{tag}.json"
+    gen = torch.Generator(device=DEVICE).manual_seed(0)
+    store, products = {}, []
+
+    def after(sim):
+        # each block_skip row's products at their own shapes and final masks,
+        # after its launches were read
+        if sim.compute == "block_skip":
+            products.append(check_products(store, gen))
+        store.clear()
+
+    t0 = time.perf_counter()
+    with product_capture(store):
+        _, records = runner_cli(trun, ["retention_sweep", "--cnn", "vgg16", "--compute-blocks",
+                                       blocks, "--out", str(out), "--device", DEVICE], after)
+    blob = json.loads(out.read_text())
+    want = tuple(int(b) for b in blocks.split(","))
+    rows = []
+    for row, (sim, res, launches) in zip(blob["rows"], records):
+        check(sim.cnn == VGG16_CIFAR and sim.compute_blocks == want and sim.device == DEVICE,
+              "runners: retention_sweep ran off VGG16_CIFAR, its blocks or the card")
+        rows.append({k: row[k] for k in ("compute", "retention_target", "retention_realized",
+                                         "steady_walltime_s", "compile_walltime_s",
+                                         "blocks_per_image_final", "flops_per_image_final",
+                                         "final_acc")}
+                    | {"train_steps": res.train_steps, "launches": launches,
+                       "steady_ms_per_step": row["steady_walltime_s"] / max(res.train_steps, 1) * 1e3})
+    skip = [row for row in rows if row["compute"] == "block_skip"]
+    for row, cases in zip(skip, products):
+        row["kernel_check"] = {
+            "products": len(cases),
+            "max_abs_err": {d: max(c["err"][d] for c in cases) for d in ("fwd", "dx", "dw")},
+            "max_rel_err": {d: max(c["rel_err"][d] for c in cases) for d in ("fwd", "dx", "dw")},
+            "all_allclose": all(c["allclose"] for c in cases),
+            "all_rel_ok": all(c["rel_ok"] for c in cases),
+            "pruned_exact_zero": all(c["pruned_max"] == 0.0 for c in cases),
+            "instances": sorted({i for c in cases for i in c["plans"].values()})}
+    rec = {"phase": "runners_retention", "cnn": VGG16_CIFAR.name, "blocks": blocks,
+           "rows": rows, "checks": blob["checks"], "held": list(held),
+           "seconds": time.perf_counter() - t0}
+    emit(rec)
+    report[f"runners_retention_{tag}"] = rec | {"products": products}
+    check(len(rows) == 8, f"runners: retention_sweep ran {len(rows)} rows, not 8")
+    for k in held:
+        check(blob["checks"][k] is True, f"runners: retention_sweep {blocks} check {k} failed")
+    check(len(products) == len(skip) == 4 and all(len(c) >= 10 for c in products),
+          f"runners: retention_sweep {blocks} captured too few block_skip products")
+    bad = [c for cases in products for c in cases if not (c["allclose"] and c["rel_ok"])]
+    check(not bad, f"runners: retention_sweep {blocks}: the kernel disagrees with plain at the "
+          f"sweep's shapes beyond atol=rtol={TOL} or err/max|ref| {REL_TOL}: " + json.dumps(bad))
+    check(all(r["kernel_check"]["pruned_exact_zero"] for r in skip),
+          f"runners: retention_sweep {blocks}: pruned units not exactly zero")
+    for row in rows:
+        if row["compute"] == "block_skip":
+            check(all(v > 0 for v in row["launches"].values()),
+                  f"runners: block_skip row r{row['retention_target']} missed a kernel direction")
+        else:
+            check(sum(row["launches"].values()) == 0,
+                  f"runners: dense row r{row['retention_target']} launched the kernel")
+    return rec
+
+
+@contextlib.contextmanager
+def dropped_dw_block(shape):
+    """Inside, every dW launch whose output is ``[B, *shape]`` loses its
+    first output block (zeroed after the kernel): the planted fault of the
+    train_all bar's control."""
+    from repro_torch.kernels import pruned_matmul as pm
+
+    real = pm.pruned_matmul_cuda
+
+    def faulty(x, w, in_mask, out_mask, row_mask, blocks, keeps, counter=pm.FWD):
+        y = real(x, w, in_mask, out_mask, row_mask, blocks, keeps, counter)
+        if counter == pm.DW and tuple(y.shape[1:]) == tuple(shape):
+            y[:, :blocks[0], :blocks[1]] = 0.0
+        return y
+
+    pm.pruned_matmul_cuda = faulty
+    try:
+        yield
+    finally:
+        pm.pruned_matmul_cuda = real
+
+
+@contextlib.contextmanager
+def cuda_flags(**flags):
+    """Inside, the given ``torch.backends`` flags (``cudnn_enabled``,
+    ``tf32``); the caller's come back after."""
+    import torch
+
+    cd, mm = torch.backends.cudnn, torch.backends.cuda.matmul
+    saved = (cd.enabled, cd.allow_tf32, mm.allow_tf32)
+    cd.enabled = flags.get("cudnn_enabled", cd.enabled)
+    if flags.get("tf32"):
+        cd.allow_tf32 = mm.allow_tf32 = True
+    try:
+        yield
+    finally:
+        cd.enabled, cd.allow_tf32, mm.allow_tf32 = saved
+
+
+def dw_shape(shape):
+    """The kernel's dW output [K, N] of a weight: im2col K = cin*kh*kw."""
+    return (int(np.prod(shape[:-1])), int(shape[-1]))
+
+
+def runner_train_all(report):
+    """The masked engine's FleetEngine.train_all at VGG16_CIFAR: 4 jobs at
+    index-prefix retentions 1.0 / 1.0 / 0.7 / 0.5, a one-step plan of 32
+    images each, on block_skip, on dense (cuDNN) and on dense in float64;
+    one stacked call each.  Each worker's reconfigured block_skip params
+    are held tensor by tensor against the float64 step (``train_all_bar``),
+    and so is a control that must fail the same bar: block_skip with one
+    live dW block dropped, once for each weight shape.  The dense step with
+    TF32 products, dense without cuDNN (im2col and cuBLAS) and the float64
+    step from an init one float32 ulp up are run and recorded beside them:
+    where the float32 paths' distance from float64 comes from."""
+    import torch
+    from repro_torch.core.aggregation import extract_subparams
+    from repro_torch.core.fleet import FleetEngine, FleetJob
+    from repro_torch.core.importance import METHODS, ImportanceContext
+    from repro_torch.core.masks import full_index, prune_to_budget, retention
+    from repro_torch.core.simulation import SimConfig, _Env
+    from repro_torch.core.worker import LocalTrainer, make_batch_plan
+    from repro_torch.kernels.pruned_matmul import LAUNCHES, reset_launches
+    from repro_torch.models.cnn import VGG16_CIFAR
+
+    W = len(TRAIN_ALL_RATES)
+    env = _Env(SimConfig(method="adaptcl", engine="masked", cnn=VGG16_CIFAR, num_workers=W,
+                         importance="index", device=DEVICE))
+    scores = METHODS["index"](ImportanceContext(unit_counts=env.space.unit_counts))
+    indices = [prune_to_budget(full_index(env.space), scores, r, env.space)
+               for r in TRAIN_ALL_RATES]
+    rng = np.random.default_rng(0)
+    shards = [env.shard_xy(w) for w in range(W)]
+    plans = [make_batch_plan(len(x), 32, 32 / len(x), rng) for x, _ in shards]
+    subs = [extract_subparams(env.base_params, idx, env.unit_map) for idx in indices]
+
+    def jobs(dtype, ulp):
+        npd = np.float64 if dtype == torch.float64 else np.float32
+        up = lambda v: torch.nextafter(v, torch.full_like(v, float("inf"))) if ulp else v
+        return [FleetJob(worker=w, params={k: up(v).to(dtype) for k, v in subs[w].items()},
+                         index=indices[w], x=shards[w][0].astype(npd), y=shards[w][1],
+                         plan=plans[w]) for w in range(W)]
+
+    out, rec = {}, {"phase": "runners_train_all", "cnn": VGG16_CIFAR.name,
+                    "retentions": [retention(i, env.space) for i in indices],
+                    "plan_shape": list(plans[0].shape), "lam": env.sim.lam}
+
+    def step(tag, compute, dtype=torch.float32, ctx=contextlib.nullcontext, ulp=False):
+        trainer = LocalTrainer(VGG16_CIFAR, lr=env.sim.lr, beta=env.sim.beta, compute=compute,
+                               device=DEVICE)
+        fleet = FleetEngine(trainer, env.unit_map, env.base_shapes, DEVICE, engine="masked")
+        with ctx():
+            reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out[tag] = fleet.train_all(jobs(dtype, ulp), env.sim.lam)
+            torch.cuda.synchronize()
+        rec[tag] = {"seconds": time.perf_counter() - t0, "launches": dict(LAUNCHES),
+                    "batched_calls": fleet.batched_calls, "dispatches": trainer.dispatch_count}
+        return out[tag]
+
+    bs = step("block_skip", "block_skip")
+    dn = step("dense", "dense")
+    f64 = step("dense_fp64", "dense", torch.float64)
+    native = step("dense_no_cudnn", "dense", ctx=lambda: cuda_flags(cudnn_enabled=False))
+    # how far the float64 step itself moves when the init moves by one float32 ulp
+    f64_ulp = step("dense_fp64_one_ulp", "dense", torch.float64, ulp=True)
+    err = lambda a, b: float((a.double() - b.double()).abs().max())
+    # each tensor's bar: TOL, or TRAIN_ALL_BAR x cuDNN's own distance from float64
+    bar = [{k: max(TRAIN_ALL_BAR * err(dn[w][k], f64[w][k]), TOL) for k in f64[w]} for w in range(W)]
+
+    def ratios(res):
+        """err(res, float64) / bar of every (worker, tensor); the bar holds
+        where all are <= 1."""
+        return {(w, k): err(res[w][k], f64[w][k]) / bar[w][k] for w in range(W) for k in f64[w]}
+
+    held = ratios(bs)
+    worst = sorted(held, key=held.get, reverse=True)
+    weights = [k for k in f64[0] if k.endswith("/w")]
+    update = {(w, k): err(f64[w][k], subs[w][k]) for w in range(W) for k in weights}
+    tf32 = ratios(step("dense_tf32", "dense", ctx=lambda: cuda_flags(tf32=True)))
+    dropped = []
+    for shape in sorted({dw_shape(env.base_shapes[k]) for k in weights}):
+        faulted = [k for k in weights if dw_shape(env.base_shapes[k]) == shape]
+        r = ratios(step("dropped_dw_block", "block_skip", ctx=lambda: dropped_dw_block(shape)))
+        dropped.append({"dw_shape": list(shape), "tensors": faulted,
+                        "max_ratio": max(r.values()),
+                        "min_faulted_ratio": min(r[(w, k)] for w in range(W) for k in faulted),
+                        "others_max_ratio": max(v for (w, k), v in r.items() if k not in faulted)})
+    rec.update(
+        param_max_abs_diff=[max(err(bs[w][k], dn[w][k]) for k in dn[w]) for w in range(W)],
+        block_skip_vs_fp64=[max(err(bs[w][k], f64[w][k]) for k in f64[w]) for w in range(W)],
+        dense_vs_fp64=[max(err(dn[w][k], f64[w][k]) for k in f64[w]) for w in range(W)],
+        dense_no_cudnn_vs_fp64=[max(err(native[w][k], f64[w][k]) for k in f64[w]) for w in range(W)],
+        block_skip_vs_dense_no_cudnn=[max(err(bs[w][k], native[w][k]) for k in f64[w])
+                                      for w in range(W)],
+        fp64_one_ulp_envelope=[max(err(f64_ulp[w][k], f64[w][k]) for k in f64[w])
+                               for w in range(W)],
+        max_ratio=held[worst[0]],
+        worst=[{"worker": w, "tensor": k, "ratio": held[(w, k)], "bar": bar[w][k],
+                "block_skip_vs_fp64": err(bs[w][k], f64[w][k]),
+                "dense_vs_fp64": err(dn[w][k], f64[w][k]),
+                "dense_no_cudnn_vs_fp64": err(native[w][k], f64[w][k]),
+                "fp64_one_ulp_envelope": err(f64_ulp[w][k], f64[w][k])} for w, k in worst[:4]],
+        max_bar=max(max(b.values()) for b in bar),
+        min_update_over_bar=min(update[(w, k)] / bar[w][k] for w, k in update),
+        min_weight_update=[min(update[(w, k)] for k in weights) for w in range(W)],
+        controls={"tf32_max_ratio": max(tf32.values()), "dropped_dw_block": dropped},
+        bar_rule={"atol": TOL, "dense_multiple": TRAIN_ALL_BAR},
+        shapes_match=all(bs[w][k].shape == subs[w][k].shape for w in range(W) for k in subs[w]))
+    emit(rec)
+    report["runners_train_all"] = rec
+    w0, k0 = worst[0]
+    check(rec["shapes_match"], "runners: train_all returned params off the reconfigured shapes")
+    check(held[worst[0]] <= 1.0, f"runners: train_all block_skip {k0} of worker {w0} is "
+          f"{err(bs[w0][k0], f64[w0][k0])} from the float64 step, past its bar {bar[w0][k0]}")
+    # the bar must tell a wrong step: every weight moves by more than its bar,
+    # and a dropped dW block fails it on every worker (TF32's ratio is a
+    # reading: its products are ~1e-3 off, a step's ~3 % bar may pass them)
+    check(rec["min_update_over_bar"] > 1.0, f"runners: a weight matrix moved by only "
+          f"{rec['min_update_over_bar']} x its bar, so the bar cannot tell a wrong gradient")
+    for d in dropped:
+        check(d["min_faulted_ratio"] > 1.0 and d["others_max_ratio"] <= 1.0,
+              f"runners: a dropped dW block of {d['tensors']} is not caught by the train_all "
+              f"bar on every worker (min ratio {d['min_faulted_ratio']}), or moved other "
+              f"tensors past it ({d['others_max_ratio']})")
+    for tag in ("block_skip", "dense", "dense_fp64", "dense_no_cudnn", "dense_fp64_one_ulp",
+                "dense_tf32"):
+        check(rec[tag]["batched_calls"] == 1 and rec[tag]["dispatches"] == 1,
+              f"runners: train_all {tag} made more than one stacked call")
+    check(all(v > 0 for v in rec["block_skip"]["launches"].values()),
+          "runners: train_all block_skip missed a kernel direction")
+    for tag in ("dense", "dense_no_cudnn", "dense_tf32"):
+        check(sum(rec[tag]["launches"].values()) == 0, f"runners: {tag} train_all launched the kernel")
+    return rec
+
+
+def fedavg_s_clock(dist: str, device: str) -> float:
+    """fedavg_s's clock in table2's quick VGG16_CIFAR masked row ``dist``
+    ("iid" or "noniid") on ``device``: how TABLE2_FEDAVG_S_CPU_CLOCK was
+    computed, ``python3 -c "import chip_smoke as c; print(repr(c.fedavg_s_clock('iid',
+    'cpu')))"`` from the repository root."""
+    if str(ROOT / "src") not in sys.path:
+        sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.bench import tables as ttables
+    from repro_torch.models.cnn import VGG16_CIFAR
+
+    s = ttables.Settings(quick=True, engine="masked", device=device, cnn=VGG16_CIFAR)
+    return ttables._run(s, "fedavg_s", noniid=80.0 if dist == "noniid" else 0.0).total_time
+
+
+def runner_tables(report):
+    """The tables through the command line: Tab. II quick at VGG16_CIFAR on
+    the masked engine, and the engines comparison quick at the tables' own
+    model.  Every method's row present, the speedup line parses, and
+    fedavg_s's clock (the channel model only) equal to the same row's on
+    the CPU (TABLE2_FEDAVG_S_CPU_CLOCK)."""
+    import re
+
+    from repro_torch.bench import tables as ttables
+    from repro_torch.models.cnn import VGG16_CIFAR
+
+    t0 = time.perf_counter()
+    lines, records = runner_cli(ttables, ["tables", "--quick", "--only", "table2_main",
+                                          "--cnn", "vgg16", "--engine", "masked",
+                                          "--device", DEVICE])
+    t2 = time.perf_counter() - t0
+    rows = csv_rows(lines)
+    speed = {}
+    for dist in ("iid", "noniid"):
+        for m in TABLE2_METHODS:
+            check(f"table2/{dist}/{m}/acc" in rows, f"runners: table2 row {dist}/{m} missing")
+        value, derived = rows.get(f"table2/{dist}/adaptcl_speedup", ("", ""))
+        check(re.fullmatch(r"\d+\.\d\dx", value) is not None
+              and re.fullmatch(r"dacc=[+-]\d+\.\d{4};param_red=-?\d+\.\d\d%", derived) is not None,
+              f"runners: table2 {dist} speedup line does not parse: {value},{derived}")
+        speed[dist] = float(value[:-1])
+    check(len(records) == 12 and all(s.cnn == VGG16_CIFAR and s.engine == "masked"
+                                     and s.device == DEVICE for s, _, _ in records),
+          "runners: table2 ran off VGG16_CIFAR, the masked engine or the card")
+    fed = {("noniid" if s.noniid_s else "iid"): r for s, r, _ in records if s.method == "fedavg_s"}
+    clocks = {dist: {"card": r.total_time, "cpu": TABLE2_FEDAVG_S_CPU_CLOCK[dist]}
+              for dist, r in fed.items()}
+    t_e = time.perf_counter()
+    e_lines, e_records = runner_cli(ttables, ["tables", "--quick", "--only", "engines",
+                                              "--device", DEVICE])
+    e_rows = csv_rows(e_lines)
+    rec = {"phase": "runners_tables",
+           "table2": {"seconds": t2, "speedup": speed,
+                      "runs": [{"method": s.method, "noniid": s.noniid_s,
+                                "walltime_s": r.walltime_s, "total_time": r.total_time,
+                                "best_acc": r.best_acc, "launches": l}
+                               for s, r, l in records]},
+           "fedavg_s_clock": clocks,
+           "engines": {"seconds": time.perf_counter() - t_e,
+                       "rows": {k: v for k, v in e_rows.items() if k.startswith("engines/")}}}
+    emit(rec)
+    report["runners_tables"] = rec
+    check(sorted(clocks) == ["iid", "noniid"], "runners: table2 ran no fedavg_s row")
+    for dist, c in clocks.items():
+        check(c["card"] == c["cpu"], f"runners: table2 {dist} fedavg_s clock {c['card']} on "
+              f"the card, {c['cpu']} on the CPU")
+    for e in ("sequential", "bucketed", "masked"):
+        check(f"engines/{e}/walltime_s" in e_rows, f"runners: engines row {e} missing")
+    check(len(e_records) == 3 and [s.engine for s, _, _ in e_records]
+          == ["sequential", "bucketed", "masked"], "runners: engines ran other engines")
+    return rec
+
+
+def phase_runners(report):
+    """Slice 11: the paper's runners and the masked train_all on the card."""
+    t0 = time.perf_counter()
+    ret = [runner_retention(report, blocks, held) for blocks, held in RUNNER_SWEEPS]
+    tall = runner_train_all(report)
+    tab = runner_tables(report)
+    rec = {"phase": "runners", "seconds": time.perf_counter() - t0,
+           "retention_checks": {r["blocks"]: r["checks"] for r in ret},
+           "retention_products_max_rel_err": {
+               r["blocks"]: max(max(row["kernel_check"]["max_rel_err"].values())
+                                for row in r["rows"] if row["compute"] == "block_skip")
+               for r in ret},
+           "train_all_max_abs_diff": max(tall["param_max_abs_diff"]),
+           "train_all_max_ratio": tall["max_ratio"],
+           "train_all_dropped_block_min_ratio": min(d["min_faulted_ratio"]
+                                                    for d in tall["controls"]["dropped_dw_block"]),
+           "table2_speedup": tab["table2"]["speedup"]}
+    emit(rec)
+    report["runners"] = rec
+    return rec
+
+
 def main() -> int:
     try:
         import torch
@@ -3449,6 +3953,8 @@ def main() -> int:
         phase_mesh(report, f_res, f_again)
         save(report)
         phase_robust_mesh(report, rf_res, rf_again)
+        save(report)
+        phase_runners(report)
     steps = max(res.train_steps, 1)
     rb_steps = max(rb_res.train_steps, 1)
     s_steps = max(s_res.train_steps, 1)

@@ -9,8 +9,11 @@ Port of ``repro/core/fleet.py``, selected by ``engine``:
   ``train_many`` call per bucket;
 * ``masked``     — the resident engine below.
 
-The first two take a list of ``FleetJob``s (``train_all``).  The masked
-engine keeps the fleet resident instead: every worker stays at base shape;
+The first two take a list of ``FleetJob``s (``train_all``).  On the
+masked engine ``train_all`` embeds each job's sub-model into the base
+shape under its 0/1 coordinate masks and trains one stack per (shard, plan)
+shape, then extracts each worker's reconfigured view.  ``run_simulation``
+keeps the masked fleet resident instead: every worker stays at base shape;
 its sub-model is a 0/1 coordinate mask, so the whole fleet trains as one
 stack and a pruning event only rewrites mask rows.
 
@@ -49,9 +52,15 @@ from typing import Dict, List, Mapping, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from repro_torch.optim.group_lasso import group_size_sqrt_from_shapes
+from repro_torch.optim.group_lasso import group_size_sqrt, group_size_sqrt_from_shapes
 
-from .aggregation import UnitMap, subparam_shapes
+from .aggregation import (
+    UnitMap,
+    coordinate_mask,
+    embed_params,
+    extract_subparams,
+    subparam_shapes,
+)
 from .masks import GlobalIndex, UnitFlat
 from .worker import LocalTrainer, _sync, stack_batch_plans
 
@@ -276,6 +285,7 @@ class FleetEngine:
         self.batched_calls = 0           # stacked training calls launched
         self.buckets_used: set = set()   # resident sub-stack row counts launched
         self.pull_walltime_s = 0.0       # train_rows(to_host=True) copies, after a sync
+        self._mask_cache: Dict[tuple, Tensors] = {}   # train_all's masks, by global index
 
     # ------------------------------------------------------------------
     # reconfiguring engines: physically small sub-models
@@ -284,13 +294,6 @@ class FleetEngine:
     def train_all(self, jobs: Sequence[FleetJob], lam: float = 0.0) -> List[Tensors]:
         """Train every job; returns the trained sub-model params aligned
         with ``jobs`` (a job with an empty plan comes back untouched)."""
-        if self.engine in ("masked", "fused"):
-            raise ValueError(
-                "FleetEngine.train_all on the masked engine (the reference's "
-                "_run_masked, which no run_simulation path reaches) is not "
-                "ported to repro_torch yet (see ROADMAP.md, queue A); the "
-                "masked engine trains its resident stacks with train_rounds"
-            )
         results: List[Tensors] = [dict(j.params) for j in jobs]
         live = [i for i, j in enumerate(jobs) if j.plan.shape[0] > 0]
         if self.engine == "sequential":
@@ -299,7 +302,7 @@ class FleetEngine:
                 results[i], _ = self.trainer.train_plan(
                     j.params, self.unit_map, j.x, j.y, j.plan, lam
                 )
-        else:
+        elif self.engine == "bucketed":
             buckets: Dict[tuple, List[int]] = {}
             for i in live:
                 j = jobs[i]
@@ -315,7 +318,47 @@ class FleetEngine:
                 self.batched_calls += 1
                 for i, p in zip(members, trained):
                     results[i] = p
+        else:
+            self._run_masked(jobs, live, results, lam)
         return results
+
+    def _mask_for(self, index: GlobalIndex) -> Tensors:
+        """A worker's 0/1 coordinate masks at base shape, on the device,
+        cached by its global index."""
+        key = tuple(sorted((k, tuple(map(int, v))) for k, v in index.items()))
+        m = self._mask_cache.get(key)
+        if m is None:
+            m = {path: torch.as_tensor(
+                     coordinate_mask(path, index, self.unit_map, self.base_shapes),
+                     dtype=torch.float32, device=self.device)
+                 for path in self.base_shapes}
+            self._mask_cache[key] = m
+        return m
+
+    def _run_masked(self, jobs, live, results, lam):
+        """Every sub-model embedded into the base shape under its masks:
+        one stacked call per (shard, plan) shape, each worker's
+        reconfigured view extracted back out."""
+        buckets: Dict[tuple, List[int]] = {}
+        for i in live:
+            j = jobs[i]
+            buckets.setdefault((j.x.shape, j.plan.shape), []).append(i)
+        for members in buckets.values():
+            js = [jobs[i] for i in members]
+            embedded = [embed_params(j.params, j.index, self.unit_map, self.base_shapes)
+                        for j in js]
+            trained, _ = self.trainer.train_many(
+                embedded, self.unit_map,
+                np.stack([j.x for j in js]), np.stack([j.y for j in js]),
+                np.stack([j.plan for j in js]), lam,
+                masks=[self._mask_for(j.index) for j in js],
+                # group-lasso factors from the RECONFIGURED shapes: the
+                # penalty of the physically small model, not the base one
+                gl_sizes=[group_size_sqrt(j.params, self.unit_map) for j in js],
+            )
+            self.batched_calls += 1
+            for i, base_p in zip(members, trained):
+                results[i] = extract_subparams(base_p, jobs[i].index, self.unit_map)
 
     # ------------------------------------------------------------------
     # resident masked engine: [W, ...] stacks on the device

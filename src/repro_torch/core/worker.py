@@ -9,7 +9,8 @@ a Python loop over steps):
 
 * ``train_plan``     — one physically small worker (the sequential engine);
 * ``train_many``     — a stack of same-shaped workers in one call (the
-  bucketed engine);
+  bucketed engine), or of base-shape workers under 0/1 masks (the masked
+  engine's ``FleetEngine.train_all``);
 * ``train_resident`` — the masked base-shape stack of the resident engine,
   each step validity-gated: an invalid step computes and discards (params,
   momentum and loss keep their carry), so ragged plans and
@@ -42,7 +43,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.cnn import CNNConfig, cnn_apply, prunable_layer_names
-from repro_torch.optim.group_lasso import group_lasso_penalty, unit_group_norms
+from repro_torch.optim.group_lasso import group_lasso_penalty, group_size_sqrt, unit_group_norms
 from repro_torch.optim.optimizers import apply_updates, momentum
 
 from .masks import GlobalIndex, prune_to_budget
@@ -299,21 +300,40 @@ class LocalTrainer:
     def train_many(
         self, params_list: Sequence[Tensors], unit_map, xs: np.ndarray, ys: np.ndarray,
         plans: np.ndarray, lam: float = 0.0,
+        masks: Optional[Sequence[Mapping[str, torch.Tensor]]] = None,
+        gl_sizes: Optional[Sequence[Mapping[str, float]]] = None,
     ) -> Tuple[List[Tensors], torch.Tensor]:
         """Train a stack of same-shaped workers (``xs [B, n, ...]``, ``plans
         [B, steps, batch]``) in ONE counted call; returns the trained params
-        per worker and the ``[B]`` mean losses."""
+        per worker and the ``[B]`` mean losses.
+
+        ``masks`` (per worker, 0/1 at the params' shapes) turns on the masked
+        mode: heterogeneous sub-models ride the base shape as unit masks, so
+        gradients and momentum are exactly zero on pruned coordinates, and
+        ``compute="block_skip"`` runs the block-skip kernel.  ``gl_sizes``
+        (per worker, ``{layer: sqrt|g|}``) sets the group-lasso factors; by
+        default they come from the stack's own shapes."""
         B = len(params_list)
         if not (xs.shape[0] == ys.shape[0] == plans.shape[0] == B):
             raise ValueError("train_many: params, shards and plans disagree on the stack size")
         stacked = {k: torch.stack([p[k] for p in params_list]) for k in params_list[0]}
+        masked = masks is not None
         sig = self._plan_sig(
-            params_list[0], ("many", B, tuple(xs.shape[1:]), tuple(plans.shape[1:])), lam
+            params_list[0], ("many", B, tuple(xs.shape[1:]), tuple(plans.shape[1:]), masked), lam
         )
         xt, yt = self._device_data(xs, ys)
         pt = torch.as_tensor(plans, device=self.device)
+        mt = gl = None
+        if masked:
+            mt = {k: torch.stack([torch.as_tensor(m[k], dtype=torch.float32, device=self.device)
+                                  for m in masks]) for k in params_list[0]}
+            if gl_sizes is None:   # the shapes the stack runs at
+                gl_sizes = [group_size_sqrt(p, unit_map) for p in params_list]
+            gl = {lname: torch.as_tensor([s[lname] for s in gl_sizes], dtype=torch.float32,
+                                         device=self.device)
+                  for lname in gl_sizes[0]}
         out, _, losses = self.dispatch(
-            sig, self._train_stack, stacked, None, unit_map, xt, yt, pt, None, lam, None
+            sig, self._train_stack, stacked, mt, unit_map, xt, yt, pt, None, lam, gl
         )
         return [{k: v[i] for k, v in out.items()} for i in range(B)], losses
 

@@ -181,8 +181,12 @@ def test_masked_engine_rows_match_sequential(lam):
         for k in row:
             np.testing.assert_allclose(row[k].numpy(), seq[w][k].numpy(), atol=1e-4,
                                        err_msg=f"worker {w} {k}")
-    with pytest.raises(ValueError, match="ROADMAP"):
-        masked.train_all(_jobs(TJob, subs, indices, xs, ys, params_from_numpy), lam)
+    # the masked engine's train_all (embed, one stacked masked call, extract)
+    out = masked.train_all(_jobs(TJob, subs, indices, xs, ys, params_from_numpy), lam)
+    for w in range(4):
+        for k in out[w]:
+            np.testing.assert_allclose(out[w][k].numpy(), seq[w][k].numpy(), atol=1e-4,
+                                       err_msg=f"train_all worker {w} {k}")
 
 
 # ---------------------------------------------------------------------------
@@ -197,6 +201,8 @@ CASES = {
                                        fixed_pruned_rates=[[0.0, 0.2, 0.4, 0.6], [0.1, 0.0, 0.3, 0.0]])),
     "resnet_cig": ("resnet", dict(method="adaptcl", importance="cig_bnscalor")),
     "resnet_taylor": ("resnet", dict(method="adaptcl", importance="taylor")),
+    # the unpruned baseline: full-shape workers, no prune event
+    "fedavg_s": ("vgg", dict(method="fedavg_s")),
 }
 
 
@@ -239,7 +245,10 @@ def test_engine_prune_events_and_clock_identical(case, engine, runs):
     rj, rt = runs(case, engine)
     assert rt.engine == rj.engine == engine
     assert rt.prune_events == rj.prune_events
-    assert rt.prune_events and min(rt.retentions) < 1.0
+    if CASES[case][1]["method"] == "adaptcl":
+        assert rt.prune_events and min(rt.retentions) < 1.0
+    else:
+        assert not rt.prune_events and rt.retentions == [1.0] * 4
     assert rt.update_times == rj.update_times
     assert abs(rt.total_time - rj.total_time) <= 1e-9
     assert rt.retentions == rj.retentions

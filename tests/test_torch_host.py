@@ -266,13 +266,17 @@ def test_fleet_rows_and_buckets():
 # ---------------------------------------------------------------------------
 
 def _port_files():
-    return sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    return (sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
+            + sorted((ROOT / "examples").glob("torch_*.py")) + [ROOT / "chip_smoke.py"])
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():
     files = _port_files()
     assert len(files) > 10
     assert ROOT / "src" / "repro_torch" / "core" / "fused.py" in files
+    assert ROOT / "src" / "repro_torch" / "bench" / "run.py" in files
+    assert ROOT / "examples" / "torch_adaptcl_sim.py" in files
+    assert ROOT / "examples" / "torch_heterogeneity_sweep.py" in files
     for path in files:
         tree = ast.parse(path.read_text(), filename=str(path))
         for node in ast.walk(tree):
@@ -284,7 +288,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                 continue
             for name in names:
                 top = name.split(".")[0]
-                assert top not in ("jax", "jaxlib", "repro", "flax", "optax"), (path, name)
+                assert top not in ("jax", "jaxlib", "repro", "benchmarks", "flax", "optax"), (
+                    path, name)
 
 
 def test_cuda_device_never_falls_back_to_cpu():
