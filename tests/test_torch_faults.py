@@ -30,6 +30,7 @@ import jax
 import numpy as np
 import pytest
 import torch
+from torch_envelope import assert_within_envelope, perturbations
 
 from repro.core import faults as jf
 from repro.core import scenario as jsc
@@ -208,46 +209,53 @@ def test_families_match_jax_engine_within_contract(family, engine):
 # the crash world at test_faults' size (ROADMAP queue C)
 # ---------------------------------------------------------------------------
 
-def max_param_diff(a, b):
-    return max(float(np.abs(np.asarray(a.global_params[k]) - np.asarray(b.global_params[k])).max())
-               for k in b.global_params)
+def _jax_crash(engine, cache, bump=None):
+    """The reference's crash world, one run per (engine, bump) for the
+    module (JAX sequential from the init is the families' own run)."""
+    key = ("jax", "crash") if (engine, bump) == ("sequential", None) else (
+        "jax", "crash", engine, bump)
+    return cache(key, jax_sim, engine, FAMILIES["crash"], bump=bump)
 
 
-@pytest.mark.parametrize("bump,apart", [(None, True), ("up", False), ("down", False)])
-def test_crash_world_reference_engines_part_on_the_last_bit(bump, apart, cache):
+@pytest.mark.parametrize("bump", [pytest.param(None, id="None-True"),
+                                  pytest.param("up", id="up-False"),
+                                  pytest.param("down", id="down-False")])
+def test_crash_world_reference_engines_part_on_the_last_bit(bump, cache):
     """At test_faults' size the crash world ends on one of a few sides, and
-    which one an engine takes is decided by the last bits of its sums: the
-    reference's sequential and masked engines part from the seeded init
-    (final_acc 0.7480 against 0.7422) and agree from the same init moved one
-    ulp either way, with no line of either engine changed.  So the two JAX
-    engines differ there by float32 chaos, not by crash-recovery semantics,
-    and a port engine landing on the other-named JAX engine at the seeded
-    init (queue C) is no witness of swapped semantics."""
-    seq = cache(("jax", "crash", "sequential", bump), jax_sim, "sequential",
-                FAMILIES["crash"], bump=bump)
-    msk = cache(("jax", "crash", "masked", bump), jax_sim, "masked", FAMILIES["crash"], bump=bump)
+    which one an engine takes is decided by the last bits of its sums: a
+    ReLU gate within 1e-7 of zero flips with a convolution's summation
+    order, which XLA picks by ISA.  So whether the reference's sequential
+    and masked engines part from the seeded init (final_acc 0.7480 against
+    0.7422 on the CPU this witness was first run on) or agree depends on
+    the CPU.  What holds on every CPU, from the init and from it moved one
+    ulp either way: the two engines' events, clocks and ledgers are equal,
+    and their params and final_acc lie within 1e-4 and 1e-3, or within 2x
+    the distance the other two inits move JAX sequential's run.  A port
+    engine landing on the other-named JAX engine is no witness of swapped
+    semantics."""
+    runs = {b: _jax_crash("sequential", cache, b) for b in (None, "up", "down")}
+    seq = runs[bump]
+    msk = _jax_crash("masked", cache, bump)
     assert_events_and_clocks(seq, msk)
-    if apart:
-        assert seq.final_acc != msk.final_acc and max_param_diff(seq, msk) > 1e-3
-    else:
-        assert seq.final_acc == msk.final_acc and max_param_diff(seq, msk) <= 1e-5
+    assert_within_envelope(seq, msk, bar=1e-4, what=f"crash, init {bump}",
+                           perturbed=[lambda r=r: r for b, r in runs.items() if b != bump])
 
 
 @pytest.mark.parametrize("engine", ["sequential", "masked"])
 def test_crash_world_full_size_contract_from_the_init_one_ulp_down(engine, cache):
-    """From the init moved one ulp down, where the two JAX engines agree,
-    each port engine meets the whole contract against the JAX engine of the
-    same name at test_faults' own size, crash recovery included.  The side a
-    run ends on hangs on last bits: should a change of the port's summation
-    order alone break this case, compare the port with both JAX engines
-    before suspecting the semantics."""
-    ref = cache(("jax", "crash", engine, "down"), jax_sim, engine, FAMILIES["crash"], bump="down")
-    port = port_sim(engine, FAMILIES["crash"], bump="down")
+    """From the init itself each port engine has the events, clocks and
+    ledgers of the JAX engine of the same name at test_faults' own size,
+    crash recovery included, and params and final_acc within 1e-4 and 1e-3
+    of JAX sequential (the fault families' oracle), or within 2x the
+    envelope where that is larger: the port from the init one ulp down and
+    up, and the distance between the two JAX engines."""
+    ref = _jax_crash(engine, cache)
+    port = cache(("port", "crash", engine), port_sim, engine, FAMILIES["crash"])
     assert_events_and_clocks(ref, port)
-    assert abs(ref.final_acc - port.final_acc) <= 1e-3
-    for k in ref.global_params:
-        np.testing.assert_allclose(port.global_params[k], ref.global_params[k], atol=1e-4,
-                                   err_msg=k)
+    seq = _jax_crash("sequential", cache)
+    assert_within_envelope(
+        port, seq, bar=1e-4, refs=(ref, seq), what=f"crash/{engine}",
+        perturbed=perturbations(lambda b: port_sim(engine, FAMILIES["crash"], bump=b)))
     assert port.workers_recovered > 0
 
 

@@ -1,26 +1,33 @@
-"""The port's fused round engine (sync methods) against the JAX fused engine.
+"""The port's fused round engine (sync methods) against the JAX package.
 
 Whole adaptcl / fedavg / fedavg_s runs at ``tests/test_fused.py``'s TINY
 config (VGG [8, M, 16], 5 workers, 6 rounds, PI=2, the default task), both
 packages from the JAX ``init_cnn`` draw, held under ROADMAP's parity
-contract to the reference engine of the same name: final_acc within 1e-3,
-identical ``prune_events`` (regrow events included) and ``scenario_rounds``,
-``update_times`` at atol 0, ``total_time`` within 1e-9, and beyond it the
-global params within 1e-4, equal ``host_dispatches``, ``fused_chunks``,
-``recompiles``, ``comm_bytes`` and zero host round trips.  Cases: the plain
-run, a ``round_fusion`` cap that spans learning intervals, phase B, by_unit,
-the static and the device-scored importance criteria, sampling, dropout and
-churn, DGC, resident momentum (with churn), regrowth, and the baselines.
+contract: identical ``prune_events`` (regrow events included) and
+``scenario_rounds``, ``update_times`` at atol 0, ``total_time`` within
+1e-9, equal ``host_dispatches``, ``fused_chunks``, ``recompiles``,
+``comm_bytes`` and zero host round trips against JAX fused; final_acc
+within 1e-3 and the global params within 1e-4 against JAX masked, or within
+2x the envelope where that is larger (``torch_envelope``).  JAX fused is
+not the params oracle: under AVX-512 its compiled chunk flips a ReLU gate
+that JAX masked, JAX sequential and the port leave alone (ROADMAP queue C).
+Cases: the plain run, a ``round_fusion`` cap that spans learning intervals,
+phase B, by_unit, the static and the device-scored importance criteria,
+sampling, dropout and churn, DGC, resident momentum (with churn),
+regrowth, and the baselines.
 
 Also: dispatches scale with chunks, not rounds; the padding and skipped
 rounds the port does not run change no carried tensor (``RUN_DEAD_ROUNDS``
 runs them as the reference's scan does, and every chunk's carry comes out
 identical); and what stays refused on the fused engine, by field name.
 """
+import dataclasses
+
 import jax
 import numpy as np
 import pytest
 import torch
+from torch_envelope import assert_within_envelope, perturbations, ulp
 
 from repro.core import scenario as jsc
 from repro.core import simulation as jsim
@@ -98,34 +105,50 @@ def pair(**kw):
     return jsim.run_simulation(jc), tsim.run_simulation(tc, base_params=jax_init(jc))
 
 
-def params_maxdiff(a, b):
-    return max(float(np.max(np.abs(np.asarray(a.global_params[k], np.float32)
-                                   - b.global_params[k]))) for k in a.global_params)
-
-
-def assert_events_and_counters(ref, port):
-    """The exact part of the contract: events, clocks, ledgers, counters."""
-    assert port.prune_events == ref.prune_events
-    assert port.scenario_rounds == ref.scenario_rounds
-    np.testing.assert_allclose(np.array(port.update_times), np.array(ref.update_times),
+def assert_events_and_counters(ref, port, events=None):
+    """The exact part of the contract: events, clocks and ledgers against
+    ``events`` (default ``ref``), the fused engine's counters against
+    ``ref``."""
+    events = ref if events is None else events
+    assert port.prune_events == events.prune_events
+    assert port.scenario_rounds == events.scenario_rounds
+    np.testing.assert_allclose(np.array(port.update_times), np.array(events.update_times),
                                rtol=0, atol=0, equal_nan=True)
-    assert abs(port.total_time - ref.total_time) <= 1e-9
-    assert [t for t, _ in port.acc_time] == [t for t, _ in ref.acc_time]
+    assert abs(port.total_time - events.total_time) <= 1e-9
+    assert [t for t, _ in port.acc_time] == [t for t, _ in events.acc_time]
+    assert port.comm_bytes == events.comm_bytes
+    assert port.retentions == events.retentions
+    for f in LEDGER_FIELDS:
+        assert getattr(port, f) == getattr(events, f), f
     assert port.host_dispatches == ref.host_dispatches
     assert port.fused_chunks == ref.fused_chunks > 0
     assert port.recompiles == ref.recompiles
-    assert port.comm_bytes == ref.comm_bytes
     assert port.host_roundtrips == ref.host_roundtrips == 0
-    assert port.retentions == ref.retentions
-    for f in LEDGER_FIELDS:
-        assert getattr(port, f) == getattr(ref, f), f
     assert port.engine == "fused"
 
 
-def assert_contract(ref, port, params_atol=1e-4):
-    assert_events_and_counters(ref, port)
-    assert abs(ref.final_acc - port.final_acc) <= 1e-3
-    assert params_maxdiff(ref, port) <= params_atol
+# criteria that rank units by the trained params: their prune order, and
+# the clocks and payloads that follow it, go with the params oracle
+DATA_DEPENDENT = ("l1", "taylor")
+
+
+def assert_contract(ref, port, what="", **kw):
+    """Events and counters against JAX fused ``ref``; params and final_acc
+    against JAX masked on the same config (``kw``), at 1e-4 / 1e-3 or 2x
+    the envelope: the port's run from the init one ulp up and down and in
+    the other summation order, and the distance between the two JAX
+    engines.  Under a data-dependent
+    criterion the prune order follows the trained params, so the events,
+    clocks and payloads are held to JAX masked too."""
+    jc, tc = configs(**kw)
+    masked = jsim.run_simulation(dataclasses.replace(jc, engine="masked"))
+    data_dependent = jc.importance in DATA_DEPENDENT
+    assert_events_and_counters(ref, port, events=masked if data_dependent else ref)
+    assert masked.prune_events == port.prune_events
+    init = jax_init(jc)
+    assert_within_envelope(
+        port, masked, bar=1e-4, refs=(ref, masked), what=what,
+        perturbed=perturbations(lambda b: tsim.run_simulation(tc, base_params=ulp(init, b))))
 
 
 # ---------------------------------------------------------------------------
@@ -157,7 +180,7 @@ CASES = {
 @pytest.mark.parametrize("case", list(CASES))
 def test_fused_run_matches_jax_fused(case):
     ref, port = pair(**CASES[case])
-    assert_contract(ref, port)
+    assert_contract(ref, port, case, **CASES[case])
     if case in ("plain", "phase_b", "by_unit", "l1", "taylor", "dgc", "momentum"):
         assert port.fused_chunks == 3 and len(port.prune_events) > 0
     if case == "fusion_cap":
@@ -171,15 +194,11 @@ def test_fused_run_matches_jax_fused(case):
 def test_fused_regrow_matches_jax_fused():
     """Regrow rounds (4, 7) cut chunks mid-interval; the host readjustment at
     the boundary adds one signature (the grow gradient) and its dispatches."""
-    ref, port = pair(rounds=8, regrow=dict(interval=3, alpha0=0.3), round_fusion=4)
-    assert_contract(ref, port)
+    kw = dict(rounds=8, regrow=dict(interval=3, alpha0=0.3), round_fusion=4)
+    ref, port = pair(**kw)
+    assert_contract(ref, port, "regrow", **kw)
     assert {4, 7} <= {t for t, _, _ in port.prune_events}
     assert port.recompiles == 2
-
-
-def ulp(params, bump):
-    to = np.float32(np.inf if bump == "up" else -np.inf)
-    return {k: np.nextafter(np.asarray(v, np.float32), to) for k, v in params.items()}
 
 
 def test_fused_regrow_with_dgc_and_momentum():
@@ -188,18 +207,14 @@ def test_fused_regrow_with_dgc_and_momentum():
     here: the port lands 0.055 from JAX fused, and so does the port itself
     from the init moved one ulp up (then on JAX's accuracies).  So the
     events, clocks and counters are held exactly there, the params within
-    2x the port's own one-ulp envelope, and the whole contract at the
-    160-image task, where training is not chaotic."""
+    2x the envelope, and the whole contract at the 160-image task, where
+    training is not chaotic."""
     kw = dict(rounds=8, regrow=dict(interval=2, alpha0=0.4), dgc_sparsity=0.5,
               resident_momentum=True, round_fusion=4)
     ref, port = pair(**kw)
-    assert_events_and_counters(ref, port)
-    jc, tc = configs(**kw)
-    envelope = max(params_maxdiff(port, tsim.run_simulation(tc, base_params=ulp(jax_init(jc), b)))
-                   for b in ("up", "down"))
-    assert params_maxdiff(ref, port) <= 2 * envelope
+    assert_contract(ref, port, "regrow_dgc_momentum", **kw)
     ref, port = pair(task=SMALL, **kw)
-    assert_contract(ref, port)
+    assert_contract(ref, port, "regrow_dgc_momentum_small", task=SMALL, **kw)
 
 
 def test_fused_dispatches_scale_with_chunks_not_rounds():

@@ -6,23 +6,32 @@ PI=2, seed 5) under DEFENSE (clip 5, trim 0.2, quarantine with probation
 0.2 (a duplicate weighs twice in the mean and once in the trim), corrupt
 0.1 with std 10 (the reference's Threefry noise on the payload).
 
-* Each of the port's ``sequential``, ``bucketed``, ``masked``
-  (``compute="block_skip"``) and ``fused`` engines meets the reference's
-  ``_assert_engines_match`` against the JAX engine of the same name, params
-  within 1e-3, both packages from the JAX ``init_cnn`` draw one ulp down.
-  From the draw itself this world and the byzantine noise-mode world are a
-  float32 coin: 16 SGD steps a round for 8 rounds amplify a reordered sum,
-  and the reference's own bucketed and sequential engines part there by
-  1e-2 in params (the witness is ``tests/test_torch_robust_chaos.py``; the
-  noise-mode world from the draw one ulp down is
-  ``tests/test_torch_robust_noise.py``).
-* From the draw itself, in both worlds, the port's ``masked`` and
-  ``fused`` engines meet the contract against their JAX namesakes.
+Both packages start from the JAX ``init_cnn`` draw.  This world and the
+byzantine noise-mode world are a float32 coin at this size: 16 SGD steps a
+round for 8 rounds, and a ReLU gate within 1e-7 of zero flips with a
+convolution's summation order, which XLA's CPU backend picks by ISA.  The
+reference's own engines land on different sides on different CPUs (1e-2
+in params; the witness is ``tests/test_torch_robust_chaos.py``).  So:
+
+* each of the port's ``sequential``, ``bucketed``, ``masked``
+  (``compute="block_skip"``) and ``fused`` engines has the prune events,
+  scenario rounds, fault ledger, update times (atol 0), total time and
+  comm bytes of the JAX engine of the same name (the reference's
+  ``_assert_engines_match``), and its params within 1e-3 and final_acc
+  within 1e-3 of JAX sequential, the reference's default engine — or
+  within 2x the envelope where that is larger (``torch_envelope``: the
+  port from the init one ulp up and down, and the distance between JAX
+  sequential and the JAX engine of the same name);
+* the port's ``masked`` and ``fused`` engines, in both worlds, the same
+  against their JAX namesakes.
+
+The noise-mode world's four engines are ``tests/test_torch_robust_noise.py``.
 """
 import jax
 import numpy as np
 import pytest
 import torch
+from torch_envelope import assert_within_envelope, perturbations, ulp
 
 from repro.core import aggregation as jagg
 from repro.core import faults as jf
@@ -52,7 +61,6 @@ LEDGER_FIELDS = ("drift_events", "rounds_degraded", "rounds_skipped", "workers_r
                  "quarantined_commits")
 JCFG = jcnn.vgg_config("vgg_tiny_rb", PLAN, num_classes=4, image_size=8)
 INIT = {k: np.asarray(v) for k, v in jcnn.init_cnn(jax.random.PRNGKey(5), JCFG).items()}
-DOWN = {k: np.nextafter(v, np.float32(-np.inf)) for k, v in INIT.items()}
 
 
 def world(pkg, name):
@@ -84,6 +92,16 @@ def jax_run(engine, name, init=None):
         jsim.init_cnn = draw
 
 
+_RUNS = {}
+
+
+def cached(key, fn, *args, **kw):
+    """One run per key for the module: several cases hold the same run."""
+    if key not in _RUNS:
+        _RUNS[key] = fn(*args, **kw)
+    return _RUNS[key]
+
+
 def port_run(engine, name, init=INIT):
     extra = dict(compute="block_skip") if engine == "masked" else {}
     return tsim.run_simulation(tsim.SimConfig(
@@ -98,8 +116,8 @@ def maxdiff(a, b):
                for k in a.global_params)
 
 
-def assert_engines_match(ref, other):
-    assert abs(ref.final_acc - other.final_acc) <= 1e-3
+def assert_events_match(ref, other):
+    """``_assert_engines_match`` but final_acc: events, clocks, ledger."""
     assert ref.prune_events == other.prune_events
     assert ref.scenario_rounds == other.scenario_rounds
     np.testing.assert_allclose(np.array(ref.update_times), np.array(other.update_times),
@@ -110,13 +128,20 @@ def assert_engines_match(ref, other):
         assert getattr(ref, f) == getattr(other, f), f
 
 
-def check_world(name, engine, init):
-    """The port's ``engine`` against JAX's in world ``name``, both from
-    ``init`` (None: the JAX draw itself)."""
-    ref = jax_run(engine, name, init=init)
-    port = port_run(engine, name, init=INIT if init is None else init)
-    assert_engines_match(ref, port)
-    assert maxdiff(ref, port) <= 1e-3
+def check_world(name, engine, oracle="sequential"):
+    """The port's ``engine`` in world ``name``, both packages from the JAX
+    draw: exact fields against the JAX engine of the same name, params and
+    final_acc against JAX ``oracle`` at 1e-3 or 2x the envelope."""
+    ref = cached(("jax", engine, name), jax_run, engine, name)
+    port = cached(("port", engine, name), port_run, engine, name)
+    assert_events_match(ref, port)
+    held = cached(("jax", oracle, name), jax_run, oracle, name)
+    seq = lambda: cached(("jax", "sequential", name), jax_run, "sequential", name)  # noqa: E731
+    assert_within_envelope(
+        port, held, bar=1e-3, refs=(ref, seq), what=f"{name}/{engine} vs JAX {oracle}",
+        perturbed=perturbations(lambda b: cached(
+            ("port", engine, name, b, torch.backends.mkldnn.enabled), port_run, engine, name,
+            init=ulp(INIT, b))))
     if name == "chan":
         assert port.retry_total > 0 and port.dup_commits > 0 and port.corrupt_commits > 0
         assert port.lost_commits > 0
@@ -126,10 +151,10 @@ def check_world(name, engine, init):
 
 @pytest.mark.parametrize("engine", ["sequential", "bucketed", "masked", "fused"])
 def test_channel_world_matches_the_same_jax_engine(engine):
-    check_world("chan", engine, DOWN)
+    check_world("chan", engine)
 
 
 @pytest.mark.parametrize("engine", ["masked", "fused"])
 @pytest.mark.parametrize("name", ["chan", "noise"])
 def test_resident_engines_match_jax_from_the_draw(name, engine):
-    check_world(name, engine, None)
+    check_world(name, engine, oracle=engine)
