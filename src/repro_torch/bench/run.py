@@ -6,13 +6,13 @@
     PYTHONPATH=src python -m repro_torch.bench.run retention_sweep \\
         --cnn vgg16 --compute-blocks 128,128,128
 
-Port of ``benchmarks/run.py``'s ``tables``, ``scale``, ``async_scale``,
-``retention_sweep`` and ``fused`` commands, with the reference's rows,
-JSON keys and ``checks``.  A speed check the card does not meet prints
+Port of ``benchmarks/run.py``'s commands (``tables``, ``scale``,
+``async_scale``, ``retention_sweep``, ``fused``, ``shard_scale``,
+``regrow_sweep``, ``world_model``, ``robust_world``, ``flaky_grid``), with
+the reference's rows, JSON keys and ``checks``.  A check that fails prints
 ``False``: it is bench data.  A failing bench is not: it raises, and the
-process exits non-zero.  ``shard_scale``, ``regrow_sweep``, ``world_model``,
-``robust_world``, ``flaky_grid`` and the ``roofline_table`` bench are not
-ported and raise (ROADMAP.md).
+process exits non-zero.  The ``roofline_table`` bench reads the TPU
+dry-run's output; it is not ported and raises (ROADMAP.md).
 
 Flags the reference does not have:
 
@@ -29,7 +29,17 @@ Flags the reference does not have:
 C x engine {masked, fused} (``BENCH_port_async.json``).  ``fused``: rounds/s
 and host dispatches, masked vs fused (``BENCH_port_fused.json``).
 ``retention_sweep``: executed FLOPs and kernel blocks against retention,
-dense vs block_skip (``BENCH_port_retention.json``).
+dense vs block_skip (``BENCH_port_retention.json``).  ``shard_scale``: W x
+mesh ranks over the fused sync engine (``BENCH_port_shard.json``); each mesh
+cell is a ``torch.distributed`` job of one process per rank
+(``launch.mesh.run_ranks``): gloo ranks on the CPU, up to 8 as the
+reference's virtual devices, one NCCL rank per visible card on the card.
+``regrow_sweep``: mask-readjustment variants x {masked, fused}
+(``BENCH_port_regrow.json``).  ``world_model``: the fault worlds x {masked,
+fused} (``BENCH_port_world.json``).  ``robust_world``: byzantine and
+lossy-channel worlds against the robust server, with a one-rank mesh leg
+(``BENCH_port_robust.json``).  ``flaky_grid``: the (C, dropout, churn) grid,
+merged into ``BENCH_port_world.json`` under ``"flaky_grid"``.
 """
 from __future__ import annotations
 
@@ -43,17 +53,33 @@ from typing import Optional, Tuple
 
 import numpy as np
 
+import torch
+
 from repro_torch.bench import tables
+from repro_torch.core.aggregation import QuarantineConfig, RobustAggConfig
+from repro_torch.core.faults import (
+    ByzantineConfig,
+    ChannelConfig,
+    CrashConfig,
+    DriftConfig,
+    FaultConfig,
+    OutageConfig,
+    WaveConfig,
+)
 from repro_torch.core.scenario import ScenarioConfig
-from repro_torch.core.simulation import SimConfig, run_simulation
+from repro_torch.core.simulation import RegrowConfig, SimConfig, resolve_device, run_simulation
 from repro_torch.core.timing import HeterogeneityConfig
 from repro_torch.data.synthetic import SyntheticImageTask
+from repro_torch.launch import mesh as launch_mesh
 from repro_torch.models.cnn import RESNET50_TINY, VGG16_CIFAR, CNNConfig, vgg_config
 
-__all__ = ["scale", "async_scale", "fused", "retention_sweep", "main", "MODELS"]
+__all__ = ["scale", "async_scale", "fused", "retention_sweep", "shard_scale", "regrow_sweep",
+           "world_model", "robust_world", "flaky_grid", "on_ranks", "rank_capacity", "main",
+           "MODELS"]
 
 MODELS = {"default": None, "vgg16": VGG16_CIFAR, "resnet50": RESNET50_TINY}
-NOT_PORTED = ("shard_scale", "regrow_sweep", "world_model", "robust_world", "flaky_grid")
+# ranks a CPU mesh may take: the reference's virtual XLA devices
+CPU_RANKS = 8
 
 
 def _dump(out_path: str, blob: dict) -> None:
@@ -61,6 +87,21 @@ def _dump(out_path: str, blob: dict) -> None:
     pathlib.Path(out_path).parent.mkdir(parents=True, exist_ok=True)
     with open(out_path, "w") as f:
         json.dump(blob, f, indent=2)
+
+
+def rank_capacity(device: str) -> int:
+    """How many mesh ranks ``device`` gives: one per visible card, or
+    ``CPU_RANKS`` gloo processes on the CPU."""
+    if resolve_device(device, "--device").type == "cuda":
+        return torch.cuda.device_count()
+    return CPU_RANKS
+
+
+def on_ranks(n: int, sim: SimConfig, device: str):
+    """``run_simulation(sim)`` on an ``n``-rank fleet mesh (one spawned
+    process per rank, ``launch.mesh.run_ranks``: NCCL on the card, gloo on
+    the CPU); rank 0's ``SimResult``."""
+    return launch_mesh.run_ranks(n, launch_mesh.simulate, (sim,), device=device)[0]
 
 
 def scale(out_path: str = "BENCH_port_scale.json", quick: bool = False,
@@ -425,11 +466,551 @@ def retention_sweep(out_path: str = "BENCH_port_retention.json", quick: bool = F
     print(f"retention/json,{out_path},")
 
 
+def shard_scale(out_path: str = "BENCH_port_shard.json", quick: bool = False,
+                device: str = "cuda", cnn: Optional[CNNConfig] = None) -> None:
+    """Mesh-sharded fleet bench: W x n_dev grid over the fused sync engine.
+
+    Each rank holds ``W / n_dev`` rows of the resident stacks and runs the
+    same fused chunk; aggregation is the two-tier collective, so host
+    dispatches stay O(rounds / round_fusion) at every mesh size.  A mesh
+    cell is an ``n_dev``-rank job (``on_ranks``); sizes the machine cannot
+    give (more ranks than cards) print a ``skipped`` line.  Checks (the
+    reference's): ``host_dispatches`` flat in n_dev, per-round prune indices
+    identical at every mesh size, and steady rounds/sec at the largest W
+    within 2.5x of the no-mesh engine (interleaved repetitions, median of
+    per-pair ratios) — bench data, printed whether it holds or not."""
+    n_avail = rank_capacity(device)
+    cnn = cnn or vgg_config("vgg_shard", [4, "M", 8], num_classes=10, image_size=8)
+    worker_counts = (8,) if quick else (8, 64, 256)
+    device_counts = tuple(d for d in (1, 2, 4, 8) if d <= n_avail)
+    rounds = 4 if quick else 16
+    fusion = 2 if quick else 4
+    rows = []
+    print("name,value,derived")
+    for d in (1, 2, 4, 8):
+        if d > n_avail:
+            print(f"shard_scale/skipped,needs >= {d} devices "
+                  f"(one rank per card; {n_avail} visible),")
+
+    def cell(W, n_dev):
+        sim = SimConfig(
+            method="adaptcl", engine="fused", rounds=rounds,
+            prune_interval=fusion, round_fusion=fusion, num_workers=W,
+            batch_size=8, cnn=cnn, eval_every=rounds,
+            het=HeterogeneityConfig(num_workers=W, sigma=5.0),
+            seed=7, device=device,
+        )
+        r = run_simulation(sim) if n_dev == 0 else on_ranks(n_dev, sim, device)
+        if r.host_roundtrips != 0:
+            raise RuntimeError(f"shard_scale: W={W} n_dev={n_dev} made "
+                               f"{r.host_roundtrips} host round-trips")
+        steady = max(r.walltime_s - r.compile_walltime_s, 1e-9)
+        rows.append(dict(
+            workers=W, n_dev=r.n_devices if n_dev else 0,
+            shard_spec=r.shard_spec, rounds=rounds, round_fusion=fusion,
+            walltime_s=r.walltime_s,
+            compile_walltime_s=r.compile_walltime_s,
+            steady_walltime_s=steady,
+            rounds_per_sec_steady=rounds / steady,
+            host_dispatches=r.host_dispatches,
+            fused_chunks=r.fused_chunks, recompiles=r.recompiles,
+            final_acc=r.final_acc,
+        ))
+        print(
+            f"shard_scale/W{W}/ndev{n_dev},{rounds / steady:.2f}rps,"
+            f"wall={r.walltime_s:.2f}s;compile={r.compile_walltime_s:.2f}s;"
+            f"dispatches={r.host_dispatches};spec={r.shard_spec};"
+            f"acc={r.final_acc:.3f}"
+        )
+        return r
+
+    hi = worker_counts[-1]
+    prune_identical, dispatches_flat = [], []
+    pair_ratios = []
+    for W in worker_counts:
+        base = cell(W, 0)   # the no-mesh fused baseline
+        for n_dev in device_counts:
+            if W % n_dev:
+                continue
+            r = cell(W, n_dev)
+            prune_identical.append(r.prune_events == base.prune_events)
+            dispatches_flat.append(r.host_dispatches == base.host_dispatches)
+    n_max = max(d for d in device_counts if hi % d == 0)
+    for _ in range(1 if quick else 3):   # interleaved reps at the largest W
+        r_b = cell(hi, 0)
+        r_s = cell(hi, n_max)
+        pair_ratios.append(
+            (r_b.walltime_s - r_b.compile_walltime_s)
+            / max(r_s.walltime_s - r_s.compile_walltime_s, 1e-9)
+        )
+    ratio = sorted(pair_ratios)[len(pair_ratios) // 2]
+    checks = {
+        "host_dispatches_flat_in_n_dev": all(dispatches_flat),
+        "prune_indices_bit_identical": all(prune_identical),
+        "steady_ratio_at_max_W": ratio,           # no-mesh steady / mesh steady
+        "steady_ratio_samples": pair_ratios,
+        "steady_within_2_5x_of_single_device": ratio >= 0.4,
+    }
+    for k, v in checks.items():
+        print(f"shard_scale/{k},{v},")
+    _dump(out_path, {
+        "rows": rows,
+        "worker_counts": list(worker_counts),
+        "device_counts": list(device_counts),
+        "round_fusion": fusion,
+        "checks": checks,
+    })
+    print(f"shard_scale/json,{out_path},")
+
+
+def regrow_sweep(out_path: str = "BENCH_port_regrow.json", quick: bool = False,
+                 device: str = "cuda", cnn: Optional[CNNConfig] = None) -> None:
+    """Mask-regrowth bench: mask-dynamics variant x engine grid.
+
+    Prune-only against FedDST readjustment (``SimConfig.regrow``, cosine and
+    constant ``alpha_t``) on the masked and fused engines, pruning in the
+    ``no_adjacent`` shared-random order (a poor initial mask, which
+    readjustment can repair).  Checks (the reference's): the best regrow
+    variant recovers at least the prune-only final accuracy, regrow events
+    land in ``prune_events`` with masked == fused events and clocks, and
+    the fused engine runs R / K chunks with dispatches = chunks + evals +
+    one grow gradient per regrow event and recompiles <= 2."""
+    cnn = cnn or vgg_config("vgg_regrow", [16, "M", 32], num_classes=10, image_size=8)
+    W = 5 if quick else 10
+    rounds = 6 if quick else 16
+    pi = 2 if quick else 4      # prune_interval == round_fusion == interval
+    variants = {
+        "prune_only": None,
+        "regrow_cosine": RegrowConfig(interval=pi, alpha0=0.3, schedule="cosine"),
+        "regrow_constant": RegrowConfig(interval=pi, alpha0=0.3, schedule="constant"),
+    }
+    rows = []
+    results = {}
+    print("name,value,derived")
+    for vname, rg in variants.items():
+        for engine in ("masked", "fused"):
+            r = run_simulation(SimConfig(
+                method="adaptcl", engine=engine, rounds=rounds,
+                prune_interval=pi, round_fusion=pi, num_workers=W,
+                batch_size=8, cnn=cnn, eval_every=rounds,
+                het=HeterogeneityConfig(num_workers=W, sigma=5.0),
+                seed=7, regrow=rg, importance="no_adjacent", device=device,
+            ))
+            results[(vname, engine)] = r
+            event_rounds = sorted({t for t, _, _ in r.prune_events})
+            rows.append(dict(
+                variant=vname, engine=engine, rounds=rounds,
+                round_fusion=pi, workers=W,
+                final_acc=r.final_acc, total_time=r.total_time,
+                comm_bytes=r.comm_bytes,
+                prune_event_count=len(r.prune_events),
+                prune_event_rounds=event_rounds,
+                host_dispatches=r.host_dispatches,
+                fused_chunks=r.fused_chunks, recompiles=r.recompiles,
+                walltime_s=r.walltime_s,
+                compile_walltime_s=r.compile_walltime_s,
+            ))
+            print(
+                f"regrow/{vname}/{engine},acc={r.final_acc:.3f},"
+                f"time={r.total_time:.1f};events={len(r.prune_events)};"
+                f"dispatches={r.host_dispatches};recompiles={r.recompiles}"
+            )
+
+    prune_only_acc = results[("prune_only", "fused")].final_acc
+    best_regrow_acc = max(
+        results[(v, "fused")].final_acc for v in ("regrow_cosine", "regrow_constant")
+    )
+    fus = results[("regrow_cosine", "fused")]
+    mas = results[("regrow_cosine", "masked")]
+    base_f = results[("prune_only", "fused")]
+    checks = {
+        "best_regrow_acc": best_regrow_acc,
+        "prune_only_acc": prune_only_acc,
+        "regrow_acc_ge_prune_only": best_regrow_acc >= prune_only_acc,
+        "regrow_adds_events": all(
+            len(results[(v, e)].prune_events) > len(results[("prune_only", e)].prune_events)
+            for v in ("regrow_cosine", "regrow_constant") for e in ("masked", "fused")
+        ),
+        "events_bit_identical_masked_vs_fused": all(
+            results[(v, "masked")].prune_events == results[(v, "fused")].prune_events
+            for v in variants
+        ),
+        "clocks_identical_masked_vs_fused": all(
+            results[(v, "masked")].total_time == results[(v, "fused")].total_time
+            for v in variants
+        ),
+        "fused_chunks_O_R_over_K": fus.fused_chunks == rounds // pi,
+        "fused_dispatches_are_chunks_evals_and_grow_grads": (
+            fus.host_dispatches - fus.fused_chunks
+            - (len(fus.prune_events) - len(base_f.prune_events))
+            == base_f.host_dispatches - base_f.fused_chunks
+        ),
+        "fused_regrow_recompiles_le_2": fus.recompiles <= 2,
+        "fused_dispatches_below_masked": fus.host_dispatches < mas.host_dispatches,
+    }
+    for k, v in checks.items():
+        print(f"regrow/{k},{v},")
+    _dump(out_path, {"rows": rows, "rounds": rounds, "round_fusion": pi, "checks": checks})
+    print(f"regrow/json,{out_path},")
+
+
+def world_model(out_path: str = "BENCH_port_world.json", quick: bool = False,
+                device: str = "cuda", cnn: Optional[CNNConfig] = None) -> None:
+    """Fault-injection world-model bench: accuracy vs flakiness x engine.
+
+    The scripted fault families (drift, crash/recovery, a regional outage, a
+    participation wave, all four combined) on the masked and fused engines.
+    Checks (the reference's): an all-inactive ``FaultConfig()`` is
+    bit-identical to ``faults=None``; masked == fused in clocks, prune
+    events and fault ledgers with accuracy within 0.02; crash/outage/wave
+    ride in the chunks (R / K of them), drift cuts at most its own extras;
+    recompiles <= 2; no fault world beats the fault-free run beyond 0.08,
+    every world converges past chance, and each family leaves its ledger
+    signature."""
+    cnn = cnn or vgg_config("vgg_world", [16, "M", 32], num_classes=10, image_size=8)
+    W = 5 if quick else 10
+    rounds = 6 if quick else 16
+    pi = 2 if quick else 4      # prune_interval == round_fusion
+    drift_round = pi + 1        # mid-interval: re-learning is drift-triggered
+    dark = W // 2               # regional outage: slots [0, dark) go dark
+    worlds = {
+        "fault_free": dict(seed=3),
+        "drift": dict(seed=3, faults=FaultConfig(
+            drift=DriftConfig(worker=1, round=drift_round, factor=3.0))),
+        "crash": dict(seed=3, faults=FaultConfig(
+            crash=CrashConfig(rate=0.15, outage_rounds=2, recovery_rounds=1))),
+        "outage": dict(seed=3, min_participants=W - dark + 1,
+                       faults=FaultConfig(outage=OutageConfig(
+                           start=pi + 1, length=2, slot_lo=0, slot_hi=dark))),
+        "wave": dict(seed=3, participation=0.8, faults=FaultConfig(
+            wave=WaveConfig(amplitude=0.5, period=max(2, rounds // 2)))),
+        "combined": dict(seed=3, min_participants=2, participation=0.9,
+                         faults=FaultConfig(
+                             drift=DriftConfig(worker=0, round=drift_round, factor=2.0,
+                                               mode="ramp", ramp_rounds=3),
+                             crash=CrashConfig(rate=0.1),
+                             outage=OutageConfig(start=rounds - 2, length=2, slot_lo=0,
+                                                 slot_hi=dark),
+                             wave=WaveConfig(amplitude=0.4, period=max(2, rounds // 2)))),
+    }
+    ledger_fields = ("drift_events", "rounds_degraded", "rounds_skipped",
+                     "workers_recovered", "retry_total")
+
+    def run(engine, scen_kw):
+        return run_simulation(SimConfig(
+            method="adaptcl", engine=engine, rounds=rounds,
+            prune_interval=pi, round_fusion=pi, num_workers=W,
+            batch_size=8, cnn=cnn, eval_every=rounds,
+            het=HeterogeneityConfig(num_workers=W, sigma=5.0),
+            seed=7, scenario=ScenarioConfig(**scen_kw), device=device,
+        ))
+
+    rows = []
+    results = {}
+    print("name,value,derived")
+    for wname, scen_kw in worlds.items():
+        for engine in ("masked", "fused"):
+            r = run(engine, scen_kw)
+            results[(wname, engine)] = r
+            led = {f: getattr(r, f) for f in ledger_fields}
+            rows.append(dict(
+                world=wname, engine=engine, rounds=rounds, round_fusion=pi,
+                workers=W, final_acc=r.final_acc, total_time=r.total_time,
+                comm_bytes=r.comm_bytes,
+                prune_event_count=len(r.prune_events),
+                host_dispatches=r.host_dispatches,
+                fused_chunks=r.fused_chunks, recompiles=r.recompiles,
+                walltime_s=r.walltime_s,
+                compile_walltime_s=r.compile_walltime_s,
+                **led,
+            ))
+            print(
+                f"world/{wname}/{engine},acc={r.final_acc:.3f},"
+                f"time={r.total_time:.1f};skipped={r.rounds_skipped};"
+                f"degraded={r.rounds_degraded};recovered={r.workers_recovered};"
+                f"dispatches={r.host_dispatches};recompiles={r.recompiles}"
+            )
+
+    # the regression leg: an all-inactive FaultConfig must be invisible
+    inert = run("fused", dict(seed=3, faults=FaultConfig()))
+    free = results[("fault_free", "fused")]
+    acc_free = free.final_acc
+    acc_slack = 0.08            # eval noise band on this tiny fixture
+    checks = {
+        "faultfree_bit_identical": (
+            inert.final_acc == acc_free
+            and inert.total_time == free.total_time
+            and inert.prune_events == free.prune_events
+        ),
+        "engines_equivalent": all(_engines_equivalent(results, wn, ledger_fields)
+                                  for wn in worlds),
+        "fused_chunks_O_R_over_K": all(
+            results[(wn, "fused")].fused_chunks == rounds // pi
+            for wn in ("fault_free", "crash", "outage", "wave")
+        ),
+        "drift_cuts_bounded": (
+            results[("drift", "fused")].fused_chunks <= rounds // pi + 1
+            and results[("combined", "fused")].fused_chunks <= rounds // pi + 3
+        ),
+        "fused_recompiles_le_2": all(results[(wn, "fused")].recompiles <= 2 for wn in worlds),
+        "acc_flakiness_guard": all(
+            results[(wn, "fused")].final_acc <= acc_free + acc_slack for wn in worlds
+        ),
+        "faulty_worlds_still_converge": all(
+            results[(wn, "fused")].final_acc >= 2.0 / cnn.num_classes for wn in worlds
+        ),
+        "drift_triggered_relearning": results[("drift", "fused")].drift_events >= 1,
+        "crash_recovered_workers": results[("crash", "fused")].workers_recovered >= 1,
+        "outage_skipped_not_hung": (
+            results[("outage", "fused")].rounds_skipped >= 1
+            and len(results[("outage", "fused")].scenario_rounds) == rounds
+        ),
+        "wave_varies_cohort": len({
+            n for _, n, _, _ in results[("wave", "fused")].scenario_rounds
+        }) > 1,
+        "faultfree_ledger_zero": all(getattr(free, f) == 0 for f in ledger_fields),
+    }
+    for k, v in checks.items():
+        print(f"world/{k},{v},")
+    _dump(out_path, {"rows": rows, "rounds": rounds, "round_fusion": pi, "checks": checks})
+    print(f"world/json,{out_path},")
+
+
+def _engines_equivalent(results, key, ledger_fields=()) -> bool:
+    """The reference's masked == fused check of one cell: clocks and prune
+    events exact, final accuracy within 0.02, equal ledger fields."""
+    if not isinstance(key, tuple):
+        key = (key,)
+    m, f = results[key + ("masked",)], results[key + ("fused",)]
+    return (m.total_time == f.total_time and m.prune_events == f.prune_events
+            and abs(m.final_acc - f.final_acc) <= 0.02
+            and all(getattr(m, x) == getattr(f, x) for x in ledger_fields))
+
+
+def robust_world(out_path: str = "BENCH_port_robust.json", quick: bool = False,
+                 device: str = "cuda", cnn: Optional[CNNConfig] = None) -> None:
+    """Robust-aggregation bench: byzantine and lossy-channel worlds x defense.
+
+    A fixed 20 % byzantine cohort sending ``-10 x delta`` and a lossy
+    channel (drop / duplicate / corrupt) against the robust server (clip 1,
+    trimmed mean 0.2, quarantine with a probation that outlasts the run),
+    on the masked and fused engines.  Checks (the reference's): the plain
+    mean collapses and the robust server recovers (>= mean + 10 points,
+    within 5 of fault-free; the channel within 10); masked == fused in
+    clocks, events and the whole ledger; R / K chunks, recompiles <= 2;
+    each family leaves its ledger signature; and the mesh leg: the robust
+    byzantine world on a one-rank fleet mesh (a one-rank ``torch.distributed``
+    job, ``on_ranks``) is bit-identical to the no-mesh fused run."""
+    cnn = cnn or vgg_config("vgg_robust", [16, "M", 32], num_classes=10, image_size=8)
+    W = 5 if quick else 10
+    rounds = 6 if quick else 16
+    pi = 2 if quick else 4      # prune_interval == round_fusion
+    byz_workers = tuple(range(max(1, W // 5)))   # fixed 20% compromised set
+    byz = FaultConfig(byzantine=ByzantineConfig(workers=byz_workers, mode="scale", scale=-10.0))
+    chan = FaultConfig(channel=ChannelConfig(drop=0.15, dup=0.15, corrupt=0.1,
+                                             corrupt_std=10.0))
+    defense = RobustAggConfig(clip=1.0, trim=0.2, quarantine=QuarantineConfig(probation=100))
+    worlds = {
+        "fault_free": (None, None),
+        "byz_mean": (byz, None),
+        "byz_robust": (byz, defense),
+        "channel_mean": (chan, None),
+        "channel_robust": (chan, defense),
+    }
+    ledger_fields = ("drift_events", "rounds_degraded", "rounds_skipped",
+                     "workers_recovered", "retry_total", "byz_commits",
+                     "lost_commits", "dup_commits", "corrupt_commits",
+                     "quarantined_commits")
+
+    def sim(engine, faults, robust):
+        return SimConfig(
+            method="adaptcl", engine=engine, rounds=rounds,
+            prune_interval=pi, round_fusion=pi, num_workers=W,
+            batch_size=8, cnn=cnn, eval_every=rounds,
+            het=HeterogeneityConfig(num_workers=W, sigma=5.0),
+            seed=7, robust=robust,
+            scenario=ScenarioConfig(seed=3, faults=faults), device=device,
+        )
+
+    rows = []
+    results = {}
+    print("name,value,derived")
+    for wname, (faults, robust) in worlds.items():
+        for engine in ("masked", "fused"):
+            r = run_simulation(sim(engine, faults, robust))
+            results[(wname, engine)] = r
+            led = {f: getattr(r, f) for f in ledger_fields}
+            rows.append(dict(
+                world=wname, engine=engine, rounds=rounds, round_fusion=pi,
+                workers=W, byz_workers=list(byz_workers),
+                final_acc=r.final_acc, total_time=r.total_time,
+                comm_bytes=r.comm_bytes,
+                prune_event_count=len(r.prune_events),
+                host_dispatches=r.host_dispatches,
+                fused_chunks=r.fused_chunks, recompiles=r.recompiles,
+                walltime_s=r.walltime_s,
+                compile_walltime_s=r.compile_walltime_s,
+                **led,
+            ))
+            print(
+                f"robust/{wname}/{engine},acc={r.final_acc:.3f},"
+                f"time={r.total_time:.1f};byz={r.byz_commits};"
+                f"lost={r.lost_commits};dup={r.dup_commits};"
+                f"corrupt={r.corrupt_commits};quar={r.quarantined_commits};"
+                f"retries={r.retry_total};dispatches={r.host_dispatches};"
+                f"recompiles={r.recompiles}"
+            )
+
+    # the mesh leg: a one-rank mesh == no mesh, bit for bit
+    mesh_r = on_ranks(1, sim("fused", byz, defense), device)
+    base_r = results[("byz_robust", "fused")]
+    mesh_identical = (
+        all(np.array_equal(base_r.global_params[k], mesh_r.global_params[k])
+            for k in base_r.global_params)
+        and mesh_r.prune_events == base_r.prune_events
+        and mesh_r.total_time == base_r.total_time
+        and all(getattr(mesh_r, f) == getattr(base_r, f) for f in ledger_fields)
+    )
+
+    free = results[("fault_free", "fused")].final_acc
+    mean_acc = results[("byz_mean", "fused")].final_acc
+    rob_acc = results[("byz_robust", "fused")].final_acc
+    chan_r = results[("channel_robust", "fused")]
+    checks = {
+        "byz_mean_acc": mean_acc,
+        "byz_robust_acc": rob_acc,
+        "fault_free_acc": free,
+        "robust_ge_mean_plus_10pts": rob_acc >= mean_acc + 0.10,
+        "robust_within_5pts_of_fault_free": rob_acc >= free - 0.05,
+        "channel_robust_ge_mean_plus_10pts": (
+            chan_r.final_acc >= results[("channel_mean", "fused")].final_acc + 0.10
+        ),
+        "channel_robust_within_10pts_of_fault_free": chan_r.final_acc >= free - 0.10,
+        "engines_equivalent": all(_engines_equivalent(results, wn, ledger_fields)
+                                  for wn in worlds),
+        "fused_chunks_O_R_over_K": all(
+            results[(wn, "fused")].fused_chunks == rounds // pi for wn in worlds
+        ),
+        "fused_recompiles_le_2": all(results[(wn, "fused")].recompiles <= 2 for wn in worlds),
+        "mesh_1dev_bit_identical": mesh_identical,
+        "byz_commits_counted": results[("byz_mean", "fused")].byz_commits > 0,
+        "channel_ledger_active": (
+            chan_r.retry_total > 0 and chan_r.dup_commits > 0 and chan_r.corrupt_commits > 0
+        ),
+        "quarantine_fired": results[("byz_robust", "fused")].quarantined_commits > 0,
+        "faultfree_ledger_zero": all(
+            getattr(results[("fault_free", "fused")], f) == 0 for f in ledger_fields
+        ),
+    }
+    for k, v in checks.items():
+        print(f"robust/{k},{v},")
+    _dump(out_path, {"rows": rows, "rounds": rounds, "round_fusion": pi,
+                     "byz_workers": list(byz_workers), "checks": checks})
+    print(f"robust/json,{out_path},")
+
+
+def flaky_grid(out_path: str = "BENCH_port_world.json", quick: bool = False,
+               device: str = "cuda", cnn: Optional[CNNConfig] = None) -> None:
+    """Flakiness grid: (participation C, dropout, churn) x engine sweep,
+    merged into ``out_path`` (beside the fault worlds) under ``flaky_grid``.
+    Checks (the reference's): masked == fused in every cell (clocks and
+    prune events exact, accuracy within 0.02), the clean cell equals the
+    scenario-free run, every cell converges past chance, no flaky cell
+    beats the clean one beyond 0.08, recompiles <= 2."""
+    cnn = cnn or vgg_config("vgg_flaky", [16, "M", 32], num_classes=10, image_size=8)
+    W = 5 if quick else 10
+    rounds = 6 if quick else 16
+    pi = 2 if quick else 4
+    parts = (1.0, 0.5)
+    dropouts = (0.0, 0.2)
+    churns = (0.0,) if quick else (0.0, 0.05)
+
+    def run(engine, scen):
+        return run_simulation(SimConfig(
+            method="adaptcl", engine=engine, rounds=rounds,
+            prune_interval=pi, round_fusion=pi, num_workers=W,
+            batch_size=8, cnn=cnn, eval_every=rounds,
+            het=HeterogeneityConfig(num_workers=W, sigma=5.0),
+            seed=7, scenario=scen, device=device,
+        ))
+
+    rows = []
+    results = {}
+    print("name,value,derived")
+    base = run("fused", None)
+    for C in parts:
+        for drop in dropouts:
+            for churn in churns:
+                scen = ScenarioConfig(participation=C, dropout=drop, churn=churn, seed=3)
+                for engine in ("masked", "fused"):
+                    r = run(engine, scen)
+                    results[(C, drop, churn, engine)] = r
+                    rows.append(dict(
+                        participation=C, dropout=drop, churn=churn,
+                        engine=engine, rounds=rounds, workers=W,
+                        final_acc=r.final_acc, total_time=r.total_time,
+                        rounds_skipped=r.rounds_skipped,
+                        host_dispatches=r.host_dispatches,
+                        fused_chunks=r.fused_chunks,
+                        recompiles=r.recompiles,
+                    ))
+                    print(
+                        f"flaky/C{C}/d{drop}/ch{churn}/{engine},"
+                        f"acc={r.final_acc:.3f},"
+                        f"time={r.total_time:.1f};"
+                        f"dispatches={r.host_dispatches};"
+                        f"recompiles={r.recompiles}"
+                    )
+
+    cells = [(C, d, ch) for C in parts for d in dropouts for ch in churns]
+    clean = results[(1.0, 0.0, 0.0, "fused")]
+    acc_slack = 0.08            # eval noise band on this fixture
+    checks = {
+        "engines_equivalent": all(_engines_equivalent(results, c) for c in cells),
+        "clean_cell_matches_no_scenario": (
+            clean.final_acc == base.final_acc
+            and clean.total_time == base.total_time
+            and clean.prune_events == base.prune_events
+        ),
+        "all_cells_converge": all(
+            results[c + ("fused",)].final_acc >= 2.0 / cnn.num_classes for c in cells
+        ),
+        "acc_flakiness_guard": all(
+            results[c + ("fused",)].final_acc <= clean.final_acc + acc_slack for c in cells
+        ),
+        "fused_recompiles_le_2": all(results[c + ("fused",)].recompiles <= 2 for c in cells),
+    }
+    for k, v in checks.items():
+        print(f"flaky/{k},{v},")
+    blob = {}
+    if os.path.exists(out_path):
+        try:
+            with open(out_path) as f:
+                blob = json.load(f)
+        except (OSError, ValueError):
+            blob = {}
+    blob["flaky_grid"] = {
+        "rows": rows, "rounds": rounds,
+        "participations": list(parts), "dropouts": list(dropouts),
+        "churns": list(churns), "checks": checks,
+    }
+    _dump(out_path, blob)
+    print(f"flaky/json,{out_path},")
+
+
 def _blocks(text: str) -> Tuple[int, int, int]:
     vals = tuple(int(v) for v in text.split(","))
     if len(vals) != 3:
         raise argparse.ArgumentTypeError(f"--compute-blocks takes BM,BN,BK, got {text!r}")
     return vals
+
+
+# command -> (sweep, stem of its default output BENCH_port_<stem>.json)
+SWEEPS = {"scale": (scale, "scale"), "async_scale": (async_scale, "async"),
+          "retention_sweep": (retention_sweep, "retention"), "fused": (fused, "fused"),
+          "shard_scale": (shard_scale, "shard"), "regrow_sweep": (regrow_sweep, "regrow"),
+          "world_model": (world_model, "world"), "robust_world": (robust_world, "robust"),
+          "flaky_grid": (flaky_grid, "world")}
 
 
 def main(argv=None) -> int:
@@ -438,12 +1019,17 @@ def main(argv=None) -> int:
     )
     ap.add_argument(
         "command", nargs="?", default="tables",
-        choices=("tables", "scale", "async_scale", "retention_sweep", "fused") + NOT_PORTED,
+        choices=("tables",) + tuple(SWEEPS),
         help="'tables' (default) = paper-table benches; 'scale' = sync "
              "fleet-scaling grid; 'async_scale' = resident async scheduler "
              "grid; 'retention_sweep' = device FLOPs vs retention, dense vs "
              "block_skip; 'fused' = round-fusion rounds/sec + host-dispatch "
-             "grid, masked vs fused; the rest are not ported yet",
+             "grid, masked vs fused; 'shard_scale' = W x mesh ranks over the "
+             "fused engine; 'regrow_sweep' = mask-readjustment variants x "
+             "engine; 'world_model' = fault worlds x engine; 'robust_world' = "
+             "byzantine / lossy-channel worlds vs the robust server; "
+             "'flaky_grid' = (C, dropout, churn) grid merged into "
+             "BENCH_port_world.json",
     )
     ap.add_argument("--only", default=None)
     ap.add_argument("--quick", action="store_true")
@@ -462,13 +1048,8 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     cnn = MODELS[args.cnn]
 
-    if args.command in NOT_PORTED:
-        raise ValueError(f"'{args.command}' is not ported to repro_torch yet "
-                         f"(see ROADMAP.md, queue A1)")
-    sweeps = {"scale": (scale, "scale"), "async_scale": (async_scale, "async"),
-              "fused": (fused, "fused"), "retention_sweep": (retention_sweep, "retention")}
-    if args.command in sweeps:
-        fn, out = sweeps[args.command]
+    if args.command in SWEEPS:
+        fn, out = SWEEPS[args.command]
         kw = dict(quick=args.quick, device=args.device, cnn=cnn)
         if args.command == "retention_sweep":
             kw["compute_blocks"] = args.compute_blocks
@@ -478,7 +1059,7 @@ def main(argv=None) -> int:
     names = [name for name, _ in tables.BENCHES]
     if args.only == "roofline_table":
         raise ValueError("roofline_table reads the TPU dry-run's output and is not ported "
-                         "to repro_torch (see ROADMAP.md, queue A8)")
+                         "to repro_torch (see ROADMAP.md, queue A6)")
     if args.only is not None and args.only not in names:
         raise ValueError(f"--only {args.only!r}: choose from {names}")
     # as in the reference, BENCH_QUICK=1 in the environment also shrinks the tables

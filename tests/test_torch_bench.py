@@ -1,26 +1,35 @@
 """The port's runners (``repro_torch.bench``) against the reference's
 (``benchmarks/tables.py``, ``benchmarks/run.py``).
 
-1. Config-sequence parity, for all nine table rows and the four ported
-   sweeps, quick and full: ``run_simulation`` of both packages is replaced
-   by a recorder returning one canned result, so both runners must ask for
-   the same ``SimConfig``s in the same order (field by field, the port's
-   ``device`` aside), print the same CSV lines letter for letter (elapsed
-   seconds and JSON paths aside) and write the same JSON.
+1. Config-sequence parity, for all nine table rows and the nine sweeps,
+   quick and full: ``run_simulation`` of both packages (and the port's
+   mesh jobs, ``on_ranks``) is replaced by a recorder returning one canned
+   result, so both runners must ask for the same ``SimConfig``s in the
+   same order (field by field, the port's ``device`` aside, a mesh by its
+   shape), print the same CSV lines letter for letter (elapsed seconds and
+   JSON paths aside) and write the same JSON.
 2. Real rows at a tiny size: a few rows run for real in both packages, cut
    to a tiny VGG and task, the port from the reference's init; the rows'
    exact fields (prune events, clocks, comm bytes, the FLOPs and blocks
-   ledger, counters) are equal and accuracy is within 1e-3.
-3. ``retention_sweep(quick=True)`` at its own size, the same way.
-4. The command line: unported commands and ``roofline_table`` raise
-   pointing at ROADMAP.md; a failing bench is not swallowed.
+   ledger, counters) are equal to the same-named JAX engine's, and params
+   and accuracy are held to JAX masked's (or the engine's own where the
+   sweep runs no masked row) under the envelope rule of
+   ``torch_envelope``.
+3. ``retention_sweep(quick=True)`` at its own size, the same way, and
+   ``shard_scale --quick`` against the reference's own run of it on 8
+   virtual XLA devices (a subprocess), row by row in every field that is
+   not a time.
+4. The command line: ``roofline_table`` raises pointing at ROADMAP.md;
+   every sweep is a command; a failing bench is not swallowed.
 
 ``benchmarks/`` has no ``__init__.py``; the repository root goes on
 ``sys.path`` here, so the tests do not depend on the working directory.
 """
 import dataclasses
 import json
+import os
 import re
+import subprocess
 import sys
 from pathlib import Path
 
@@ -28,6 +37,7 @@ import jax
 import numpy as np
 import pytest
 import torch
+from torch_envelope import assert_within_envelope, perturbations, ulp
 
 ROOT = Path(__file__).resolve().parents[1]
 if str(ROOT) not in sys.path:
@@ -42,11 +52,13 @@ from repro_torch.bench import run as trun  # noqa: E402
 from repro_torch.bench import tables as ttables  # noqa: E402
 from repro_torch.core import simulation as tsim  # noqa: E402
 from repro_torch.data.synthetic import SyntheticImageTask as TTask  # noqa: E402
+from repro_torch.launch import mesh as tmesh  # noqa: E402
 from repro_torch.models import cnn as tcnn  # noqa: E402
 
 J_RUN, T_RUN = jsim.run_simulation, tsim.run_simulation   # before any patch
 TABLES = [name for name, _ in ttables.BENCHES]
-SWEEPS = ("scale", "async_scale", "fused", "retention_sweep")
+SWEEPS = ("scale", "async_scale", "fused", "retention_sweep", "shard_scale", "regrow_sweep",
+          "world_model", "robust_world", "flaky_grid")
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -68,6 +80,7 @@ CANNED = dict(
     flops_executed=3.0e9, flops_ideal=2.0e9, blocks_executed=1.0e6,
     flops_per_image_final=1.0e6, blocks_per_image_final=100.0, host_dispatches=11,
     compile_walltime_s=0.5, fused_chunks=2, prune_events=[(2, 1, {"conv0": (0, 1)})],
+    global_params={"fc/b": np.zeros(2, np.float32)},
 )
 
 
@@ -76,9 +89,19 @@ def _canned(cls):
     return cls(**{k: v for k, v in CANNED.items() if k in names})
 
 
+class _MeshShape:
+    """What the recorder keeps of a port mesh job: its shape."""
+
+    def __init__(self, n):
+        self.shape = {"fleet": n}
+
+
 def _canon(v):
     """A config as nested tuples of (field, value): dataclasses by their
-    fields, so the two packages' classes compare by content."""
+    fields, so the two packages' classes compare by content; a mesh (the
+    reference's ``jax.sharding.Mesh``, the port's job shape) by its shape."""
+    if type(v).__name__ in ("Mesh", "_MeshShape", "FleetMesh"):
+        return ("mesh", tuple(dict(v.shape).items()))
     if dataclasses.is_dataclass(v) and not isinstance(v, type):
         return (type(v).__name__,
                 tuple((f.name, _canon(getattr(v, f.name))) for f in dataclasses.fields(v)))
@@ -121,6 +144,10 @@ class Recorder:
         self.configs.append(sim)
         return self.result if self.real is None else self.real(sim, self.result, **kw)
 
+    def on_ranks(self, n, sim, device):
+        """The port's mesh job (``run.on_ranks``), recorded with its shape."""
+        return self(dataclasses.replace(sim, mesh=_MeshShape(n)))
+
 
 def _patch_reference(monkeypatch, rec, quick):
     monkeypatch.setattr(jtables, "run_simulation", rec)
@@ -133,6 +160,7 @@ def _patch_reference(monkeypatch, rec, quick):
 def _patch_port(monkeypatch, rec):
     monkeypatch.setattr(ttables, "run_simulation", rec)
     monkeypatch.setattr(trun, "run_simulation", rec)
+    monkeypatch.setattr(trun, "on_ranks", getattr(rec, "on_ranks", rec))
 
 
 def _both(name, quick, monkeypatch, capsys, tmp_path, j_real=None, t_real=None):
@@ -217,7 +245,14 @@ def _real(pick, shrink, store):
     def t_real(sim, canned, **kw):
         if not pick(sim):
             return canned
+        store.setdefault("sims", []).append(sim)
         sim = shrink(sim, tcnn.vgg_config, TTask)
+        if isinstance(sim.mesh, _MeshShape):     # the port's mesh job, for real
+            n = sim.mesh.shape["fleet"]
+            r = tmesh.run_ranks(n, tmesh.simulate, (dataclasses.replace(sim, mesh=None),
+                                                    _jax_init(sim.cnn, sim.seed)))[0]
+            store["port"].append(r)
+            return r
         r = T_RUN(sim, base_params=_jax_init(sim.cnn, sim.seed))
         store["port"].append(r)
         return r
@@ -265,6 +300,62 @@ def test_real_rows_meet_the_parity_contract(row, monkeypatch, capsys, tmp_path):
     assert _no_walls(tl) == _no_walls(jl)
 
 
+def _only_fault(family):
+    """Pick the runs whose one fault family is ``family``."""
+    def pick(sim):
+        faults = sim.scenario.faults if sim.scenario is not None else None
+        if faults is None:
+            return False
+        on = [f.name for f in dataclasses.fields(faults) if getattr(faults, f.name) is not None]
+        return on == [family]
+    return pick
+
+
+# sweep cells run for real: (sweep, pick, expected runs); robust_byz's third
+# run is the sweep's one-rank mesh leg (a spawned gloo rank in the port)
+SWEEP_ROWS = {
+    "world_crash": ("world_model", _only_fault("crash"), 2),
+    "robust_byz": ("robust_world", lambda s: _only_fault("byzantine")(s) and s.robust is not None,
+                   3),
+    "regrow_cosine": ("regrow_sweep", lambda s: s.regrow is not None
+                      and s.regrow.schedule == "cosine", 2),
+}
+
+
+@pytest.mark.parametrize("row", list(SWEEP_ROWS))
+def test_real_sweep_rows_meet_the_parity_contract(row, monkeypatch, capsys, tmp_path):
+    """A sweep's masked and fused rows for real at the tiny size: each port
+    row has the exact fields of the JAX row of the same engine, and params
+    and final_acc of JAX masked under the envelope rule (the port from the
+    init one ulp up and down; the two JAX rows' distance)."""
+    name, pick, n = SWEEP_ROWS[row]
+    store = {"ref": [], "port": []}
+    j_real, t_real = _real(pick, _tiny, store)
+    (_, jl, jj), (_, tl, tj) = _both(name, True, monkeypatch, capsys, tmp_path, j_real, t_real)
+    assert len(store["ref"]) == len(store["port"]) == n
+    j_masked = next(r for r in store["ref"] if r.engine == "masked")
+    for i, (rj, rt) in enumerate(zip(store["ref"][:2], store["port"][:2])):
+        assert rt.engine == rj.engine
+        for f in EXACT:
+            if f == "update_times":     # NaN where a slot sat a round out
+                np.testing.assert_array_equal(np.array(rt.update_times, dtype=float),
+                                              np.array(rj.update_times, dtype=float))
+            else:
+                assert getattr(rt, f) == getattr(rj, f), (row, rj.engine, f)
+        assert abs(rt.total_time - rj.total_time) <= 1e-9
+        assert rt.prune_events and min(rt.retentions) < 1.0, row
+        sim = _tiny(store["sims"][i], tcnn.vgg_config, TTask)
+        init = _jax_init(sim.cnn, sim.seed)
+        assert_within_envelope(
+            rt, j_masked, bar=1e-4, refs=tuple(store["ref"]), what=f"{row}/{rt.engine}",
+            perturbed=perturbations(lambda b, sim=sim, init=init: T_RUN(
+                sim, base_params=ulp(init, b))))
+    assert set(tj) == set(jj) and tj["checks"].keys() == jj["checks"].keys()
+    if row == "robust_byz":     # the mesh leg: one rank is the no-mesh run, bit for bit
+        assert (store["port"][2].n_devices, store["ref"][2].n_devices) == (1, 1)
+        assert tj["checks"]["mesh_1dev_bit_identical"] and jj["checks"]["mesh_1dev_bit_identical"]
+
+
 def test_retention_sweep_rows_at_its_own_size(monkeypatch, capsys, tmp_path):
     """Both packages' quick sweep (the block-skip path: Pallas in interpret
     mode in the reference, the kernel's plain version here) row for row."""
@@ -287,15 +378,80 @@ def test_retention_sweep_rows_at_its_own_size(monkeypatch, capsys, tmp_path):
     assert _no_walls(tl) == _no_walls(jl)
 
 
+def test_shard_scale_quick_rows_match_the_reference_run(monkeypatch, capsys, tmp_path):
+    """``shard_scale --quick`` of both packages for real: the reference on 8
+    virtual XLA devices in a subprocess (its command sets the flag), the
+    port on gloo ranks, from the reference's init.  Row by row, every field
+    that is not a time: W, n_dev, shard spec, dispatches, chunks,
+    recompiles, final_acc (within 1e-3), and the checks' booleans but the
+    speed check; prune-event identity is the reference's own check."""
+    ref_out = tmp_path / "ref.json"
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), JAX_PLATFORMS="cpu")
+    proc = subprocess.run([sys.executable, "-m", "benchmarks.run", "shard_scale", "--quick",
+                           "--out", str(ref_out)], cwd=ROOT, env=env, capture_output=True,
+                          text=True, timeout=600)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    ref = json.loads(ref_out.read_text())
+    assert ref["device_counts"] == [1, 2, 4, 8]
+
+    def with_init(sim):
+        return _jax_init(sim.cnn, sim.seed)
+
+    monkeypatch.setattr(trun, "run_simulation",
+                        lambda sim: T_RUN(sim, base_params=with_init(sim)))
+    monkeypatch.setattr(trun, "on_ranks", lambda n, sim, device: tmesh.run_ranks(
+        n, tmesh.simulate, (sim, with_init(sim)), device=device)[0])
+    out = tmp_path / "port.json"
+    trun.shard_scale(str(out), quick=True, device="cpu")
+    port = json.loads(out.read_text())
+    assert port["device_counts"] == ref["device_counts"]
+    assert port["worker_counts"] == ref["worker_counts"]
+    assert port["round_fusion"] == ref["round_fusion"]
+    assert len(port["rows"]) == len(ref["rows"]) == 7
+    same = ("workers", "n_dev", "shard_spec", "rounds", "round_fusion", "host_dispatches",
+            "fused_chunks", "recompiles")
+    for a, b in zip(ref["rows"], port["rows"]):
+        assert {k: b[k] for k in same} == {k: a[k] for k in same}
+        assert abs(a["final_acc"] - b["final_acc"]) <= 1e-3, (a, b)
+    booleans = ("host_dispatches_flat_in_n_dev", "prune_indices_bit_identical")
+    assert {k: port["checks"][k] for k in booleans} == {k: ref["checks"][k] for k in booleans}
+    assert all(port["checks"][k] for k in booleans)
+    assert port["checks"].keys() == ref["checks"].keys()
+    assert isinstance(port["checks"]["steady_within_2_5x_of_single_device"], bool)
+    capsys.readouterr()
+
+
 # ---------------------------------------------------------------------------
 # 4. the command line
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("argv", [[c] for c in trun.NOT_PORTED]
-                         + [["tables", "--only", "roofline_table"]])
+@pytest.mark.parametrize("argv", [["tables", "--only", "roofline_table"]])
 def test_unported_commands_point_at_the_roadmap(argv):
     with pytest.raises(ValueError, match="ROADMAP.md"):
         trun.main(argv + ["--device", "cpu"])
+
+
+@pytest.mark.parametrize("cmd,out", [("shard_scale", "shard"), ("regrow_sweep", "regrow"),
+                                     ("world_model", "world"), ("robust_world", "robust"),
+                                     ("flaky_grid", "world")])
+def test_slice_12_sweeps_are_commands(cmd, out, monkeypatch, capsys, tmp_path):
+    """The five sweeps are commands of ``main``, writing
+    ``BENCH_port_<out>.json`` by default (``flaky_grid`` merges into the
+    world file, beside what is there)."""
+    rec = Recorder(_canned(tsim.SimResult))
+    _patch_port(monkeypatch, rec)
+    monkeypatch.chdir(tmp_path)
+    (tmp_path / "BENCH_port_world.json").write_text(json.dumps({"rows": []}))
+    assert trun.main([cmd, "--quick", "--device", "cpu", "--cnn", "vgg16"]) == 0
+    lines = capsys.readouterr().out.splitlines()
+    assert lines[0] == "name,value,derived"
+    assert lines[-1].endswith(f"/json,BENCH_port_{out}.json,")
+    assert rec.configs and all(c.cnn == tcnn.VGG16_CIFAR and c.device == "cpu"
+                               for c in rec.configs)
+    blob = json.loads((tmp_path / f"BENCH_port_{out}.json").read_text())
+    assert "checks" in (blob["flaky_grid"] if cmd == "flaky_grid" else blob)
+    if cmd == "flaky_grid":
+        assert blob["rows"] == []
 
 
 def test_main_prints_the_reference_lines_and_raises_on_a_failing_bench(
