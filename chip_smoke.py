@@ -276,6 +276,30 @@ Slice 11, the paper's runners (``repro_torch.bench``) and the masked
                    clock equal to the same row's on the CPU
                    (TABLE2_FEDAVG_S_CPU_CLOCK).
 
+Slice 12, the last five sweeps of ``benchmarks/run.py`` and the dense
+attention archs (internlm2-1.8b, qwen1.5-32b, qwen3-32b); phase 7 also
+holds the flash kernel at each dense arch's heads, kv heads and head_dim
+128 at S = 1, 129 and 3072:
+
+30. sweeps       — ``python -m repro_torch.bench.run <cmd> --quick`` on the
+                   card for shard_scale (the mesh cells on one-rank NCCL
+                   groups: the one card gives n_dev 1 only, the larger
+                   sizes print ``skipped``), regrow_sweep, world_model,
+                   robust_world (its mesh leg a one-rank NCCL job, bitwise
+                   against the no-mesh fused run) and flaky_grid: each
+                   command's checks and seconds; every masked row's prune
+                   events, scenario rounds, clocks (NaN-aware) and ledger
+                   equal to the fused row of the same cell, as the
+                   reference's ``engines_equivalent`` holds them; the
+                   structural checks (SWEEP_HELD) held, the accuracy ones
+                   recorded.
+31. dense_serve  — ``serve_batch`` (batch 2, prompt 3072, 32 new tokens) at
+                   internlm2-1.8b's full size and at qwen1.5-32b's and
+                   qwen3-32b's full width with the depth cut to fit the
+                   card (``dense_depth``): prefill s and tok/s, decode ms a
+                   token, peak memory, one flash launch per attention layer
+                   a prefill, decode vs ``forward`` within 2e-3.
+
 Then a ``{"phase": "done"}`` line with the script's seconds, a
 ``{"kernels": [...]}`` line, the ``nvidia-smi`` name/power line, and as the
 last line ``{"ok": true, "device": {...}}``.  Details go to
@@ -318,6 +342,26 @@ SERVE = {"arch": "recurrentgemma-9b", "batch": 2, "prompt": 3072, "new_tokens": 
 # ~0.36 GB of activations per training image, W=10 x 32 would need ~115 GB)
 RESNET = {"workers": 4, "batch": 32}
 IMPORTANCE_RATES = [0.0, 0.25, 0.5, 0.75]
+# slice 12: the dense attention archs served at batch 2 x prompt 3072; the
+# 32B configs at full width, cut in depth to what the card holds
+DENSE_ARCHS = ("internlm2-1.8b", "qwen1.5-32b", "qwen3-32b")
+# the sweeps' checks that are the port's contract (the rest are accuracy
+# data of the quick fixtures, recorded)
+SWEEP_HELD = {
+    "shard_scale": ("host_dispatches_flat_in_n_dev", "prune_indices_bit_identical"),
+    "regrow_sweep": ("regrow_adds_events", "events_bit_identical_masked_vs_fused",
+                     "clocks_identical_masked_vs_fused", "fused_chunks_O_R_over_K",
+                     "fused_dispatches_are_chunks_evals_and_grow_grads",
+                     "fused_regrow_recompiles_le_2", "fused_dispatches_below_masked"),
+    "world_model": ("faultfree_bit_identical", "fused_chunks_O_R_over_K", "drift_cuts_bounded",
+                    "fused_recompiles_le_2", "drift_triggered_relearning",
+                    "crash_recovered_workers", "outage_skipped_not_hung", "wave_varies_cohort",
+                    "faultfree_ledger_zero"),
+    "robust_world": ("fused_chunks_O_R_over_K", "fused_recompiles_le_2",
+                     "mesh_1dev_bit_identical", "byz_commits_counted", "channel_ledger_active",
+                     "quarantine_fired", "faultfree_ledger_zero"),
+    "flaky_grid": ("clean_cell_matches_no_scenario", "fused_recompiles_le_2"),
+}
 
 
 def emit(obj) -> None:
@@ -1110,6 +1154,18 @@ def serve_shapes():
                  "scan": (b, s, cfg.rnn_width)}
 
 
+def dense_heads():
+    """(heads, kv heads) of each dense arch, all at head_dim 128."""
+    from repro_torch.configs import get_config
+
+    out = []
+    for arch in DENSE_ARCHS:
+        cfg = get_config(arch)
+        assert cfg.resolved_head_dim == 128, arch
+        out.append((cfg.num_heads, cfg.num_kv_heads))
+    return out
+
+
 def phase_llm_kernel(report):
     import torch
     from repro_torch.kernels.flash_attention import flash_attention, flash_attention_plain
@@ -1141,6 +1197,9 @@ def phase_llm_kernel(report):
         (1, 100, 2, 1, 64, {"window": 5, "causal": False}),
         # head dims 64 and 128 at the serve length
         *[(*serve_flash[:4], dd, serve_flash[5]) for dd in (64, 128)],
+        # the dense archs' heads / kv heads at head_dim 128, global causal
+        # attention: internlm2 16/8, qwen1.5 40/40, qwen3 64/8
+        *[(2, n, h, kv, 128, {}) for h, kv in dense_heads() for n in (1, 129, 3072)],
     ]
     cases = []
     for b, s, h, kv, d, kw in flash_cases:
@@ -1251,7 +1310,7 @@ def phase_llm_times(report):
     return rec
 
 
-def _serve_once(cfg, label, gen_seed):
+def _serve_once(cfg, label, gen_seed, phase="serve"):
     """serve_batch at ``cfg`` with the port's seeded init on the card; the
     launch counts are zeroed just before it and read just after.  Then each
     step's logits against ``forward`` over prompt + generated tokens."""
@@ -1292,7 +1351,7 @@ def _serve_once(cfg, label, gen_seed):
     ref = full[:, s - 1:]
     diffs = (logits - ref).abs().amax(dim=(0, 2)).tolist()
     rec = {
-        "phase": "serve", "label": label, "arch": cfg.name, "retention": cfg.retention,
+        "phase": phase, "label": label, "arch": cfg.name, "retention": cfg.retention,
         "num_layers": cfg.num_layers, "d_model": cfg.d_model, "d_ff": cfg.d_ff,
         "rnn_width": cfg.rnn_width, "param_count": param_count(cfg),
         "batch": b, "prompt": s, "new_tokens": n, "init_s": init_s,
@@ -3874,6 +3933,147 @@ def phase_runners(report):
     return rec
 
 
+# ---------------------------------------------------------------------------
+# slice 12: the last five sweeps of benchmarks/run.py, and the dense
+# attention archs served on the card
+# ---------------------------------------------------------------------------
+
+def _nan_equal(a, b) -> bool:
+    return np.array_equal(np.array(a, dtype=np.float64), np.array(b, dtype=np.float64),
+                          equal_nan=True)
+
+
+def masked_fused_pairs(records):
+    """(masked, fused) results of the same cell among a sweep's spied runs:
+    the configs equal but for the engine."""
+    import dataclasses
+
+    fused = [(sim, res) for sim, res, _ in records if sim.engine == "fused"]
+    pairs = []
+    for sim, res, _ in records:
+        if sim.engine != "masked":
+            continue
+        twin = dataclasses.replace(sim, engine="fused")
+        match = [r for f, r in fused if f == twin]
+        check(len(match) >= 1, f"sweeps: no fused row for masked cell {sim}")
+        pairs.append((res, match[0]))
+    return pairs
+
+
+def exact_fields_equal(m, f) -> dict:
+    """The reference's engines_equivalent fields, exactly: prune events,
+    scenario rounds, clocks (NaN in place) and the fault ledger."""
+    ledger = ("drift_events", "rounds_degraded", "rounds_skipped", "workers_recovered",
+              "retry_total", "byz_commits", "lost_commits", "dup_commits", "corrupt_commits",
+              "quarantined_commits")
+    return {"prune_events": m.prune_events == f.prune_events,
+            "scenario_rounds": m.scenario_rounds == f.scenario_rounds,
+            "update_times": _nan_equal(m.update_times, f.update_times),
+            "total_time": m.total_time == f.total_time,
+            "ledger": all(getattr(m, x) == getattr(f, x) for x in ledger),
+            "final_acc_gap": abs(m.final_acc - f.final_acc)}
+
+
+def phase_sweeps(report):
+    """Slice 12: the five sweeps through the command line at --quick."""
+    from repro_torch.bench import run as trun
+
+    t_all = time.perf_counter()
+    out_dir = ROOT / "chiprun_out"
+    world_file = out_dir / "BENCH_port_world.json"
+    if world_file.exists():
+        world_file.unlink()
+    per = {}
+    for cmd, stem in (("shard_scale", "shard"), ("regrow_sweep", "regrow"),
+                      ("world_model", "world"), ("robust_world", "robust"),
+                      ("flaky_grid", "world")):
+        out = out_dir / f"BENCH_port_{stem}.json"
+        t0 = time.perf_counter()
+        lines, records = runner_cli(trun, [cmd, "--quick", "--device", DEVICE, "--out", str(out)])
+        secs = time.perf_counter() - t0
+        blob = json.loads(out.read_text())
+        checks = blob["flaky_grid"]["checks"] if cmd == "flaky_grid" else blob["checks"]
+        pairs = [exact_fields_equal(m, f) for m, f in masked_fused_pairs(records)]
+        rec = {"phase": "sweeps", "command": cmd, "seconds": secs, "runs": len(records),
+               "checks": checks, "masked_fused_cells": len(pairs),
+               "masked_fused_exact": all(all(v for k, v in p.items() if k != "final_acc_gap")
+                                         for p in pairs),
+               "max_final_acc_gap": max((p["final_acc_gap"] for p in pairs), default=0.0),
+               "devices": sorted({s.device for s, _, _ in records}),
+               "walltime_s": [r.walltime_s for _, r, _ in records]}
+        if cmd == "shard_scale":
+            rec["rows"] = [{k: row[k] for k in ("workers", "n_dev", "shard_spec",
+                                                "host_dispatches", "fused_chunks",
+                                                "rounds_per_sec_steady")}
+                           for row in blob["rows"]]
+            rec["skipped"] = [l for l in lines if l.startswith("shard_scale/skipped,")]
+        emit(rec)
+        per[cmd] = {**rec, "pairs": pairs}
+        check(rec["devices"] == [DEVICE], f"sweeps: {cmd} ran off the card")
+        check(rec["masked_fused_exact"], f"sweeps: {cmd} masked and fused rows part in an "
+              f"exact field: {pairs}")
+        held = {k: checks[k] for k in SWEEP_HELD[cmd]}
+        check(all(held.values()), f"sweeps: {cmd} checks failed: {held}")
+        if cmd == "shard_scale":
+            check([row["n_dev"] for row in blob["rows"]] == [0, 1, 0, 1]
+                  and blob["device_counts"] == [1],
+                  f"sweeps: shard_scale on one card ran {blob['rows']}")
+    rec = {"phase": "sweeps_done", "seconds": time.perf_counter() - t_all,
+           "per_command_s": {c: v["seconds"] for c, v in per.items()}}
+    emit(rec)
+    report["sweeps"] = {"commands": {c: {k: v for k, v in r.items() if k != "pairs"}
+                                     for c, r in per.items()},
+                        "pairs": {c: r["pairs"] for c, r in per.items()}, **rec}
+    return rec
+
+
+def dense_depth(cfg, batch, prompt, new_tokens) -> int:
+    """The most layers of ``cfg`` (at most its own) whose FP32 weights, KV
+    cache, the prefill's and the check's logits and FFN activations fit in
+    90 % of the card's memory."""
+    import torch
+
+    from repro_torch.models.config import param_count
+
+    total = 0.9 * torch.cuda.get_device_properties(0).total_memory
+    tokens = batch * (prompt + new_tokens)
+    logits = 4.0 * tokens * cfg.vocab_size
+    ffn = 4.0 * 3 * tokens * cfg.d_ff
+    slack = 4e9
+    for n in range(cfg.num_layers, 0, -1):
+        c = cfg.replace(num_layers=n)
+        kv = 4.0 * 2 * n * tokens * cfg.num_kv_heads * cfg.resolved_head_dim
+        if 4.0 * param_count(c) + kv + 2 * logits + ffn + slack <= total:
+            return n
+    raise RuntimeError(f"{cfg.name}: not one layer fits on the card")
+
+
+def phase_dense_serve(report):
+    """Slice 12: the dense attention archs through ``serve_batch``."""
+    from repro_torch.configs import get_config
+
+    t0 = time.perf_counter()
+    out = {}
+    for i, arch in enumerate(DENSE_ARCHS):
+        cfg = get_config(arch)
+        n = dense_depth(cfg, SERVE["batch"], SERVE["prompt"], SERVE["new_tokens"])
+        if arch == "internlm2-1.8b":
+            check(n == cfg.num_layers == 24 and cfg.d_model == 2048,
+                  "dense_serve runs internlm2-1.8b at full size")
+        run_cfg = cfg if n == cfg.num_layers else cfg.replace(num_layers=n)
+        rec = _serve_once(run_cfg, f"{arch}/{n}_of_{cfg.num_layers}_layers", SERVE["seed"] + i,
+                          phase="dense_serve")
+        check(rec["launches_per_prefill"]["flash_attention"] == n
+              and rec["launches_per_prefill"]["rg_lru_scan"] == 0,
+              f"dense_serve: {arch} launched {rec['launches_per_prefill']}")
+        out[arch] = {**rec, "layers_full": cfg.num_layers, "layers_run": n}
+    rec = {"phase": "dense_serve_done", "seconds": time.perf_counter() - t0,
+           "layers": {a: (r["layers_run"], r["layers_full"]) for a, r in out.items()}}
+    emit(rec)
+    report["dense_serve"] = {**out, "seconds": rec["seconds"]}
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -3955,6 +4155,10 @@ def main() -> int:
         phase_robust_mesh(report, rf_res, rf_again)
         save(report)
         phase_runners(report)
+        save(report)
+        phase_sweeps(report)
+        save(report)
+        dense = phase_dense_serve(report)
     steps = max(res.train_steps, 1)
     rb_steps = max(rb_res.train_steps, 1)
     s_steps = max(s_res.train_steps, 1)
@@ -4020,6 +4224,10 @@ def main() -> int:
         if kname == "flash_attention":
             # its own bound: the 3xTF32 products at the tensor-core rate
             entry.update(bound_ms=t["bound_tc_ms"], bound_fp32_ms=t["bound_ms"])
+            entry["dense"] = {a: {"layers": r["layers_run"],
+                                  "launches": r["launches_per_prefill"][kname],
+                                  "prefill_s": r["prefill_again_s"]}
+                              for a, r in dense.items()}
         kernels.append(entry)
     report["kernels"] = kernels
     report["card"] = card

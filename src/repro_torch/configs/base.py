@@ -2,8 +2,9 @@
 ``repro/configs/base.py``).
 
 The port registers only the architectures whose block kinds it runs
-(``recurrentgemma-9b``, ``gemma2-2b``); ``get_config`` of any other name
-raises a ``ValueError`` that names it and points at ROADMAP.md.
+(``recurrentgemma-9b``, ``gemma2-2b`` and the dense attention archs
+``internlm2-1.8b``, ``qwen1.5-32b``, ``qwen3-32b``); ``get_config`` of any
+other name raises a ``ValueError`` that names it and points at ROADMAP.md.
 """
 from __future__ import annotations
 
@@ -19,10 +20,10 @@ _REGISTRY: Dict[str, ModelConfig] = {}
 
 # the JAX package's other registered archs, which have no config file in the
 # port yet: MoE, xLSTM, Whisper and InternVL need kinds or fields the port
-# refuses; the dense attention archs wait for their own slice
+# refuses
 UNPORTED_ARCHS = (
-    "granite-moe-1b-a400m", "internlm2-1.8b", "internvl2-76b", "llama4-maverick-400b-a17b",
-    "qwen1.5-32b", "qwen3-32b", "whisper-small", "xlstm-1.3b",
+    "granite-moe-1b-a400m", "internvl2-76b", "llama4-maverick-400b-a17b", "whisper-small",
+    "xlstm-1.3b",
 )
 
 
@@ -108,4 +109,10 @@ def _ensure_loaded():
     if _LOADED:
         return
     _LOADED = True
-    from . import gemma2_2b, recurrentgemma_9b  # noqa: F401
+    from . import (  # noqa: F401
+        gemma2_2b,
+        internlm2_1_8b,
+        qwen1_5_32b,
+        qwen3_32b,
+        recurrentgemma_9b,
+    )
