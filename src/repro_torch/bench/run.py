@@ -52,7 +52,6 @@ import time
 from typing import Optional, Tuple
 
 import numpy as np
-
 import torch
 
 from repro_torch.bench import tables
@@ -74,8 +73,7 @@ from repro_torch.launch import mesh as launch_mesh
 from repro_torch.models.cnn import RESNET50_TINY, VGG16_CIFAR, CNNConfig, vgg_config
 
 __all__ = ["scale", "async_scale", "fused", "retention_sweep", "shard_scale", "regrow_sweep",
-           "world_model", "robust_world", "flaky_grid", "on_ranks", "rank_capacity", "main",
-           "MODELS"]
+           "world_model", "robust_world", "flaky_grid", "on_ranks", "main", "MODELS"]
 
 MODELS = {"default": None, "vgg16": VGG16_CIFAR, "resnet50": RESNET50_TINY}
 # ranks a CPU mesh may take: the reference's virtual XLA devices
@@ -87,14 +85,6 @@ def _dump(out_path: str, blob: dict) -> None:
     pathlib.Path(out_path).parent.mkdir(parents=True, exist_ok=True)
     with open(out_path, "w") as f:
         json.dump(blob, f, indent=2)
-
-
-def rank_capacity(device: str) -> int:
-    """How many mesh ranks ``device`` gives: one per visible card, or
-    ``CPU_RANKS`` gloo processes on the CPU."""
-    if resolve_device(device, "--device").type == "cuda":
-        return torch.cuda.device_count()
-    return CPU_RANKS
 
 
 def on_ranks(n: int, sim: SimConfig, device: str):
@@ -479,7 +469,9 @@ def shard_scale(out_path: str = "BENCH_port_shard.json", quick: bool = False,
     identical at every mesh size, and steady rounds/sec at the largest W
     within 2.5x of the no-mesh engine (interleaved repetitions, median of
     per-pair ratios) — bench data, printed whether it holds or not."""
-    n_avail = rank_capacity(device)
+    # one rank a visible card, or CPU_RANKS gloo processes on the CPU
+    dev = resolve_device(device, "--device")
+    n_avail = torch.cuda.device_count() if dev.type == "cuda" else CPU_RANKS
     cnn = cnn or vgg_config("vgg_shard", [4, "M", 8], num_classes=10, image_size=8)
     worker_counts = (8,) if quick else (8, 64, 256)
     device_counts = tuple(d for d in (1, 2, 4, 8) if d <= n_avail)
