@@ -1161,7 +1161,7 @@ def dense_heads():
     out = []
     for arch in DENSE_ARCHS:
         cfg = get_config(arch)
-        assert cfg.resolved_head_dim == 128, arch
+        check(cfg.resolved_head_dim == 128, f"{arch}: head_dim {cfg.resolved_head_dim}, not 128")
         out.append((cfg.num_heads, cfg.num_kv_heads))
     return out
 
