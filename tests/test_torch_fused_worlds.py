@@ -23,10 +23,12 @@ engine parts from its sequential engine in them.
     are equal, and their params and final_acc lie within the parity
     contract (1e-4, 1e-3) or within 2x the distance one ulp of the init
     moves JAX sequential;
-  - at the failing tests' size, from the init one ulp up, the same;
+  - at the failing tests' size, from the init one ulp up, the same, with
+    the port's fused runs of the world in the envelope;
   - in the regrow world (``test_fused_regrow_matches_sequential_and_resident``)
     the distance between the engines is within 2x the distance a one-ulp
-    change of the init moves the sequential engine by itself.
+    change of the init (or, for the port's run, another summation order)
+    moves a run of the world.
 """
 import jax
 import numpy as np
