@@ -385,7 +385,7 @@ def _smoke_batch(cfg, seed, b=2, s=24):
     return {"tokens": torch.randint(0, cfg.vocab_size, (b, s), generator=gen)}
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", DENSE)
 def test_decode_matches_forward(arch):
     """tests/test_models_smoke.py's ``test_decode_matches_forward`` on the
     port, from its own seeded init: prefill then per-token decode equal
@@ -403,7 +403,7 @@ def test_decode_matches_forward(arch):
     assert max(errs) < DECODE_TOL, f"incremental decode diverged: {errs}"
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", DENSE)
 def test_apply_retention_shrinks(arch):
     """tests/test_models_smoke.py's ``test_apply_retention_shrinks`` on the
     port: fewer params at retention 0.5 with heads pruned, GQA well formed,
