@@ -11,10 +11,10 @@
 2. Real rows at a tiny size: a few rows run for real in both packages, cut
    to a tiny VGG and task, the port from the reference's init; the rows'
    exact fields (prune events, clocks, comm bytes, the FLOPs and blocks
-   ledger, counters) are equal to the same-named JAX engine's, and params
-   and accuracy are held to JAX masked's (or the engine's own where the
-   sweep runs no masked row) under the envelope rule of
-   ``torch_envelope``.
+   ledger, counters) are equal to the same-named JAX engine's; for the
+   sweeps' cells params and accuracy are held to the JAX masked row under
+   the envelope rule of ``torch_envelope``, for the table rows to the
+   same-named JAX engine's at 1e-3.
 3. ``retention_sweep(quick=True)`` at its own size, the same way, and
    ``shard_scale --quick`` against the reference's own run of it on 8
    virtual XLA devices (a subprocess), row by row in every field that is
