@@ -296,7 +296,7 @@ holds the flash kernel at each dense arch's heads, kv heads and head_dim
 31. dense_serve  — ``serve_batch`` (batch 2, prompt 3072, 32 new tokens) at
                    internlm2-1.8b's full size and at qwen1.5-32b's and
                    qwen3-32b's full width with the depth cut to fit the
-                   card (``dense_depth``): prefill s and tok/s, decode ms a
+                   card (``DENSE_LAYERS``): prefill s and tok/s, decode ms a
                    token, peak memory, one flash launch per attention layer
                    a prefill, decode vs ``forward`` within 2e-3.
 
@@ -342,9 +342,12 @@ SERVE = {"arch": "recurrentgemma-9b", "batch": 2, "prompt": 3072, "new_tokens": 
 # ~0.36 GB of activations per training image, W=10 x 32 would need ~115 GB)
 RESNET = {"workers": 4, "batch": 32}
 IMPORTANCE_RATES = [0.0, 0.25, 0.5, 0.75]
-# slice 12: the dense attention archs served at batch 2 x prompt 3072; the
-# 32B configs at full width, cut in depth to what the card holds
-DENSE_ARCHS = ("internlm2-1.8b", "qwen1.5-32b", "qwen3-32b")
+# slice 12: the dense attention archs served at batch 2 x prompt 3072, each at
+# full width with the layers it runs: internlm2-1.8b at its full 24, the 32B
+# configs cut in depth to what an 80 GB card holds in FP32 beside the KV
+# cache and the prefill's logits (PERF.md section 4)
+DENSE_LAYERS = {"internlm2-1.8b": 24, "qwen1.5-32b": 24, "qwen3-32b": 28}
+DENSE_ARCHS = tuple(DENSE_LAYERS)
 # the sweeps' checks that are the port's contract (the rest are accuracy
 # data of the quick fixtures, recorded)
 SWEEP_HELD = {
@@ -4027,27 +4030,6 @@ def phase_sweeps(report):
     return rec
 
 
-def dense_depth(cfg, batch, prompt, new_tokens) -> int:
-    """The most layers of ``cfg`` (at most its own) whose FP32 weights, KV
-    cache, the prefill's and the check's logits and FFN activations fit in
-    90 % of the card's memory."""
-    import torch
-
-    from repro_torch.models.config import param_count
-
-    total = 0.9 * torch.cuda.get_device_properties(0).total_memory
-    tokens = batch * (prompt + new_tokens)
-    logits = 4.0 * tokens * cfg.vocab_size
-    ffn = 4.0 * 3 * tokens * cfg.d_ff
-    slack = 4e9
-    for n in range(cfg.num_layers, 0, -1):
-        c = cfg.replace(num_layers=n)
-        kv = 4.0 * 2 * n * tokens * cfg.num_kv_heads * cfg.resolved_head_dim
-        if 4.0 * param_count(c) + kv + 2 * logits + ffn + slack <= total:
-            return n
-    raise RuntimeError(f"{cfg.name}: not one layer fits on the card")
-
-
 def phase_dense_serve(report):
     """Slice 12: the dense attention archs through ``serve_batch``."""
     from repro_torch.configs import get_config
@@ -4056,9 +4038,9 @@ def phase_dense_serve(report):
     out = {}
     for i, arch in enumerate(DENSE_ARCHS):
         cfg = get_config(arch)
-        n = dense_depth(cfg, SERVE["batch"], SERVE["prompt"], SERVE["new_tokens"])
+        n = DENSE_LAYERS[arch]
         if arch == "internlm2-1.8b":
-            check(n == cfg.num_layers == 24 and cfg.d_model == 2048,
+            check(n == cfg.num_layers and cfg.d_model == 2048,
                   "dense_serve runs internlm2-1.8b at full size")
         run_cfg = cfg if n == cfg.num_layers else cfg.replace(num_layers=n)
         rec = _serve_once(run_cfg, f"{arch}/{n}_of_{cfg.num_layers}_layers", SERVE["seed"] + i,

@@ -205,7 +205,10 @@ def gl_factors_from_counts(
         for lname, axis in entries:
             contrib = numel[path] / torch.clamp_min(counts[lname], 1.0)
             sizes[lname] = contrib if lname not in sizes else sizes[lname] + contrib
-    return {lname: torch.sqrt(v) for lname, v in sizes.items()}
+    # the root in float64, rounded to float32 once: correctly rounded, as
+    # XLA's and numpy's float32 sqrt are and torch's CPU one is not on every
+    # CPU (sqrt(42) one ulp high)
+    return {lname: torch.sqrt(v.double()).to(v.dtype) for lname, v in sizes.items()}
 
 
 def refetch_rows(

@@ -8,8 +8,8 @@ engine parts from its sequential engine in them.
   time within 1e-9, equal ``host_dispatches`` and ``fused_chunks`` against
   JAX fused; final_acc within 1e-3 and params within 1e-4 against JAX
   masked, or within 2x the envelope where that is larger
-  (``torch_envelope``: the port from the init one ulp up and down, and the
-  distance between JAX fused and JAX masked).
+  (``torch_envelope``: the port's own runs from the init one ulp up and
+  down and in the other summation order).
 
 * The witness for ROADMAP queue C: JAX fused and JAX sequential disagree in
   the drift, outage, combined and regrow worlds (7 of the reference's 9
@@ -130,14 +130,22 @@ def jax_run(engine, world=None, scen=None, regrow=None, task=None, bump=None, **
         jsim.init_cnn = draw
 
 
+_PORT_RUNS = {}
+
+
 def port_run(scen, bump=None):
-    """The port's fused engine from the JAX init draw, moved by ``bump``."""
-    cfg = jcnn.vgg_config("vgg_tiny_flt", PLAN, num_classes=4, image_size=8)
-    init = {k: np.asarray(v) for k, v in jcnn.init_cnn(jax.random.PRNGKey(5), cfg).items()}
-    return tsim.run_simulation(tsim.SimConfig(
-        cnn=tcnn.vgg_config("vgg_tiny_flt", PLAN, num_classes=4, image_size=8),
-        het=THet(num_workers=W, sigma=3.0), scenario=scenario("port", **scen), device="cpu",
-        **_base("fused")), base_params=ulp(init, bump))
+    """The port's fused engine from the JAX init draw, moved by ``bump``;
+    one run per world, init and summation order for the module (the
+    witnesses hold the families' own runs)."""
+    key = (repr(scen), bump, torch.backends.mkldnn.enabled)
+    if key not in _PORT_RUNS:
+        cfg = jcnn.vgg_config("vgg_tiny_flt", PLAN, num_classes=4, image_size=8)
+        init = {k: np.asarray(v) for k, v in jcnn.init_cnn(jax.random.PRNGKey(5), cfg).items()}
+        _PORT_RUNS[key] = tsim.run_simulation(tsim.SimConfig(
+            cnn=tcnn.vgg_config("vgg_tiny_flt", PLAN, num_classes=4, image_size=8),
+            het=THet(num_workers=W, sigma=3.0), scenario=scenario("port", **scen), device="cpu",
+            **_base("fused")), base_params=ulp(init, bump))
+    return _PORT_RUNS[key]
 
 
 def maxdiff(a, b):
@@ -178,7 +186,7 @@ def test_family_matches_jax_fused_within_contract(family):
     assert_events_equal(ref, port)
     masked = jax_run("masked", scen=FAMILIES[family])
     assert_events_equal(masked, port)
-    assert_within_envelope(port, masked, bar=1e-4, refs=(ref, masked), what=family,
+    assert_within_envelope(port, masked, bar=1e-4, what=family,
                            perturbed=perturbations(lambda b: port_run(FAMILIES[family], b)))
     assert port.host_dispatches == ref.host_dispatches
     assert port.fused_chunks == ref.fused_chunks
@@ -217,11 +225,9 @@ def test_jax_fused_equals_jax_sequential_from_the_init_one_ulp_up(world):
     fus = jax_run("fused", world, bump="up")
     assert_events_equal(seq, fus)
     scen = WORLDS[world]["scen"]
-    assert_within_envelope(seq, fus, bar=1e-4, what=world,
-                           perturbed=[lambda: jax_run("sequential", world)],
-                           refs=(lambda: port_run(scen), lambda: port_run(scen, "up"),
-                                 in_other_order(lambda: port_run(scen))),
-                           all_pairs=True)
+    assert_within_envelope(seq, fus, bar=1e-4, what=world, perturbed=[
+        lambda: jax_run("sequential", world), lambda: port_run(scen),
+        lambda: port_run(scen, "up"), in_other_order(lambda: port_run(scen))])
 
 
 def test_regrow_world_disagreement_within_the_one_ulp_envelope():

@@ -2,16 +2,20 @@
 float32 coin at ``tests/test_robust.py``'s size.
 
 From the JAX ``init_cnn`` draw itself, JAX ``sequential`` and JAX
-``bucketed`` part by more than 1e-3 in params (1e-2 here) and miss the
-reference's own contract in final_acc, with identical prune events, clocks
-and ledgers.  Float32 chaos, not a difference in what the engines compute:
-16 SGD steps a round for 8 rounds amplify the order of a sum (a batched
-call's convolution, a clip scale's last bit), and which side of the coin a
-run lands on follows that order.  Each of the port's two engines lands on
-one side: it meets the whole contract against one of the two JAX engines,
-and its events, clocks and ledger equal both.  So
+``bucketed`` may part by 1e-2 in params and miss the reference's own
+contract in final_acc, with identical prune events, clocks and ledgers;
+whether they do depends on the CPU.  Float32 chaos, not a difference in
+what the engines compute: 16 SGD steps a round for 8 rounds amplify the
+order of a sum (a batched call's convolution, a clip scale's last bit),
+which XLA's CPU backend picks by ISA.  What holds on every CPU: the two
+JAX engines lie within 1e-3, or within 2x the distance between runs of
+the world from the init moved one ulp or summed in another order; each of
+the port's two engines meets the whole contract against one of the two
+JAX engines, or lies within 2x its own envelope of JAX sequential, and its
+events, clocks and ledger equal both.  So
 ``tests/test_torch_robust_channel.py`` and ``test_torch_robust_noise.py``
-hold every engine from the draw one ulp down, where all of them agree.
+hold every engine's params within 2x its own envelope at this size, and
+the whole contract at a 160-image task.
 """
 import numpy as np
 import pytest
@@ -56,8 +60,8 @@ def test_jax_sequential_and_bucketed_part_by_chaos(name):
                 for b in (None, "up", "down")}
     port_seq["order"] = in_other_order(port_seq[None])
     assert_within_envelope(jseq, jbuck, bar=1e-3, what=f"{name}: JAX engines", perturbed=[
-        lambda b=b: jax_run("sequential", name, init=ulp(INIT, b)) for b in ("up", "down")],
-        refs=tuple(port_seq.values()), all_pairs=True)
+        lambda b=b: jax_run("sequential", name, init=ulp(INIT, b)) for b in ("up", "down")]
+        + list(port_seq.values()))
     for engine in ("sequential", "bucketed"):
         port = port_run(engine, name, init=INIT)
         assert events_equal(jseq, port) and events_equal(jbuck, port)
@@ -65,5 +69,5 @@ def test_jax_sequential_and_bucketed_part_by_chaos(name):
                  for ref in (jseq, jbuck)]
         if not any(sides):
             assert_within_envelope(
-                port, jseq, bar=1e-3, refs=(jseq, jbuck), what=f"{name}/{engine}",
+                port, jseq, bar=1e-3, what=f"{name}/{engine}",
                 perturbed=perturbations(lambda b: port_run(engine, name, init=ulp(INIT, b))))

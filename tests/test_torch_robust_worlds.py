@@ -13,10 +13,11 @@ draw:
   (identical prune events, scenario rounds and fault ledger with
   ``quarantined_commits``, update times at atol 0, total time within 1e-9,
   comm bytes within 1e-6), with final_acc within 1e-3 and global params
-  within 1e-4 of it, or within 2x the envelope where that is larger
-  (``torch_envelope``: the port from the init one ulp up and down, and the
-  distance between that JAX engine and JAX sequential; on an AVX2 CPU JAX
-  masked and JAX fused land 1.2e-2 from JAX sequential here);
+  within 1e-4 of JAX masked, or within 2x the envelope where that is
+  larger (``torch_envelope``: the port's own runs from the init one ulp up
+  and down and in the other summation order; on an AVX2 CPU the port's
+  masked and fused engines land 1.2e-2 from JAX masked here and move
+  3.4e-2 and 2.6e-2 within their envelope);
 * ``FaultConfig()`` with ``RobustAggConfig()`` is bit-identical to a run
   with neither (the reference's ``:227``);
 * fedasync_s with clip 0.5 and a hair-trigger quarantine on the port's
@@ -111,13 +112,22 @@ def assert_engines_match(ref, other):
     assert ledger(ref) == ledger(other)
 
 
+_JAX_BYZ = {}
+
+
+def jax_byz(engine):
+    """The reference's BYZ world on ``engine``, run once for the module."""
+    if engine not in _JAX_BYZ:
+        _JAX_BYZ[engine] = run("jax", engine, **world("jax", "byz"))
+    return _JAX_BYZ[engine]
+
+
 @pytest.mark.parametrize("engine", ["sequential", "bucketed", "masked", "fused"])
 def test_byzantine_world_matches_the_same_jax_engine(engine):
-    ref = run("jax", engine, **world("jax", "byz"))
+    ref = jax_byz(engine)
     port = run("port", engine, **world("port", "byz"))
     assert_engines_match(ref, port)
-    seq = lambda: run("jax", "sequential", **world("jax", "byz"))  # noqa: E731
-    assert_within_envelope(port, ref, bar=1e-4, refs=(ref, seq), what=f"byz/{engine}",
+    assert_within_envelope(port, jax_byz("masked"), bar=1e-4, what=f"byz/{engine}",
                            perturbed=perturbations(lambda b: run(
                                "port", engine, init=ulp(INIT, b), **world("port", "byz"))))
     assert port.byz_commits > 0 and port.quarantined_commits > 0

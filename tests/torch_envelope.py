@@ -13,12 +13,14 @@ port.
 
 ``assert_within_envelope`` holds a port run to a reference run: first at
 the reference's own bars; where it misses them, at ``ENVELOPE_EXCESS``
-times the envelope measured in the same test on the same machine — how far
-the port's run moves when its init moves one ulp up or down or when its
-CPU convolutions are summed in another order (``perturbations``), and how
-far apart the reference runs the test holds lie from each other.  The
-perturbed runs are made only when the reference's bars are missed, and
-only until the envelope covers the distance.
+times the envelope measured in the same test on the same machine — the
+largest distance between any two of the port's own runs of the world: the
+run held, and the run from its init one ulp up, one ulp down and with its
+CPU convolutions summed in another order (``perturbations``).  No distance
+between two reference runs enters a port run's envelope.  The perturbed
+runs are made only when the reference's bars are missed, and only until
+the envelope covers the distance.  A witness between two reference
+engines passes the reference's own perturbed runs the same way.
 Events, clocks, ledgers and counters are held exactly elsewhere; this rule
 covers only params and final accuracy.
 """
@@ -72,47 +74,45 @@ def perturbations(run):
     return [lambda: run("up"), lambda: run("down"), in_other_order(lambda: run(None))]
 
 
-def _pairs(port, perturbed, refs, all_pairs):
-    """The pairs whose distances make the envelope, each run made when it
-    is first needed: pairs among ``refs`` (runs, or callables returning
-    one), then ``port`` against each run of ``perturbed`` (callables); with
-    ``all_pairs``, every pair of all those runs (for a witness between two
-    reference engines, where every run held is a float32 run of the same
-    world)."""
-    pool = [port] if all_pairs else []
-    for src in list(refs) + list(perturbed):
-        run = src() if callable(src) else src
-        is_ref = any(src is r for r in refs)
-        if all_pairs or is_ref:
-            for other in pool:
-                yield other, run
-            pool.append(run)
-        else:
-            yield port, run
+def _pairs(held, perturbed):
+    """Every pair among ``held`` and the runs of ``perturbed`` (callables),
+    each run made when it is first needed."""
+    pool = [held]
+    for make in perturbed:
+        run = make()
+        for other in pool:
+            yield other, run
+        pool.append(run)
 
 
-def assert_within_envelope(port, oracle, *, bar, acc_bar=1e-3, perturbed=(), refs=(),
-                           what="", all_pairs=False):
-    """Params of ``port`` within ``bar`` of ``oracle`` and final accuracy
+def assert_within_envelope(held, oracle, *, bar, acc_bar=1e-3, perturbed=(), what=""):
+    """Params of ``held`` within ``bar`` of ``oracle`` and final accuracy
     within ``acc_bar`` (the reference's bars), or each within
     ``ENVELOPE_EXCESS`` times the envelope (``_pairs``) where that is
     larger.  The envelope only grows with each run added, so the runs stop
-    as soon as it covers both distances.  Returns the bars used."""
-    d = params_maxdiff(port, oracle)
-    a = abs(port.final_acc - oracle.final_acc)
+    as soon as it covers both distances.  Returns the distances, the
+    envelope and the bars used."""
+    d = params_maxdiff(held, oracle)
+    a = abs(held.final_acc - oracle.final_acc)
     env_p = env_a = 0.0
+    made = [held]
 
-    def bars():
-        return max(bar, ENVELOPE_EXCESS * env_p), max(acc_bar, ENVELOPE_EXCESS * env_a)
+    def reading():
+        return dict(params=d, acc=a, env_params=env_p, env_acc=env_a, runs=len(made) - 1,
+                    params_bar=max(bar, ENVELOPE_EXCESS * env_p),
+                    acc_bar=max(acc_bar, ENVELOPE_EXCESS * env_a))
 
     if d <= bar and a <= acc_bar:
-        return bar, acc_bar
-    for x, y in _pairs(port, perturbed, refs, all_pairs):
+        return reading()
+    for x, y in _pairs(held, perturbed):
+        if y is not made[-1]:
+            made.append(y)
         env_p = max(env_p, params_maxdiff(x, y))
         env_a = max(env_a, abs(x.final_acc - y.final_acc))
-        p_bar, a_bar = bars()
-        if d <= p_bar and a <= a_bar + 1e-12:
-            return p_bar, a_bar
-    msg = (f"{what}: params {d:.3e} (bar {bar:g}, envelope {env_p:.3e}), "
-           f"final_acc {a:.5f} (bar {acc_bar:g}, envelope {env_a:.5f})")
-    raise AssertionError(msg)
+        r = reading()
+        if d <= r["params_bar"] and a <= r["acc_bar"] + 1e-12:
+            return r
+    raise AssertionError(
+        f"{what}: params {d:.3e} (bar {bar:g}, envelope {env_p:.3e}), "
+        f"final_acc {a:.5f} (bar {acc_bar:g}, envelope {env_a:.5f}), "
+        f"{len(made) - 1} perturbed runs")
