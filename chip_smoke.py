@@ -367,7 +367,14 @@ SWEEP_HELD = {
 }
 
 
+START = time.perf_counter()
+
+
 def emit(obj) -> None:
+    """One JSON line; a phase's line also carries ``at_s``, the script's
+    seconds when it was written (where the script's time goes)."""
+    if isinstance(obj, dict) and "phase" in obj:
+        obj = {**obj, "at_s": round(time.perf_counter() - START, 3)}
     print(json.dumps(obj), flush=True)
 
 
