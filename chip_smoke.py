@@ -300,6 +300,34 @@ holds the flash kernel at each dense arch's heads, kv heads and head_dim
                    token, peak memory, one flash launch per attention layer
                    a prefill, decode vs ``forward`` within 2e-3.
 
+Slice 13, the bf16 modes of the three kernels and LLM serving at the JAX
+dry-run's ``ModelConfig.dtype="bfloat16"``:
+
+32. bf16_kernel  — each bf16 mode against its plain version (bf16 inputs
+                   upcast, float32 arithmetic, one rounding) on the same
+                   inputs: pruned_matmul forward, dX and dW over
+                   VGG16_CIFAR's 14 / 13 / 14 products (10 workers x 32
+                   images) at prefix retention 1.0 and 0.5, within 2e-2 of
+                   max|plain| with pruned units exactly 0; flash at
+                   recurrentgemma-9b's heads (16 / 1, head_dim 256, window
+                   2048) and qwen3-32b's (64 / 8, head_dim 128) at S = 1,
+                   129, 3072, and gemma2-2b's softcap, within 3e-2 (and the
+                   bf16 ulps recorded); the scan at b 2, s 3072, r 4096 and
+                   two ragged shapes, bit-identical.  ms a launch (a step for
+                   pruned_matmul), the plain version, the library call
+                   (``torch.matmul`` on bf16 pre-masked operands, SDPA in
+                   bf16; none for the scan) and the bound at bf16 width.
+33. bf16_serve   — ``serve_batch`` at dtype bfloat16, batch 2, prompt 3072,
+                   32 new tokens, recurrentgemma-9b at full size and
+                   qwen3-32b at its full 64 layers: prefill s and tok/s,
+                   decode ms a token, weights and peak GB; flash in its bf16
+                   mode once per attention layer a prefill, the scan in its
+                   float32 mode once per rglru layer, pruned_matmul never;
+                   decode vs ``forward`` within 2E, E the config's bf16
+                   envelope (max|bf16 logits - logits of the same weights
+                   upcast to float32|) at the largest depth the card holds
+                   in float32 (38 and ``DENSE_LAYERS``' 28).
+
 Then a ``{"phase": "done"}`` line with the script's seconds, a
 ``{"kernels": [...]}`` line, the ``nvidia-smi`` name/power line, and as the
 last line ``{"ok": true, "device": {...}}``.  Details go to
@@ -332,6 +360,14 @@ REPLACES = {
     "pruned_matmul_bwd_dw": "src/repro/kernels/pruned_matmul.py:210 (_pm_bwd dW)",
     "flash_attention": "src/repro/kernels/flash_attention.py:120 (pallas_call -> _kernel :31)",
     "rg_lru_scan": "src/repro/kernels/rg_lru_scan.py:68 (pallas_call -> _kernel :32)",
+    # slice 13: the Pallas kernels' bf16 input modes
+    "pruned_matmul_fwd_bf16": "src/repro/kernels/pruned_matmul.py:146 (_call -> _kernel :66, "
+                              "bf16 x and w)",
+    "pruned_matmul_bwd_dx_bf16": "src/repro/kernels/pruned_matmul.py:204 (_pm_bwd dX, bf16)",
+    "pruned_matmul_bwd_dw_bf16": "src/repro/kernels/pruned_matmul.py:210 (_pm_bwd dW, bf16)",
+    "flash_attention_bf16": "src/repro/kernels/flash_attention.py:120 (pallas_call -> _kernel :31, "
+                            "bf16 q, k, v)",
+    "rg_lru_scan_bf16": "src/repro/kernels/rg_lru_scan.py:68 (pallas_call -> _kernel :32, bf16 x, a)",
 }
 KERNEL_SOURCES = ("pruned_matmul", "flash_attention", "rg_lru_scan")
 FLASH_TOL = 3e-5          # tests/test_kernels.py's f32 attention bar
@@ -348,6 +384,13 @@ IMPORTANCE_RATES = [0.0, 0.25, 0.5, 0.75]
 # cache and the prefill's logits (PERF.md section 4)
 DENSE_LAYERS = {"internlm2-1.8b": 24, "qwen1.5-32b": 24, "qwen3-32b": 28}
 DENSE_ARCHS = tuple(DENSE_LAYERS)
+# slice 13: the bf16 modes.  Bars of tests/test_kernels.py's bf16 cases, as
+# max|kernel - plain| / max|plain| per tensor; the scan is held bit for bit
+BF16_PM_TOL = 2e-2
+BF16_FLASH_TOL = 3e-2
+BF16_TFLOPS = 989e12      # H100 SXM dense bf16 tensor-core peak, NVIDIA data sheet
+# bf16 serving at the JAX dry-run's dtype, every arch at its full depth
+BF16_SERVE = ("recurrentgemma-9b", "qwen3-32b")
 # the sweeps' checks that are the port's contract (the rest are accuracy
 # data of the quick fixtures, recorded)
 SWEEP_HELD = {
@@ -766,7 +809,8 @@ def phase_kernel(report):
     check(not bad, f"kernel disagrees with plain beyond atol=rtol={TOL} or "
           f"err/max|ref| {REL_TOL}: " + json.dumps(bad))
     check(rec["pruned_exact_zero"], "pruned units not exactly zero")
-    built = {n[len("pm_kernel<"):-1] for n in instance_info() if n.startswith("pm_kernel<")}
+    built = {n[len("pm_kernel<"):-1] for n in instance_info()
+             if n.startswith("pm_kernel<") and not n.endswith(",bf16>")}   # bf16: phase bf16_kernel
     ran = {pl["instance"] for c in cases for pl in c["plans"].values()}
     check(built <= ran, f"kernel instances no case exercised: {sorted(built - ran)}")
     check(all(d["bit_identical"] for d in determinism), "two launches differ: " + json.dumps(determinism))
@@ -1320,10 +1364,13 @@ def phase_llm_times(report):
     return rec
 
 
-def _serve_once(cfg, label, gen_seed, phase="serve"):
+def _serve_once(cfg, label, gen_seed, phase="serve", decode_bar=DECODE_TOL):
     """serve_batch at ``cfg`` with the port's seeded init on the card; the
-    launch counts are zeroed just before it and read just after.  Then each
-    step's logits against ``forward`` over prompt + generated tokens."""
+    launch counts are zeroed just before it and read just after: flash in
+    the mode of ``cfg.dtype`` once per attention layer, the scan in its
+    float32 mode (the model feeds it float32 in either dtype) once per
+    rglru layer, nothing else.  Then each step's logits against
+    ``forward`` over prompt + generated tokens, within ``decode_bar``."""
     import torch
     from repro_torch.kernels import flash_attention as fa_mod
     from repro_torch.kernels import pruned_matmul as pm_mod
@@ -1347,8 +1394,8 @@ def _serve_once(cfg, label, gen_seed, phase="serve"):
     for mod in (fa_mod, rg_mod, pm_mod):
         mod.reset_launches()
     out, logits = serve_batch(cfg, params, prompts, n, device=DEVICE, stats=stats, return_logits=True)
-    launches = {**fa_mod.LAUNCHES, **rg_mod.LAUNCHES}
-    pm_launches = sum(pm_mod.LAUNCHES.values())
+    launches = {**fa_mod.LAUNCHES, **fa_mod.LAUNCHES_BF16, **rg_mod.LAUNCHES, **rg_mod.LAUNCHES_BF16}
+    pm_launches = sum(pm_mod.LAUNCHES.values()) + sum(pm_mod.LAUNCHES_BF16.values())
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     # a second prefill alone: its time without first-call costs
     torch.cuda.synchronize()
@@ -1362,6 +1409,7 @@ def _serve_once(cfg, label, gen_seed, phase="serve"):
     diffs = (logits - ref).abs().amax(dim=(0, 2)).tolist()
     rec = {
         "phase": phase, "label": label, "arch": cfg.name, "retention": cfg.retention,
+        "dtype": cfg.dtype,
         "num_layers": cfg.num_layers, "d_model": cfg.d_model, "d_ff": cfg.d_ff,
         "rnn_width": cfg.rnn_width, "param_count": param_count(cfg),
         "batch": b, "prompt": s, "new_tokens": n, "init_s": init_s,
@@ -1371,7 +1419,8 @@ def _serve_once(cfg, label, gen_seed, phase="serve"):
         "decode_tok_per_s": b * n / stats["decode_s"],
         "weights_gb": weights_gb, "peak_mem_gb": peak_gb,
         "launches_per_prefill": launches, "pruned_matmul_launches": pm_launches,
-        "max_logit_diff_vs_forward": max(diffs), "per_step_logit_diff": diffs,
+        "max_logit_diff_vs_forward": max(diffs), "decode_bar": decode_bar,
+        "per_step_logit_diff": diffs,
         "max_abs_logit": float(ref.abs().max()),
         "logits_finite": bool(torch.isfinite(logits).all()),
         "tokens_in_range": bool(((out >= 0) & (out < cfg.vocab_size)).all()),
@@ -1379,14 +1428,15 @@ def _serve_once(cfg, label, gen_seed, phase="serve"):
     }
     emit({k: v for k, v in rec.items() if k != "per_step_logit_diff"})
     kinds = cfg.layer_kinds()
-    check(launches["flash_attention"] == kinds.count("local") + kinds.count("attn"),
-          f"{label}: flash launches {launches} per prefill")
-    check(launches["rg_lru_scan"] == kinds.count("rglru"), f"{label}: scan launches {launches}")
+    expect = dict.fromkeys(launches, 0)
+    expect[fa_mod.MODES[T.param_dtype(cfg)][1]] = kinds.count("local") + kinds.count("attn")
+    expect[rg_mod.NAME] = kinds.count("rglru")
+    check(launches == expect, f"{label}: launches {launches} per prefill, want {expect}")
     check(pm_launches == 0, f"{label}: pruned_matmul launched on the LLM path")
     check(rec["logits_finite"] and rec["tokens_in_range"], f"{label}: non-finite logits or bad tokens")
     check(tuple(out.shape) == (b, n), f"{label}: generated shape {tuple(out.shape)}")
-    check(rec["max_logit_diff_vs_forward"] <= DECODE_TOL,
-          f"{label}: decode differs from forward by {rec['max_logit_diff_vs_forward']} > {DECODE_TOL}")
+    check(rec["max_logit_diff_vs_forward"] <= decode_bar,
+          f"{label}: decode differs from forward by {rec['max_logit_diff_vs_forward']} > {decode_bar}")
     del params, prompts, out, logits, full, ref
     torch.cuda.empty_cache()
     return rec
@@ -4063,6 +4113,287 @@ def phase_dense_serve(report):
     return out
 
 
+# ---------------------------------------------------------------------------
+# slice 13: the bf16 modes of the three kernels, and bf16 serving
+# ---------------------------------------------------------------------------
+
+def bf16_ulps(out, ref) -> float:
+    """max|out - ref| in bf16 ulps at the tensor's scale, max|ref| (the
+    spacing of bf16 values there: 8 significant bits)."""
+    top = float(ref.float().abs().max())
+    if top == 0.0:
+        return 0.0 if float(out.float().abs().max()) == 0.0 else float("inf")
+    return float((out.float() - ref.float()).abs().max()) / 2.0 ** (np.floor(np.log2(top)) - 7)
+
+
+def bf16_pm_bound(B, M, K, N, row, inm, outm, blocks):
+    """Least card time for one bf16 launch on these masks: the executed
+    FLOPs at the bf16 tensor-core rate (bf16 products accumulated in
+    float32, the Pallas semantics) vs bf16 x, w, y and float32 masks read or
+    written once over HBM; returns (ms, ms_ops, ms_bytes)."""
+    bm, bn, bk = blocks
+    me, ke, ne = live_extent(row, bm), live_extent(inm, bk), live_extent(outm, bn)
+    flops = 2.0 * B * me * ke * ne
+    byts = 2.0 * B * (me * ke + ke * ne + M * N) + 4.0 * B * (M + K + N)
+    t_ops, t_bytes = flops / BF16_TFLOPS * 1e3, byts / HBM_BPS * 1e3
+    return max(t_ops, t_bytes), t_ops, t_bytes
+
+
+def _bf16_pm(gen, keep, timed):
+    """The bf16 forward, dX and dW of every VGG16_CIFAR product (10 workers
+    x 32 images) at prefix retention ``keep``, each against the plain
+    version; with ``timed``, also the per-step ms of the kernel, the plain
+    version and ``torch.matmul`` on the pre-masked bf16 operands, beside
+    the bound."""
+    import torch
+    from repro_torch.kernels.pruned_matmul import (
+        BF16_COUNTER, DW, DX, FWD, keep_info, launch_plan, pruned_matmul_cuda, pruned_matmul_plain,
+    )
+
+    dev = torch.device(DEVICE)
+    W, batch, blocks = 10, 32, (128, 128, 128)
+    bm, bn, bk = blocks
+    T = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=dev)
+    bf = torch.bfloat16
+    tot = {BF16_COUNTER[k]: {"products": 0, "instances": set(), "max_abs_err": 0.0, "max_rel_err": 0.0,
+                             "max_ulps": 0.0, "pruned_max": 0.0,
+                             "ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0,
+                             "ops_ms": 0.0, "bytes_ms": 0.0} for k in (FWD, DX, DW)}
+    for li, (name, mpi, K, N, cin, taps, in_l, out_l) in enumerate(vgg16_layers()):
+        M = batch * mpi
+        im_np, om_np = wiring_masks(K, N, cin, taps, in_l, out_l, keep)
+        rm_np = np.ones(M, np.float32)
+        im, om, rm = T(im_np)[None].expand(W, K), T(om_np)[None].expand(W, N), T(rm_np)[None].expand(W, M)
+        x = torch.randn(W, M, K, generator=gen, device=dev).to(bf)
+        w = (torch.randn(W, K, N, generator=gen, device=dev) / float(np.sqrt(K))).to(bf)
+        g = (torch.randn(W, M, N, generator=gen, device=dev) / float(np.sqrt(M))).to(bf)
+        k_row, k_out, k_in = keep_info(rm, bm), keep_info(om, bn), keep_info(im, bk)
+        wT, xT = w.transpose(1, 2), x.transpose(1, 2)
+        runs = {
+            FWD: ((x, w, im, om, rm), blocks, (k_row, k_out, k_in), (M, K, N, rm_np, im_np, om_np)),
+            DX: ((g, wT, om, im, rm), (bm, bk, bn), (k_row, k_in, k_out), (M, N, K, rm_np, om_np, im_np)),
+            DW: ((xT, g, rm, om, im), (bk, bn, bm), (k_in, k_out, k_row), (K, M, N, im_np, rm_np, om_np)),
+        }
+        for kname, (args, blk, keeps, geo) in runs.items():
+            if kname == DX and li == 0:
+                continue   # the image input takes no gradient on the main path
+            a, b_, in_m, out_m, row_m = args
+            y = pruned_matmul_cuda(*args, blk, keeps, kname)
+            ref = pruned_matmul_plain(*args)
+            torch.cuda.synchronize()
+            t = tot[BF16_COUNTER[kname]]
+            check(y.dtype == bf, f"bf16 {kname} {name}: output {y.dtype}")
+            err = float((y.float() - ref.float()).abs().max())
+            t["products"] += 1
+            t["instances"].add(launch_plan(a, b_, blk).instance + ",bf16")
+            t["max_abs_err"] = max(t["max_abs_err"], err)
+            t["max_rel_err"] = max(t["max_rel_err"], err / float(ref.float().abs().max()))
+            t["max_ulps"] = max(t["max_ulps"], bf16_ulps(y, ref))
+            dead = (out_m[:, None, :] == 0) | (row_m[:, :, None] == 0)
+            if bool(dead.any()):
+                t["pruned_max"] = max(t["pruned_max"], float(y.float().abs().masked_select(dead).max()))
+            if timed:
+                Mo, Kc, No, rmask, imask, omask = geo
+                b_ms, t_ops, t_bytes = bf16_pm_bound(W, Mo, Kc, No, rmask, imask, omask, blk)
+                am = a * in_m.unsqueeze(1).to(bf)
+                t["ms"] += time_ms(lambda: pruned_matmul_cuda(*args, blk, keeps, kname))
+                t["plain_ms"] += time_ms(lambda: pruned_matmul_plain(*args))
+                t["library_ms"] += time_ms(lambda: torch.matmul(am, b_))
+                t["bound_ms"] += b_ms
+                t["ops_ms"] += t_ops
+                t["bytes_ms"] += t_bytes
+                del am
+            del y, ref
+        del x, w, g, xT, wT
+    torch.cuda.empty_cache()
+    for t in tot.values():
+        t["instances"] = sorted(t["instances"])
+    return tot
+
+
+def _bf16_cases():
+    """(label, b, s, h, kv, d, kw) of the bf16 flash cases: recurrentgemma-9b's
+    and qwen3-32b's heads at S = 1, 129, 3072, and gemma2-2b's softcap."""
+    from repro_torch.configs import get_config
+
+    out = []
+    for arch in ("recurrentgemma-9b", "qwen3-32b", "gemma2-2b"):
+        cfg = get_config(arch)
+        kw = {"window": cfg.window_size} if "local" in cfg.block_pattern else {}
+        if cfg.attn_softcap:
+            kw["softcap"] = cfg.attn_softcap
+        lens = (SERVE["prompt"],) if arch == "gemma2-2b" else (1, 129, SERVE["prompt"])
+        out += [(arch, 2, n, cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim, kw) for n in lens]
+    return out
+
+
+def flash_bf16_bound(b, s, h, kv, d, causal, window):
+    """Least card time of one bf16 flash launch under the Pallas semantics:
+    Q K^T as bf16 tensor-core products (exact in float32 accumulation), P V
+    with P kept float32 as two tf32 passes (V's bf16 is exact in tf32), vs
+    q, k, v, o in bf16 read or written once; returns (ms, ms_ops, ms_bytes).
+    ops = 2 pairs d / 989 TFLOP/s + 2 x 2 pairs d / 495 TFLOP/s."""
+    pairs = flash_pairs(s, causal, window) * b * h
+    t_ops = (2.0 * pairs * d / BF16_TFLOPS + 2 * 2.0 * pairs * d / TF32_TFLOPS) * 1e3
+    t_bytes = 2.0 * (2 * b * s * h * d + 2 * b * s * kv * d) / HBM_BPS * 1e3
+    return max(t_ops, t_bytes), t_ops, t_bytes
+
+
+def phase_bf16_kernel(report):
+    """Slice 13: every bf16 mode against its plain version on the same bf16
+    inputs, and its time beside its bound and its library call."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_cuda, flash_attention_plain, repeat_kv,
+    )
+    from repro_torch.kernels.pruned_matmul import instance_info
+    from repro_torch.kernels.rg_lru_scan import rg_lru_scan_cuda, rg_lru_scan_plain
+    from repro_torch.launch.serve import serve_numerics
+
+    t0 = time.perf_counter()
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev).manual_seed(13)
+    bf = torch.bfloat16
+    rec = {"phase": "bf16_kernel"}
+    with serve_numerics():     # the library matmul reduces bf16 in float32
+        pm = {keep: _bf16_pm(gen, keep, timed=keep == 1.0) for keep in (1.0, 0.5)}
+    rec["pruned_matmul"] = {k: {**pm[1.0][k], **{f"{f}_at_0.5": pm[0.5][k][f] for f in
+                                                  ("max_abs_err", "max_rel_err", "max_ulps", "pruned_max")}}
+                            for k in pm[1.0]}
+    flash = []
+    for arch, b, s, h, kv, d, kw in _bf16_cases():
+        q, k, v = (t.to(bf) for t in _qkv(gen, b, s, h, kv, d))
+        out = flash_attention_cuda(q, k, v, **kw)
+        ref = flash_attention_plain(q, k, v, **kw)
+        torch.cuda.synchronize()
+        c = {"case": f"{arch} b={b} s={s} h={h} kv={kv} d={d} {kw}", "dtype": str(out.dtype),
+             **_rel_compare(out.float(), ref.float(), BF16_FLASH_TOL), "ulps": bf16_ulps(out, ref)}
+        if s == SERVE["prompt"] and arch != "gemma2-2b":
+            window = kw.get("window")
+            qt, kt, vt = (t.transpose(1, 2) for t in (q, repeat_kv(k, h // kv), repeat_kv(v, h // kv)))
+            qp = torch.arange(s, device=dev)[:, None]
+            kp = torch.arange(s, device=dev)[None, :]
+            mask = kp <= qp
+            if window:
+                mask &= kp > qp - window
+            b_ms, t_ops, t_bytes = flash_bf16_bound(b, s, h, kv, d, True, window)
+            c.update(ms=time_ms(lambda: flash_attention_cuda(q, k, v, **kw)),
+                     plain_ms=time_ms(lambda: flash_attention_plain(q, k, v, **kw)),
+                     library_ms=time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)),
+                     bound_ms=b_ms, ops_ms=t_ops, bytes_ms=t_bytes,
+                     bound_by="operations" if t_ops >= t_bytes else "bytes")
+            del qt, kt, vt, mask
+        flash.append(c)
+        del q, k, v, out, ref
+    rec["flash_attention_bf16"] = flash
+    scans = []
+    b, s, r = 2, SERVE["prompt"], 4096
+    for b_, s_, r_ in ((b, s, r), (2, 777, 1001), (3, 37, 100)):
+        x, a, h0 = _scan_inputs(gen, b_, s_, r_)
+        x, a = x.to(bf), a.to(bf)
+        out = rg_lru_scan_cuda(x, a, h0)
+        ref = rg_lru_scan_plain(x, a, h0)
+        torch.cuda.synchronize()
+        c = {"case": f"b={b_} s={s_} r={r_}", "dtype": str(out.dtype),
+             "bit_identical": bool(torch.equal(out, ref)), "max_abs_err": float((out.float() - ref.float()).abs().max())}
+        if (b_, s_, r_) == (b, s, r):
+            byts = 2.0 * 3 * b * s * r + 4.0 * b * r
+            t_ops, t_bytes = 2.0 * b * s * r / F32_TFLOPS * 1e3, byts / HBM_BPS * 1e3
+            c.update(ms=time_ms(lambda: rg_lru_scan_cuda(x, a, h0), iters=20),
+                     plain_ms=time_ms(lambda: rg_lru_scan_plain(x, a, h0), iters=2, warm=1),
+                     library_ms=None, bound_ms=max(t_ops, t_bytes), ops_ms=t_ops, bytes_ms=t_bytes,
+                     bound_by="operations" if t_ops >= t_bytes else "bytes")
+        scans.append(c)
+        del x, a, h0, out, ref
+    rec["rg_lru_scan_bf16"] = scans
+    rec["seconds"] = time.perf_counter() - t0
+    emit(rec)
+    report["bf16_kernel"] = rec
+    for k, t in rec["pruned_matmul"].items():
+        check(t["max_rel_err"] <= BF16_PM_TOL and t["max_rel_err_at_0.5"] <= BF16_PM_TOL,
+              f"bf16 {k}: err / max|plain| {t['max_rel_err']}, {t['max_rel_err_at_0.5']} > {BF16_PM_TOL}")
+        check(t["pruned_max"] == 0.0 and t["pruned_max_at_0.5"] == 0.0, f"bf16 {k}: a pruned unit is not 0")
+        check(t["products"] == (13 if k.startswith("pruned_matmul_bwd_dx") else 14),
+              f"bf16 {k}: {t['products']} products")
+    built = {n[len("pm_kernel<"):-1] for n in instance_info() if n.endswith(",bf16>")}
+    ran = {i for t in rec["pruned_matmul"].values() for i in t["instances"]}
+    check(built == ran, f"bf16 instances built {sorted(built)}, run {sorted(ran)}")
+    bad = [c for c in flash if not (c["dtype"] == "torch.bfloat16" and c["rel_err"] <= BF16_FLASH_TOL)]
+    check(not bad, "bf16 flash disagrees with its plain version: " + json.dumps(bad))
+    check(all(c["bit_identical"] and c["dtype"] == "torch.bfloat16" for c in scans),
+          "the bf16 scan is not bit-identical to the plain loop: " + json.dumps(scans))
+    return rec
+
+
+def upcast_(tree) -> None:
+    """Replace every bf16 leaf of nested dicts / lists by its float32 upcast
+    (exact), one leaf at a time, so at most one leaf is held twice."""
+    import torch
+
+    for k in list(tree.keys() if isinstance(tree, dict) else range(len(tree))):
+        if isinstance(tree[k], (dict, list)):
+            upcast_(tree[k])
+        elif tree[k].dtype == torch.bfloat16:
+            tree[k] = tree[k].float()       # the bf16 leaf's last reference goes here
+
+
+def bf16_envelope(cfg, seed):
+    """E of the bf16 config ``cfg``: max|logits of its seeded bf16 weights -
+    logits of the same weights upcast exactly to float32 and run in
+    float32|, teacher-forced over a batch of ``SERVE``'s shape at the
+    positions ``_serve_once`` compares (the prompt's last and the new
+    tokens')."""
+    import torch
+    from repro_torch.models import transformer as T
+
+    dev = torch.device(DEVICE)
+    b, s, n = SERVE["batch"], SERVE["prompt"], SERVE["new_tokens"]
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    params = T.init_params(gen, cfg)
+    toks = torch.randint(0, cfg.vocab_size, (b, s + n), generator=gen, device=dev)
+    low = T.forward(params, cfg, {"tokens": toks})[0][:, s - 1:].clone()
+    upcast_(params)
+    f32 = T.forward(params, cfg.replace(dtype="float32"), {"tokens": toks})[0][:, s - 1:]
+    torch.cuda.synchronize()
+    out = {"layers": cfg.num_layers, "E": float((low - f32).abs().max()),
+           "max_abs_logit": float(f32.abs().max()), "seconds": time.perf_counter() - t0,
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    del params, toks, low, f32
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_bf16_serve(report):
+    """Slice 13: ``serve_batch`` at dtype bfloat16, every arch of
+    ``BF16_SERVE`` at its full depth; decode vs forward within 2E."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import serve_numerics
+
+    t0 = time.perf_counter()
+    out = {}
+    with serve_numerics():
+        for i, arch in enumerate(BF16_SERVE):
+            cfg = get_config(arch).replace(dtype="bfloat16")
+            if arch == "recurrentgemma-9b":
+                check(cfg.num_layers == 38 and cfg.d_model == 4096, "bf16_serve runs recurrentgemma-9b at full size")
+            env_layers = DENSE_LAYERS.get(arch, cfg.num_layers)
+            torch.cuda.reset_peak_memory_stats()
+            env = bf16_envelope(cfg.replace(num_layers=env_layers), SERVE["seed"] + 20 + i)
+            check(0.0 < env["E"] < 1.0, f"bf16_serve {arch}: envelope {env}")
+            rec = _serve_once(cfg, f"{arch}/bf16/{cfg.num_layers}_layers", SERVE["seed"] + i,
+                              phase="bf16_serve", decode_bar=2 * env["E"])
+            out[arch] = {**rec, "envelope": env}
+            emit({"phase": "bf16_envelope", "arch": arch, **env})
+    rec = {"phase": "bf16_serve_done", "seconds": time.perf_counter() - t0,
+           "layers": {a: r["num_layers"] for a, r in out.items()}}
+    emit(rec)
+    report["bf16_serve"] = {**out, "seconds": rec["seconds"]}
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -4148,6 +4479,10 @@ def main() -> int:
         phase_sweeps(report)
         save(report)
         dense = phase_dense_serve(report)
+        save(report)
+        bf16k = phase_bf16_kernel(report)
+        save(report)
+        bf16s = phase_bf16_serve(report)
     steps = max(res.train_steps, 1)
     rb_steps = max(rb_res.train_steps, 1)
     s_steps = max(s_res.train_steps, 1)
@@ -4218,6 +4553,51 @@ def main() -> int:
                                   "prefill_s": r["prefill_again_s"]}
                               for a, r in dense.items()}
         kernels.append(entry)
+    for kname, t in bf16k["pruned_matmul"].items():
+        kernels.append({
+            "name": kname, "route": "cuda", "source": SOURCE, "replaces": REPLACES[kname],
+            # no model path runs pruned_matmul in bf16 (models/cnn.py is float32 in
+            # both packages); bf16_serve checks that it launched 0 times there
+            "launches": sum(r["pruned_matmul_launches"] for r in bf16s.values()),
+            "max_abs_err": max(t["max_abs_err"], t["max_abs_err_at_0.5"]),
+            "max_rel_err": max(t["max_rel_err"], t["max_rel_err_at_0.5"]),
+            "max_ulps": max(t["max_ulps"], t["max_ulps_at_0.5"]),
+            "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": "operations" if t["ops_ms"] >= t["bytes_ms"] else "bytes",
+            "library_ms": t["library_ms"],
+            "shapes": "one training step's products in bf16, VGG16_CIFAR, 10 workers x 32 images, "
+                      "retention 1.0 (held off the main path)",
+        })
+    fl = bf16k["flash_attention_bf16"]
+    timed = {c["case"].split()[0]: c for c in fl if "ms" in c}
+    per_arch = {a: {**{f: c[f] for f in ("case", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")},
+                    "launches": bf16s[a]["launches_per_prefill"]["flash_attention_bf16"]}
+                for a, c in timed.items()}
+    head = per_arch["qwen3-32b"]
+    kernels.append({
+        "name": "flash_attention_bf16", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "replaces": REPLACES["flash_attention_bf16"], "launches": head["launches"],
+        "max_abs_err": max(c["err"] for c in fl), "max_rel_err": max(c["rel_err"] for c in fl),
+        "max_ulps": max(c["ulps"] for c in fl),
+        "ms": head["ms"], "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
+        "bound_by": head["bound_by"], "library_ms": head["library_ms"],
+        "shapes": f"one launch of a bf16 prefill of qwen3-32b at 64 layers ({head['case']}); "
+                  "launches per prefill",
+        "recurrentgemma-9b": per_arch["recurrentgemma-9b"],
+    })
+    sc = next(c for c in bf16k["rg_lru_scan_bf16"] if "ms" in c)
+    kernels.append({
+        "name": "rg_lru_scan_bf16", "route": "cuda", "source": "src/repro_torch/kernels/csrc/rg_lru_scan.cu",
+        "replaces": REPLACES["rg_lru_scan_bf16"],
+        # the model computes a and b in float32 (repro/models/rglru.py:82-89): bf16 serving
+        # runs the float32 mode, and bf16_serve checks this mode launched 0 times there
+        "launches": sum(r["launches_per_prefill"]["rg_lru_scan_bf16"] for r in bf16s.values()),
+        "max_abs_err": max(c["max_abs_err"] for c in bf16k["rg_lru_scan_bf16"]),
+        "ms": sc["ms"], "plain_ms": sc["plain_ms"], "bound_ms": sc["bound_ms"],
+        "bound_by": sc["bound_by"], "library_ms": None,
+        "shapes": f"one launch at {sc['case']} (held off the main path)",
+    })
     report["kernels"] = kernels
     report["card"] = card
     report["seconds"] = time.perf_counter() - t0

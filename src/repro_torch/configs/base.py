@@ -94,7 +94,7 @@ def smoke_config(name: str) -> ModelConfig:
         rnn_heads=4 if cfg.rnn_width else cfg.rnn_heads,
         encoder_layers=2 if cfg.encoder_layers else 0,
         num_prefix_embeds=8 if cfg.num_prefix_embeds else 0,
-        dtype="float32",
+        dtype="float32",    # as the JAX smoke reduction; bf16 is cfg.replace(dtype="bfloat16")
         attn_q_block=None,
         scan_layers=cfg.scan_layers,
     )

@@ -14,7 +14,22 @@
 // kept for query i iff j < S, (not causal or j <= i) and (no window or
 // j > i - window).  q, o are contiguous [B, S, H, D]; k, v contiguous
 // [B, S, KV, D]; D is 64, 128 or 256; any S (ragged tiles are zero-filled
-// on load and masked).
+// on load and masked).  All four are float32, or all bfloat16.
+//
+// The bf16 mode is the Pallas kernel's (flash_attention.py:57-58, 78, 87,
+// 134): q, k, v tiles arrive in shared memory as bf16 and each element is
+// converted to float32 where a fragment is loaded from there; the scores,
+// the softmax, P (never rounded to bf16) and the accumulators are float32
+// as in the float32 mode, and o is rounded to bf16 once, at its store.
+// The Pallas kernel scales q after its upcast; here the scale multiplies
+// the float32 scores, as in the float32 mode: both apply it in float32
+// and differ by one float32 rounding.  A bf16 value is exact in tf32 (its
+// lo part is 0), so of the three tf32 passes the bf16 instance issues only
+// those with no zero operand: hi*hi for Q K^T, and P lo * V hi, P hi * V hi
+// for P V (P is float32).  The passes left out add exact zeros, so the
+// result is that of all three; leaving them out also keeps the D = 256
+// instance within 255 registers without spills.  bf16 mma for Q K^T is the
+// later redesign.
 //
 // Mask rule.  The TPU kernel writes -1e30 into masked scores and the JAX
 // model adds finfo(f32).min; here a masked key gets probability exactly 0
@@ -51,8 +66,9 @@
 // arrive by cp.async, 16 bytes a thread, in single staggered buffers: V_j
 // loads while S_j = Q K_j^T runs, K_{j+1} while P V_j runs.  Shared memory
 // at D = 256: Q 128 x 272 floats, K 32 x 272, V 32 x 260 = 207,360 bytes
-// (the +16 / +4 row pads make the fragment loads free of bank conflicts),
-// opted in with cudaFuncSetAttribute: one block per SM.  Each block walks
+// (the +16 / +4 row pads make the fragment loads free of bank conflicts;
+// in bf16 the V pad is +8, for 16-byte rows, and the tiles take 103,936
+// bytes), opted in with cudaFuncSetAttribute: one block per SM.  Each block walks
 // only the live tiles of its 128 rows (causal diagonal, window), and the
 // grid issues the last (longest causal) query tiles first so that they do
 // not form the tail.  The layout was chosen over a 64-row block with a
@@ -69,9 +85,11 @@
 // softmax, with 8 warps per SM to hide the latencies.  wgmma on K-major
 // tf32 operands in shared memory, with TMA loads, is the next step.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stddef.h>
+#include <stdint.h>
 
 namespace {
 
@@ -81,27 +99,46 @@ constexpr int THREADS = 32 * WARPS;
 constexpr int ROWS = 16 * WARPS;   // query rows (head, position) per block
 constexpr float NEG = -1e30f;
 
-template <int D>
+// E: the element type of q, k, v, o and of their shared-memory tiles
+template <int D, typename E>
 struct Layout {
-    static constexpr int LDK = D + 16;   // Q and K row stride (floats)
-    static constexpr int LDV = D + 4;    // V row stride
-    static constexpr size_t q_floats = (size_t)ROWS * LDK;
-    static constexpr size_t k_floats = (size_t)BK * LDK;
-    static constexpr size_t v_floats = (size_t)BK * LDV;
-    static constexpr size_t bytes = (q_floats + k_floats + v_floats) * sizeof(float);
+    static constexpr int EPC = 16 / sizeof(E);            // elements of one 16-byte copy
+    static constexpr int LDK = D + 16;                     // Q and K row stride (elements)
+    static constexpr int LDV = D + (sizeof(E) == 4 ? 4 : 8);   // V row stride: 16-byte rows
+    static constexpr size_t q_elems = (size_t)ROWS * LDK;
+    static constexpr size_t k_elems = (size_t)BK * LDK;
+    static constexpr size_t v_elems = (size_t)BK * LDV;
+    static constexpr size_t bytes = (q_elems + k_elems + v_elems) * sizeof(E);
 };
 
 struct Args {
-    const float* q; const float* k; const float* v; float* o;
+    const void* q; const void* k; const void* v; void* o;
     int B, S, H, KV, hpb, nqt, causal, window;
     float scale, softcap;
 };
 
+// four neighbouring elements of a shared tile as float32 (a bf16 value is
+// its bits shifted up by 16, exactly what __bfloat162float computes)
 __device__ __forceinline__ float4 ld4(const float* p) {
     return *reinterpret_cast<const float4*>(p);
 }
+__device__ __forceinline__ float4 ld4(const __nv_bfloat16* p) {
+    const uint2 u = *reinterpret_cast<const uint2*>(p);
+    return make_float4(__uint_as_float(u.x << 16), __uint_as_float(u.x & 0xffff0000u),
+                       __uint_as_float(u.y << 16), __uint_as_float(u.y & 0xffff0000u));
+}
+__device__ __forceinline__ float ld1(const float* p) { return *p; }
+__device__ __forceinline__ float ld1(const __nv_bfloat16* p) { return __bfloat162float(*p); }
 
-__device__ __forceinline__ void cp_async16(float* dst, const float* src, bool valid) {
+// two neighbouring outputs, rounded once to E
+__device__ __forceinline__ void st2(float* p, float a, float b) {
+    *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+__device__ __forceinline__ void st2(__nv_bfloat16* p, float a, float b) {
+    *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
     const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
     const int n = valid ? 16 : 0;     // src-size 0: zero-fill, nothing read
     asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
@@ -138,20 +175,34 @@ __device__ __forceinline__ void mma(float (&c)[4], const unsigned (&a)[4], unsig
 // s = Q_w K^T for the warp's 16 rows and the tile's 32 keys: n-tile j holds
 // keys 8j..8j+7.  Lane t contracts d0 + 4t .. 4t+3 of each 16-wide slice:
 // (4t, 4t+1) as k = (t, t+4) of the first k-step, (4t+2, 4t+3) of the second.
-template <int D, int LDK>
-__device__ __forceinline__ void qk_tile(const float* __restrict__ Qw, const float* __restrict__ Kt,
+template <int D, int LDK, typename E>
+__device__ __forceinline__ void qk_tile(const E* __restrict__ Qw, const E* __restrict__ Kt,
                                         int g, int t, float (&s)[4][4])
 {
+    constexpr bool EXACT = sizeof(E) == 2;   // bf16: tf32 hi is the value, lo is 0
 #pragma unroll
     for (int j = 0; j < 4; ++j)
 #pragma unroll
         for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
-    const float* q0 = Qw + g * LDK + 4 * t;
-    const float* q1 = q0 + 8 * LDK;
-    const float* kr = Kt + g * LDK + 4 * t;
+    const E* q0 = Qw + g * LDK + 4 * t;
+    const E* q1 = q0 + 8 * LDK;
+    const E* kr = Kt + g * LDK + 4 * t;
 #pragma unroll 4
     for (int d0 = 0; d0 < D; d0 += 16) {
         const float4 qa = ld4(q0 + d0), qb = ld4(q1 + d0);
+        if constexpr (EXACT) {
+            const unsigned h0[4] = {__float_as_uint(qa.x), __float_as_uint(qb.x),
+                                    __float_as_uint(qa.y), __float_as_uint(qb.y)};
+            const unsigned h1[4] = {__float_as_uint(qa.z), __float_as_uint(qb.z),
+                                    __float_as_uint(qa.w), __float_as_uint(qb.w)};
+#pragma unroll
+            for (int j = 0; j < 4; ++j) {
+                const float4 kv = ld4(kr + 8 * j * LDK + d0);
+                mma(s[j], h0, __float_as_uint(kv.x), __float_as_uint(kv.y));
+                mma(s[j], h1, __float_as_uint(kv.z), __float_as_uint(kv.w));
+            }
+            continue;
+        }
         unsigned h0[4], l0[4], h1[4], l1[4];   // A of k-step 0 and 1
         split(qa.x, h0[0], l0[0]); split(qb.x, h0[1], l0[1]);
         split(qa.y, h0[2], l0[2]); split(qb.y, h0[3], l0[3]);
@@ -176,8 +227,8 @@ __device__ __forceinline__ void qk_tile(const float* __restrict__ Qw, const floa
 // o += P V_t.  k-step j takes S's n-tile j: A = (p[j][0], p[j][2], p[j][1],
 // p[j][3]) is keys 8j + 2t (k = t) and 8j + 2t + 1 (k = t + 4) of rows g,
 // g + 8, so B reads V's rows in that order; n-tile n is columns 8n..8n+7.
-template <int D, int LDV>
-__device__ __forceinline__ void pv_tile(const float* __restrict__ Vt, int g, int t,
+template <int D, int LDV, typename E>
+__device__ __forceinline__ void pv_tile(const E* __restrict__ Vt, int g, int t,
                                         const float (&p)[4][4], float (&o)[D / 8][4])
 {
 #pragma unroll
@@ -185,13 +236,20 @@ __device__ __forceinline__ void pv_tile(const float* __restrict__ Vt, int g, int
         unsigned ah[4], al[4];
         split(p[j][0], ah[0], al[0]); split(p[j][2], ah[1], al[1]);
         split(p[j][1], ah[2], al[2]); split(p[j][3], ah[3], al[3]);
-        const float* v0 = Vt + (8 * j + 2 * t) * LDV + g;
-        const float* v1 = v0 + LDV;
+        const E* v0 = Vt + (8 * j + 2 * t) * LDV + g;
+        const E* v1 = v0 + LDV;
 #pragma unroll
         for (int n = 0; n < D / 8; ++n) {
+            if constexpr (sizeof(E) == 2) {       // bf16 V: tf32 hi is the value, lo is 0
+                const unsigned bh0 = __float_as_uint(ld1(v0 + 8 * n));
+                const unsigned bh1 = __float_as_uint(ld1(v1 + 8 * n));
+                mma(o[n], al, bh0, bh1);
+                mma(o[n], ah, bh0, bh1);
+                continue;
+            }
             unsigned bh0, bl0, bh1, bl1;
-            split(v0[8 * n], bh0, bl0);
-            split(v1[8 * n], bh1, bl1);
+            split(ld1(v0 + 8 * n), bh0, bl0);
+            split(ld1(v1 + 8 * n), bh1, bl1);
             mma(o[n], al, bh0, bh1);
             mma(o[n], ah, bl0, bl1);
             mma(o[n], ah, bh0, bh1);
@@ -199,18 +257,24 @@ __device__ __forceinline__ void pv_tile(const float* __restrict__ Vt, int g, int
     }
 }
 
-template <int D>
+template <int D, typename E>
 __global__ void __launch_bounds__(THREADS, 1)
 flash_attention_kernel(const Args p)
 {
-    constexpr int LDK = Layout<D>::LDK, LDV = Layout<D>::LDV;
-    constexpr int V4 = D / 4;     // 16-byte chunks per row
+    using LY = Layout<D, E>;
+    constexpr int LDK = LY::LDK, LDV = LY::LDV;
+    constexpr int EPC = LY::EPC;
+    constexpr int V4 = D / EPC;   // 16-byte chunks per row
     constexpr int NT = D / 8;     // output n-tiles per warp
+    const E* __restrict__ gq = static_cast<const E*>(p.q);
+    const E* __restrict__ gk = static_cast<const E*>(p.k);
+    const E* __restrict__ gv = static_cast<const E*>(p.v);
+    E* __restrict__ go = static_cast<E*>(p.o);
 
-    extern __shared__ __align__(16) float smem[];
-    float* Qs = smem;                          // [ROWS][LDK]
-    float* Ks = Qs + Layout<D>::q_floats;      // [BK][LDK]
-    float* Vs = Ks + Layout<D>::k_floats;      // [BK][LDV]
+    extern __shared__ __align__(16) unsigned char smem_raw[];
+    E* Qs = reinterpret_cast<E*>(smem_raw);    // [ROWS][LDK]
+    E* Ks = Qs + LY::q_elems;                  // [BK][LDK]
+    E* Vs = Ks + LY::k_elems;                  // [BK][LDV]
 
     const int tid = threadIdx.x;
     const int lane = tid & 31, warp = tid >> 5;
@@ -243,23 +307,23 @@ flash_attention_kernel(const Args p)
     }
 
     for (int i = tid; i < ROWS * V4; i += THREADS) {
-        const int r = i / V4, c = (i % V4) * 4;
+        const int r = i / V4, c = (i % V4) * EPC;
         const int pos = p0 + r % pos_n;
         const bool ok = pos < S;
-        const float* src = ok ? p.q + ((long long)(b * S + pos) * p.H + head0 + r / pos_n) * D + c
-                              : p.q;
+        const E* src = ok ? gq + ((long long)(b * S + pos) * p.H + head0 + r / pos_n) * D + c
+                          : gq;
         cp_async16(Qs + r * LDK + c, src, ok);
     }
     // K or V rows k0 .. k0 + BK - 1 of kv head kvh (zeros past S)
-    auto load_tile = [&](float* dst, const float* base, int ld, int k0) {
+    auto load_tile = [&](E* dst, const E* base, int ld, int k0) {
         for (int i = tid; i < BK * V4; i += THREADS) {
-            const int r = i / V4, c = (i % V4) * 4;
+            const int r = i / V4, c = (i % V4) * EPC;
             const bool ok = k0 + r < S;
-            const float* src = ok ? base + ((long long)(b * S + k0 + r) * p.KV + kvh) * D + c : base;
+            const E* src = ok ? base + ((long long)(b * S + k0 + r) * p.KV + kvh) * D + c : base;
             cp_async16(dst + r * ld + c, src, ok);
         }
     };
-    load_tile(Ks, p.k, LDK, kt_begin * BK);
+    load_tile(Ks, gk, LDK, kt_begin * BK);
     cp_async_commit();
 
     float o[NT][4], m[2], l[2];
@@ -269,7 +333,7 @@ flash_attention_kernel(const Args p)
         for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
     m[0] = m[1] = NEG;
     l[0] = l[1] = 0.f;
-    const float* Qw = Qs + 16 * warp * LDK;
+    const E* Qw = Qs + 16 * warp * LDK;
     // scores in log2 units: exp(x) = exp2(x log2 e), log2 e folded into the scale
     constexpr float LOG2E = 1.4426950408889634f;
     const bool capped = p.softcap > 0.f;
@@ -286,12 +350,12 @@ flash_attention_kernel(const Args p)
                           !(p.window > 0 && k0 <= wp0 + 15 - p.window);
         cp_async_wait<0>();
         __syncthreads();          // K_kt landed; every warp is done with V_{kt-1}
-        load_tile(Vs, p.v, LDV, k0);
+        load_tile(Vs, gv, LDV, k0);
         cp_async_commit();
 
         float s[4][4];
         if (live) {
-            qk_tile<D, LDK>(Qw, Ks, g, t, s);
+            qk_tile<D, LDK, E>(Qw, Ks, g, t, s);
             // scale, softcap and mask; online softmax of rows g (hh = 0), g + 8
             float alpha[2];
 #pragma unroll
@@ -340,9 +404,9 @@ flash_attention_kernel(const Args p)
 
         cp_async_wait<0>();
         __syncthreads();          // V_kt landed; every warp is done with K_kt
-        if (kt + 1 < kt_end) load_tile(Ks, p.k, LDK, k0 + BK);
+        if (kt + 1 < kt_end) load_tile(Ks, gk, LDK, k0 + BK);
         cp_async_commit();
-        if (live) pv_tile<D, LDV>(Vs, g, t, s, o);
+        if (live) pv_tile<D, LDV, E>(Vs, g, t, s, o);
     }
 
 #pragma unroll
@@ -353,42 +417,61 @@ flash_attention_kernel(const Args p)
         const int row = wp0 + g + 8 * hh;
         if (row >= S) continue;
         const float inv = 1.f / fmaxf(den, 1e-30f);
-        float* orow = p.o + ((long long)(b * S + row) * p.H + whead) * D + 2 * t;
+        E* orow = go + ((long long)(b * S + row) * p.H + whead) * D + 2 * t;
 #pragma unroll
         for (int n = 0; n < NT; ++n)
-            *reinterpret_cast<float2*>(orow + 8 * n) =
-                make_float2(o[n][2 * hh] * inv, o[n][2 * hh + 1] * inv);
+            st2(orow + 8 * n, o[n][2 * hh] * inv, o[n][2 * hh + 1] * inv);
     }
 }
 
-template <int D>
+template <int D, typename E>
 int launch(Args a, cudaStream_t stream)
 {
-    const size_t bytes = Layout<D>::bytes;
+    const size_t bytes = Layout<D, E>::bytes;
     cudaError_t err = cudaFuncSetAttribute(
-        flash_attention_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+        flash_attention_kernel<D, E>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
     if (err != cudaSuccess) return (int)err;
     a.hpb = (a.H / a.KV) % 2 == 0 ? 2 : 1;
     const int pos_n = ROWS / a.hpb;
     a.nqt = (a.S + pos_n - 1) / pos_n;
     const long long blocks = (long long)a.nqt * a.B * (a.H / a.hpb);
     if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
-    flash_attention_kernel<D><<<(unsigned)blocks, THREADS, bytes, stream>>>(a);
+    flash_attention_kernel<D, E><<<(unsigned)blocks, THREADS, bytes, stream>>>(a);
     return (int)cudaGetLastError();
+}
+
+template <typename E>
+long long smem_of(int D)
+{
+    switch (D) {
+        case 64: return (long long)Layout<64, E>::bytes;
+        case 128: return (long long)Layout<128, E>::bytes;
+        case 256: return (long long)Layout<256, E>::bytes;
+        default: return 0;
+    }
+}
+
+template <typename E>
+int run(const void* q, const void* k, const void* v, void* o, int B, int S, int H, int KV,
+        int D, int causal, int window, float softcap, float sqrt_d, void* stream)
+{
+    if (B <= 0 || S <= 0 || H <= 0) return (int)cudaSuccess;
+    if (KV <= 0 || H % KV != 0) return (int)cudaErrorInvalidValue;
+    Args a{q, k, v, o, B, S, H, KV, 1, 1, causal, window, 1.f / sqrt_d, softcap};
+    cudaStream_t st = (cudaStream_t)stream;
+    switch (D) {
+        case 64: return launch<64, E>(a, st);
+        case 128: return launch<128, E>(a, st);
+        case 256: return launch<256, E>(a, st);
+        default: return (int)cudaErrorInvalidValue;
+    }
 }
 
 }  // namespace
 
 // Dynamic shared memory of one block for head dim D (0 if D is not taken).
-extern "C" long long flash_attention_smem_bytes(int D)
-{
-    switch (D) {
-        case 64: return (long long)Layout<64>::bytes;
-        case 128: return (long long)Layout<128>::bytes;
-        case 256: return (long long)Layout<256>::bytes;
-        default: return 0;
-    }
-}
+extern "C" long long flash_attention_smem_bytes(int D) { return smem_of<float>(D); }
+extern "C" long long flash_attention_smem_bytes_bf16(int D) { return smem_of<__nv_bfloat16>(D); }
 
 // q, o [B, S, H, D]; k, v [B, S, KV, D]; all contiguous float32.
 // window <= 0: no window; softcap <= 0: no softcap.  Returns a cudaError_t.
@@ -397,14 +480,15 @@ extern "C" int flash_attention_f32(
     int B, int S, int H, int KV, int D, int causal, int window, float softcap,
     float sqrt_d, void* stream)
 {
-    if (B <= 0 || S <= 0 || H <= 0) return (int)cudaSuccess;
-    if (KV <= 0 || H % KV != 0) return (int)cudaErrorInvalidValue;
-    Args a{q, k, v, o, B, S, H, KV, 1, 1, causal, window, 1.f / sqrt_d, softcap};
-    cudaStream_t st = (cudaStream_t)stream;
-    switch (D) {
-        case 64: return launch<64>(a, st);
-        case 128: return launch<128>(a, st);
-        case 256: return launch<256>(a, st);
-        default: return (int)cudaErrorInvalidValue;
-    }
+    return run<float>(q, k, v, o, B, S, H, KV, D, causal, window, softcap, sqrt_d, stream);
+}
+
+// The same on contiguous bfloat16 q, k, v, o.
+extern "C" int flash_attention_bf16(
+    const __nv_bfloat16* q, const __nv_bfloat16* k, const __nv_bfloat16* v, __nv_bfloat16* o,
+    int B, int S, int H, int KV, int D, int causal, int window, float softcap,
+    float sqrt_d, void* stream)
+{
+    return run<__nv_bfloat16>(q, k, v, o, B, S, H, KV, D, causal, window, softcap, sqrt_d,
+                              stream);
 }

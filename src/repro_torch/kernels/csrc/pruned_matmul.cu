@@ -66,8 +66,22 @@
 //   built for one).
 //
 // Still FP32 FFMA: the parity bar is IEEE f32 (1e-4), which TF32 cannot meet
-// at K = 4 608.  wgmma/TMA tiles and a 3xTF32 or bf16 mode are later work.
+// at K = 4 608.  wgmma/TMA tiles and a 3xTF32 mode are later work.
+//
+// bf16 mode (the Pallas kernel's bf16 x and w: pruned_matmul.py:84-98, 161;
+// _pm_bwd casts the cotangent to x's dtype and runs dX and dW in it).  x and
+// w are bf16, the masks float32; each element is converted to float32 as it
+// is loaded, the products, the accumulators, the split-K workspace and its
+// reduce stay float32 as above, and y is rounded to bf16 once, at its store
+// (as the Pallas _finish casts the float32 accumulator).  Pruned units stay
+// exact zeros.  Every direction runs one instance kind: the generic one,
+// whose loads go through registers (where the conversion happens) and whose
+// strides are free, so forward, dX and dW each get a bf16 instance per
+// output tile with the same skip and split rules.  The cp.async layouts in
+// bf16 (16-byte copies of 8 elements, converted in shared memory) and bf16
+// tensor-core products are later work.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 #include <string.h>
@@ -102,14 +116,25 @@ template <> struct Kinds<L_DX> {
 template <> struct Kinds<L_DW> {
     static constexpr int A = K_NATIVE, B = K_NATIVE, min_blocks = 2; };
 
+// element conversions of the bf16 mode
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
+template <typename E> __device__ __forceinline__ E from_f32(float v);
+template <> __device__ __forceinline__ float from_f32<float>(float v) { return v; }
+template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
+    return __float2bfloat16_rn(v);
+}
+
+// x, w and y hold the element type of the instance (float or bf16); the
+// masks and the workspace are float32
 struct Params {
-    const float* x; long long sxb, sxm, sxk;
-    const float* w; long long swb, swk, swn;
+    const void* x; long long sxb, sxm, sxk;
+    const void* w; long long swb, swk, swn;
     const float* in_mask; long long sib;
     const float* out_mask; long long sob;
     const float* row_mask; long long srb;
     const int* m_keep; const int* n_keep; const int* k_live; const int* k_count;
-    float* y; float* ws;
+    void* y; float* ws;
     int B, M, N, K, bm, bn, bk, nMb, nNb, nKb, split;
 };
 
@@ -138,8 +163,10 @@ __device__ __forceinline__ void cp_async_wait() {
 // g[r * sr + k * sk]; MASKED multiplies by mask[k] (in_mask).  Step `step`
 // of the K walk lives in slot step % RING (K_NATIVE) or step % 2 (the other
 // kinds' compute buffers; K_TRANS also has a staging ring of DIST slots, and,
-// when MASKED, a ring of the steps' 16 in_mask values beside it).
-template <int KIND, int R, bool MASKED>
+// when MASKED, a ring of the steps' 16 in_mask values beside it).  E is the
+// operand's element type in global memory (bf16 only with K_GEN, whose
+// register loads convert it; the shared tiles are float32 either way).
+template <int KIND, int R, bool MASKED, typename E = float>
 struct Operand {
     static constexpr int LD = R + PAD;
     static constexpr int TILE = TK * LD;               // one [k][r] tile, floats
@@ -153,7 +180,7 @@ struct Operand {
     static constexpr int NREG = KIND == K_GEN ? NS : 1;
     static constexpr int NMASK = !MASKED ? 1 : KIND == K_GEN ? NS : KIND == K_NATIVE ? NV : 1;
 
-    const float* g;
+    const E* g;
     long long sr, sk;
     const float* mask;
     int r0, rext, K, t;
@@ -161,7 +188,7 @@ struct Operand {
     float v[NREG];
     float mv[NMASK];
 
-    __device__ Operand(const float* g_, long long sr_, long long sk_, const float* mask_,
+    __device__ Operand(const E* g_, long long sr_, long long sk_, const float* mask_,
                        int r0_, int rext_, int K_, int t_)
         : g(g_), sr(sr_), sk(sk_), mask(mask_), r0(r0_), rext(rext_), K(K_), t(t_),
           rfast(sr_ == 1 && sk_ != 1) {}
@@ -284,7 +311,7 @@ struct Operand {
                 gen_coord(c, rr, kk);
                 const int r = r0 + rr, k = k0 + kk;
                 const bool ok = r < rext && k < K;
-                v[c] = ok ? __ldg(g + (long long)r * sr + (long long)k * sk) : 0.f;
+                v[c] = ok ? to_f32(__ldg(g + (long long)r * sr + (long long)k * sk)) : 0.f;
                 if constexpr (MASKED) mv[c] = ok ? __ldg(mask + k) : 0.f;
             }
         }
@@ -303,19 +330,20 @@ struct Operand {
     }
 };
 
-template <int TM, int TN, int L>
+template <int TM, int TN, int L, typename E = float>
 struct Shape {
     using KD = Kinds<L>;
-    using OA = Operand<KD::A, TM, true>;
-    using OB = Operand<KD::B, TN, false>;
+    using OA = Operand<KD::A, TM, true, E>;
+    using OB = Operand<KD::B, TN, false, E>;
     static constexpr size_t bytes = (size_t)(OA::FLOATS + OB::FLOATS) * sizeof(float);
 };
 
-template <int TM, int TN, int LAYOUT>
+template <int TM, int TN, int LAYOUT, typename E = float>
 __global__ void __launch_bounds__(THREADS, Kinds<LAYOUT>::min_blocks)
 pm_kernel(const Params p)
 {
-    using SH = Shape<TM, TN, LAYOUT>;
+    static_assert(sizeof(E) == 4 || LAYOUT == L_GENERIC, "bf16 runs the generic instance");
+    using SH = Shape<TM, TN, LAYOUT, E>;
     using OA = typename SH::OA;
     using OB = typename SH::OB;
     constexpr int RM = TM / 16, RN = TN / 16;
@@ -338,7 +366,7 @@ pm_kernel(const Params p)
                       p.n_keep[(long long)b * p.nNb + n0 / p.bn] != 0;
     if (!live) {
         if (split) return;          // the reduce pass writes this tile's zeros
-        float* yb = p.y + (long long)b * MN;
+        E* yb = static_cast<E*>(p.y) + (long long)b * MN;
 #pragma unroll
         for (int i = 0; i < RM; ++i) {
             const int m = m0 + ty * 4 + 64 * (i / 4) + (i % 4);
@@ -346,7 +374,7 @@ pm_kernel(const Params p)
 #pragma unroll
             for (int j = 0; j < RN; ++j) {
                 const int n = n0 + tx * 4 + 64 * (j / 4) + (j % 4);
-                if (n < p.N) yb[(long long)m * p.N + n] = 0.0f;
+                if (n < p.N) yb[(long long)m * p.N + n] = from_f32<E>(0.0f);
             }
         }
         return;
@@ -366,8 +394,9 @@ pm_kernel(const Params p)
     auto k_of = [&](int step) { return klist[l0 + step / spb] * p.bk + (step % spb) * TK; };
 
     const float* imb = p.in_mask + (long long)b * p.sib;
-    OA la(p.x + (long long)b * p.sxb, p.sxm, p.sxk, imb, m0, p.M, p.K, t);
-    OB lb(p.w + (long long)b * p.swb, p.swn, p.swk, nullptr, n0, p.N, p.K, t);
+    OA la(static_cast<const E*>(p.x) + (long long)b * p.sxb, p.sxm, p.sxk, imb, m0, p.M, p.K, t);
+    OB lb(static_cast<const E*>(p.w) + (long long)b * p.swb, p.swn, p.swk, nullptr, n0, p.N,
+          p.K, t);
 
     float acc[RM][RN];
 #pragma unroll
@@ -459,9 +488,10 @@ pm_kernel(const Params p)
     }
     cp_async_wait<0>();
 
-    // epilogue: S == 1 writes y with out_mask * row_mask; S > 1 writes the
-    // raw partial into workspace slice s
-    float* out = split ? p.ws + ((long long)s * p.B + b) * MN : p.y + (long long)b * MN;
+    // epilogue: S == 1 writes y with out_mask * row_mask (rounded once to E);
+    // S > 1 writes the raw float32 partial into workspace slice s
+    float* part = split ? p.ws + ((long long)s * p.B + b) * MN : nullptr;
+    E* yo = static_cast<E*>(p.y) + (long long)b * MN;
     const float* omb = p.out_mask + (long long)b * p.sob;
     const float* rmb = p.row_mask + (long long)b * p.srb;
 #pragma unroll
@@ -478,22 +508,36 @@ pm_kernel(const Params p)
                 v[j] = acc[i][4 * h + j];
                 if (!split && n + j < p.N) v[j] = v[j] * omb[n + j] * rm;
             }
-            float* dst = out + (long long)m * p.N + n;
-            if (vec_out && n + 3 < p.N) {
-                *reinterpret_cast<float4*>(dst) = make_float4(v[0], v[1], v[2], v[3]);
-            } else {
+            const long long off = (long long)m * p.N + n;
+            if (split) {
+                float* dst = part + off;
+                if (vec_out && n + 3 < p.N) {
+                    *reinterpret_cast<float4*>(dst) = make_float4(v[0], v[1], v[2], v[3]);
+                } else {
 #pragma unroll
-                for (int j = 0; j < 4; ++j)
-                    if (n + j < p.N) dst[j] = v[j];
+                    for (int j = 0; j < 4; ++j)
+                        if (n + j < p.N) dst[j] = v[j];
+                }
+            } else {
+                E* dst = yo + off;
+                if (sizeof(E) == 4 && vec_out && n + 3 < p.N) {
+                    *reinterpret_cast<float4*>(dst) = make_float4(v[0], v[1], v[2], v[3]);
+                } else {
+#pragma unroll
+                    for (int j = 0; j < 4; ++j)
+                        if (n + j < p.N) dst[j] = from_f32<E>(v[j]);
+                }
             }
         }
     }
 }
 
 // y = (sum_{s=0..S-1} ws[s]) * out_mask * row_mask on live tiles, 0 elsewhere;
-// the slices are added in fixed order, so the result is deterministic
+// the slices are added in fixed order, so the result is deterministic; y is
+// rounded once to E
+template <typename E>
 __global__ void __launch_bounds__(256)
-pm_reduce(const float* __restrict__ ws, float* __restrict__ y,
+pm_reduce(const float* __restrict__ ws, E* __restrict__ y,
           const float* __restrict__ out_mask, long long sob,
           const float* __restrict__ row_mask, long long srb,
           const int* __restrict__ m_keep, const int* __restrict__ n_keep,
@@ -512,14 +556,14 @@ pm_reduce(const float* __restrict__ ws, float* __restrict__ y,
             for (int s = 1; s < S; ++s) acc += ws[(long long)s * total + e];
             v = acc * out_mask[(long long)b * sob + n] * row_mask[(long long)b * srb + m];
         }
-        y[e] = v;
+        y[e] = from_f32<E>(v);
     }
 }
 
-template <int TM, int TN, int L>
+template <int TM, int TN, int L, typename E>
 int launch(const Params& p, cudaStream_t st)
 {
-    constexpr size_t bytes = Shape<TM, TN, L>::bytes;
+    constexpr size_t bytes = Shape<TM, TN, L, E>::bytes;
     // once per instance and device: opt in above 48 KB, and ask for the
     // largest shared-memory carveout so that two blocks fit on an SM
     static int configured_for = -1;
@@ -528,27 +572,31 @@ int launch(const Params& p, cudaStream_t st)
     if (err != cudaSuccess) return (int)err;
     if (configured_for != dev) {
         err = cudaFuncSetAttribute(
-            pm_kernel<TM, TN, L>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+            pm_kernel<TM, TN, L, E>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
         if (err != cudaSuccess) return (int)err;
-        err = cudaFuncSetAttribute(pm_kernel<TM, TN, L>,
+        err = cudaFuncSetAttribute(pm_kernel<TM, TN, L, E>,
                                    cudaFuncAttributePreferredSharedMemoryCarveout, 100);
         if (err != cudaSuccess) return (int)err;
         configured_for = dev;
     }
     const int tiles = ((p.M + TM - 1) / TM) * ((p.N + TN - 1) / TN);
     dim3 grid(tiles, p.split, p.B);
-    pm_kernel<TM, TN, L><<<grid, THREADS, bytes, st>>>(p);
+    pm_kernel<TM, TN, L, E><<<grid, THREADS, bytes, st>>>(p);
     return (int)cudaGetLastError();
 }
 
 template <int TM, int TN>
-int launch_layout(const Params& p, int layout, cudaStream_t st)
+int launch_layout(const Params& p, int layout, bool bf16, cudaStream_t st)
 {
+    if (bf16) {
+        if (layout != L_GENERIC) return (int)cudaErrorInvalidValue;
+        return launch<TM, TN, L_GENERIC, __nv_bfloat16>(p, st);
+    }
     switch (layout) {
-        case L_GENERIC: return launch<TM, TN, L_GENERIC>(p, st);
-        case L_FWD: return launch<TM, TN, L_FWD>(p, st);
-        case L_DX: return launch<TM, TN, L_DX>(p, st);
-        case L_DW: return launch<TM, TN, L_DW>(p, st);
+        case L_GENERIC: return launch<TM, TN, L_GENERIC, float>(p, st);
+        case L_FWD: return launch<TM, TN, L_FWD, float>(p, st);
+        case L_DX: return launch<TM, TN, L_DX, float>(p, st);
+        case L_DW: return launch<TM, TN, L_DW, float>(p, st);
     }
     return (int)cudaErrorInvalidValue;
 }
@@ -559,53 +607,77 @@ struct Instance {
     size_t dyn_smem;
 };
 
-#define PM_INST(TM, TN, L, NAME) \
-    {"pm_kernel<" #TM "x" #TN "," NAME ">", (const void*)pm_kernel<TM, TN, L>, Shape<TM, TN, L>::bytes}
-#define PM_TILE(TM, TN)                                                   \
-    PM_INST(TM, TN, L_GENERIC, "generic"), PM_INST(TM, TN, L_FWD, "fwd"), \
-    PM_INST(TM, TN, L_DX, "dx"), PM_INST(TM, TN, L_DW, "dw")
+#define PM_INST(TM, TN, L, E, NAME)                                          \
+    {"pm_kernel<" #TM "x" #TN "," NAME ">", (const void*)pm_kernel<TM, TN, L, E>, \
+     Shape<TM, TN, L, E>::bytes}
+#define PM_TILE(TM, TN)                                                                   \
+    PM_INST(TM, TN, L_GENERIC, float, "generic"), PM_INST(TM, TN, L_FWD, float, "fwd"),   \
+    PM_INST(TM, TN, L_DX, float, "dx"), PM_INST(TM, TN, L_DW, float, "dw"),               \
+    PM_INST(TM, TN, L_GENERIC, __nv_bfloat16, "generic,bf16")
 
 const Instance INSTANCES[] = {
     PM_TILE(128, 128), PM_TILE(128, 64), PM_TILE(64, 128), PM_TILE(64, 64),
-    {"pm_reduce", (const void*)pm_reduce, 0},
+    {"pm_reduce", (const void*)pm_reduce<float>, 0},
+    {"pm_reduce<bf16>", (const void*)pm_reduce<__nv_bfloat16>, 0},
 };
 constexpr int N_INSTANCES = sizeof(INSTANCES) / sizeof(INSTANCES[0]);
 
-}  // namespace
-
-extern "C" int pruned_matmul_f32(
-    const float* x, long long sxb, long long sxm, long long sxk,
-    const float* w, long long swb, long long swk, long long swn,
-    const float* in_mask, long long sib,
-    const float* out_mask, long long sob,
-    const float* row_mask, long long srb,
-    const int* m_keep, const int* n_keep,
-    const int* k_live, const int* k_count,
-    float* y, float* ws,
-    int B, int M, int N, int K, int bm, int bn, int bk,
-    int nMb, int nNb, int nKb,
-    int layout, int tile_m, int tile_n, int split,
-    void* stream)
+int run(const Params& p, int layout, int tile_m, int tile_n, bool bf16, cudaStream_t st)
 {
-    if (B <= 0 || M <= 0 || N <= 0) return (int)cudaSuccess;
-    if (split < 1 || (split > 1 && ws == nullptr) || bk % TK != 0) return (int)cudaErrorInvalidValue;
-    const Params p{x, sxb, sxm, sxk, w, swb, swk, swn, in_mask, sib, out_mask, sob,
-                   row_mask, srb, m_keep, n_keep, k_live, k_count, y, ws,
-                   B, M, N, K, bm, bn, bk, nMb, nNb, nKb, split};
-    cudaStream_t st = (cudaStream_t)stream;
+    if (p.B <= 0 || p.M <= 0 || p.N <= 0) return (int)cudaSuccess;
+    if (p.split < 1 || (p.split > 1 && p.ws == nullptr) || p.bk % TK != 0)
+        return (int)cudaErrorInvalidValue;
     int rc;
-    if (tile_m == 128 && tile_n == 128) rc = launch_layout<128, 128>(p, layout, st);
-    else if (tile_m == 128 && tile_n == 64) rc = launch_layout<128, 64>(p, layout, st);
-    else if (tile_m == 64 && tile_n == 128) rc = launch_layout<64, 128>(p, layout, st);
-    else if (tile_m == 64 && tile_n == 64) rc = launch_layout<64, 64>(p, layout, st);
+    if (tile_m == 128 && tile_n == 128) rc = launch_layout<128, 128>(p, layout, bf16, st);
+    else if (tile_m == 128 && tile_n == 64) rc = launch_layout<128, 64>(p, layout, bf16, st);
+    else if (tile_m == 64 && tile_n == 128) rc = launch_layout<64, 128>(p, layout, bf16, st);
+    else if (tile_m == 64 && tile_n == 64) rc = launch_layout<64, 64>(p, layout, bf16, st);
     else return (int)cudaErrorInvalidValue;
-    if (rc != 0 || split == 1) return rc;
-    const long long total = (long long)B * M * N;
+    if (rc != 0 || p.split == 1) return rc;
+    const long long total = (long long)p.B * p.M * p.N;
     const long long want = (total + 255) / 256;
     const int blocks = (int)(want < 132 * 16 ? want : 132 * 16);
-    pm_reduce<<<blocks, 256, 0, st>>>(ws, y, out_mask, sob, row_mask, srb, m_keep, n_keep,
-                                      B, M, N, bm, bn, nMb, nNb, split);
+    if (bf16)
+        pm_reduce<__nv_bfloat16><<<blocks, 256, 0, st>>>(
+            p.ws, static_cast<__nv_bfloat16*>(p.y), p.out_mask, p.sob, p.row_mask, p.srb,
+            p.m_keep, p.n_keep, p.B, p.M, p.N, p.bm, p.bn, p.nMb, p.nNb, p.split);
+    else
+        pm_reduce<float><<<blocks, 256, 0, st>>>(
+            p.ws, static_cast<float*>(p.y), p.out_mask, p.sob, p.row_mask, p.srb,
+            p.m_keep, p.n_keep, p.B, p.M, p.N, p.bm, p.bn, p.nMb, p.nNb, p.split);
     return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+#define PM_ARGS(T)                                                         \
+    const T* x, long long sxb, long long sxm, long long sxk,              \
+    const T* w, long long swb, long long swk, long long swn,              \
+    const float* in_mask, long long sib,                                  \
+    const float* out_mask, long long sob,                                 \
+    const float* row_mask, long long srb,                                 \
+    const int* m_keep, const int* n_keep,                                 \
+    const int* k_live, const int* k_count,                                \
+    T* y, float* ws,                                                      \
+    int B, int M, int N, int K, int bm, int bn, int bk,                   \
+    int nMb, int nNb, int nKb,                                            \
+    int layout, int tile_m, int tile_n, int split,                        \
+    void* stream
+#define PM_PARAMS                                                          \
+    Params{x, sxb, sxm, sxk, w, swb, swk, swn, in_mask, sib, out_mask, sob, \
+           row_mask, srb, m_keep, n_keep, k_live, k_count, y, ws,          \
+           B, M, N, K, bm, bn, bk, nMb, nNb, nKb, split}
+
+// x, w, y float32; any layout.  Returns a cudaError_t.
+extern "C" int pruned_matmul_f32(PM_ARGS(float))
+{
+    return run(PM_PARAMS, layout, tile_m, tile_n, false, (cudaStream_t)stream);
+}
+
+// x, w, y bfloat16, masks and workspace float32; layout must be generic (0).
+extern "C" int pruned_matmul_bf16(PM_ARGS(__nv_bfloat16))
+{
+    return run(PM_PARAMS, layout, tile_m, tile_n, true, (cudaStream_t)stream);
 }
 
 extern "C" int pruned_matmul_instance_count() { return N_INSTANCES; }

@@ -21,9 +21,16 @@ self-attention always keeps key ``i`` for query ``i``.  (A row with no kept
 key would average ``v`` under the references and come out 0 from the
 kernel; the model never builds one.)
 
+Both modes of the Pallas kernel are ported: q, k, v all float32, or all
+bfloat16.  In bf16 each element is read as float32, scores, softmax, P and
+the accumulators stay float32, and the output is rounded to bf16 once (the
+Pallas kernel's upcast at load and cast at the store); the plain version
+does the same.  Any other dtype, float16 included, and mixed dtypes are
+refused by name.
+
 A CPU tensor runs the plain version (``flash_attention_plain``: repeat K/V,
 then ``ref.flash_attention_ref``); a CUDA tensor launches
-``csrc/flash_attention.cu`` (head dims 64, 128, 256, float32) or raises.
+``csrc/flash_attention.cu`` (head dims 64, 128, 256) or raises.
 The kernel runs both products on the tensor cores in 3xTF32 (each operand
 split into two tf32 halves, three products summed in FP32), which keeps
 it within the FP32 bar where one TF32 pass would not.  One block owns ``ROWS`` = 128 query rows that share their
@@ -32,7 +39,8 @@ even, else 128 positions of one head (``heads_per_block``); it walks the
 ``BLOCK_K``-key tiles in ``kv_tile_range`` and the grid runs the last query
 tiles first (``block_order``).  These functions state the kernel's schedule
 in Python, for the tests; the CUDA source computes the same.  ``LAUNCHES``
-counts kernel launches, incremented only right after one.
+counts the float32 mode's launches and ``LAUNCHES_BF16`` the bf16 mode's
+(``flash_attention_bf16``), each incremented only right after one.
 """
 from __future__ import annotations
 
@@ -46,6 +54,8 @@ from .ref import flash_attention_ref
 
 __all__ = [
     "LAUNCHES",
+    "LAUNCHES_BF16",
+    "MODES",
     "HEAD_DIMS",
     "reset_launches",
     "flash_attention",
@@ -61,7 +71,16 @@ __all__ = [
 ]
 
 NAME = "flash_attention"
-LAUNCHES: Dict[str, int] = {NAME: 0}
+NAME_BF16 = "flash_attention_bf16"
+LAUNCHES: Dict[str, int] = {NAME: 0}            # float32 mode
+LAUNCHES_BF16: Dict[str, int] = {NAME_BF16: 0}  # bf16 mode
+# the kernel's element types: launch counts and key, C entry point, and the
+# C function that gives a block's shared memory
+MODES = {
+    torch.float32: (LAUNCHES, NAME, "flash_attention_f32", "flash_attention_smem_bytes"),
+    torch.bfloat16: (LAUNCHES_BF16, NAME_BF16, "flash_attention_bf16",
+                     "flash_attention_smem_bytes_bf16"),
+}
 HEAD_DIMS = (64, 128, 256)   # the kernel's template instances
 ROWS = 128                   # query rows (head, position) of one kernel block
 BLOCK_K = 32                 # keys of one K/V tile
@@ -69,6 +88,16 @@ BLOCK_K = 32                 # keys of one K/V tile
 
 def reset_launches() -> None:
     LAUNCHES[NAME] = 0
+    LAUNCHES_BF16[NAME_BF16] = 0
+
+
+def check_dtypes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
+    """q, k and v share one dtype of ``MODES``."""
+    if q.dtype not in MODES:
+        raise ValueError(f"flash_attention: q must be float32 or bfloat16, got {q.dtype}")
+    for nm, t in (("k", k), ("v", v)):
+        if t.dtype != q.dtype:
+            raise ValueError(f"flash_attention: {nm} must have q's dtype {q.dtype}, got {t.dtype}")
 
 
 def repeat_kv(x: torch.Tensor, rep: int) -> torch.Tensor:
@@ -82,6 +111,7 @@ def repeat_kv(x: torch.Tensor, rep: int) -> torch.Tensor:
 
 def flash_attention_plain(q, k, v, *, causal: bool = True, window: Optional[int] = None,
                           softcap: Optional[float] = None) -> torch.Tensor:
+    check_dtypes(q, k, v)
     rep = q.shape[2] // k.shape[2]
     return flash_attention_ref(q, repeat_kv(k, rep), repeat_kv(v, rep),
                                causal=causal, window=window, softcap=softcap)
@@ -129,17 +159,19 @@ def _lib():
 
         lib = load_library(NAME)
         P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.flash_attention_f32.argtypes = [P, P, P, P, I, I, I, I, I, I, I, F, F, P]
-        lib.flash_attention_f32.restype = I
-        lib.flash_attention_smem_bytes.argtypes = [I]
-        lib.flash_attention_smem_bytes.restype = ctypes.c_longlong
+        for _, _, entry, smem in MODES.values():
+            getattr(lib, entry).argtypes = [P, P, P, P, I, I, I, I, I, I, I, F, F, P]
+            getattr(lib, entry).restype = I
+            getattr(lib, smem).argtypes = [I]
+            getattr(lib, smem).restype = ctypes.c_longlong
         _LIB = lib
     return _LIB
 
 
-def smem_bytes(head_dim: int) -> int:
-    """Dynamic shared memory of one kernel block at ``head_dim``."""
-    return int(_lib().flash_attention_smem_bytes(head_dim))
+def smem_bytes(head_dim: int, dtype=torch.float32) -> int:
+    """Dynamic shared memory of one kernel block at ``head_dim`` in the
+    mode of ``dtype``."""
+    return int(getattr(_lib(), MODES[dtype][3])(head_dim))
 
 
 def flash_attention_cuda(q, k, v, *, causal: bool = True, window: Optional[int] = None,
@@ -149,10 +181,9 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True, window: Optional[int] 
     for nm, t in (("q", q), ("k", k), ("v", v)):
         if t.device != dev or t.device.type != "cuda":
             raise ValueError(f"{nm} must lie on {dev}, got {t.device}")
-        if t.dtype != torch.float32:
-            raise ValueError(f"{nm} must be float32, got {t.dtype}")
         if t.dim() != 4:
             raise ValueError(f"{nm} must be [b, s, heads, d], got {tuple(t.shape)}")
+    check_dtypes(q, k, v)
     b, s, h, d = q.shape
     kv = k.shape[2]
     if tuple(k.shape) != (b, s, kv, d) or tuple(v.shape) != tuple(k.shape):
@@ -169,15 +200,16 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True, window: Optional[int] 
         raise ValueError(f"softcap must be > 0, got {softcap}")
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     o = torch.empty_like(q)
+    counts, counter, entry, _ = MODES[q.dtype]
     stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = _lib().flash_attention_f32(
+    rc = getattr(_lib(), entry)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
         b, s, h, kv, d, int(bool(causal)), int(window or 0), float(softcap or 0.0),
         float(math.sqrt(d)), stream,
     )
     if rc != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: cudaError {rc}")
-    LAUNCHES[NAME] += 1
+    counts[counter] += 1
     return o
 
 

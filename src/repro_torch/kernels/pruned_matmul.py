@@ -32,9 +32,21 @@ kernel's rule for which live blocks each slice walks, and
 ``pruned_matmul_split_plain`` replays the whole split-K schedule in plain
 torch (partials per slice, summed in slice order).
 
-``LAUNCHES`` counts kernel launches per direction (forward, dX, dW); each
-is incremented only right after its kernel was launched (one count per
-product, the reduce pass of a split launch included).
+Both input modes of the Pallas kernel are ported: ``x`` and ``w`` float32,
+or both bfloat16 (masks float32 either way).  In bf16 each element is read
+as float32, products, accumulators and the split-K workspace stay float32,
+and ``y`` is rounded to bf16 once (the Pallas ``_finish`` casts its float32
+accumulator to ``x.dtype``); the backward pass casts the cotangent to
+``x.dtype`` and runs dX and dW in the same mode, as ``_pm_bwd`` does.  The
+bf16 mode runs every direction through the kernel's generic (register-
+loaded) instance.  The plain version computes bf16 the same way.  float16
+and mixed dtypes are refused by name.
+
+``LAUNCHES`` counts the float32 mode's kernel launches per direction
+(forward, dX, dW) and ``LAUNCHES_BF16`` the bf16 mode's
+(``pruned_matmul_fwd_bf16`` ...); each is incremented only right after its
+kernel was launched (one count per product, the reduce pass of a split
+launch included).
 """
 from __future__ import annotations
 
@@ -47,6 +59,8 @@ import torch.nn.functional as F
 
 __all__ = [
     "LAUNCHES",
+    "LAUNCHES_BF16",
+    "BF16_COUNTER",
     "reset_launches",
     "pruned_matmul",
     "pruned_matmul_plain",
@@ -67,11 +81,24 @@ __all__ = [
 
 FWD, DX, DW = "pruned_matmul_fwd", "pruned_matmul_bwd_dx", "pruned_matmul_bwd_dw"
 LAUNCHES: Dict[str, int] = {FWD: 0, DX: 0, DW: 0}
+# the bf16 mode's counter of each direction
+BF16_COUNTER = {k: f"{k}_bf16" for k in LAUNCHES}
+LAUNCHES_BF16: Dict[str, int] = {v: 0 for v in BF16_COUNTER.values()}
 
 
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    for counts in (LAUNCHES, LAUNCHES_BF16):
+        for k in counts:
+            counts[k] = 0
+
+
+def _check_pair(x: torch.Tensor, w: torch.Tensor, kinds) -> None:
+    """``x`` and ``w`` share one dtype of ``kinds``."""
+    if x.dtype not in kinds:
+        raise ValueError(f"pruned_matmul: x must be one of {[str(k) for k in kinds]}, "
+                         f"got {x.dtype}")
+    if w.dtype != x.dtype:
+        raise ValueError(f"pruned_matmul: w must have x's dtype {x.dtype}, got {w.dtype}")
 
 
 # ---------------------------------------------------------------------------
@@ -83,12 +110,18 @@ def pruned_matmul_plain(
     out_mask: torch.Tensor, row_mask: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """``((x * in_mask) @ w) * out_mask * row_mask`` with autograd; 2-D or
-    batched operands, masks ``[len]`` or ``[B, len]``."""
+    batched operands, masks ``[len]`` or ``[B, len]``.  bf16 operands are
+    upcast, the function is computed in float32 and rounded to bf16 once
+    (the gradients likewise, through the casts); float64 runs as it is."""
+    _check_pair(x, w, (torch.float32, torch.bfloat16, torch.float64))
+    dt = x.dtype
+    if dt == torch.bfloat16:
+        x, w = x.float(), w.float()
     y = (x * in_mask.unsqueeze(-2)) @ w
     y = y * out_mask.unsqueeze(-2)
     if row_mask is not None:
         y = y * row_mask.unsqueeze(-1)
-    return y
+    return y.to(dt)
 
 
 # ---------------------------------------------------------------------------
@@ -105,7 +138,7 @@ def _lib():
 
         lib = load_library("pruned_matmul")
         P, L, I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-        lib.pruned_matmul_f32.argtypes = [
+        args = [
             P, L, L, L,            # x, strides b/m/k
             P, L, L, L,            # w, strides b/k/n
             P, L, P, L, P, L,      # in/out/row masks + batch strides
@@ -116,7 +149,9 @@ def _lib():
             I, I, I, I,            # layout tile_m tile_n split
             P,                     # stream
         ]
-        lib.pruned_matmul_f32.restype = I
+        for entry in ("pruned_matmul_f32", "pruned_matmul_bf16"):
+            getattr(lib, entry).argtypes = args
+            getattr(lib, entry).restype = I
         lib.pruned_matmul_instance_count.argtypes = []
         lib.pruned_matmul_instance_count.restype = I
         lib.pruned_matmul_instance_info.argtypes = [I, ctypes.c_char_p, I, ctypes.POINTER(I)]
@@ -301,7 +336,9 @@ def launch_plan(x: torch.Tensor, w: torch.Tensor, blocks: Tuple[int, int, int],
     tm, tn = tile_shape(M, N, bm, bn)
     S = split_factor(B, M, N, K, blocks, _sm_count(x.device) if sms is None else sms)
     ws = 4 * S * B * M * N if S > 1 else 0
-    return LaunchPlan(_layout(x, w), tm, tn, S, ws)
+    # bf16 operands run the generic instance (its register loads convert)
+    layout = _layout(x, w) if x.dtype == torch.float32 else L_GENERIC
+    return LaunchPlan(layout, tm, tn, S, ws)
 
 
 def pruned_matmul_split_plain(
@@ -337,13 +374,13 @@ def pruned_matmul_split_plain(
     return torch.where(live, y, torch.zeros_like(y))
 
 
-def _check_operand(name: str, t: torch.Tensor, ndim: int, device) -> None:
+def _check_operand(name: str, t: torch.Tensor, ndim: int, device, dtype=torch.float32) -> None:
     if not isinstance(t, torch.Tensor):
         raise TypeError(f"{name} must be a tensor")
     if t.device.type != "cuda" or t.device != device:
         raise ValueError(f"{name} must lie on {device}, got {t.device}")
-    if t.dtype != torch.float32:
-        raise ValueError(f"{name} must be float32, got {t.dtype}")
+    if t.dtype != dtype:
+        raise ValueError(f"{name} must be {dtype}, got {t.dtype}")
     if t.dim() != ndim:
         raise ValueError(f"{name} must be {ndim}-D, got shape {tuple(t.shape)}")
 
@@ -362,8 +399,9 @@ def pruned_matmul_cuda(
     tile and split of ``launch_plan``.  ``keeps`` are the ``keep_info`` of
     (row_mask, bm), (out_mask, bn), (in_mask, bk)."""
     dev = x.device
-    _check_operand("x", x, 3, dev)
-    _check_operand("w", w, 3, dev)
+    _check_pair(x, w, (torch.float32, torch.bfloat16))
+    _check_operand("x", x, 3, dev, x.dtype)
+    _check_operand("w", w, 3, dev, x.dtype)
     for nm, t in (("in_mask", in_mask), ("out_mask", out_mask), ("row_mask", row_mask)):
         _check_operand(nm, t, 2, dev)
         if t.shape[1] > 1 and t.stride(1) != 1:
@@ -391,11 +429,12 @@ def pruned_matmul_cuda(
         if t.device != dev or t.dtype != torch.int32 or not t.is_contiguous():
             raise ValueError("keep flags must be contiguous int32 on the operands' device")
     plan = launch_plan(x, w, (bm, bn, bk))
-    y = torch.empty((B, M, N), device=dev, dtype=torch.float32)
+    y = torch.empty((B, M, N), device=dev, dtype=x.dtype)
     ws = (torch.empty((plan.split, B, M, N), device=dev, dtype=torch.float32)
           if plan.split > 1 else None)
+    bf16 = x.dtype == torch.bfloat16
     stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = _lib().pruned_matmul_f32(
+    rc = getattr(_lib(), "pruned_matmul_bf16" if bf16 else "pruned_matmul_f32")(
         x.data_ptr(), x.stride(0), x.stride(1), x.stride(2),
         w.data_ptr(), w.stride(0), w.stride(1), w.stride(2),
         in_mask.data_ptr(), in_mask.stride(0),
@@ -409,7 +448,10 @@ def pruned_matmul_cuda(
     )
     if rc != 0:
         raise RuntimeError(f"pruned_matmul kernel launch failed: cudaError {rc}")
-    LAUNCHES[counter] += 1
+    if bf16:
+        LAUNCHES_BF16[BF16_COUNTER[counter]] += 1
+    else:
+        LAUNCHES[counter] += 1
     return y
 
 
@@ -433,6 +475,7 @@ class _PrunedMatmul(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         x, w, in_mask, out_mask, row_mask = ctx.saved_tensors
+        g = g.to(x.dtype)           # _pm_bwd: the cotangent in x's dtype
         k_row, k_out, k_in = ctx.keeps
         bm, bn, bk = ctx.blocks
         dx = dw = None
@@ -478,8 +521,9 @@ def pruned_matmul(
     """Differentiable block-skip masked matmul,
     ``y = ((x * in_mask) @ w) * out_mask[None, :] * row_mask[:, None]``.
 
-    ``x [M, K]`` or ``[B, M, K]``, ``w [K, N]`` or ``[B, K, N]``; masks are
-    ``[len]`` (shared) or ``[B, len]`` (per row) 0/1 float32 vectors.
+    ``x [M, K]`` or ``[B, M, K]``, ``w [K, N]`` or ``[B, K, N]``, both float32
+    or both bfloat16 (``y`` in that dtype); masks are ``[len]`` (shared) or
+    ``[B, len]`` (per row) 0/1 float32 vectors.
     Gradients flow to ``x`` and ``w`` only and are exactly zero on pruned
     units.  A CPU tensor runs the plain version; a CUDA tensor launches the
     kernel, or raises on what it does not take (including block sizes that

@@ -1,4 +1,8 @@
-"""Plain PyTorch oracles of the kernels (port of ``repro/kernels/ref.py``)."""
+"""Plain PyTorch oracles of the kernels (port of ``repro/kernels/ref.py``).
+
+Each takes float32 or bfloat16 operands; bf16 ones are upcast, the function
+is computed in float32 and its result rounded to bf16 once, as the Pallas
+kernels compute it."""
 from __future__ import annotations
 
 import math
@@ -16,8 +20,12 @@ def pruned_matmul_ref(
     out_idx: torch.Tensor,    # [n_sub] retained output-unit ids (sorted)
 ) -> torch.Tensor:
     """y = x[:, in_idx] @ w[in_idx][:, out_idx] — the sub-model's matmul
-    against base-model weights."""
-    return x.index_select(1, in_idx) @ w.index_select(0, in_idx).index_select(1, out_idx)
+    against base-model weights; bf16 operands are upcast, multiplied in
+    float32 and the product rounded to bf16 once."""
+    dt = x.dtype
+    if dt == torch.bfloat16:
+        x, w = x.float(), w.float()
+    return (x.index_select(1, in_idx) @ w.index_select(0, in_idx).index_select(1, out_idx)).to(dt)
 
 
 def flash_attention_ref(

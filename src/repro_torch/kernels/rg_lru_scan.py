@@ -17,8 +17,16 @@ log-space form would only add the ``1 / A`` overflow bound that the TPU
 docstring warns about.  The kernel does a rounded multiply and a rounded add
 per step, exactly as the plain version, so the two agree bit for bit.
 
+Both modes of the Pallas kernel are ported: ``x`` and ``a`` float32, or
+both bfloat16 (``h0`` float32 either way, as the wrapper makes it).  A
+bf16 element is read as float32, the carry and the arithmetic stay float32
+and each ``h_t`` is rounded to bf16 once at its store, as the Pallas kernel
+casts up at load and down at the store; the plain version does the same.
+Any other dtype, float16 included, and mixed dtypes are refused by name.
+
 A CPU tensor runs the plain version (``ref.rg_lru_ref``); a CUDA tensor
-launches the kernel or raises.  ``LAUNCHES`` counts kernel launches.
+launches the kernel or raises.  ``LAUNCHES`` counts the float32 mode's
+kernel launches and ``LAUNCHES_BF16`` the bf16 mode's (``rg_lru_scan_bf16``).
 """
 from __future__ import annotations
 
@@ -29,11 +37,17 @@ import torch
 
 from .ref import rg_lru_ref
 
-__all__ = ["LAUNCHES", "CHANNELS", "STAGE_STEPS", "RING_STAGES", "reset_launches", "ring_schedule",
-           "rg_lru_scan", "rg_lru_scan_plain", "rg_lru_scan_cuda"]
+__all__ = ["LAUNCHES", "LAUNCHES_BF16", "MODES", "CHANNELS", "STAGE_STEPS", "RING_STAGES",
+           "reset_launches", "ring_schedule", "check_dtypes", "rg_lru_scan", "rg_lru_scan_plain",
+           "rg_lru_scan_cuda"]
 
 NAME = "rg_lru_scan"
-LAUNCHES: Dict[str, int] = {NAME: 0}
+NAME_BF16 = "rg_lru_scan_bf16"
+LAUNCHES: Dict[str, int] = {NAME: 0}            # float32 mode
+LAUNCHES_BF16: Dict[str, int] = {NAME_BF16: 0}  # bf16 mode
+# the kernel's element types: launch counts and key, and C entry point
+MODES = {torch.float32: (LAUNCHES, NAME, "rg_lru_scan_f32"),
+         torch.bfloat16: (LAUNCHES_BF16, NAME_BF16, "rg_lru_scan_bf16")}
 CHANNELS = 64      # channels of one kernel block (one warp, two a lane)
 STAGE_STEPS = 32   # steps of one ring stage
 RING_STAGES = 4    # stages of the ring: 128 steps, 64 KB of a and x a block
@@ -58,10 +72,22 @@ def ring_schedule(s: int) -> List[Tuple[str, int]]:
 
 def reset_launches() -> None:
     LAUNCHES[NAME] = 0
+    LAUNCHES_BF16[NAME_BF16] = 0
+
+
+def check_dtypes(x: torch.Tensor, a: torch.Tensor, h0: Optional[torch.Tensor]) -> None:
+    """``x`` and ``a`` one dtype of ``MODES``; ``h0`` float32 or that dtype."""
+    if x.dtype not in MODES:
+        raise ValueError(f"rg_lru_scan: x must be float32 or bfloat16, got {x.dtype}")
+    if a.dtype != x.dtype:
+        raise ValueError(f"rg_lru_scan: a must have x's dtype {x.dtype}, got {a.dtype}")
+    if h0 is not None and h0.dtype not in (torch.float32, x.dtype):
+        raise ValueError(f"rg_lru_scan: h0 must be float32 or {x.dtype}, got {h0.dtype}")
 
 
 def rg_lru_scan_plain(x: torch.Tensor, a: torch.Tensor,
                       h0: Optional[torch.Tensor] = None) -> torch.Tensor:
+    check_dtypes(x, a, h0)
     return rg_lru_ref(x, a, h0)
 
 
@@ -75,20 +101,21 @@ def _lib():
 
         lib = load_library(NAME)
         P, I = ctypes.c_void_p, ctypes.c_int
-        lib.rg_lru_scan_f32.argtypes = [P, P, P, P, I, I, I, P]
-        lib.rg_lru_scan_f32.restype = I
+        for _, _, entry in MODES.values():
+            getattr(lib, entry).argtypes = [P, P, P, P, I, I, I, P]
+            getattr(lib, entry).restype = I
         _LIB = lib
     return _LIB
 
 
 def rg_lru_scan_cuda(x: torch.Tensor, a: torch.Tensor, h0: torch.Tensor) -> torch.Tensor:
-    """Launch the kernel once on CUDA tensors (checked, made contiguous)."""
+    """Launch the kernel once on CUDA tensors (checked, made contiguous; a
+    bf16 ``h0`` is upcast to float32, which is exact)."""
     dev = x.device
     for nm, t in (("x", x), ("a", a), ("h0", h0)):
         if t.device != dev or t.device.type != "cuda":
             raise ValueError(f"{nm} must lie on {dev}, got {t.device}")
-        if t.dtype != torch.float32:
-            raise ValueError(f"{nm} must be float32, got {t.dtype}")
+    check_dtypes(x, a, h0)
     if x.dim() != 3 or tuple(a.shape) != tuple(x.shape):
         raise ValueError(f"x {tuple(x.shape)} and a {tuple(a.shape)} must both be [b, s, r]")
     b, s, r = x.shape
@@ -96,14 +123,15 @@ def rg_lru_scan_cuda(x: torch.Tensor, a: torch.Tensor, h0: torch.Tensor) -> torc
         raise ValueError(f"h0 {tuple(h0.shape)} != {(b, r)}")
     if b > 65535:
         raise ValueError(f"b={b}: the kernel's grid takes b <= 65535")
-    x, a, h0 = x.contiguous(), a.contiguous(), h0.contiguous()
+    x, a, h0 = x.contiguous(), a.contiguous(), h0.float().contiguous()
     out = torch.empty_like(x)
+    counts, counter, entry = MODES[x.dtype]
     stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = _lib().rg_lru_scan_f32(x.data_ptr(), a.data_ptr(), h0.data_ptr(), out.data_ptr(),
+    rc = getattr(_lib(), entry)(x.data_ptr(), a.data_ptr(), h0.data_ptr(), out.data_ptr(),
                                 b, s, r, stream)
     if rc != 0:
         raise RuntimeError(f"rg_lru_scan kernel launch failed: cudaError {rc}")
-    LAUNCHES[NAME] += 1
+    counts[counter] += 1
     return out
 
 

@@ -6,12 +6,16 @@ recurrent states (attention through the flash kernel, the RG-LRU
 recurrence through the scan kernel) -> token-by-token greedy decode.
 ``--retention`` serves an AdaptCL-reconfigured sub-model.  Runs on the card
 unless ``--device cpu`` is given; ``device="cuda"`` without a card raises.
+The model's dtype is its config's (``ModelConfig.dtype``, float32 or the
+JAX dry-run's bfloat16: ``cfg.replace(dtype="bfloat16")``); as in the JAX
+``launch/serve.py`` there is no flag for it.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch recurrentgemma-9b --smoke --device cpu
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import time
 from typing import Dict, Optional
 
@@ -22,12 +26,28 @@ from repro_torch.core.simulation import ieee_f32, resolve_device
 from repro_torch.models import transformer as T
 from repro_torch.models.config import apply_retention
 
-__all__ = ["serve_batch", "main"]
+__all__ = ["serve_batch", "serve_numerics", "main"]
 
 
 def _sync(dev: torch.device) -> None:
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
+
+
+@contextlib.contextmanager
+def serve_numerics():
+    """For the duration of a serve: ``ieee_f32`` (TF32 off), and cuBLAS's
+    bf16 GEMMs reduced in float32 (no reduced-precision split-K
+    reduction), as XLA's bf16 dot accumulates; the caller's flags come
+    back on exit."""
+    matmul = torch.backends.cuda.matmul
+    saved = matmul.allow_bf16_reduced_precision_reduction
+    with ieee_f32():
+        matmul.allow_bf16_reduced_precision_reduction = False
+        try:
+            yield
+        finally:
+            matmul.allow_bf16_reduced_precision_reduction = saved
 
 
 def serve_batch(cfg, params, prompts: torch.Tensor, new_tokens: int = 16, *,
@@ -39,8 +59,9 @@ def serve_batch(cfg, params, prompts: torch.Tensor, new_tokens: int = 16, *,
     into it (the device is synchronised at each boundary).  With
     ``return_logits``, also returns the ``[b, new_tokens + 1, V]`` logits:
     the prefill's (position s-1) and each decode step's (positions s ..
-    s+new_tokens-1).  Runs in IEEE float32 (TF32 off), restoring the
-    caller's flags."""
+    s+new_tokens-1).  Runs in the config's dtype under ``serve_numerics``
+    (float32 products in IEEE float32, bf16 products accumulated and
+    reduced in float32), restoring the caller's flags."""
     dev = resolve_device(device, "serve_batch device")
     T.validate_config(cfg)
     leaf = params["embed"]
@@ -49,7 +70,7 @@ def serve_batch(cfg, params, prompts: torch.Tensor, new_tokens: int = 16, *,
     prompts = prompts.to(dev)
     b, s = prompts.shape
     kept = []
-    with ieee_f32():
+    with serve_numerics():
         _sync(dev)
         t0 = time.perf_counter()
         logits, state = T.prefill(params, cfg, {"tokens": prompts}, max_len=s + new_tokens)

@@ -2,7 +2,10 @@
 
 Parameters are nested dicts of tensors.  Initializers draw from an explicit
 ``torch.Generator`` and allocate on its device; ``lead`` prepends stacking
-axes (the scan-group axis) so a stacked parameter is drawn in place.
+axes (the scan-group axis) so a stacked parameter is drawn in place.  As in
+the JAX package, parameters are float32 or bfloat16; ``rms_norm``,
+``layer_norm`` and ``apply_rope`` compute in float32 and cast back to the
+input's dtype.
 """
 from __future__ import annotations
 
@@ -37,11 +40,21 @@ def dense_init(gen: torch.Generator, in_dim: int, out_shape: Union[int, tuple],
                scale: Optional[float] = None, lead: Sequence[int] = (),
                dtype=torch.float32) -> torch.Tensor:
     """Truncated-normal fan-in init on [-2, 2] times ``scale`` (default
-    ``1/sqrt(in_dim)``), shape ``(*lead, in_dim, *out_shape)``; drawn by
-    inverting the normal CDF on a uniform sample, in place."""
+    ``1/sqrt(in_dim)``), shape ``(*lead, in_dim, *out_shape)``; drawn in
+    float32 by inverting the normal CDF on a uniform sample, in place, then
+    cast to ``dtype`` (as the JAX init casts its float32 draw).  A stacked
+    parameter of a narrower dtype is drawn one leading slice at a time, so
+    no float32 copy of a whole stack is held (a bf16 32B model's FFN stack
+    would take 33 GB in float32)."""
     if scale is None:
         scale = 1.0 / math.sqrt(in_dim)
-    t = torch.empty(_shape(lead, in_dim, out_shape), dtype=torch.float32, device=gen.device)
+    shape = _shape(lead, in_dim, out_shape)
+    if lead and dtype != torch.float32:
+        out = torch.empty(shape, dtype=dtype, device=gen.device)
+        for i in range(shape[0]):
+            out[i] = dense_init(gen, in_dim, out_shape, scale, lead[1:], dtype)
+        return out
+    t = torch.empty(shape, dtype=torch.float32, device=gen.device)
     t.uniform_(_PHI_M2, 1.0 - _PHI_M2, generator=gen)
     t.mul_(2.0).sub_(1.0).erfinv_().mul_(_SQRT2).clamp_(-2.0, 2.0).mul_(scale)
     return t.to(dtype)

@@ -14,12 +14,18 @@ Entry points:
 
 The decode state holds ring-buffer KV caches and recurrent states, stacked
 over groups like the parameters, and the next position as a Python int.
+
+``cfg.dtype`` is "float32" or "bfloat16", the JAX dry-run's dtype: every
+parameter and state leaf takes the dtype of its JAX counterpart (the
+RG-LRU's ``lam`` and recurrent state ``h`` stay float32), activations run
+in ``cfg.dtype``, norms, rope, softmax and the recurrence compute in
+float32 as in the JAX package, and the logits come out float32.
 ``decode_step`` updates the caches in place (the JAX version returns new
 arrays), so a step writes one ring slot instead of copying the cache.
 
 Block kinds ``moe``/``moe_local``/``mlstm``/``slstm``, the encoder, vision
-prefix embeddings, learned positions and dtypes other than float32 are
-refused by name (``validate_config``).
+prefix embeddings, learned positions and dtypes other than float32 and
+bfloat16 are refused by name (``validate_config``).
 """
 from __future__ import annotations
 
@@ -39,6 +45,8 @@ from .rglru import RGLRUSpec
 __all__ = [
     "SUPPORTED_KINDS",
     "validate_config",
+    "DTYPES",
+    "param_dtype",
     "init_params",
     "forward",
     "prefill",
@@ -55,6 +63,9 @@ _REFUSED_KINDS = {
     "slstm": "xLSTM sLSTM cells",
 }
 _ATTN_KINDS = ("attn", "local")
+# ModelConfig.dtype -> torch dtype: the JAX package's two model dtypes (the
+# FL simulation's float32 and the dry-run's bfloat16)
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
 def _refuse(field: str, why: str) -> ValueError:
@@ -78,8 +89,8 @@ def validate_config(cfg: ModelConfig) -> None:
                       f"num_prefix_embeds={cfg.num_prefix_embeds} (vision prefix embeddings)")
     if cfg.pos_embed != "rope":
         raise _refuse("pos_embed", f"pos_embed={cfg.pos_embed!r} (only 'rope' runs)")
-    if cfg.dtype != "float32":
-        raise _refuse("dtype", f"dtype={cfg.dtype!r} (only float32 runs; bf16 kernels come later)")
+    if cfg.dtype not in DTYPES:
+        raise _refuse("dtype", f"dtype={cfg.dtype!r} (the port runs {sorted(DTYPES)})")
     if cfg.norm_style not in ("rms", "layernorm"):
         raise ValueError(f"ModelConfig.norm_style: unknown {cfg.norm_style!r}")
 
@@ -144,11 +155,17 @@ def _rglru_spec(cfg: ModelConfig) -> RGLRUSpec:
 # init
 # --------------------------------------------------------------------------
 
+def param_dtype(cfg: ModelConfig) -> torch.dtype:
+    """The torch dtype of ``cfg.dtype``."""
+    return DTYPES[cfg.dtype]
+
+
 def _init_norm(cfg: ModelConfig, lead, device):
-    shape = (*lead, cfg.d_model)
+    shape, dt = (*lead, cfg.d_model), param_dtype(cfg)
     if cfg.norm_style == "layernorm":
-        return {"scale": torch.ones(shape, device=device), "bias": torch.zeros(shape, device=device)}
-    return {"scale": torch.zeros(shape, device=device)}
+        return {"scale": torch.ones(shape, dtype=dt, device=device),
+                "bias": torch.zeros(shape, dtype=dt, device=device)}
+    return {"scale": torch.zeros(shape, dtype=dt, device=device)}
 
 
 def _apply_norm(cfg: ModelConfig, p, x):
@@ -158,20 +175,20 @@ def _apply_norm(cfg: ModelConfig, p, x):
 
 
 def _init_block(gen: torch.Generator, cfg: ModelConfig, kind: str, lead=()):
-    dev = gen.device
+    dev, dt = gen.device, param_dtype(cfg)
     if kind in _ATTN_KINDS:
         return {
             "ln1": _init_norm(cfg, lead, dev),
-            "attn": attn_mod.init_attention(gen, _attn_spec(cfg, kind), lead),
+            "attn": attn_mod.init_attention(gen, _attn_spec(cfg, kind), lead, dt),
             "ln2": _init_norm(cfg, lead, dev),
-            "ffn": ffn_mod.init_ffn(gen, _ffn_spec(cfg), lead),
+            "ffn": ffn_mod.init_ffn(gen, _ffn_spec(cfg), lead, dt),
         }
     if kind == "rglru":
         return {
             "ln1": _init_norm(cfg, lead, dev),
-            "rglru": rglru_mod.init_rglru(gen, _rglru_spec(cfg), lead),
+            "rglru": rglru_mod.init_rglru(gen, _rglru_spec(cfg), lead, dt),
             "ln2": _init_norm(cfg, lead, dev),
-            "ffn": ffn_mod.init_ffn(gen, _ffn_spec(cfg), lead),
+            "ffn": ffn_mod.init_ffn(gen, _ffn_spec(cfg), lead, dt),
         }
     raise ValueError(f"unknown block kind {kind}")
 
@@ -190,7 +207,8 @@ def init_params(gen: torch.Generator, cfg: ModelConfig) -> Dict[str, Any]:
     """Random parameters on ``gen``'s device: the JAX package's tree, shapes
     and dtypes (the values differ: another generator)."""
     validate_config(cfg)
-    params: Dict[str, Any] = {"embed": normal_init(gen, (cfg.vocab_size, cfg.d_model), 0.02)}
+    dt = param_dtype(cfg)
+    params: Dict[str, Any] = {"embed": normal_init(gen, (cfg.vocab_size, cfg.d_model), 0.02, dt)}
     g, rem = _split_layers(cfg)
     if g > 0:
         params["blocks"] = {
@@ -201,7 +219,7 @@ def init_params(gen: torch.Generator, cfg: ModelConfig) -> Dict[str, Any]:
         params["rem"] = [_init_block(gen, cfg, kind) for kind in rem]
     params["final_norm"] = _init_norm(cfg, (), gen.device)
     if not cfg.tie_embeddings:
-        params["lm_head"] = normal_init(gen, (cfg.d_model, cfg.vocab_size), 0.02)
+        params["lm_head"] = normal_init(gen, (cfg.d_model, cfg.vocab_size), 0.02, dt)
     return params
 
 
@@ -288,6 +306,8 @@ def _stack_fwd(params, cfg: ModelConfig, x, collect_cache: bool, cache_len: int 
 
 
 def _logits(params, cfg: ModelConfig, x):
+    """The head's product in the model dtype, then float32 and the softcap
+    (JAX ``_logits``)."""
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
     logits = softcap((x @ head).float(), cfg.final_softcap)
     if cfg.vocab_size_real is not None and cfg.vocab_size_real < cfg.vocab_size:
@@ -330,10 +350,11 @@ def prefill(params, cfg: ModelConfig, batch, max_len: int | None = None):
 
 
 def _init_block_cache(cfg: ModelConfig, kind: str, batch: int, cache_len: int, device):
+    dt = param_dtype(cfg)
     if kind in _ATTN_KINDS:
-        return attn_mod.init_cache(_attn_spec(cfg, kind), batch, cache_len, device=device)
+        return attn_mod.init_cache(_attn_spec(cfg, kind), batch, cache_len, dt, device)
     if kind == "rglru":
-        return rglru_mod.init_rglru_state(_rglru_spec(cfg), batch, device=device)
+        return rglru_mod.init_rglru_state(_rglru_spec(cfg), batch, dt, device)
     raise ValueError(kind)
 
 

@@ -30,7 +30,7 @@ import jax
 import numpy as np
 import pytest
 import torch
-from torch_envelope import assert_within_envelope, perturbations
+from torch_envelope import assert_within_envelope, params_maxdiff, perturbations
 
 from repro.core import faults as jf
 from repro.core import scenario as jsc
@@ -226,19 +226,24 @@ def test_crash_world_reference_engines_part_on_the_last_bit(bump, cache):
     ReLU gate within 1e-7 of zero flips with a convolution's summation
     order, which XLA picks by ISA.  So whether the reference's sequential
     and masked engines part from the seeded init (final_acc 0.7480 against
-    0.7422 on the CPU this witness was first run on) or agree depends on
-    the CPU.  What holds on every CPU, from the init and from it moved one
-    ulp either way: the two engines' events, clocks and ledgers are equal,
-    and their params and final_acc lie within 1e-4 and 1e-3, or within 2x
-    the distance the other two inits move JAX sequential's run.  A port
+    0.7422 on one CPU, params 1.6e-2 apart from the init on another, where
+    the one-ulp inits agree within 5e-7) depends on the CPU, and no bar on
+    their params at this size holds on every one.  What holds on every
+    CPU, from the init and from it moved one ulp either way: at this size
+    the two engines' events, clocks and ledgers are equal; at the 160-image
+    task, where no gate sits that close to zero, their params and
+    final_acc also lie within the reference's 1e-4 and 1e-3.  A port
     engine landing on the other-named JAX engine is no witness of swapped
     semantics."""
-    runs = {b: _jax_crash("sequential", cache, b) for b in (None, "up", "down")}
-    seq = runs[bump]
+    seq = _jax_crash("sequential", cache, bump)
     msk = _jax_crash("masked", cache, bump)
     assert_events_and_clocks(seq, msk)
-    assert_within_envelope(seq, msk, bar=1e-4, what=f"crash, init {bump}",
-                           perturbed=[lambda r=r: r for b, r in runs.items() if b != bump])
+    small = {e: cache(("jax", "crash", "small", e, bump), jax_sim, e, FAMILIES["crash"],
+                      task=SMALL_TASK, bump=bump) for e in ("sequential", "masked")}
+    assert_events_and_clocks(small["sequential"], small["masked"])
+    assert small["sequential"].workers_recovered > 0
+    assert params_maxdiff(small["sequential"], small["masked"]) <= 1e-4, f"init {bump}"
+    assert abs(small["sequential"].final_acc - small["masked"].final_acc) <= 1e-3, f"init {bump}"
 
 
 @pytest.mark.parametrize("engine", ["sequential", "masked"])

@@ -471,7 +471,7 @@ _BASE = ModelConfig(name="t", arch_type="dense", num_layers=2, d_model=64, num_h
     ("encoder_layers", 2, "encoder_layers"),
     ("num_prefix_embeds", 8, "num_prefix_embeds"),
     ("pos_embed", "learned", "pos_embed"),
-    ("dtype", "bfloat16", "dtype"),
+    ("dtype", "float16", "dtype"),
 ])
 def test_out_of_slice_fields_are_refused_by_name(field, value, match):
     cfg = _BASE.replace(**{field: value})
