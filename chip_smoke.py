@@ -472,6 +472,14 @@ def wiring_masks(K, N, cin, taps, in_l, out_l, keep):
     return im, om
 
 
+def sim_launches() -> dict:
+    """pruned_matmul's launches per direction in the float32 mode, the
+    simulation's."""
+    from repro_torch.kernels.pruned_matmul import DW, DX, FWD, LAUNCHES
+
+    return {k: LAUNCHES[k] for k in (FWD, DX, DW)}
+
+
 def time_ms(fn, iters: int = 5, warm: int = 2) -> float:
     import torch
 
@@ -949,7 +957,7 @@ def phase_main(report, sim=None, tag="main"):
     the launch counts are zeroed just before it and read just after."""
     import torch
     from repro_torch.core.simulation import SimConfig, run_simulation
-    from repro_torch.kernels.pruned_matmul import LAUNCHES, reset_launches
+    from repro_torch.kernels.pruned_matmul import reset_launches
     from repro_torch.models.cnn import VGG16_CIFAR, cnn_block_compute
 
     if sim is None:
@@ -960,7 +968,7 @@ def phase_main(report, sim=None, tag="main"):
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
     res = run_simulation(sim)
-    launches = dict(LAUNCHES)
+    launches = sim_launches()
     full = cnn_block_compute(sim.cnn, {}, sim.compute_blocks)["blocks"]
     blocks_full = res.images_trained * full
     layers = cnn_layers(sim.cnn)
@@ -1394,8 +1402,8 @@ def _serve_once(cfg, label, gen_seed, phase="serve", decode_bar=DECODE_TOL):
     for mod in (fa_mod, rg_mod, pm_mod):
         mod.reset_launches()
     out, logits = serve_batch(cfg, params, prompts, n, device=DEVICE, stats=stats, return_logits=True)
-    launches = {**fa_mod.LAUNCHES, **fa_mod.LAUNCHES_BF16, **rg_mod.LAUNCHES, **rg_mod.LAUNCHES_BF16}
-    pm_launches = sum(pm_mod.LAUNCHES.values()) + sum(pm_mod.LAUNCHES_BF16.values())
+    launches = {**fa_mod.LAUNCHES, **rg_mod.LAUNCHES}
+    pm_launches = sum(pm_mod.LAUNCHES.values())
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     # a second prefill alone: its time without first-call costs
     torch.cuda.synchronize()
@@ -1429,7 +1437,7 @@ def _serve_once(cfg, label, gen_seed, phase="serve", decode_bar=DECODE_TOL):
     emit({k: v for k, v in rec.items() if k != "per_step_logit_diff"})
     kinds = cfg.layer_kinds()
     expect = dict.fromkeys(launches, 0)
-    expect[fa_mod.MODES[T.param_dtype(cfg)][1]] = kinds.count("local") + kinds.count("attn")
+    expect[fa_mod.MODES[T.param_dtype(cfg)][0]] = kinds.count("local") + kinds.count("attn")
     expect[rg_mod.NAME] = kinds.count("rglru")
     check(launches == expect, f"{label}: launches {launches} per prefill, want {expect}")
     check(pm_launches == 0, f"{label}: pruned_matmul launched on the LLM path")
@@ -1857,17 +1865,16 @@ def bucket_spy():
     participation-sized sub-stack call of the masked engine; returns
     (records, undo)."""
     from repro_torch.core import fleet
-    from repro_torch.kernels.pruned_matmul import LAUNCHES
 
     real = fleet.FleetEngine.train_rows
     records = []
 
     def spy(self, state, rows, plans, *a, **kw):
-        before, steps = dict(LAUNCHES), self.trainer.steps_run
+        before, steps = sim_launches(), self.trainer.steps_run
         out = real(self, state, rows, plans, *a, **kw)
         records.append({"rows": len(rows), "bucket": fleet.bucket_rows(len(rows), state.num_workers),
                         "steps": self.trainer.steps_run - steps,
-                        "launches": {k: LAUNCHES[k] - before[k] for k in LAUNCHES}})
+                        "launches": {k: v - before[k] for k, v in sim_launches().items()}})
         return out
 
     fleet.FleetEngine.train_rows = spy
@@ -2037,7 +2044,7 @@ def phase_dgc(report):
     factors below 1 on submitting rows."""
     import torch
     from repro_torch.core.simulation import run_simulation
-    from repro_torch.kernels.pruned_matmul import LAUNCHES, reset_launches
+    from repro_torch.kernels.pruned_matmul import reset_launches
 
     kw = dict(dgc_sparsity=0.9, resident_momentum=True, fixed_pruned_rates=[DGC_RATES, DGC_RATES])
     out = {}
@@ -2049,7 +2056,7 @@ def phase_dgc(report):
             res = run_simulation(fleet_sim(compute=compute, **kw))
         finally:
             undo()
-        out[compute] = (res, records, dict(LAUNCHES), torch.cuda.max_memory_allocated() / 2**30)
+        out[compute] = (res, records, sim_launches(), torch.cuda.max_memory_allocated() / 2**30)
     (bs, bs_dgc, launches, peak), (dn, dn_dgc, _, _) = out["block_skip"], out["dense"]
     envelope = one_ulp_envelope(fleet_sim(compute="dense", **kw), dn)
     live = first_live_round(dn)
@@ -2157,7 +2164,7 @@ def phase_async(report):
     memory."""
     import torch
     from repro_torch.core.simulation import run_simulation
-    from repro_torch.kernels.pruned_matmul import LAUNCHES, reset_launches
+    from repro_torch.kernels.pruned_matmul import reset_launches
 
     runs = {}
     for method in ASYNC_METHODS:
@@ -2169,7 +2176,7 @@ def phase_async(report):
             res = run_simulation(async_sim(method))
         finally:
             undo()
-        launches = dict(LAUNCHES)
+        launches = sim_launches()
         events = ASYNC_ROUNDS * res.scenario_rounds[0][1]
         merged = int(round(res.comm_bytes / commit_bytes(res)))
         buckets = per_bucket(records)
@@ -2493,7 +2500,7 @@ def phase_regrow(report):
     import torch
     from repro_torch.core.masks import full_index
     from repro_torch.core.simulation import _Env, run_simulation
-    from repro_torch.kernels.pruned_matmul import LAUNCHES, reset_launches
+    from repro_torch.kernels.pruned_matmul import reset_launches
 
     def run(compute, replay=None, base_params=None):
         store = {"events": [], "broadcast": [], "grow_scores": [], "shrink_scores": []}
@@ -2504,7 +2511,7 @@ def phase_regrow(report):
                 res = run_simulation(regrow_sim(compute=compute), base_params=base_params)
         finally:
             undo()
-        return res, store, dict(LAUNCHES)
+        return res, store, sim_launches()
 
     bs, bst, launches = run("block_skip")
     dn, dst, _ = run("dense")
@@ -2666,14 +2673,14 @@ def phase_fused(report):
     import torch
     from repro_torch.core import fused
     from repro_torch.core.simulation import run_simulation
-    from repro_torch.kernels.pruned_matmul import LAUNCHES, reset_launches
+    from repro_torch.kernels.pruned_matmul import reset_launches
 
     reset_launches()
     torch.cuda.reset_peak_memory_stats()
     with sync_checked_chunk(fused._SyncChunk) as seen:
         res = run_simulation(fused_fleet_sim())
     peak = torch.cuda.max_memory_allocated() / 2**30
-    launches = dict(LAUNCHES)
+    launches = sim_launches()
     again = run_simulation(fused_fleet_sim())
     mas = run_simulation(fleet_sim(compute="dense"))
     envelope = one_ulp_envelope(fleet_sim(compute="dense"), mas)
@@ -3301,7 +3308,7 @@ def mesh_run(tag, sim_fn, ref, ref_again):
     import torch
     from repro_torch.core import fused
     from repro_torch.core.simulation import run_simulation
-    from repro_torch.kernels.pruned_matmul import LAUNCHES, reset_launches
+    from repro_torch.kernels.pruned_matmul import reset_launches
     from repro_torch.launch.mesh import fleet_group, make_fleet_mesh
     from repro_torch.sharding import collectives
 
@@ -3317,7 +3324,7 @@ def mesh_run(tag, sim_fn, ref, ref_again):
         with sync_checked_chunk(fused._SyncChunk) as seen, presence_trails(mesh_trails):
             res = run_simulation(sim_fn(mesh=mesh))
         calls = dict(collectives.CALLS)
-        launches = dict(LAUNCHES)
+        launches = sim_launches()
         again = run_simulation(sim_fn(mesh=mesh))
         trail = (FUSED_ROUND_FUSION,) + tuple(base_trails[0].shape[1:])
         coll = collective_ms(mesh, res.global_params, trail)
@@ -3466,7 +3473,7 @@ def phase_async_robust(report):
     from repro_torch.core import fused
     from repro_torch.core.aggregation import QuarantineConfig, RobustAggConfig
     from repro_torch.core.simulation import run_simulation
-    from repro_torch.kernels.pruned_matmul import LAUNCHES, reset_launches
+    from repro_torch.kernels.pruned_matmul import reset_launches
 
     rb = RobustAggConfig(clip=0.5, quarantine=QuarantineConfig(threshold=1.0, strikes=1,
                                                                probation=2))
@@ -3474,7 +3481,7 @@ def phase_async_robust(report):
     with health_readings(bs_h, dev, plans):
         reset_launches()
         mas = run_simulation(async_sim("fedasync_s", robust=rb))
-        launches = dict(LAUNCHES)
+        launches = sim_launches()
         with sync_checked_chunk(fused._AsyncChunk) as seen:
             fus = run_simulation(async_sim("fedasync_s", engine="fused", compute="dense",
                                            round_fusion=2, robust=rb))
@@ -3564,7 +3571,7 @@ def run_spy(module, after=None):
     """Wrap ``module.run_simulation``: every run's config, result and
     pruned_matmul launches, zeroed just before it and read just after
     (then ``after(sim)`` runs, if given); returns (records, undo)."""
-    from repro_torch.kernels.pruned_matmul import LAUNCHES, reset_launches
+    from repro_torch.kernels.pruned_matmul import reset_launches
 
     real = module.run_simulation
     records = []
@@ -3572,7 +3579,7 @@ def run_spy(module, after=None):
     def spy(sim, **kw):
         reset_launches()
         res = real(sim, **kw)
-        records.append((sim, res, dict(LAUNCHES)))
+        records.append((sim, res, sim_launches()))
         if after is not None:
             after(sim)
         return res
@@ -3784,7 +3791,7 @@ def runner_train_all(report):
     from repro_torch.core.masks import full_index, prune_to_budget, retention
     from repro_torch.core.simulation import SimConfig, _Env
     from repro_torch.core.worker import LocalTrainer, make_batch_plan
-    from repro_torch.kernels.pruned_matmul import LAUNCHES, reset_launches
+    from repro_torch.kernels.pruned_matmul import reset_launches
     from repro_torch.models.cnn import VGG16_CIFAR
 
     W = len(TRAIN_ALL_RATES)
@@ -3819,7 +3826,7 @@ def runner_train_all(report):
             t0 = time.perf_counter()
             out[tag] = fleet.train_all(jobs(dtype, ulp), env.sim.lam)
             torch.cuda.synchronize()
-        rec[tag] = {"seconds": time.perf_counter() - t0, "launches": dict(LAUNCHES),
+        rec[tag] = {"seconds": time.perf_counter() - t0, "launches": sim_launches(),
                     "batched_calls": fleet.batched_calls, "dispatches": trainer.dispatch_count}
         return out[tag]
 
@@ -4147,7 +4154,7 @@ def _bf16_pm(gen, keep, timed):
     the bound."""
     import torch
     from repro_torch.kernels.pruned_matmul import (
-        BF16_COUNTER, DW, DX, FWD, keep_info, launch_plan, pruned_matmul_cuda, pruned_matmul_plain,
+        DW, DX, FWD, keep_info, launch_plan, pruned_matmul_cuda, pruned_matmul_plain,
     )
 
     dev = torch.device(DEVICE)
@@ -4155,10 +4162,10 @@ def _bf16_pm(gen, keep, timed):
     bm, bn, bk = blocks
     T = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=dev)
     bf = torch.bfloat16
-    tot = {BF16_COUNTER[k]: {"products": 0, "instances": set(), "max_abs_err": 0.0, "max_rel_err": 0.0,
-                             "max_ulps": 0.0, "pruned_max": 0.0,
-                             "ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0,
-                             "ops_ms": 0.0, "bytes_ms": 0.0} for k in (FWD, DX, DW)}
+    tot = {f"{k}_bf16": {"products": 0, "instances": set(), "max_abs_err": 0.0, "max_rel_err": 0.0,
+                         "max_ulps": 0.0, "pruned_max": 0.0,
+                         "ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0,
+                         "ops_ms": 0.0, "bytes_ms": 0.0} for k in (FWD, DX, DW)}
     for li, (name, mpi, K, N, cin, taps, in_l, out_l) in enumerate(vgg16_layers()):
         M = batch * mpi
         im_np, om_np = wiring_masks(K, N, cin, taps, in_l, out_l, keep)
@@ -4181,7 +4188,7 @@ def _bf16_pm(gen, keep, timed):
             y = pruned_matmul_cuda(*args, blk, keeps, kname)
             ref = pruned_matmul_plain(*args)
             torch.cuda.synchronize()
-            t = tot[BF16_COUNTER[kname]]
+            t = tot[f"{kname}_bf16"]
             check(y.dtype == bf, f"bf16 {kname} {name}: output {y.dtype}")
             err = float((y.float() - ref.float()).abs().max())
             t["products"] += 1
@@ -4228,13 +4235,17 @@ def _bf16_cases():
 
 
 def flash_bf16_bound(b, s, h, kv, d, causal, window):
-    """Least card time of one bf16 flash launch under the Pallas semantics:
-    Q K^T as bf16 tensor-core products (exact in float32 accumulation), P V
-    with P kept float32 as two tf32 passes (V's bf16 is exact in tf32), vs
-    q, k, v, o in bf16 read or written once; returns (ms, ms_ops, ms_bytes).
-    ops = 2 pairs d / 989 TFLOP/s + 2 x 2 pairs d / 495 TFLOP/s."""
+    """Least card time of one bf16 flash launch under the Pallas semantics,
+    vs q, k, v, o in bf16 read or written once; returns (ms, ms_ops,
+    ms_bytes).  Q K^T runs as bf16 tensor-core products (exact in float32
+    accumulation).  P V keeps P's float32 value by the cheaper of two
+    routes, V's bf16 being exact in both: P split into three bf16 parts
+    (8 + 8 + 8 bits, its whole significand), three bf16 passes at 989
+    TFLOP/s, or two tf32 passes at 495 TFLOP/s.
+    ops = 2 pairs d / 989 + min(3 x 2 pairs d / 989, 2 x 2 pairs d / 495)."""
     pairs = flash_pairs(s, causal, window) * b * h
-    t_ops = (2.0 * pairs * d / BF16_TFLOPS + 2 * 2.0 * pairs * d / TF32_TFLOPS) * 1e3
+    pv = min(3 * 2.0 * pairs * d / BF16_TFLOPS, 2 * 2.0 * pairs * d / TF32_TFLOPS)
+    t_ops = (2.0 * pairs * d / BF16_TFLOPS + pv) * 1e3
     t_bytes = 2.0 * (2 * b * s * h * d + 2 * b * s * kv * d) / HBM_BPS * 1e3
     return max(t_ops, t_bytes), t_ops, t_bytes
 

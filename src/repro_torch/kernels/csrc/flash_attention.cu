@@ -471,7 +471,6 @@ int run(const void* q, const void* k, const void* v, void* o, int B, int S, int 
 
 // Dynamic shared memory of one block for head dim D (0 if D is not taken).
 extern "C" long long flash_attention_smem_bytes(int D) { return smem_of<float>(D); }
-extern "C" long long flash_attention_smem_bytes_bf16(int D) { return smem_of<__nv_bfloat16>(D); }
 
 // q, o [B, S, H, D]; k, v [B, S, KV, D]; all contiguous float32.
 // window <= 0: no window; softcap <= 0: no softcap.  Returns a cudaError_t.

@@ -39,8 +39,8 @@ even, else 128 positions of one head (``heads_per_block``); it walks the
 ``BLOCK_K``-key tiles in ``kv_tile_range`` and the grid runs the last query
 tiles first (``block_order``).  These functions state the kernel's schedule
 in Python, for the tests; the CUDA source computes the same.  ``LAUNCHES``
-counts the float32 mode's launches and ``LAUNCHES_BF16`` the bf16 mode's
-(``flash_attention_bf16``), each incremented only right after one.
+counts each mode's launches under its own key (``flash_attention``,
+``flash_attention_bf16``), each incremented only right after one.
 """
 from __future__ import annotations
 
@@ -54,7 +54,6 @@ from .ref import flash_attention_ref
 
 __all__ = [
     "LAUNCHES",
-    "LAUNCHES_BF16",
     "MODES",
     "HEAD_DIMS",
     "reset_launches",
@@ -71,24 +70,20 @@ __all__ = [
 ]
 
 NAME = "flash_attention"
-NAME_BF16 = "flash_attention_bf16"
-LAUNCHES: Dict[str, int] = {NAME: 0}            # float32 mode
-LAUNCHES_BF16: Dict[str, int] = {NAME_BF16: 0}  # bf16 mode
-# the kernel's element types: launch counts and key, C entry point, and the
-# C function that gives a block's shared memory
+# the kernel's element types: launch-count key and C entry point
 MODES = {
-    torch.float32: (LAUNCHES, NAME, "flash_attention_f32", "flash_attention_smem_bytes"),
-    torch.bfloat16: (LAUNCHES_BF16, NAME_BF16, "flash_attention_bf16",
-                     "flash_attention_smem_bytes_bf16"),
+    torch.float32: (NAME, "flash_attention_f32"),
+    torch.bfloat16: ("flash_attention_bf16", "flash_attention_bf16"),
 }
+LAUNCHES: Dict[str, int] = {key: 0 for key, _ in MODES.values()}
 HEAD_DIMS = (64, 128, 256)   # the kernel's template instances
 ROWS = 128                   # query rows (head, position) of one kernel block
 BLOCK_K = 32                 # keys of one K/V tile
 
 
 def reset_launches() -> None:
-    LAUNCHES[NAME] = 0
-    LAUNCHES_BF16[NAME_BF16] = 0
+    for key in LAUNCHES:
+        LAUNCHES[key] = 0
 
 
 def check_dtypes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
@@ -159,19 +154,18 @@ def _lib():
 
         lib = load_library(NAME)
         P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        for _, _, entry, smem in MODES.values():
+        for _, entry in MODES.values():
             getattr(lib, entry).argtypes = [P, P, P, P, I, I, I, I, I, I, I, F, F, P]
             getattr(lib, entry).restype = I
-            getattr(lib, smem).argtypes = [I]
-            getattr(lib, smem).restype = ctypes.c_longlong
+        lib.flash_attention_smem_bytes.argtypes = [I]
+        lib.flash_attention_smem_bytes.restype = ctypes.c_longlong
         _LIB = lib
     return _LIB
 
 
-def smem_bytes(head_dim: int, dtype=torch.float32) -> int:
-    """Dynamic shared memory of one kernel block at ``head_dim`` in the
-    mode of ``dtype``."""
-    return int(getattr(_lib(), MODES[dtype][3])(head_dim))
+def smem_bytes(head_dim: int) -> int:
+    """Dynamic shared memory of one float32 kernel block at ``head_dim``."""
+    return int(_lib().flash_attention_smem_bytes(head_dim))
 
 
 def flash_attention_cuda(q, k, v, *, causal: bool = True, window: Optional[int] = None,
@@ -200,7 +194,7 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True, window: Optional[int] 
         raise ValueError(f"softcap must be > 0, got {softcap}")
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     o = torch.empty_like(q)
-    counts, counter, entry, _ = MODES[q.dtype]
+    key, entry = MODES[q.dtype]
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = getattr(_lib(), entry)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
@@ -209,7 +203,7 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True, window: Optional[int] 
     )
     if rc != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: cudaError {rc}")
-    counts[counter] += 1
+    LAUNCHES[key] += 1
     return o
 
 

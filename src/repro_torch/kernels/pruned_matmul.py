@@ -42,11 +42,10 @@ bf16 mode runs every direction through the kernel's generic (register-
 loaded) instance.  The plain version computes bf16 the same way.  float16
 and mixed dtypes are refused by name.
 
-``LAUNCHES`` counts the float32 mode's kernel launches per direction
-(forward, dX, dW) and ``LAUNCHES_BF16`` the bf16 mode's
-(``pruned_matmul_fwd_bf16`` ...); each is incremented only right after its
-kernel was launched (one count per product, the reduce pass of a split
-launch included).
+``LAUNCHES`` counts the kernel launches per direction (forward, dX, dW)
+and mode: ``pruned_matmul_fwd`` ... for float32, ``pruned_matmul_fwd_bf16``
+... for bf16; each is incremented only right after its kernel was launched
+(one count per product, the reduce pass of a split launch included).
 """
 from __future__ import annotations
 
@@ -59,8 +58,6 @@ import torch.nn.functional as F
 
 __all__ = [
     "LAUNCHES",
-    "LAUNCHES_BF16",
-    "BF16_COUNTER",
     "reset_launches",
     "pruned_matmul",
     "pruned_matmul_plain",
@@ -80,16 +77,12 @@ __all__ = [
 ]
 
 FWD, DX, DW = "pruned_matmul_fwd", "pruned_matmul_bwd_dx", "pruned_matmul_bwd_dw"
-LAUNCHES: Dict[str, int] = {FWD: 0, DX: 0, DW: 0}
-# the bf16 mode's counter of each direction
-BF16_COUNTER = {k: f"{k}_bf16" for k in LAUNCHES}
-LAUNCHES_BF16: Dict[str, int] = {v: 0 for v in BF16_COUNTER.values()}
+LAUNCHES: Dict[str, int] = {k + mode: 0 for mode in ("", "_bf16") for k in (FWD, DX, DW)}
 
 
 def reset_launches() -> None:
-    for counts in (LAUNCHES, LAUNCHES_BF16):
-        for k in counts:
-            counts[k] = 0
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
 
 
 def _check_pair(x: torch.Tensor, w: torch.Tensor, kinds) -> None:
@@ -414,7 +407,7 @@ def pruned_matmul_cuda(
                      ("row_mask", row_mask, M)):
         if tuple(t.shape) != (B, n):
             raise ValueError(f"{nm} {tuple(t.shape)} != {(B, n)}")
-    if counter not in LAUNCHES:
+    if counter not in (FWD, DX, DW):
         raise ValueError(f"unknown launch counter {counter!r}")
     if B > 65535 or -(-M // KERNEL_TILE) * -(-N // KERNEL_TILE) >= 2**31:
         raise ValueError(f"B={B}, M={M}, N={N}: the kernel's grid takes B <= 65535 "
@@ -448,10 +441,7 @@ def pruned_matmul_cuda(
     )
     if rc != 0:
         raise RuntimeError(f"pruned_matmul kernel launch failed: cudaError {rc}")
-    if bf16:
-        LAUNCHES_BF16[BF16_COUNTER[counter]] += 1
-    else:
-        LAUNCHES[counter] += 1
+    LAUNCHES[counter + ("_bf16" if bf16 else "")] += 1
     return y
 
 

@@ -25,8 +25,8 @@ casts up at load and down at the store; the plain version does the same.
 Any other dtype, float16 included, and mixed dtypes are refused by name.
 
 A CPU tensor runs the plain version (``ref.rg_lru_ref``); a CUDA tensor
-launches the kernel or raises.  ``LAUNCHES`` counts the float32 mode's
-kernel launches and ``LAUNCHES_BF16`` the bf16 mode's (``rg_lru_scan_bf16``).
+launches the kernel or raises.  ``LAUNCHES`` counts each mode's kernel
+launches under its own key (``rg_lru_scan``, ``rg_lru_scan_bf16``).
 """
 from __future__ import annotations
 
@@ -37,17 +37,15 @@ import torch
 
 from .ref import rg_lru_ref
 
-__all__ = ["LAUNCHES", "LAUNCHES_BF16", "MODES", "CHANNELS", "STAGE_STEPS", "RING_STAGES",
+__all__ = ["LAUNCHES", "MODES", "CHANNELS", "STAGE_STEPS", "RING_STAGES",
            "reset_launches", "ring_schedule", "check_dtypes", "rg_lru_scan", "rg_lru_scan_plain",
            "rg_lru_scan_cuda"]
 
 NAME = "rg_lru_scan"
-NAME_BF16 = "rg_lru_scan_bf16"
-LAUNCHES: Dict[str, int] = {NAME: 0}            # float32 mode
-LAUNCHES_BF16: Dict[str, int] = {NAME_BF16: 0}  # bf16 mode
-# the kernel's element types: launch counts and key, and C entry point
-MODES = {torch.float32: (LAUNCHES, NAME, "rg_lru_scan_f32"),
-         torch.bfloat16: (LAUNCHES_BF16, NAME_BF16, "rg_lru_scan_bf16")}
+# the kernel's element types: launch-count key and C entry point
+MODES = {torch.float32: (NAME, "rg_lru_scan_f32"),
+         torch.bfloat16: ("rg_lru_scan_bf16", "rg_lru_scan_bf16")}
+LAUNCHES: Dict[str, int] = {key: 0 for key, _ in MODES.values()}
 CHANNELS = 64      # channels of one kernel block (one warp, two a lane)
 STAGE_STEPS = 32   # steps of one ring stage
 RING_STAGES = 4    # stages of the ring: 128 steps, 64 KB of a and x a block
@@ -71,8 +69,8 @@ def ring_schedule(s: int) -> List[Tuple[str, int]]:
 
 
 def reset_launches() -> None:
-    LAUNCHES[NAME] = 0
-    LAUNCHES_BF16[NAME_BF16] = 0
+    for key in LAUNCHES:
+        LAUNCHES[key] = 0
 
 
 def check_dtypes(x: torch.Tensor, a: torch.Tensor, h0: Optional[torch.Tensor]) -> None:
@@ -101,7 +99,7 @@ def _lib():
 
         lib = load_library(NAME)
         P, I = ctypes.c_void_p, ctypes.c_int
-        for _, _, entry in MODES.values():
+        for _, entry in MODES.values():
             getattr(lib, entry).argtypes = [P, P, P, P, I, I, I, P]
             getattr(lib, entry).restype = I
         _LIB = lib
@@ -125,13 +123,13 @@ def rg_lru_scan_cuda(x: torch.Tensor, a: torch.Tensor, h0: torch.Tensor) -> torc
         raise ValueError(f"b={b}: the kernel's grid takes b <= 65535")
     x, a, h0 = x.contiguous(), a.contiguous(), h0.float().contiguous()
     out = torch.empty_like(x)
-    counts, counter, entry = MODES[x.dtype]
+    key, entry = MODES[x.dtype]
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = getattr(_lib(), entry)(x.data_ptr(), a.data_ptr(), h0.data_ptr(), out.data_ptr(),
                                 b, s, r, stream)
     if rc != 0:
         raise RuntimeError(f"rg_lru_scan kernel launch failed: cudaError {rc}")
-    counts[counter] += 1
+    LAUNCHES[key] += 1
     return out
 
 

@@ -41,23 +41,19 @@ def dense_init(gen: torch.Generator, in_dim: int, out_shape: Union[int, tuple],
                dtype=torch.float32) -> torch.Tensor:
     """Truncated-normal fan-in init on [-2, 2] times ``scale`` (default
     ``1/sqrt(in_dim)``), shape ``(*lead, in_dim, *out_shape)``; drawn in
-    float32 by inverting the normal CDF on a uniform sample, in place, then
-    cast to ``dtype`` (as the JAX init casts its float32 draw).  A stacked
-    parameter of a narrower dtype is drawn one leading slice at a time, so
-    no float32 copy of a whole stack is held (a bf16 32B model's FFN stack
-    would take 33 GB in float32)."""
+    float32 by inverting the normal CDF on a uniform sample, then cast to
+    ``dtype`` (as the JAX init casts its float32 draw).  A stacked parameter
+    is drawn one leading slice at a time, so no float32 copy of a whole
+    stack is held (a bf16 32B model's FFN stack would take 33 GB in float32)."""
     if scale is None:
         scale = 1.0 / math.sqrt(in_dim)
     shape = _shape(lead, in_dim, out_shape)
-    if lead and dtype != torch.float32:
-        out = torch.empty(shape, dtype=dtype, device=gen.device)
-        for i in range(shape[0]):
-            out[i] = dense_init(gen, in_dim, out_shape, scale, lead[1:], dtype)
-        return out
-    t = torch.empty(shape, dtype=torch.float32, device=gen.device)
-    t.uniform_(_PHI_M2, 1.0 - _PHI_M2, generator=gen)
-    t.mul_(2.0).sub_(1.0).erfinv_().mul_(_SQRT2).clamp_(-2.0, 2.0).mul_(scale)
-    return t.to(dtype)
+    out = torch.empty(shape, dtype=dtype, device=gen.device)
+    for sl in out.view(-1, *shape[len(lead):]):
+        t = torch.empty(sl.shape, dtype=torch.float32, device=gen.device)
+        t.uniform_(_PHI_M2, 1.0 - _PHI_M2, generator=gen)
+        sl.copy_(t.mul_(2.0).sub_(1.0).erfinv_().mul_(_SQRT2).clamp_(-2.0, 2.0).mul_(scale))
+    return out
 
 
 def normal_init(gen: torch.Generator, shape: Sequence[int], std: float,

@@ -354,8 +354,7 @@ def test_bf16_serve_batch_launches_nothing_on_the_cpu_and_restores_flags():
         TT.prefill = real
         matmul.allow_bf16_reduced_precision_reduction = saved
     assert tuple(gen.shape) == (2, 3)
-    assert not any(v for m in (fa_mod, rg_mod) for d in (m.LAUNCHES, m.LAUNCHES_BF16) for v in d.values())
-    assert not any(pm_mod.LAUNCHES_BF16.values())
+    assert not any(v for m in (fa_mod, rg_mod, pm_mod) for v in m.LAUNCHES.values())
 
 
 # ---------------------------------------------------------------------------
@@ -382,8 +381,8 @@ def test_cuda_bf16_pruned_matmul_matches_plain(card, M, K, N, keep_k, keep_n):
     y = y.detach()
     ref = pruned_matmul_plain(tx.detach(), tw.detach(), *masks)
     torch.cuda.synchronize()
-    assert pm_mod.LAUNCHES_BF16 == {v: 1 for v in pm_mod.BF16_COUNTER.values()}
-    assert not any(pm_mod.LAUNCHES.values())
+    assert pm_mod.LAUNCHES == {k + mode: int(mode == "_bf16") for mode in ("", "_bf16")
+                               for k in (pm_mod.FWD, pm_mod.DX, pm_mod.DW)}
     assert y.dtype == tx.grad.dtype == tw.grad.dtype == torch.bfloat16
     err = float((y.float() - ref.float()).abs().max()) / max(float(ref.float().abs().max()), 1e-30)
     assert err <= PM_TOL
@@ -405,7 +404,7 @@ def test_cuda_bf16_flash_matches_plain(card, b, s, h, kv, d, kw):
     out = flash_attention(q, k, v, **kw)
     ref = flash_attention_plain(q, k, v, **kw)
     torch.cuda.synchronize()
-    assert fa_mod.LAUNCHES_BF16["flash_attention_bf16"] == 1 and fa_mod.LAUNCHES["flash_attention"] == 0
+    assert fa_mod.LAUNCHES == {"flash_attention": 0, "flash_attention_bf16": 1}
     assert out.dtype == torch.bfloat16
     torch.testing.assert_close(out.float(), ref.float(), atol=FLASH_TOL, rtol=FLASH_TOL)
 
@@ -420,5 +419,5 @@ def test_cuda_bf16_scan_bit_identical_to_plain(card, b, s, r):
     out = rg_lru_scan(x, a)
     ref = rg_lru_scan_plain(x, a)
     torch.cuda.synchronize()
-    assert rg_mod.LAUNCHES_BF16["rg_lru_scan_bf16"] == 1 and rg_mod.LAUNCHES["rg_lru_scan"] == 0
+    assert rg_mod.LAUNCHES == {"rg_lru_scan": 0, "rg_lru_scan_bf16": 1}
     assert torch.equal(out, ref)

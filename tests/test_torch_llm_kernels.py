@@ -168,8 +168,8 @@ def test_cpu_tensors_take_the_plain_versions_and_launch_nothing():
     x, a, h0 = _scan_inputs(1, b=2, s=16, r=8)
     torch.testing.assert_close(rg_lru_scan(_t(x), _t(a), _t(h0)), rg_lru_ref(_t(x), _t(a), _t(h0)),
                                rtol=0, atol=0)
-    assert fa_mod.LAUNCHES == {"flash_attention": 0}
-    assert rg_mod.LAUNCHES == {"rg_lru_scan": 0}
+    assert fa_mod.LAUNCHES == {"flash_attention": 0, "flash_attention_bf16": 0}
+    assert rg_mod.LAUNCHES == {"rg_lru_scan": 0, "rg_lru_scan_bf16": 0}
 
 
 def test_other_devices_are_refused():
