@@ -317,6 +317,15 @@ dry-run's ``ModelConfig.dtype="bfloat16"``:
                    pruned_matmul), the plain version, the library call
                    (``torch.matmul`` on bf16 pre-masked operands, SDPA in
                    bf16; none for the scan) and the bound at bf16 width.
+                   Since slice 14 (the bf16 tensor-core instances) also:
+                   pruned_matmul timed at retention 0.5 as at 1.0, per layer
+                   and direction (ms, device ms of a CUDA-graph replay,
+                   library, bound, split, instance) in the JSON file; phase
+                   ``kernel``'s block sizes (64, 64, 64), (256, 128, 64),
+                   (64, 128, 128), ragged split-K, dead rows and stride-0
+                   cases in bf16 (widths multiples of 8), so that every
+                   built bf16 instance runs (checked); two launches of split
+                   bf16 calls bit-identical.
 33. bf16_serve   — ``serve_batch`` at dtype bfloat16, batch 2, prompt 3072,
                    32 new tokens, recurrentgemma-9b at full size and
                    qwen3-32b at its full 64 layers: prefill s and tok/s,
@@ -494,6 +503,26 @@ def time_ms(fn, iters: int = 5, warm: int = 2) -> float:
     e.record()
     e.synchronize()
     return s.elapsed_time(e) / iters
+
+
+def graph_ms(fn, iters: int = 20) -> float:
+    """Device ms of one call of ``fn``: the call captured once in a CUDA
+    graph and replayed, so that the host's work per call (the wrapper's
+    checks and plan, the launch) is out of the reading; ``time_ms`` keeps it
+    in."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    ms = time_ms(graph.replay, iters=iters)
+    del graph
+    return ms
 
 
 def live_extent(mask: np.ndarray, block: int) -> int:
@@ -832,13 +861,13 @@ def phase_kernel(report):
 def _plans(x, w, blocks):
     """``launch_plan`` of the forward, dX and dW launches of one case, on
     the operands as ``pruned_matmul`` hands them to the kernel (the upstream
-    gradient contiguous, as in ``_compare``)."""
+    gradient contiguous and in x's dtype, as in ``_compare``)."""
     import torch
     from repro_torch.kernels.pruned_matmul import _batched, launch_plan
 
     B = max(x.shape[0] if x.dim() == 3 else 1, w.shape[0] if w.dim() == 3 else 1)
     x3, w3 = _batched(x, 3, B), _batched(w, 3, B)
-    g = torch.empty((B, x3.shape[1], w3.shape[2]), device=x.device)
+    g = torch.empty((B, x3.shape[1], w3.shape[2]), device=x.device, dtype=x.dtype)
     bm, bn, bk = blocks
     plans = {"fwd": launch_plan(x3, w3, (bm, bn, bk)),
              "dx": launch_plan(g, w3.transpose(1, 2), (bm, bk, bn)),
@@ -847,22 +876,23 @@ def _plans(x, w, blocks):
             for k, v in plans.items()}
 
 
-def _determinism(gen):
+def _determinism(gen, dtype=None):
     """Forward, dX and dW launched twice on the same inputs must give
     bit-identical outputs (split-K sums its slices in a fixed order, no
     atomics).  Three shapes, each split in one direction: conv10's
     forward (M = 128 rows per worker), its dX with the widths swapped, and a
-    thin, deep dW."""
+    thin, deep dW; operands float32, or ``dtype``."""
     import torch
     from repro_torch.kernels.pruned_matmul import pruned_matmul
 
+    dt = dtype or torch.float32
     out = []
     for B, M, K, N in [(10, 128, 4608, 512), (10, 128, 512, 4608), (10, 4096, 64, 576)]:
-        x = torch.randn(B, M, K, generator=gen, device=DEVICE).requires_grad_(True)
-        w = (torch.randn(B, K, N, generator=gen, device=DEVICE) / float(np.sqrt(K))).requires_grad_(True)
+        x = torch.randn(B, M, K, generator=gen, device=DEVICE).to(dt).requires_grad_(True)
+        w = (torch.randn(B, K, N, generator=gen, device=DEVICE) / float(np.sqrt(K))).to(dt).requires_grad_(True)
         im = (torch.rand(B, K, generator=gen, device=DEVICE) < 0.7).float()
         om = (torch.rand(B, N, generator=gen, device=DEVICE) < 0.7).float()
-        gy = torch.randn(B, M, N, generator=gen, device=DEVICE)
+        gy = torch.randn(B, M, N, generator=gen, device=DEVICE).to(dt)
         runs = []
         for _ in range(2):
             y = pruned_matmul(x, w, im, om)
@@ -1161,6 +1191,7 @@ def ptxas_entries(log: str):
 
 
 def phase_llm_build(report):
+    import torch
     from repro_torch.kernels import build
     from repro_torch.kernels.flash_attention import HEAD_DIMS, smem_bytes
 
@@ -1169,6 +1200,8 @@ def phase_llm_build(report):
         entries = ptxas_entries(build.PTXAS_LOG.get(name, ""))
         rec[name] = {"nvcc_seconds": build.BUILD_SECONDS.get(name), "entries": entries}
     rec["flash_attention"]["dynamic_smem_bytes"] = {d: smem_bytes(d) for d in HEAD_DIMS}
+    rec["flash_attention"]["dynamic_smem_bytes_bf16"] = {d: smem_bytes(d, torch.bfloat16)
+                                                         for d in HEAD_DIMS}
     emit(rec)
     report["llm_build"] = rec
     for name in ("flash_attention", "rg_lru_scan"):
@@ -4146,12 +4179,13 @@ def bf16_pm_bound(B, M, K, N, row, inm, outm, blocks):
     return max(t_ops, t_bytes), t_ops, t_bytes
 
 
-def _bf16_pm(gen, keep, timed):
+def _bf16_pm(gen, keep):
     """The bf16 forward, dX and dW of every VGG16_CIFAR product (10 workers
     x 32 images) at prefix retention ``keep``, each against the plain
-    version; with ``timed``, also the per-step ms of the kernel, the plain
-    version and ``torch.matmul`` on the pre-masked bf16 operands, beside
-    the bound."""
+    version, and the per-step ms of the kernel, the plain version and
+    ``torch.matmul`` on the pre-masked bf16 operands beside the bound (the
+    kernel's and the library's also as device ms, ``graph_ms``); per layer
+    and direction also the ms, split S and instance."""
     import torch
     from repro_torch.kernels.pruned_matmul import (
         DW, DX, FWD, keep_info, launch_plan, pruned_matmul_cuda, pruned_matmul_plain,
@@ -4164,8 +4198,10 @@ def _bf16_pm(gen, keep, timed):
     bf = torch.bfloat16
     tot = {f"{k}_bf16": {"products": 0, "instances": set(), "max_abs_err": 0.0, "max_rel_err": 0.0,
                          "max_ulps": 0.0, "pruned_max": 0.0,
-                         "ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0,
+                         "ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "device_ms": 0.0,
+                         "library_device_ms": 0.0, "bound_ms": 0.0,
                          "ops_ms": 0.0, "bytes_ms": 0.0} for k in (FWD, DX, DW)}
+    lrecs = []
     for li, (name, mpi, K, N, cin, taps, in_l, out_l) in enumerate(vgg16_layers()):
         M = batch * mpi
         im_np, om_np = wiring_masks(K, N, cin, taps, in_l, out_l, keep)
@@ -4181,6 +4217,7 @@ def _bf16_pm(gen, keep, timed):
             DX: ((g, wT, om, im, rm), (bm, bk, bn), (k_row, k_in, k_out), (M, N, K, rm_np, om_np, im_np)),
             DW: ((xT, g, rm, om, im), (bk, bn, bm), (k_in, k_out, k_row), (K, M, N, im_np, rm_np, om_np)),
         }
+        lrec = {"layer": name, "M": M, "K": K, "N": N}
         for kname, (args, blk, keeps, geo) in runs.items():
             if kname == DX and li == 0:
                 continue   # the image input takes no gradient on the main path
@@ -4191,31 +4228,121 @@ def _bf16_pm(gen, keep, timed):
             t = tot[f"{kname}_bf16"]
             check(y.dtype == bf, f"bf16 {kname} {name}: output {y.dtype}")
             err = float((y.float() - ref.float()).abs().max())
+            plan = launch_plan(a, b_, blk)
             t["products"] += 1
-            t["instances"].add(launch_plan(a, b_, blk).instance + ",bf16")
+            t["instances"].add(plan.instance + ",bf16")
             t["max_abs_err"] = max(t["max_abs_err"], err)
             t["max_rel_err"] = max(t["max_rel_err"], err / float(ref.float().abs().max()))
             t["max_ulps"] = max(t["max_ulps"], bf16_ulps(y, ref))
             dead = (out_m[:, None, :] == 0) | (row_m[:, :, None] == 0)
             if bool(dead.any()):
                 t["pruned_max"] = max(t["pruned_max"], float(y.float().abs().masked_select(dead).max()))
-            if timed:
-                Mo, Kc, No, rmask, imask, omask = geo
-                b_ms, t_ops, t_bytes = bf16_pm_bound(W, Mo, Kc, No, rmask, imask, omask, blk)
-                am = a * in_m.unsqueeze(1).to(bf)
-                t["ms"] += time_ms(lambda: pruned_matmul_cuda(*args, blk, keeps, kname))
-                t["plain_ms"] += time_ms(lambda: pruned_matmul_plain(*args))
-                t["library_ms"] += time_ms(lambda: torch.matmul(am, b_))
-                t["bound_ms"] += b_ms
-                t["ops_ms"] += t_ops
-                t["bytes_ms"] += t_bytes
-                del am
-            del y, ref
+            Mo, Kc, No, rmask, imask, omask = geo
+            b_ms, t_ops, t_bytes = bf16_pm_bound(W, Mo, Kc, No, rmask, imask, omask, blk)
+            am = a * in_m.unsqueeze(1).to(bf)
+            kern = lambda: pruned_matmul_cuda(*args, blk, keeps, kname)
+            lib = lambda: torch.matmul(am, b_)
+            r = {"ms": time_ms(kern), "plain_ms": time_ms(lambda: pruned_matmul_plain(*args)),
+                 "library_ms": time_ms(lib), "device_ms": graph_ms(kern),
+                 "library_device_ms": graph_ms(lib),
+                 "bound_ms": b_ms, "ops_ms": t_ops, "bytes_ms": t_bytes}
+            for f, v in r.items():
+                t[f] += v
+            lrec[kname] = {**r, "split": plan.split, "instance": plan.instance + ",bf16"}
+            del am, y, ref
+        lrecs.append(lrec)
         del x, w, g, xT, wT
     torch.cuda.empty_cache()
     for t in tot.values():
         t["instances"] = sorted(t["instances"])
-    return tot
+    return tot, lrecs
+
+
+def _bf16_compare(x, w, im, om, rm, blocks, gen):
+    """``pruned_matmul`` forward, dX and dW (through the autograd rule) on
+    bf16 operands against the plain version on the same inputs, the
+    upstream gradients bf16 and O(1) as in ``_compare``: err / max|plain|
+    and bf16 ulps per direction, and the largest value on a pruned unit."""
+    import torch
+    from repro_torch.kernels.pruned_matmul import pruned_matmul, pruned_matmul_plain
+
+    bf = torch.bfloat16
+    x = x.to(bf).detach().requires_grad_(True)
+    w = w.to(bf).detach().requires_grad_(True)
+    y = pruned_matmul(x, w, im, om, rm, block_m=blocks[0], block_n=blocks[1], block_k=blocks[2])
+    gy = torch.randn(y.shape, generator=gen, device=y.device).to(bf)
+    gyw = (gy.float() / float(np.sqrt(x.shape[-2]))).to(bf)
+    gx, gw = _grads(y, x, w, gy, gyw)
+    yr = pruned_matmul_plain(x, w, im, om, rm)
+    rx, rw = _grads(yr, x, w, gy, gyw)
+    torch.cuda.synchronize()
+    rel, ulps = {}, {}
+    for nm, a, b in (("fwd", y, yr), ("dx", gx, rx), ("dw", gw, rw)):
+        top = float(b.detach().float().abs().max())
+        err = float((a.detach().float() - b.detach().float()).abs().max())
+        rel[nm] = err / top if top > 0 else float("inf")
+        ulps[nm] = bf16_ulps(a.detach(), b.detach())
+    imb, omb, rmb = im.bool(), om.bool(), rm.bool()
+
+    def pruned_max(t, keep):
+        sel = t.detach().float().abs().masked_select(~keep.expand_as(t))
+        return float(sel.max()) if sel.numel() else 0.0
+
+    zeros = max(pruned_max(y, omb.unsqueeze(-2)), pruned_max(y, rmb.unsqueeze(-1)),
+                pruned_max(gx, imb.unsqueeze(-2)), pruned_max(gw, imb.unsqueeze(-1)),
+                pruned_max(gw, omb.unsqueeze(-2)))
+    return rel, ulps, zeros
+
+
+def _bf16_pm_cases(gen):
+    """The bf16 counterparts of phase ``kernel``'s cases that the VGG16
+    products at blocks (128, 128, 128) do not reach: blocks (64, 64, 64),
+    (256, 128, 64) and (64, 128, 128) with per-row masks (the 64-wide tiles
+    of every layout; widths multiples of 8, the bf16 copies' grain), ragged
+    split-K on the generic instance (K = 4 099) and on the aligned one (K =
+    4 104, an 8-row last block), rows whose every K block is dead, and
+    stride-0 shared operands.  Each case's forward, dX and dW with their
+    launch plans."""
+    import torch
+
+    dev = torch.device(DEVICE)
+    rng = np.random.default_rng(24)
+    T = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=dev)
+    cases = []
+
+    def add(name, x, w, im, om, rm, blocks=(128, 128, 128)):
+        rel, ulps, zeros = _bf16_compare(x, w, im, om, rm, blocks, gen)
+        cases.append({"case": name, "rel_err": rel, "ulps": ulps, "pruned_max": zeros,
+                      "plans": _plans(x.to(torch.bfloat16), w.to(torch.bfloat16), blocks)})
+        torch.cuda.empty_cache()
+
+    B, M, K, N = 3, 296, 640, 264
+    for blocks in [(64, 64, 64), (256, 128, 64), (64, 128, 128)]:
+        ims = (rng.random((B, K)) < np.array([[0.9], [0.4], [0.1]])).astype(np.float32)
+        oms = (rng.random((B, N)) < np.array([[0.2], [0.6], [0.9]])).astype(np.float32)
+        rms = (rng.random((B, M)) < 0.7).astype(np.float32)
+        add(f"blocks{blocks}({B},{M},{K},{N})", torch.randn(B, M, K, generator=gen, device=dev),
+            torch.randn(B, K, N, generator=gen, device=dev) / float(np.sqrt(K)),
+            T(ims), T(oms), T(rms), blocks)
+    for B, M, K, N in [(2, 100, 4099, 70), (2, 96, 4104, 136)]:
+        ims = (rng.random((B, K)) < 0.8).astype(np.float32)
+        oms = (rng.random((B, N)) < 0.8).astype(np.float32)
+        ims[:, -1] = 1.0
+        add(f"ragged_split({B},{M},{K},{N})", torch.randn(B, M, K, generator=gen, device=dev),
+            torch.randn(B, K, N, generator=gen, device=dev) / float(np.sqrt(K)), T(ims), T(oms),
+            torch.ones(B, M, device=dev))
+    B, M, K, N = 4, 200, 1000, 304
+    ims, oms, rms = np.ones((B, K), np.float32), np.ones((B, N), np.float32), np.ones((B, M), np.float32)
+    ims[1], oms[2], rms[3] = 0.0, 0.0, 0.0
+    add(f"dead_rows({B},{M},{K},{N})", torch.randn(B, M, K, generator=gen, device=dev),
+        torch.randn(B, K, N, generator=gen, device=dev) / float(np.sqrt(K)), T(ims), T(oms), T(rms))
+    B, M, K, N = 3, 256, 576, 192
+    im1, om1, rm1 = T(prefix(K, 0.5)), T(prefix(N, 0.75)), torch.ones(M, device=dev)
+    add(f"shared_w({B},{M},{K},{N})", torch.randn(B, M, K, generator=gen, device=dev),
+        torch.randn(K, N, generator=gen, device=dev) / float(np.sqrt(K)), im1, om1, rm1)
+    add(f"shared_x({B},{M},{K},{N})", torch.randn(M, K, generator=gen, device=dev),
+        torch.randn(B, K, N, generator=gen, device=dev) / float(np.sqrt(K)), im1, om1, rm1)
+    return cases
 
 
 def _bf16_cases():
@@ -4268,10 +4395,23 @@ def phase_bf16_kernel(report):
     bf = torch.bfloat16
     rec = {"phase": "bf16_kernel"}
     with serve_numerics():     # the library matmul reduces bf16 in float32
-        pm = {keep: _bf16_pm(gen, keep, timed=keep == 1.0) for keep in (1.0, 0.5)}
-    rec["pruned_matmul"] = {k: {**pm[1.0][k], **{f"{f}_at_0.5": pm[0.5][k][f] for f in
-                                                  ("max_abs_err", "max_rel_err", "max_ulps", "pruned_max")}}
-                            for k in pm[1.0]}
+        pm = {keep: _bf16_pm(gen, keep) for keep in (1.0, 0.5)}
+    rec["pruned_matmul"] = {k: {**pm[1.0][0][k], **{f"{f}_at_0.5": pm[0.5][0][k][f] for f in
+                                                     ("max_abs_err", "max_rel_err", "max_ulps", "pruned_max",
+                                                      "ms", "plain_ms", "library_ms", "device_ms",
+                                                      "library_device_ms", "bound_ms", "ops_ms",
+                                                      "bytes_ms", "instances")}}
+                            for k in pm[1.0][0]}
+    pm_cases = _bf16_pm_cases(gen)
+    rec["pruned_matmul_cases"] = {
+        "cases": len(pm_cases),
+        "max_rel_err": {d: max(c["rel_err"][d] for c in pm_cases) for d in ("fwd", "dx", "dw")},
+        "max_ulps": {d: max(c["ulps"][d] for c in pm_cases) for d in ("fwd", "dx", "dw")},
+        "pruned_max": max(c["pruned_max"] for c in pm_cases),
+        "instances": sorted({f"{pl['instance']},bf16,S{'>1' if pl['split'] > 1 else '=1'}"
+                             for c in pm_cases for pl in c["plans"].values()})}
+    determinism = _determinism(gen, torch.bfloat16)
+    rec["pruned_matmul_deterministic"] = determinism
     flash = []
     for arch, b, s, h, kv, d, kw in _bf16_cases():
         q, k, v = (t.to(bf) for t in _qkv(gen, b, s, h, kv, d))
@@ -4320,16 +4460,23 @@ def phase_bf16_kernel(report):
     rec["rg_lru_scan_bf16"] = scans
     rec["seconds"] = time.perf_counter() - t0
     emit(rec)
-    report["bf16_kernel"] = rec
+    report["bf16_kernel"] = {**rec, "pruned_matmul_layers": {str(k): v[1] for k, v in pm.items()},
+                             "pruned_matmul_case_detail": pm_cases}
     for k, t in rec["pruned_matmul"].items():
         check(t["max_rel_err"] <= BF16_PM_TOL and t["max_rel_err_at_0.5"] <= BF16_PM_TOL,
               f"bf16 {k}: err / max|plain| {t['max_rel_err']}, {t['max_rel_err_at_0.5']} > {BF16_PM_TOL}")
         check(t["pruned_max"] == 0.0 and t["pruned_max_at_0.5"] == 0.0, f"bf16 {k}: a pruned unit is not 0")
         check(t["products"] == (13 if k.startswith("pruned_matmul_bwd_dx") else 14),
               f"bf16 {k}: {t['products']} products")
+    bad = [c for c in pm_cases if not (max(c["rel_err"].values()) <= BF16_PM_TOL and c["pruned_max"] == 0.0)]
+    check(not bad, "bf16 pruned_matmul cases beyond the bar or with a pruned unit not 0: " + json.dumps(bad))
     built = {n[len("pm_kernel<"):-1] for n in instance_info() if n.endswith(",bf16>")}
-    ran = {i for t in rec["pruned_matmul"].values() for i in t["instances"]}
+    ran = ({i for t in rec["pruned_matmul"].values() for i in t["instances"]}
+           | {f"{pl['instance']},bf16" for c in pm_cases for pl in c["plans"].values()})
     check(built == ran, f"bf16 instances built {sorted(built)}, run {sorted(ran)}")
+    check(all(d["bit_identical"] for d in determinism), "two bf16 launches differ: " + json.dumps(determinism))
+    check(all(any(d["plans"][k]["split"] > 1 for d in determinism) for k in ("fwd", "dx", "dw")),
+          "the bf16 determinism check ran no split launch in some direction")
     bad = [c for c in flash if not (c["dtype"] == "torch.bfloat16" and c["rel_err"] <= BF16_FLASH_TOL)]
     check(not bad, "bf16 flash disagrees with its plain version: " + json.dumps(bad))
     check(all(c["bit_identical"] and c["dtype"] == "torch.bfloat16" for c in scans),
@@ -4576,6 +4723,9 @@ def main() -> int:
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": "operations" if t["ops_ms"] >= t["bytes_ms"] else "bytes",
             "library_ms": t["library_ms"],
+            "device_ms": t["device_ms"], "library_device_ms": t["library_device_ms"],
+            "at_0.5": {f: t[f"{f}_at_0.5"] for f in ("ms", "device_ms", "library_ms",
+                                                     "library_device_ms", "bound_ms")},
             "shapes": "one training step's products in bf16, VGG16_CIFAR, 10 workers x 32 images, "
                       "retention 1.0 (held off the main path)",
         })

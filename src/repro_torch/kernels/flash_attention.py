@@ -22,25 +22,28 @@ key would average ``v`` under the references and come out 0 from the
 kernel; the model never builds one.)
 
 Both modes of the Pallas kernel are ported: q, k, v all float32, or all
-bfloat16.  In bf16 each element is read as float32, scores, softmax, P and
-the accumulators stay float32, and the output is rounded to bf16 once (the
-Pallas kernel's upcast at load and cast at the store); the plain version
-does the same.  Any other dtype, float16 included, and mixed dtypes are
-refused by name.
+bfloat16.  In bf16 scores, softmax, P and the accumulators stay float32,
+and the output is rounded to bf16 once (the Pallas kernel's upcast at load
+and cast at the store); the plain version does the same.  Any other dtype,
+float16 included, and mixed dtypes are refused by name.
 
 A CPU tensor runs the plain version (``flash_attention_plain``: repeat K/V,
 then ``ref.flash_attention_ref``); a CUDA tensor launches
 ``csrc/flash_attention.cu`` (head dims 64, 128, 256) or raises.
-The kernel runs both products on the tensor cores in 3xTF32 (each operand
-split into two tf32 halves, three products summed in FP32), which keeps
-it within the FP32 bar where one TF32 pass would not.  One block owns ``ROWS`` = 128 query rows that share their
+In float32 the kernel runs both products on the tensor cores in 3xTF32
+(each operand split into two tf32 halves, three products summed in FP32),
+which keeps it within the FP32 bar where one TF32 pass would not.  In bf16
+Q K^T is one bf16 tensor-core pass (a product of two bf16 values is exact
+in float32), and P V three: P split into three bf16 parts that sum to its
+float32 value.  One block owns ``ROWS`` = 128 query rows that share their
 K/V tiles: two query heads of one kv head at 64 positions when ``h / kv`` is
 even, else 128 positions of one head (``heads_per_block``); it walks the
-``BLOCK_K``-key tiles in ``kv_tile_range`` and the grid runs the last query
-tiles first (``block_order``).  These functions state the kernel's schedule
-in Python, for the tests; the CUDA source computes the same.  ``LAUNCHES``
-counts each mode's launches under its own key (``flash_attention``,
-``flash_attention_bf16``), each incremented only right after one.
+``BLOCK_K[dtype]``-key tiles in ``kv_tile_range`` (32 keys in float32, 64 in
+bf16) and the grid runs the last query tiles first (``block_order``).  These
+functions state the kernel's schedule in Python, for the tests; the CUDA
+source computes the same.  ``LAUNCHES`` counts each mode's launches under
+its own key (``flash_attention``, ``flash_attention_bf16``), each
+incremented only right after one.
 """
 from __future__ import annotations
 
@@ -78,7 +81,8 @@ MODES = {
 LAUNCHES: Dict[str, int] = {key: 0 for key, _ in MODES.values()}
 HEAD_DIMS = (64, 128, 256)   # the kernel's template instances
 ROWS = 128                   # query rows (head, position) of one kernel block
-BLOCK_K = 32                 # keys of one K/V tile
+# keys of one K/V tile, per mode
+BLOCK_K = {torch.float32: 32, torch.bfloat16: 64}
 
 
 def reset_launches() -> None:
@@ -130,7 +134,7 @@ def block_order(b: int, s: int, h: int, kv: int, rows: int = ROWS):
 
 
 def kv_tile_range(p0: int, positions: int, s: int, causal: bool, window: Optional[int],
-                  block_k: int = BLOCK_K):
+                  block_k: int):
     """``[begin, end)`` of the K/V tiles that a block of query positions
     ``p0 .. p0 + positions - 1`` walks: none wholly above the causal diagonal
     of its newest row, none wholly out of the window of its oldest."""
@@ -157,15 +161,18 @@ def _lib():
         for _, entry in MODES.values():
             getattr(lib, entry).argtypes = [P, P, P, P, I, I, I, I, I, I, I, F, F, P]
             getattr(lib, entry).restype = I
-        lib.flash_attention_smem_bytes.argtypes = [I]
+        lib.flash_attention_smem_bytes.argtypes = [I, I]
         lib.flash_attention_smem_bytes.restype = ctypes.c_longlong
         _LIB = lib
     return _LIB
 
 
-def smem_bytes(head_dim: int) -> int:
-    """Dynamic shared memory of one float32 kernel block at ``head_dim``."""
-    return int(_lib().flash_attention_smem_bytes(head_dim))
+def smem_bytes(head_dim: int, dtype: torch.dtype = torch.float32) -> int:
+    """Dynamic shared memory of one kernel block of mode ``dtype`` at
+    ``head_dim``."""
+    if dtype not in MODES:
+        raise ValueError(f"flash_attention: no {dtype} mode")
+    return int(_lib().flash_attention_smem_bytes(head_dim, int(dtype == torch.bfloat16)))
 
 
 def flash_attention_cuda(q, k, v, *, causal: bool = True, window: Optional[int] = None,

@@ -33,14 +33,16 @@ kernel's rule for which live blocks each slice walks, and
 torch (partials per slice, summed in slice order).
 
 Both input modes of the Pallas kernel are ported: ``x`` and ``w`` float32,
-or both bfloat16 (masks float32 either way).  In bf16 each element is read
-as float32, products, accumulators and the split-K workspace stay float32,
-and ``y`` is rounded to bf16 once (the Pallas ``_finish`` casts its float32
-accumulator to ``x.dtype``); the backward pass casts the cotangent to
-``x.dtype`` and runs dX and dW in the same mode, as ``_pm_bwd`` does.  The
-bf16 mode runs every direction through the kernel's generic (register-
-loaded) instance.  The plain version computes bf16 the same way.  float16
-and mixed dtypes are refused by name.
+or both bfloat16 (masks float32 either way).  In bf16 the products run on
+the tensor cores (a product of two bf16 values is exact in float32), the
+accumulators and the split-K workspace stay float32, and ``y`` is rounded to
+bf16 once (the Pallas ``_finish`` casts its float32 accumulator to
+``x.dtype``); the backward pass casts the cotangent to ``x.dtype`` and runs
+dX and dW in the same mode, as ``_pm_bwd`` does.  Each mode has its own
+instance per tile and layout, picked by the same rule on 16-byte copies (4
+float32 or 8 bf16 elements).  The plain version computes bf16 as upcast
+operands in float32, rounded once.  float16 and mixed dtypes are refused by
+name.
 
 ``LAUNCHES`` counts the kernel launches per direction (forward, dX, dW)
 and mode: ``pruned_matmul_fwd`` ... for float32, ``pruned_matmul_fwd_bf16``
@@ -50,6 +52,7 @@ and mode: ``pruned_matmul_fwd`` ... for float32, ``pruned_matmul_fwd_bf16``
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -281,24 +284,25 @@ def slice_bounds(k_count: torch.Tensor, split: int) -> torch.Tensor:
     return torch.stack([edges[:, :-1], edges[:, 1:]], dim=-1)
 
 
-def _aligned(t: torch.Tensor, fast: int, extent: int) -> bool:
+def _aligned(strides: Tuple[int, ...], fast: int, extent: int, per_copy: int,
+             ptr_ok: bool) -> bool:
     """Unit stride on dim ``fast``, the other strides and the extent along
-    ``fast`` multiples of 4 floats, a 16-byte aligned pointer: the
-    kernel's 16-byte cp.async copies are legal.  Stride 0 (a shared
-    operand) counts as a multiple of 4."""
-    others = [t.stride(d) for d in range(t.dim()) if d != fast]
-    return (t.stride(fast) == 1 and all(st % 4 == 0 for st in others)
-            and extent % 4 == 0 and t.data_ptr() % 16 == 0)
+    ``fast`` multiples of one 16-byte copy (``per_copy``: 4 float32 or 8
+    bf16 elements), a 16-byte aligned pointer: the kernel's 16-byte
+    cp.async copies are legal.  Stride 0 (a shared operand) counts as a
+    multiple."""
+    others = [st for d, st in enumerate(strides) if d != fast]
+    return (strides[fast] == 1 and all(st % per_copy == 0 for st in others)
+            and extent % per_copy == 0 and ptr_ok)
 
 
-def _layout(x: torch.Tensor, w: torch.Tensor) -> int:
-    """The template instance for these operand strides: forward (x k-fast,
-    w n-fast), dX (x k-fast, w = w'^T k-fast), dW (x = x'^T m-fast, w
-    n-fast), else the generic-stride one."""
-    _, M, K = x.shape
-    N = w.shape[2]
-    a_k, a_m = _aligned(x, 2, K), _aligned(x, 1, M)
-    b_n, b_k = _aligned(w, 2, N), _aligned(w, 1, K)
+def _layout(M: int, K: int, N: int, xs: Tuple[int, ...], ws: Tuple[int, ...], per_copy: int,
+            x_ok: bool, w_ok: bool) -> int:
+    """The template instance for these operand strides, in either mode:
+    forward (x k-fast, w n-fast), dX (x k-fast, w = w'^T k-fast), dW
+    (x = x'^T m-fast, w n-fast), else the generic-stride one."""
+    a_k, a_m = _aligned(xs, 2, K, per_copy, x_ok), _aligned(xs, 1, M, per_copy, x_ok)
+    b_n, b_k = _aligned(ws, 2, N, per_copy, w_ok), _aligned(ws, 1, K, per_copy, w_ok)
     if a_k and b_n:
         return L_FWD
     if a_k and b_k:
@@ -318,20 +322,28 @@ def _sm_count(dev: torch.device) -> int:
     return _SMS[idx]
 
 
+@functools.lru_cache(maxsize=4096)
+def _plan(B: int, M: int, K: int, N: int, xs: Tuple[int, ...], ws: Tuple[int, ...],
+          per_copy: int, x_ok: bool, w_ok: bool, blocks: Tuple[int, int, int],
+          sms: int) -> LaunchPlan:
+    bm, bn, _ = blocks
+    tm, tn = tile_shape(M, N, bm, bn)
+    S = split_factor(B, M, N, K, blocks, sms)
+    ws_bytes = 4 * S * B * M * N if S > 1 else 0
+    return LaunchPlan(_layout(M, K, N, xs, ws, per_copy, x_ok, w_ok), tm, tn, S, ws_bytes)
+
+
 def launch_plan(x: torch.Tensor, w: torch.Tensor, blocks: Tuple[int, int, int],
                 sms: Optional[int] = None) -> LaunchPlan:
     """Instance, tile and split of one launch on ``x [B, M, K]``,
     ``w [B, K, N]`` at this orientation's ``blocks``; ``sms`` defaults to
-    the SM count of the operands' card."""
+    the SM count of the operands' card.  A function of shapes, strides,
+    element size and pointer alignment only, so it is cached on them (a
+    training step asks for the same few dozen plans every step)."""
     B, M, K = x.shape
-    N = w.shape[2]
-    bm, bn, _ = blocks
-    tm, tn = tile_shape(M, N, bm, bn)
-    S = split_factor(B, M, N, K, blocks, _sm_count(x.device) if sms is None else sms)
-    ws = 4 * S * B * M * N if S > 1 else 0
-    # bf16 operands run the generic instance (its register loads convert)
-    layout = _layout(x, w) if x.dtype == torch.float32 else L_GENERIC
-    return LaunchPlan(layout, tm, tn, S, ws)
+    return _plan(B, M, K, w.shape[2], x.stride(), w.stride(), 16 // x.element_size(),
+                 x.data_ptr() % 16 == 0, w.data_ptr() % 16 == 0, tuple(blocks),
+                 _sm_count(x.device) if sms is None else sms)
 
 
 def pruned_matmul_split_plain(

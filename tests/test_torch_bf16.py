@@ -391,6 +391,47 @@ def test_cuda_bf16_pruned_matmul_matches_plain(card, M, K, N, keep_k, keep_n):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("blocks,shape,instances", [
+    # the aligned instances (16-byte copies, ldmatrix / ldmatrix.trans)
+    ((128, 128, 128), (2, 256, 576, 128), ("128x128,fwd", "128x128,dx", "128x128,dw")),
+    ((64, 64, 64), (2, 200, 320, 136), ("64x64,fwd", "64x64,dx", "64x64,dw")),
+    # K = 27: the generic instance (register loads) in every direction
+    ((128, 128, 128), (2, 100, 27, 70), ("128x128,generic", "128x64,generic", "64x128,generic")),
+])
+def test_cuda_bf16_pruned_matmul_instances_match_plain(card, blocks, shape, instances):
+    """Forward, dX and dW of each bf16 instance against the plain version,
+    with per-row masks, pruned units exact zeros."""
+    B, M, K, N = shape
+    bm, bn, bk = blocks
+    rng = np.random.default_rng(sum(shape))
+    bf = torch.bfloat16
+    to = lambda a, dt=torch.float32: torch.from_numpy(np.asarray(a, np.float32)).to(card, dt)
+    x, w = to(rng.normal(size=(B, M, K)), bf), to(rng.normal(size=(B, K, N)) / np.sqrt(K), bf)
+    gy = to(rng.normal(size=(B, M, N)), bf)
+    im, om, rm = (to(rng.random((B, n)) < 0.7) for n in (K, N, M))
+    plans = (pm_mod.launch_plan(x, w, blocks), pm_mod.launch_plan(gy, w.transpose(1, 2), (bm, bk, bn)),
+             pm_mod.launch_plan(x.transpose(1, 2), gy, (bk, bn, bm)))
+    assert tuple(pl.instance for pl in plans) == instances
+    outs = []
+    for fn in (pruned_matmul, pruned_matmul_plain):
+        tx, tw = x.clone().requires_grad_(True), w.clone().requires_grad_(True)
+        kw = {"block_m": bm, "block_n": bn, "block_k": bk} if fn is pruned_matmul else {}
+        pm_mod.reset_launches()
+        y = fn(tx, tw, im, om, rm, **kw)
+        y.backward(gy)
+        outs.append((y.detach(), tx.grad, tw.grad))
+    torch.cuda.synchronize()
+    for a, r in zip(*outs):
+        assert a.dtype == torch.bfloat16
+        err = float((a.float() - r.float()).abs().max()) / float(r.float().abs().max())
+        assert err <= PM_TOL, (instances, err)
+    y, gx, gw = outs[0]
+    assert float(y.float().abs().masked_select((om[:, None, :] == 0) | (rm[:, :, None] == 0)).max()) == 0.0
+    assert float(gx.float().abs().masked_select((im[:, None, :] == 0) | (rm[:, :, None] == 0)).max()) == 0.0
+    assert float(gw.float().abs().masked_select((im[:, :, None] == 0) | (om[:, None, :] == 0)).max()) == 0.0
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("b,s,h,kv,d,kw", [
     *[(b, s, h, h, d, kw) for b, s, h, d, kw in FLASH_CASES],
     (2, 300, 16, 1, 256, {"window": 128, "softcap": 50.0}),

@@ -296,6 +296,25 @@ def test_launch_plan_picks_the_instance_from_strides_and_alignment():
     assert plan(x, w, (64, 64, 64)).instance == "64x64,fwd"
     deep = plan(torch.zeros(10, 32768, 27).transpose(1, 2), torch.zeros(10, 32768, 64))
     assert deep.split > 1 and deep.workspace_bytes == 4 * deep.split * 10 * 27 * 64
+    # bf16 operands: the same instances under the 8-element rule (16-byte
+    # copies of 8 bf16), the split and the float32 workspace as in float32
+    z = lambda *shape: torch.zeros(*shape, dtype=torch.bfloat16)
+    xb, wb, gb = z(B, M, K), z(B, K, N), z(B, M, N)
+    assert plan(xb, wb).instance == "128x64,fwd"
+    assert plan(gb, wb.transpose(1, 2)).instance == "128x128,dx"
+    assert plan(xb.transpose(1, 2), gb).instance == "128x64,dw"
+    assert plan(xb, z(K, N).expand(B, K, N)).instance == "128x64,fwd"
+    assert plan(xb, wb, (64, 64, 64)).instance == "64x64,fwd"
+    # K = 27, an unaligned pointer, a stride that is a multiple of 4 but not
+    # of 8, or a fast extent that is: the generic instance
+    assert plan(z(B, M, 27), z(B, 27, N)).instance == "128x64,generic"
+    assert plan(z(B, M, K + 1)[:, :, 1:], wb).instance == "128x64,generic"
+    assert plan(z(B, M, K + 4)[:, :, :K], wb).instance == "128x64,generic"
+    assert plan(z(B, M, K + 8)[:, :, :K], wb).instance == "128x64,fwd"
+    assert plan(z(B, M, 580), z(B, 580, N)).instance == "128x64,generic"
+    assert plan(z(B, K, M + 4)[:, :, :M].transpose(1, 2), wb).instance == "128x64,generic"
+    deep_b = plan(z(10, 32768, 27).transpose(1, 2), z(10, 32768, 64))
+    assert (deep_b.split, deep_b.workspace_bytes) == (deep.split, deep.workspace_bytes)
 
 
 def _split_case(seed, B, M, K, N):

@@ -265,11 +265,16 @@ def test_heads_pair_only_within_one_kv_head(h, kv, pairs):
         assert len({hh // rep for hh in range(head0, head0 + hpb)}) == 1
 
 
+# each mode's K/V tile (csrc/flash_attention.cu: 32 keys in float32, 64 in bf16)
+MODES = {"float32": BLOCK_K[torch.float32], "bfloat16": BLOCK_K[torch.bfloat16]}
+
+
+@pytest.mark.parametrize("mode", list(MODES))
 @pytest.mark.parametrize("b,s,h,kv", [
     (2, 3072, 16, 1), (2, 3089, 16, 1), (1, 1, 16, 1), (2, 31, 16, 1), (1, 129, 3, 1),
     (2, 150, 6, 2), (1, 200, 1, 1), (3, 64, 2, 2),
 ])
-def test_block_order_covers_every_row_once_longest_first(b, s, h, kv):
+def test_block_order_covers_every_row_once_longest_first(b, s, h, kv, mode):
     order = block_order(b, s, h, kv)
     hpb = heads_per_block(h, kv)
     positions = ROWS // hpb
@@ -282,23 +287,27 @@ def test_block_order_covers_every_row_once_longest_first(b, s, h, kv):
     # each block walks never grow along the launch order
     starts = [p0 for p0, _, _, _ in order]
     assert starts == sorted(starts, reverse=True)
-    work = [np.subtract(*kv_tile_range(p0, positions, s, True, None)[::-1]) for p0 in starts]
+    work = [np.subtract(*kv_tile_range(p0, positions, s, True, None, MODES[mode])[::-1])
+            for p0 in starts]
     assert all(w1 >= w2 for w1, w2 in zip(work, work[1:]))
 
 
+@pytest.mark.parametrize("mode", list(MODES))
 @pytest.mark.parametrize("s,positions,causal,window", [
     (3072, 64, True, 2048), (3089, 64, True, 2048), (300, 128, True, 7), (200, 128, True, 1),
     (100, 128, False, 5), (257, 64, False, None), (129, 128, True, None), (31, 64, True, 2048),
 ])
-def test_kv_tile_range_holds_exactly_the_live_tiles(s, positions, causal, window):
+def test_kv_tile_range_holds_exactly_the_live_tiles(s, positions, causal, window, mode):
+    bk = MODES[mode]
+
     def kept(i, j):
         return j < s and (not causal or j <= i) and (window is None or j > i - window)
 
     for p0 in range(0, s, positions):
         rows = range(p0, min(p0 + positions, s))
-        begin, end = kv_tile_range(p0, positions, s, causal, window)
-        live = [kt for kt in range(-(-s // BLOCK_K))
-                if any(kept(i, j) for i in rows for j in range(kt * BLOCK_K, (kt + 1) * BLOCK_K))]
+        begin, end = kv_tile_range(p0, positions, s, causal, window, bk)
+        live = [kt for kt in range(-(-s // bk))
+                if any(kept(i, j) for i in rows for j in range(kt * bk, (kt + 1) * bk))]
         # every live tile is walked; the walk starts and ends on live tiles
         assert begin <= live[0] and live[-1] < end
         assert begin in live and end - 1 in live
@@ -381,4 +390,61 @@ def test_three_tf32_passes_keep_the_f32_bar_and_one_does_not():
     err1 = np.abs(_attention(q, k, v, lambda a, b: _mm(a, b, 1)) - ref).max() / top
     err32 = np.abs(_attention(q, k, v, np.matmul) - ref).max() / top
     assert err3 <= FLASH_TOL and err3 <= 4 * err32
+    assert err1 > FLASH_TOL
+
+
+# ---------------------------------------------------------------------------
+# the bf16 instance's P V: P split into three bf16 parts, emulated in numpy
+# ---------------------------------------------------------------------------
+
+def _bf16_rn(x):
+    """Round float32 to bf16 (8 significant bits), nearest, ties to even:
+    __float2bfloat16_rn on finite values, as float32."""
+    bits = np.ascontiguousarray(x, np.float32).view(np.uint32).astype(np.uint64)
+    bits = (bits + 0x7FFF + ((bits >> 16) & 1)) & 0xFFFF0000
+    return bits.astype(np.uint32).view(np.float32)
+
+
+def _bf16_parts(p):
+    """The kernel's split3: b1 = bf16(p), b2 = bf16(p - b1),
+    b3 = bf16(p - b1 - b2), the differences taken in float32."""
+    b1 = _bf16_rn(p)
+    r1 = (p - b1).astype(np.float32)
+    b2 = _bf16_rn(r1)
+    return b1, b2, _bf16_rn((r1 - b2).astype(np.float32))
+
+
+def test_three_bf16_parts_sum_back_to_p_exactly():
+    rng = np.random.default_rng(24)
+    n = 1 << 16
+    # every float32 exponent from 2^-100 to 2^0, random 23-bit significands,
+    # and the edges: 1, 2^-100, the top of a binade, halfway cases
+    p = np.ldexp(1.0 + rng.integers(0, 1 << 23, size=n) / 2.0 ** 23, -rng.integers(1, 101, size=n))
+    edges = [1.0, 2.0 ** -100, 1 - 2.0 ** -24, 2.0 ** -100 * (2 - 2.0 ** -23), 1 + 2.0 ** -8,
+             0.5 + 2.0 ** -10 + 2.0 ** -18, 0.75 - 2.0 ** -24]
+    p = np.concatenate([p, edges]).astype(np.float32)
+    p = p[(p >= 2.0 ** -100) & (p <= 1.0)]
+    parts = _bf16_parts(p)
+    for b in parts:     # each part is a bf16 value
+        assert not (b.view(np.uint32) & 0xFFFF).any()
+    total = sum(b.astype(np.float64) for b in parts)
+    np.testing.assert_array_equal(total, p.astype(np.float64))
+
+
+def test_three_bf16_parts_keep_the_f32_bar_and_one_does_not():
+    s, d = 256, 256
+    rng = np.random.default_rng(24)
+    q, k, v = (_bf16_rn(rng.normal(size=(s, d)).astype(np.float32)) for _ in range(3))
+    scores = (q.astype(np.float64) @ k.T.astype(np.float64) / np.sqrt(d)).astype(np.float32)
+    scores = np.where(np.tril(np.ones((s, s), bool)), scores, -np.inf)
+    e = np.exp(scores - scores.max(-1, keepdims=True))
+    p = (e / e.sum(-1, keepdims=True)).astype(np.float32)          # float32 P, as the kernel keeps it
+    ref = p.astype(np.float64) @ v.astype(np.float64)
+    top = np.abs(ref).max()
+    b1, b2, b3 = _bf16_parts(p)
+    # bf16 x bf16 products are exact in float32; the sums are float32
+    err3 = np.abs(((b3 @ v) + (b2 @ v)) + (b1 @ v) - ref).max() / top
+    err1 = np.abs(b1 @ v - ref).max() / top
+    err32 = np.abs(p @ v - ref).max() / top
+    assert err3 <= FLASH_TOL and err3 <= 4 * max(err32, 2.0 ** -24)
     assert err1 > FLASH_TOL
