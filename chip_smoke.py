@@ -325,7 +325,14 @@ dry-run's ``ModelConfig.dtype="bfloat16"``:
                    (64, 128, 128), ragged split-K, dead rows and stride-0
                    cases in bf16 (widths multiples of 8), so that every
                    built bf16 instance runs (checked); two launches of split
-                   bf16 calls bit-identical.
+                   bf16 calls bit-identical.  Since slice 15 (the bf16 scan
+                   redesigned: walking warps fed by TMA, stores staged) the
+                   scan also at b 1, s 1, s off a stage, r a multiple of 8
+                   but not of a block (1000), r under one block (40), and x
+                   or a 2 bytes off 16-byte alignment (the path without
+                   TMA), each bit-identical; at the serve shape device ms
+                   of a CUDA-graph replay beside the host loop, as for the
+                   float32 scan in ``llm_times``.
 33. bf16_serve   — ``serve_batch`` at dtype bfloat16, batch 2, prompt 3072,
                    32 new tokens, recurrentgemma-9b at full size and
                    qwen3-32b at its full 64 layers: prefill s and tok/s,
@@ -505,11 +512,12 @@ def time_ms(fn, iters: int = 5, warm: int = 2) -> float:
     return s.elapsed_time(e) / iters
 
 
-def graph_ms(fn, iters: int = 20) -> float:
-    """Device ms of one call of ``fn``: the call captured once in a CUDA
-    graph and replayed, so that the host's work per call (the wrapper's
+def graph_ms(fn, iters: int = 20, calls: int = 1) -> float:
+    """Device ms of one call of ``fn``: ``calls`` calls captured once in a
+    CUDA graph and replayed, so that the host's work per call (the wrapper's
     checks and plan, the launch) is out of the reading; ``time_ms`` keeps it
-    in."""
+    in.  For a kernel of tens of microseconds take ``calls`` > 1: the gap
+    between two graph launches would otherwise pad each reading."""
     import torch
 
     side = torch.cuda.Stream()
@@ -519,8 +527,9 @@ def graph_ms(fn, iters: int = 20) -> float:
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
-        fn()
-    ms = time_ms(graph.replay, iters=iters)
+        for _ in range(calls):
+            fn()
+    ms = time_ms(graph.replay, iters=iters) / calls
     del graph
     return ms
 
@@ -1390,12 +1399,14 @@ def phase_llm_times(report):
     b, s, r = shapes["scan"]
     x, a, h0 = _scan_inputs(gen, b, s, r)
     ms = time_ms(lambda: rg_lru_scan_cuda(x, a, h0), iters=20)
+    device = graph_ms(lambda: rg_lru_scan_cuda(x, a, h0), iters=20, calls=10)
     plain = time_ms(lambda: rg_lru_scan_plain(x, a, h0), iters=2, warm=1)
     byts = 4.0 * (3 * b * s * r + b * r)
     flops = 2.0 * b * s * r
     t_ops, t_bytes = flops / F32_TFLOPS * 1e3, byts / HBM_BPS * 1e3
     n = per_prefill["rg_lru_scan"]
     scan = {"shape": f"b={b} s={s} r={r}", "ms_per_launch": ms, "launches_per_prefill": n,
+            "device_ms_per_launch": device, "device_ms": device * n,
             "ms": ms * n, "plain_ms": plain * n, "library_ms": None,
             "bound_ms": max(t_ops, t_bytes) * n, "bound_by": "operations" if t_ops >= t_bytes else "bytes",
             "bytes_per_launch": byts, "achieved_gbps": byts / (ms * 1e-3) / 1e9}
@@ -4394,6 +4405,40 @@ def phase_bf16_kernel(report):
     gen = torch.Generator(device=dev).manual_seed(13)
     bf = torch.bfloat16
     rec = {"phase": "bf16_kernel"}
+    # the scan first: timed after the products' and flash's runs, its graph
+    # replay read 0.061 ms in this phase against 0.052-0.053 alone
+    scans = []
+    b, s, r = 2, SERVE["prompt"], 4096
+    # the serve shape and two ragged ones; b 1; s 1; s off a 64-step stage; r
+    # a multiple of 8 (TMA) but not of a 64-channel block; r under one
+    # block; x or a 2 bytes off 16-byte alignment (no TMA)
+    for b_, s_, r_, off in ((b, s, r, None), (2, 777, 1001, None), (3, 37, 100, None),
+                            (1, s, r, None), (2, 1, r, None), (2, 100, r, None),
+                            (2, 300, 1000, None), (2, 300, 40, None),
+                            (2, 300, r, "x"), (2, 333, 1000, "a")):
+        x, a, h0 = _scan_inputs(gen, b_, s_, r_)
+        x, a = x.to(bf), a.to(bf)
+        if off:
+            moved = torch.empty(b_ * s_ * r_ + 1, dtype=bf, device=dev)[1:].view(b_, s_, r_)
+            moved.copy_(x if off == "x" else a)
+            x, a = (moved, a) if off == "x" else (x, moved)
+            check(moved.data_ptr() % 16 == 2, f"{off} is not 2 bytes off 16-byte alignment")
+        out = rg_lru_scan_cuda(x, a, h0)
+        ref = rg_lru_scan_plain(x, a, h0)
+        torch.cuda.synchronize()
+        c = {"case": f"b={b_} s={s_} r={r_}" + (f" {off} off 16 B" if off else ""), "dtype": str(out.dtype),
+             "bit_identical": bool(torch.equal(out, ref)), "max_abs_err": float((out.float() - ref.float()).abs().max())}
+        if (b_, s_, r_, off) == (b, s, r, None):
+            byts = 2.0 * 3 * b * s * r + 4.0 * b * r
+            t_ops, t_bytes = 2.0 * b * s * r / F32_TFLOPS * 1e3, byts / HBM_BPS * 1e3
+            c.update(ms=time_ms(lambda: rg_lru_scan_cuda(x, a, h0), iters=20),
+                     device_ms=graph_ms(lambda: rg_lru_scan_cuda(x, a, h0), iters=20, calls=10),
+                     plain_ms=time_ms(lambda: rg_lru_scan_plain(x, a, h0), iters=2, warm=1),
+                     library_ms=None, bound_ms=max(t_ops, t_bytes), ops_ms=t_ops, bytes_ms=t_bytes,
+                     bound_by="operations" if t_ops >= t_bytes else "bytes")
+        scans.append(c)
+        del x, a, h0, out, ref
+    rec["rg_lru_scan_bf16"] = scans
     with serve_numerics():     # the library matmul reduces bf16 in float32
         pm = {keep: _bf16_pm(gen, keep) for keep in (1.0, 0.5)}
     rec["pruned_matmul"] = {k: {**pm[1.0][0][k], **{f"{f}_at_0.5": pm[0.5][0][k][f] for f in
@@ -4438,26 +4483,6 @@ def phase_bf16_kernel(report):
         flash.append(c)
         del q, k, v, out, ref
     rec["flash_attention_bf16"] = flash
-    scans = []
-    b, s, r = 2, SERVE["prompt"], 4096
-    for b_, s_, r_ in ((b, s, r), (2, 777, 1001), (3, 37, 100)):
-        x, a, h0 = _scan_inputs(gen, b_, s_, r_)
-        x, a = x.to(bf), a.to(bf)
-        out = rg_lru_scan_cuda(x, a, h0)
-        ref = rg_lru_scan_plain(x, a, h0)
-        torch.cuda.synchronize()
-        c = {"case": f"b={b_} s={s_} r={r_}", "dtype": str(out.dtype),
-             "bit_identical": bool(torch.equal(out, ref)), "max_abs_err": float((out.float() - ref.float()).abs().max())}
-        if (b_, s_, r_) == (b, s, r):
-            byts = 2.0 * 3 * b * s * r + 4.0 * b * r
-            t_ops, t_bytes = 2.0 * b * s * r / F32_TFLOPS * 1e3, byts / HBM_BPS * 1e3
-            c.update(ms=time_ms(lambda: rg_lru_scan_cuda(x, a, h0), iters=20),
-                     plain_ms=time_ms(lambda: rg_lru_scan_plain(x, a, h0), iters=2, warm=1),
-                     library_ms=None, bound_ms=max(t_ops, t_bytes), ops_ms=t_ops, bytes_ms=t_bytes,
-                     bound_by="operations" if t_ops >= t_bytes else "bytes")
-        scans.append(c)
-        del x, a, h0, out, ref
-    rec["rg_lru_scan_bf16"] = scans
     rec["seconds"] = time.perf_counter() - t0
     emit(rec)
     report["bf16_kernel"] = {**rec, "pruned_matmul_layers": {str(k): v[1] for k, v in pm.items()},
@@ -4703,6 +4728,8 @@ def main() -> int:
             "ms_per_launch": t["ms_per_launch"],
             "shapes": f"one prefill of recurrentgemma-9b: {t['launches_per_prefill']} launches at {t['shape']}",
         }
+        if kname == "rg_lru_scan":
+            entry.update(device_ms=t["device_ms"], device_ms_per_launch=t["device_ms_per_launch"])
         if kname == "flash_attention":
             # its own bound: the 3xTF32 products at the tensor-core rate
             entry.update(bound_ms=t["bound_tc_ms"], bound_fp32_ms=t["bound_ms"])
@@ -4755,8 +4782,8 @@ def main() -> int:
         # runs the float32 mode, and bf16_serve checks this mode launched 0 times there
         "launches": sum(r["launches_per_prefill"]["rg_lru_scan_bf16"] for r in bf16s.values()),
         "max_abs_err": max(c["max_abs_err"] for c in bf16k["rg_lru_scan_bf16"]),
-        "ms": sc["ms"], "plain_ms": sc["plain_ms"], "bound_ms": sc["bound_ms"],
-        "bound_by": sc["bound_by"], "library_ms": None,
+        "ms": sc["ms"], "device_ms": sc["device_ms"], "plain_ms": sc["plain_ms"],
+        "bound_ms": sc["bound_ms"], "bound_by": sc["bound_by"], "library_ms": None,
         "shapes": f"one launch at {sc['case']} (held off the main path)",
     })
     report["kernels"] = kernels

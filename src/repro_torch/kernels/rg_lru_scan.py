@@ -9,13 +9,21 @@ argument order is ``ops.rg_lru_scan(x, a, h0)``, not the ``pallas_call``'s
 The TPU kernel closes each sequence block in log space,
 ``h = A * (h_in + cumsum(x / A))`` with ``A = cumprod(a)``, because the
 TPU's vector unit does cumulative sums well and serial steps badly.  That
-form is not carried over: on the card one warp walks the steps of
-``CHANNELS`` = 64 channels in order (``csrc/rg_lru_scan.cu``) while a ring
-of ``RING_STAGES`` stages of ``STAGE_STEPS`` steps of ``a`` and ``x``
-streams into shared memory ahead of it (``ring_schedule``), and the
-log-space form would only add the ``1 / A`` overflow bound that the TPU
-docstring warns about.  The kernel does a rounded multiply and a rounded add
-per step, exactly as the plain version, so the two agree bit for bit.
+form is not carried over: on the card each channel's carry walks the steps
+in order (``csrc/rg_lru_scan.cu``), and the log-space form would only add
+the ``1 / A`` overflow bound that the TPU docstring warns about.  The kernel
+does a rounded multiply and a rounded add per step, exactly as the plain
+version, so the two agree bit for bit.  Each mode has its own schedule:
+
+- float32: one warp walks ``F32_CHANNELS`` channels, two a lane, while a
+  ring of ``F32_RING_STAGES`` stages of ``F32_STAGE_STEPS`` steps of ``a``
+  and ``x`` streams into shared memory ahead of it by cp.async
+  (``ring_schedule``).
+- bfloat16: ``BF16_WALKERS`` warps walk ``BF16_CHANNELS`` channels, one a
+  lane; a producer warp lands tiles of ``BF16_STAGE_STEPS`` steps in a ring
+  of ``BF16_LOAD_STAGES`` slots by TMA, and each walked stage is staged in
+  one of ``BF16_OUT_STAGES`` output slots and leaves as whole rows by a TMA
+  store (``bf16_schedule``).
 
 Both modes of the Pallas kernel are ported: ``x`` and ``a`` float32, or
 both bfloat16 (``h0`` float32 either way, as the wrapper makes it).  A
@@ -37,34 +45,85 @@ import torch
 
 from .ref import rg_lru_ref
 
-__all__ = ["LAUNCHES", "MODES", "CHANNELS", "STAGE_STEPS", "RING_STAGES",
-           "reset_launches", "ring_schedule", "check_dtypes", "rg_lru_scan", "rg_lru_scan_plain",
-           "rg_lru_scan_cuda"]
+__all__ = ["LAUNCHES", "MODES", "F32_CHANNELS", "F32_STAGE_STEPS", "F32_RING_STAGES",
+           "BF16_WALKERS", "BF16_CHANNELS", "BF16_STAGE_STEPS", "BF16_LOAD_STAGES",
+           "BF16_OUT_STAGES", "reset_launches", "ring_schedule", "bf16_schedule", "check_dtypes",
+           "rg_lru_scan", "rg_lru_scan_plain", "rg_lru_scan_cuda"]
 
 NAME = "rg_lru_scan"
 # the kernel's element types: launch-count key and C entry point
 MODES = {torch.float32: (NAME, "rg_lru_scan_f32"),
          torch.bfloat16: ("rg_lru_scan_bf16", "rg_lru_scan_bf16")}
 LAUNCHES: Dict[str, int] = {key: 0 for key, _ in MODES.values()}
-CHANNELS = 64      # channels of one kernel block (one warp, two a lane)
-STAGE_STEPS = 32   # steps of one ring stage
-RING_STAGES = 4    # stages of the ring: 128 steps, 64 KB of a and x a block
+# the float32 kernel (csrc/rg_lru_scan.cu, top namespace)
+F32_CHANNELS = 64      # channels of one block (one warp, two a lane)
+F32_STAGE_STEPS = 32   # steps of one ring stage
+F32_RING_STAGES = 4    # stages of the ring: 128 steps, 64 KB of a and x a block
+# the bf16 kernel (namespace bf16)
+BF16_WALKERS = 2                      # walking warps of one block, one channel a lane
+BF16_CHANNELS = 32 * BF16_WALKERS     # channels of one block
+BF16_STAGE_STEPS = 64                 # steps of one ring slot and one output slot
+BF16_LOAD_STAGES = 3                  # ring slots of a and x: 48 KB a block
+BF16_OUT_STAGES = 2                   # output slots: 16 KB a block
 
 
 def ring_schedule(s: int) -> List[Tuple[str, int]]:
-    """One block's order of events over ``s`` steps, as the kernel runs
+    """One block's order of events over ``s`` steps, as the float32 kernel runs
     them: ``("issue", st)`` when the loads of stage ``st`` (steps
-    ``st * STAGE_STEPS`` on, the last stage short) go into ring slot
-    ``st % RING_STAGES``, ``("walk", st)`` when the warp walks it.  The
-    first ``RING_STAGES - 1`` stages are issued up front; before walking
-    stage ``st`` the warp issues stage ``st + RING_STAGES - 1`` into the
+    ``st * F32_STAGE_STEPS`` on, the last stage short) go into ring slot
+    ``st % F32_RING_STAGES``, ``("walk", st)`` when the warp walks it.  The
+    first ``F32_RING_STAGES - 1`` stages are issued up front; before walking
+    stage ``st`` the warp issues stage ``st + F32_RING_STAGES - 1`` into the
     slot that stage ``st - 1`` has just freed."""
-    n = -(-s // STAGE_STEPS)
-    events = [("issue", st) for st in range(min(RING_STAGES - 1, n))]
+    n = -(-s // F32_STAGE_STEPS)
+    events = [("issue", st) for st in range(min(F32_RING_STAGES - 1, n))]
     for st in range(n):
-        if st + RING_STAGES - 1 < n:
-            events.append(("issue", st + RING_STAGES - 1))
+        if st + F32_RING_STAGES - 1 < n:
+            events.append(("issue", st + F32_RING_STAGES - 1))
         events.append(("walk", st))
+    return events
+
+
+def bf16_schedule(s: int, r: int) -> List[Tuple[str, int, int, int, range, range]]:
+    """Every block's order of events over ``s`` steps and ``r`` channels in
+    the bf16 kernel, as one order its barriers allow: the producer warp runs
+    ahead as far as its ring's free slots let it.  Each event is ``(kind,
+    block, stage, slot, steps, channels)``, ``steps`` and ``channels`` the
+    part of the tile inside ``[0, s) x [0, r)``:
+
+    - ``load``: the producer lands stage ``st``'s tile of ``a`` and ``x`` in
+      ring slot ``st % BF16_LOAD_STAGES`` (zeros past ``s`` and ``r``), once
+      the walk of stage ``st - BF16_LOAD_STAGES`` has freed it;
+    - ``walk``: the walkers walk the ring slot in step order;
+    - ``stage``: they write its ``h_t`` in output slot ``st %
+      BF16_OUT_STAGES``;
+    - ``free``: they free the ring slot;
+    - ``left``: the store of an earlier stage has read its output slot
+      (waited for before the walkers pass the barrier after stage ``st``,
+      for the store that last read the slot stage ``st + 1`` writes);
+    - ``store``: one walker sends the output slot to device memory as whole
+      rows.
+    """
+    T, L, O, CH = BF16_STAGE_STEPS, BF16_LOAD_STAGES, BF16_OUT_STAGES, BF16_CHANNELS
+    n = -(-s // T)
+    events: List[Tuple[str, int, int, int, range, range]] = []
+    for blk in range(-(-r // CH)):
+        chans = range(blk * CH, min(blk * CH + CH, r))
+        order: List[Tuple[str, int, int]] = []
+        loaded, pending = 0, []
+        for st in range(n):
+            while loaded < n and loaded < st + L:    # slot of stage loaded - L freed
+                order.append(("load", loaded, loaded % L))
+                loaded += 1
+            order += [("walk", st, st % L), ("stage", st, st % O), ("free", st, st % L)]
+            while pending and pending[0] <= st + 1 - O:
+                done = pending.pop(0)
+                order.append(("left", done, done % O))
+            order.append(("store", st, st % O))
+            pending.append(st)
+        order += [("left", done, done % O) for done in pending]
+        events += [(kind, blk, st, slot, range(st * T, min(st * T + T, s)), chans)
+                   for kind, st, slot in order]
     return events
 
 

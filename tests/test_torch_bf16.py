@@ -451,7 +451,11 @@ def test_cuda_bf16_flash_matches_plain(card, b, s, h, kv, d, kw):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("b,s,r", [(2, 3072, 4096), (2, 777, 1001), (3, 37, 100)])
+@pytest.mark.parametrize("b,s,r", [(2, 3072, 4096), (2, 777, 1001), (3, 37, 100),
+                                   # b 1; s 1; s not a multiple of a stage; r a multiple
+                                   # of 8 (TMA) but not of a block; r under one block
+                                   (1, 3072, 4096), (2, 1, 4096), (2, 100, 4096),
+                                   (2, 300, 1000), (2, 300, 40)])
 def test_cuda_bf16_scan_bit_identical_to_plain(card, b, s, r):
     rng = np.random.default_rng(s)
     x = torch.from_numpy((rng.normal(size=(b, s, r)) * 0.1).astype(np.float32)).to(card, torch.bfloat16)
@@ -459,6 +463,27 @@ def test_cuda_bf16_scan_bit_identical_to_plain(card, b, s, r):
     rg_mod.reset_launches()
     out = rg_lru_scan(x, a)
     ref = rg_lru_scan_plain(x, a)
+    torch.cuda.synchronize()
+    assert rg_mod.LAUNCHES == {"rg_lru_scan": 0, "rg_lru_scan_bf16": 1}
+    assert torch.equal(out, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which", ["x", "a"])
+def test_cuda_bf16_scan_off_16_bytes_bit_identical_to_plain(card, which):
+    """An operand 2 bytes off 16-byte alignment (a view at storage offset 1)
+    takes the kernel's path without TMA."""
+    b, s, r = 2, 300, 4096
+    rng = np.random.default_rng(r)
+    ops = {"x": (rng.normal(size=(b, s, r)) * 0.1).astype(np.float32),
+           "a": rng.uniform(0.85, 0.999, size=(b, s, r)).astype(np.float32)}
+    t = {k: torch.from_numpy(v).to(card, torch.bfloat16) for k, v in ops.items()}
+    view = torch.empty(b * s * r + 1, dtype=torch.bfloat16, device=card)[1:].view(b, s, r)
+    t[which] = view.copy_(t[which])
+    assert t[which].data_ptr() % 16 == 2
+    rg_mod.reset_launches()
+    out = rg_lru_scan(t["x"], t["a"])
+    ref = rg_lru_scan_plain(t["x"], t["a"])
     torch.cuda.synchronize()
     assert rg_mod.LAUNCHES == {"rg_lru_scan": 0, "rg_lru_scan_bf16": 1}
     assert torch.equal(out, ref)

@@ -10,8 +10,10 @@ Tolerances: 3e-5 for attention and 2e-4 for the scan (tests/test_kernels.py's
 f32 bars).  Tests marked ``cuda`` hold the CUDA kernels against the plain
 versions on the card and skip elsewhere.  The kernels' schedules (head
 pairing, block order, live K/V tiles, the scan's prefetch ring) are checked
-here through their Python statements, and a numpy emulation of tf32 rounding
-records why the flash kernel runs 3xTF32 and not one TF32 pass.
+here through their Python statements; the bf16 scan's schedule is also
+walked by an emulation of its dataflow that must equal the plain loop bit
+for bit.  A numpy emulation of tf32 rounding records why the flash kernel
+runs 3xTF32 and not one TF32 pass.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -37,7 +39,18 @@ from repro_torch.kernels.flash_attention import (
     repeat_kv,
 )
 from repro_torch.kernels.ref import flash_attention_ref, rg_lru_ref
-from repro_torch.kernels.rg_lru_scan import RING_STAGES, STAGE_STEPS, rg_lru_scan, ring_schedule
+from repro_torch.kernels.rg_lru_scan import (
+    BF16_CHANNELS,
+    BF16_LOAD_STAGES,
+    BF16_OUT_STAGES,
+    BF16_STAGE_STEPS,
+    bf16_schedule,
+    rg_lru_scan,
+    rg_lru_scan_plain,
+    ring_schedule,
+)
+from repro_torch.kernels.rg_lru_scan import F32_RING_STAGES as RING_STAGES
+from repro_torch.kernels.rg_lru_scan import F32_STAGE_STEPS as STAGE_STEPS
 
 FLASH_TOL = 3e-5
 SCAN_TOL = 2e-4
@@ -332,6 +345,109 @@ def test_scan_ring_issues_each_stage_once_ahead_of_its_walk(s):
     assert issued == list(range(n)) and walked == list(range(n))
     # the stages cover the s steps once: full stages, then a short last one
     assert (n - 1) * STAGE_STEPS < s <= n * STAGE_STEPS
+
+
+@pytest.mark.parametrize("r", [8, 40, 100, 1000, 4096])
+@pytest.mark.parametrize("s", [1, 31, 32, 777, 3072])
+def test_bf16_scan_schedule_moves_each_step_once_and_reuses_no_slot_early(s, r):
+    loaded, walked, stored = (np.zeros((s, r), np.uint8) for _ in range(3))
+    ring, outs, last_walk = {}, {}, {}    # (block, slot) -> stage held, None when free
+    for kind, blk, st, slot, steps, chans in bf16_schedule(s, r):
+        assert steps.start == st * BF16_STAGE_STEPS and chans.start == blk * BF16_CHANNELS
+        cell = (slice(steps.start, steps.stop), slice(chans.start, chans.stop))
+        if kind == "load":
+            # a ring slot is loaded only once the walk of its last stage freed it
+            assert slot == st % BF16_LOAD_STAGES and ring.get((blk, slot)) is None
+            ring[blk, slot] = st
+            loaded[cell] += 1
+        elif kind == "walk":
+            # stages walked in step order, each from the slot that holds it
+            assert ring[blk, slot] == st and last_walk.get(blk, -1) == st - 1
+            last_walk[blk] = st
+            walked[cell] += 1
+        elif kind == "stage":
+            # an output slot is written only once the store that read it left
+            assert slot == st % BF16_OUT_STAGES and outs.get((blk, slot)) is None
+            outs[blk, slot] = ("staged", st)
+        elif kind == "free":
+            assert ring[blk, slot] == st
+            ring[blk, slot] = None
+        elif kind == "store":
+            assert outs[blk, slot] == ("staged", st)
+            outs[blk, slot] = ("storing", st)
+            stored[cell] += 1
+        else:
+            assert kind == "left" and outs[blk, slot] == ("storing", st)
+            outs[blk, slot] = None
+    assert (loaded == 1).all() and (walked == 1).all() and (stored == 1).all()
+    assert not any(v is not None for v in (*ring.values(), *outs.values()))
+    assert last_walk == {blk: -(-s // BF16_STAGE_STEPS) - 1 for blk in range(-(-r // BF16_CHANNELS))}
+
+
+def test_scan_schedule_constants_are_the_kernels():
+    """The Python models' constants are those the CUDA source builds with."""
+    import re
+
+    from repro_torch.kernels import build
+
+    src = (build.CSRC / "rg_lru_scan.cu").read_text()
+    f32, bf16 = src.split("namespace bf16 {")
+
+    def const(part, name):
+        return int(re.search(rf"constexpr int {name} = (\d+);", part).group(1))
+
+    assert (rg_mod.F32_CHANNELS, STAGE_STEPS, RING_STAGES) == (
+        32 * const(f32, "CPL"), const(f32, "T"), const(f32, "STAGES"))
+    assert (rg_mod.BF16_WALKERS, BF16_STAGE_STEPS, BF16_LOAD_STAGES, BF16_OUT_STAGES) == (
+        const(bf16, "WALKERS"), const(bf16, "T"), const(bf16, "LOAD_STAGES"),
+        const(bf16, "OUT_STAGES"))
+    assert BF16_CHANNELS == 32 * rg_mod.BF16_WALKERS
+
+
+def _bf16_scan_emulated(x, a, h0):
+    """The bf16 kernel's dataflow on the CPU, in ``bf16_schedule``'s order:
+    tiles land in ring slots (zeros past s and r), the walk takes a slot's
+    steps in order (a rounded multiply, then a rounded add, in float32) and
+    stages each h_t as bf16, and a store copies the staged rows inside
+    ``[0, s) x [0, r)`` out."""
+    b, s, r = x.shape
+    T, CH = BF16_STAGE_STEPS, BF16_CHANNELS
+    out = torch.full((b, s, r), float("nan"), dtype=torch.bfloat16)
+    ring, outs, carry = {}, {}, {}
+    for kind, blk, _, slot, steps, chans in bf16_schedule(s, r):
+        part = (slice(None), slice(steps.start, steps.stop), slice(chans.start, chans.stop))
+        if kind == "load":
+            ta, tx = (torch.zeros(b, T, CH, dtype=torch.bfloat16) for _ in range(2))
+            ta[:, : len(steps), : len(chans)] = a[part]
+            tx[:, : len(steps), : len(chans)] = x[part]
+            ring[blk, slot] = (ta, tx)
+        elif kind == "walk":
+            if blk not in carry:
+                carry[blk] = torch.zeros(b, CH)
+                carry[blk][:, : len(chans)] = h0[:, chans.start : chans.stop]
+            ta, tx = ring[blk, slot]
+            h, rows = carry[blk], []
+            for u in range(T):
+                h = ta[:, u].float() * h
+                h = h + tx[:, u].float()
+                rows.append(h.to(torch.bfloat16))
+            carry[blk], walked = h, torch.stack(rows, 1)
+        elif kind == "stage":
+            outs[blk, slot] = walked
+        elif kind == "store":
+            out[part] = outs[blk, slot][:, : len(steps), : len(chans)]
+    return out
+
+
+@pytest.mark.parametrize("b,s,r", [(2, 777, 1000), (1, 1, 40), (3, 37, 100), (2, 130, 8),
+                                   (1, 64, 4096)])
+def test_bf16_scan_schedule_emulation_is_bit_identical_to_plain(b, s, r):
+    rng = np.random.default_rng(s * 7 + r)
+    x = torch.from_numpy((rng.normal(size=(b, s, r)) * 0.1).astype(np.float32)).bfloat16()
+    a = torch.from_numpy(rng.uniform(0.85, 0.999, size=(b, s, r)).astype(np.float32)).bfloat16()
+    h0 = torch.from_numpy((rng.normal(size=(b, r)) * 0.1).astype(np.float32))
+    out = _bf16_scan_emulated(x, a, h0)
+    assert torch.equal(out, rg_lru_scan_plain(x, a, h0))
 
 
 # ---------------------------------------------------------------------------
