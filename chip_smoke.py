@@ -328,11 +328,18 @@ dry-run's ``ModelConfig.dtype="bfloat16"``:
                    bf16 calls bit-identical.  Since slice 15 (the bf16 scan
                    redesigned: walking warps fed by TMA, stores staged) the
                    scan also at b 1, s 1, s off a stage, r a multiple of 8
-                   but not of a block (1000), r under one block (40), and x
-                   or a 2 bytes off 16-byte alignment (the path without
-                   TMA), each bit-identical; at the serve shape device ms
-                   of a CUDA-graph replay beside the host loop, as for the
-                   float32 scan in ``llm_times``.
+                   but not of a block (1000), r under one block (40), r
+                   even but not a multiple of 8 (1002), and x or a 2 or 4
+                   bytes off 16-byte alignment (the paths without TMA),
+                   each bit-identical; at the serve shape device ms of a
+                   CUDA-graph replay beside the host loop, as for the
+                   float32 scan in ``llm_times``, read before the products
+                   and flash (``first_*``) and after them (``ms``,
+                   ``device_ms``, where the earlier bf16 design was read), with the
+                   float32 kernel's device ms on the same values, the
+                   first reading's inputs again, 5 s of idle, each graph
+                   replay's time, a second graph, and the card's clocks
+                   beside each reading.
 33. bf16_serve   — ``serve_batch`` at dtype bfloat16, batch 2, prompt 3072,
                    32 new tokens, recurrentgemma-9b at full size and
                    qwen3-32b at its full 64 layers: prefill s and tok/s,
@@ -512,12 +519,14 @@ def time_ms(fn, iters: int = 5, warm: int = 2) -> float:
     return s.elapsed_time(e) / iters
 
 
-def graph_ms(fn, iters: int = 20, calls: int = 1) -> float:
+def graph_ms(fn, iters: int = 20, calls: int = 1, replays=None) -> float:
     """Device ms of one call of ``fn``: ``calls`` calls captured once in a
     CUDA graph and replayed, so that the host's work per call (the wrapper's
     checks and plan, the launch) is out of the reading; ``time_ms`` keeps it
     in.  For a kernel of tens of microseconds take ``calls`` > 1: the gap
-    between two graph launches would otherwise pad each reading."""
+    between two graph launches would otherwise pad each reading.  Given a
+    list ``replays``, it also gets each replay's ms a call, the two warm
+    replays first, read from events between the same back-to-back replays."""
     import torch
 
     side = torch.cuda.Stream()
@@ -529,7 +538,17 @@ def graph_ms(fn, iters: int = 20, calls: int = 1) -> float:
     with torch.cuda.graph(graph):
         for _ in range(calls):
             fn()
-    ms = time_ms(graph.replay, iters=iters) / calls
+    if replays is None:
+        ms = time_ms(graph.replay, iters=iters) / calls
+    else:
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(iters + 3)]
+        ev[0].record()
+        for i in range(2 + iters):
+            graph.replay()
+            ev[i + 1].record()
+        ev[-1].synchronize()
+        replays += [ev[i].elapsed_time(ev[i + 1]) / calls for i in range(2 + iters)]
+        ms = sum(replays[-iters:]) / iters
     del graph
     return ms
 
@@ -4388,6 +4407,35 @@ def flash_bf16_bound(b, s, h, kv, d, causal, window):
     return max(t_ops, t_bytes), t_ops, t_bytes
 
 
+def _scan_reading(at, x, a, h0):
+    """The bf16 scan at one point of ``bf16_kernel``: host loop and device ms
+    of the kernel on ``x``, ``a``, ``h0`` (each replay of the graph, and a
+    second graph after it), the float32 kernel's device ms on their float32
+    values, where the outputs lay, the memory reserved, and the card's
+    clocks and temperature just after."""
+    import torch
+    from repro_torch.kernels.rg_lru_scan import rg_lru_scan_cuda
+
+    xf, af = x.float(), a.float()
+    outs = []      # where each call's output lies: its first address is the host loop's
+
+    def call():
+        outs.append(rg_lru_scan_cuda(x, a, h0).data_ptr())
+
+    replays = []
+    rec = {"at": f"{at} (x at {x.data_ptr():#x}, a at {a.data_ptr():#x})",
+           "ms": time_ms(call, iters=20), "device_ms": graph_ms(call, iters=20, calls=10, replays=replays)}
+    rec.update(replay_ms=[round(t, 5) for t in replays], outs=sorted({f"{p:#x}" for p in outs}))
+    rec.update(f32_device_ms=graph_ms(lambda: rg_lru_scan_cuda(xf, af, h0), iters=20, calls=10),
+               device_ms_again=graph_ms(lambda: rg_lru_scan_cuda(x, a, h0), iters=20, calls=10),
+               reserved_gb=torch.cuda.memory_reserved() / 1e9)
+    torch.cuda.synchronize()
+    rec["clocks"] = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.mem,temperature.gpu,power.draw",
+         "--format=csv,noheader"], capture_output=True, text=True, timeout=60).stdout.strip()
+    return rec
+
+
 def phase_bf16_kernel(report):
     """Slice 13: every bf16 mode against its plain version on the same bf16
     inputs, and its time beside its bound and its library call."""
@@ -4405,37 +4453,40 @@ def phase_bf16_kernel(report):
     gen = torch.Generator(device=dev).manual_seed(13)
     bf = torch.bfloat16
     rec = {"phase": "bf16_kernel"}
-    # the scan first: timed after the products' and flash's runs, its graph
-    # replay read 0.061 ms in this phase against 0.052-0.053 alone
+    # the scan's cases first; its serve shape is read here and again after
+    # the products' and flash's runs, where the earlier bf16 design was read
     scans = []
     b, s, r = 2, SERVE["prompt"], 4096
     # the serve shape and two ragged ones; b 1; s 1; s off a 64-step stage; r
     # a multiple of 8 (TMA) but not of a 64-channel block; r under one
-    # block; x or a 2 bytes off 16-byte alignment (no TMA)
-    for b_, s_, r_, off in ((b, s, r, None), (2, 777, 1001, None), (3, 37, 100, None),
-                            (1, s, r, None), (2, 1, r, None), (2, 100, r, None),
-                            (2, 300, 1000, None), (2, 300, 40, None),
-                            (2, 300, r, "x"), (2, 333, 1000, "a")):
+    # block; r even, not a multiple of 8 (4-byte cp.async); x or a 2 bytes
+    # off 16-byte alignment (element loads) or 4 bytes off (4-byte cp.async)
+    for b_, s_, r_, off in ((b, s, r, 0), (2, 777, 1001, 0), (3, 37, 100, 0),
+                            (1, s, r, 0), (2, 1, r, 0), (2, 100, r, 0),
+                            (2, 300, 1000, 0), (2, 300, 40, 0), (2, 300, 1002, 0),
+                            (2, 300, r, ("x", 1)), (2, 333, 1000, ("a", 1)), (2, 300, r, ("x", 2))):
         x, a, h0 = _scan_inputs(gen, b_, s_, r_)
         x, a = x.to(bf), a.to(bf)
         if off:
-            moved = torch.empty(b_ * s_ * r_ + 1, dtype=bf, device=dev)[1:].view(b_, s_, r_)
-            moved.copy_(x if off == "x" else a)
-            x, a = (moved, a) if off == "x" else (x, moved)
-            check(moved.data_ptr() % 16 == 2, f"{off} is not 2 bytes off 16-byte alignment")
+            which, n = off
+            moved = torch.empty(b_ * s_ * r_ + n, dtype=bf, device=dev)[n:].view(b_, s_, r_)
+            moved.copy_(x if which == "x" else a)
+            x, a = (moved, a) if which == "x" else (x, moved)
+            check(moved.data_ptr() % 16 == 2 * n, f"{which} is not {2 * n} bytes off 16-byte alignment")
         out = rg_lru_scan_cuda(x, a, h0)
         ref = rg_lru_scan_plain(x, a, h0)
         torch.cuda.synchronize()
-        c = {"case": f"b={b_} s={s_} r={r_}" + (f" {off} off 16 B" if off else ""), "dtype": str(out.dtype),
-             "bit_identical": bool(torch.equal(out, ref)), "max_abs_err": float((out.float() - ref.float()).abs().max())}
-        if (b_, s_, r_, off) == (b, s, r, None):
+        c = {"case": f"b={b_} s={s_} r={r_}" + (f" {off[0]} {2 * off[1]} B off 16 B" if off else ""),
+             "dtype": str(out.dtype), "bit_identical": bool(torch.equal(out, ref)),
+             "max_abs_err": float((out.float() - ref.float()).abs().max())}
+        if (b_, s_, r_, off) == (b, s, r, 0):
             byts = 2.0 * 3 * b * s * r + 4.0 * b * r
             t_ops, t_bytes = 2.0 * b * s * r / F32_TFLOPS * 1e3, byts / HBM_BPS * 1e3
-            c.update(ms=time_ms(lambda: rg_lru_scan_cuda(x, a, h0), iters=20),
-                     device_ms=graph_ms(lambda: rg_lru_scan_cuda(x, a, h0), iters=20, calls=10),
-                     plain_ms=time_ms(lambda: rg_lru_scan_plain(x, a, h0), iters=2, warm=1),
+            c.update(plain_ms=time_ms(lambda: rg_lru_scan_plain(x, a, h0), iters=2, warm=1),
                      library_ms=None, bound_ms=max(t_ops, t_bytes), ops_ms=t_ops, bytes_ms=t_bytes,
                      bound_by="operations" if t_ops >= t_bytes else "bytes")
+            serve_scan, kept = c, (x, a, h0)
+            readings = [_scan_reading("first", *kept)]
         scans.append(c)
         del x, a, h0, out, ref
     rec["rg_lru_scan_bf16"] = scans
@@ -4483,6 +4534,22 @@ def phase_bf16_kernel(report):
         flash.append(c)
         del q, k, v, out, ref
     rec["flash_attention_bf16"] = flash
+    # the serve-shape scan after the products and flash: on inputs drawn
+    # anew (where and as the earlier bf16 design was read), on the inputs of
+    # the first reading, and after the card has idled
+    fresh = _scan_inputs(gen, b, s, r)
+    fresh = (fresh[0].to(bf), fresh[1].to(bf), fresh[2])
+    out, ref = rg_lru_scan_cuda(*fresh), rg_lru_scan_plain(*fresh)
+    check(bool(torch.equal(out, ref)), "the bf16 scan's second serve-shape draw is not bit-identical")
+    del out, ref
+    readings += [_scan_reading("after", *fresh), _scan_reading("after, first inputs", *kept)]
+    time.sleep(5)
+    readings.append(_scan_reading("after, 5 s idle", *fresh))
+    del fresh, kept
+    serve_scan.update(ms=readings[1]["ms"], device_ms=readings[1]["device_ms"],
+                      second_graph_device_ms=readings[1]["device_ms_again"],
+                      first_ms=readings[0]["ms"], first_device_ms=readings[0]["device_ms"],
+                      readings=readings)
     rec["seconds"] = time.perf_counter() - t0
     emit(rec)
     report["bf16_kernel"] = {**rec, "pruned_matmul_layers": {str(k): v[1] for k, v in pm.items()},
@@ -4782,9 +4849,13 @@ def main() -> int:
         # runs the float32 mode, and bf16_serve checks this mode launched 0 times there
         "launches": sum(r["launches_per_prefill"]["rg_lru_scan_bf16"] for r in bf16s.values()),
         "max_abs_err": max(c["max_abs_err"] for c in bf16k["rg_lru_scan_bf16"]),
-        "ms": sc["ms"], "device_ms": sc["device_ms"], "plain_ms": sc["plain_ms"],
+        "ms": sc["ms"], "device_ms": sc["device_ms"],
+        "second_graph_device_ms": sc["second_graph_device_ms"], "first_ms": sc["first_ms"],
+        "first_device_ms": sc["first_device_ms"], "plain_ms": sc["plain_ms"],
         "bound_ms": sc["bound_ms"], "bound_by": sc["bound_by"], "library_ms": None,
-        "shapes": f"one launch at {sc['case']} (held off the main path)",
+        "shapes": f"one launch at {sc['case']} (held off the main path); ms and device_ms read "
+                  "after bf16_kernel's products and flash (second_graph_: a second graph there), "
+                  "first_* before them",
     })
     report["kernels"] = kernels
     report["card"] = card

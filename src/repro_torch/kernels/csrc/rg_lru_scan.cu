@@ -49,9 +49,12 @@
 // slot is written again.  Only the dependent multiply-add, two shared
 // loads, the converts and one shared store a step stay with the walkers.
 // Rows TMA cannot take (R % 8 != 0 or a pointer off 16 bytes, where a
-// 16-byte cp.async cannot go either) run the same kernel with the producer
-// warp loading element by element and the walkers copying each output
-// stage out row by row.  Bound: bytes, 3 * B * S * R * 2 over 3.35 TB/s,
+// 16-byte cp.async cannot go either) run the same kernel with the walkers
+// copying each output stage out row by row and the producer warp filling
+// the ring by 4-byte cp.async, an element pair a word, where R is even and
+// x and a are 4-byte aligned, else element by element with synchronous
+// loads.  That path is there to be right at any shape; no shape of the
+// port's models takes it, and it is timed at none.  Bound: bytes, 3 * B * S * R * 2 over 3.35 TB/s,
 // 0.045 ms at the serve shape; the walk's serial chain is about 8 cycles
 // a step, 3072 steps ~ 14 us, under it.  This design reads 0.052-0.053
 // ms there (same card).  Its loads alone read 0.033 ms (3.0 TB/s), its
@@ -73,11 +76,7 @@ constexpr int CH = 32 * CPL;   // channels per block (one warp)
 constexpr int T = 32;          // steps per stage
 constexpr int STAGES = 4;      // ring depth: STAGES * T = 128 steps
 constexpr int STAGE_ELEMS = T * CH;
-template <typename E>
-constexpr size_t smem_bytes() { return 2ull * STAGES * STAGE_ELEMS * sizeof(E); }   // a and x
-
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ void store(float* p, float v) { *p = v; }
+constexpr size_t SMEM_BYTES = 2ull * STAGES * STAGE_ELEMS * sizeof(float);   // a and x
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
     const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
@@ -97,25 +96,23 @@ __device__ __forceinline__ void cp_async_commit() {
 __device__ __forceinline__ void cp_async_wait() {
     asm volatile("cp.async.wait_group %0;\n" :: "n"(STAGES - 1) : "memory");
 }
-
-// One element of stage data into the ring by a 4-byte cp.async.
-__device__ __forceinline__ void copy1(float* dst, const float* src, bool valid) {
-    cp_async4(dst, src, valid);
+__device__ __forceinline__ void cp_async_wait_all() {
+    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
 // Issue the loads of stage `st` (steps st*T .. st*T + T - 1) into its slot.
-template <bool VEC, typename E>
-__device__ __forceinline__ void issue(E* ring_a, E* ring_x, const E* a,
-                                      const E* x, long long base, int st, int S, int R,
+template <bool VEC>
+__device__ __forceinline__ void issue(float* ring_a, float* ring_x, const float* a,
+                                      const float* x, long long base, int st, int S, int R,
                                       int c0, int lane)
 {
-    E* da = ring_a + (st % STAGES) * STAGE_ELEMS;
-    E* dx = ring_x + (st % STAGES) * STAGE_ELEMS;
+    float* da = ring_a + (st % STAGES) * STAGE_ELEMS;
+    float* dx = ring_x + (st % STAGES) * STAGE_ELEMS;
     const int t0 = st * T;
     if (VEC) {
         // a row of CH channels is CH / EPC chunks of 16 bytes; a warp
         // instruction lands RPI rows
-        constexpr int EPC = 16 / sizeof(E), CPR = CH / EPC, RPI = 32 / CPR;
+        constexpr int EPC = 4, CPR = CH / EPC, RPI = 32 / CPR;
         const int cc = EPC * (lane % CPR);
         const bool cok = c0 + cc < R;      // R % EPC == 0: a chunk is all in or all out
 #pragma unroll
@@ -135,21 +132,21 @@ __device__ __forceinline__ void issue(E* ring_a, E* ring_x, const E* a,
                 const int cl = lane + 32 * k;
                 const bool cok = c0 + cl < R;
                 const long long off = base + (long long)(t0 + u) * R + cl;
-                copy1(da + u * CH + cl, cok ? a + off : a, cok);
-                copy1(dx + u * CH + cl, cok ? x + off : x, cok);
+                cp_async4(da + u * CH + cl, cok ? a + off : a, cok);
+                cp_async4(dx + u * CH + cl, cok ? x + off : x, cok);
             }
         }
     }
 }
 
-template <bool VEC, typename E>
+template <bool VEC>
 __global__ void __launch_bounds__(32)
-rg_lru_scan_kernel(const E* __restrict__ x, const E* __restrict__ a,
-                   const float* __restrict__ h0, E* __restrict__ out, int S, int R)
+rg_lru_scan_kernel(const float* __restrict__ x, const float* __restrict__ a,
+                   const float* __restrict__ h0, float* __restrict__ out, int S, int R)
 {
     extern __shared__ __align__(16) unsigned char smem_raw[];
-    E* ring_a = reinterpret_cast<E*>(smem_raw);     // [STAGES][T][CH]
-    E* ring_x = ring_a + STAGES * STAGE_ELEMS;      // [STAGES][T][CH]
+    float* ring_a = reinterpret_cast<float*>(smem_raw);   // [STAGES][T][CH]
+    float* ring_x = ring_a + STAGES * STAGE_ELEMS;        // [STAGES][T][CH]
     const int lane = threadIdx.x;
     const int c0 = blockIdx.x * CH;
     const int b = blockIdx.y;
@@ -158,7 +155,7 @@ rg_lru_scan_kernel(const E* __restrict__ x, const E* __restrict__ a,
 
 #pragma unroll
     for (int st = 0; st < STAGES - 1; ++st) {
-        if (st < nst) issue<VEC, E>(ring_a, ring_x, a, x, base, st, S, R, c0, lane);
+        if (st < nst) issue<VEC>(ring_a, ring_x, a, x, base, st, S, R, c0, lane);
         cp_async_commit();
     }
     float h[CPL];
@@ -169,16 +166,16 @@ rg_lru_scan_kernel(const E* __restrict__ x, const E* __restrict__ a,
         mine[k] = c < R;
         h[k] = mine[k] ? h0[(long long)b * R + c] : 0.f;
     }
-    E* o = out + base + lane;
+    float* o = out + base + lane;
     for (int st = 0; st < nst; ++st) {
         __syncwarp();     // the slot of stage st - 1 is read by every lane
         if (st + STAGES - 1 < nst)
-            issue<VEC, E>(ring_a, ring_x, a, x, base, st + STAGES - 1, S, R, c0, lane);
+            issue<VEC>(ring_a, ring_x, a, x, base, st + STAGES - 1, S, R, c0, lane);
         cp_async_commit();
         cp_async_wait();  // this lane's copies of stage st have landed
         __syncwarp();     // and so have the other lanes'
-        const E* sa = ring_a + (st % STAGES) * STAGE_ELEMS + lane;
-        const E* sx = ring_x + (st % STAGES) * STAGE_ELEMS + lane;
+        const float* sa = ring_a + (st % STAGES) * STAGE_ELEMS + lane;
+        const float* sx = ring_x + (st % STAGES) * STAGE_ELEMS + lane;
         const int t0 = st * T;
         const int n = min(T, S - t0);
         if (n == T) {
@@ -186,44 +183,40 @@ rg_lru_scan_kernel(const E* __restrict__ x, const E* __restrict__ a,
             for (int u = 0; u < T; ++u)
 #pragma unroll
                 for (int k = 0; k < CPL; ++k) {
-                    h[k] = __fadd_rn(__fmul_rn(to_f32(sa[u * CH + 32 * k]), h[k]),
-                                     to_f32(sx[u * CH + 32 * k]));
-                    if (mine[k]) store(o + (long long)(t0 + u) * R + 32 * k, h[k]);
+                    h[k] = __fadd_rn(__fmul_rn(sa[u * CH + 32 * k], h[k]), sx[u * CH + 32 * k]);
+                    if (mine[k]) o[(long long)(t0 + u) * R + 32 * k] = h[k];
                 }
         } else {
             for (int u = 0; u < n; ++u)
 #pragma unroll
                 for (int k = 0; k < CPL; ++k) {
-                    h[k] = __fadd_rn(__fmul_rn(to_f32(sa[u * CH + 32 * k]), h[k]),
-                                     to_f32(sx[u * CH + 32 * k]));
-                    if (mine[k]) store(o + (long long)(t0 + u) * R + 32 * k, h[k]);
+                    h[k] = __fadd_rn(__fmul_rn(sa[u * CH + 32 * k], h[k]), sx[u * CH + 32 * k]);
+                    if (mine[k]) o[(long long)(t0 + u) * R + 32 * k] = h[k];
                 }
         }
     }
 }
 
-template <bool VEC, typename E>
-int launch(const E* x, const E* a, const float* h0, E* out, int B, int S, int R,
+template <bool VEC>
+int launch(const float* x, const float* a, const float* h0, float* out, int B, int S, int R,
            cudaStream_t stream)
 {
-    constexpr size_t bytes = smem_bytes<E>();
     cudaError_t err = cudaFuncSetAttribute(
-        rg_lru_scan_kernel<VEC, E>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+        rg_lru_scan_kernel<VEC>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM_BYTES);
     if (err != cudaSuccess) return (int)err;
     dim3 grid((R + CH - 1) / CH, B);
-    rg_lru_scan_kernel<VEC, E><<<grid, 32, bytes, stream>>>(x, a, h0, out, S, R);
+    rg_lru_scan_kernel<VEC><<<grid, 32, SMEM_BYTES, stream>>>(x, a, h0, out, S, R);
     return (int)cudaGetLastError();
 }
 
-template <typename E>
-int run(const E* x, const E* a, const float* h0, E* out, int B, int S, int R, void* stream)
+int run(const float* x, const float* a, const float* h0, float* out, int B, int S, int R,
+        void* stream)
 {
     if (B <= 0 || S <= 0 || R <= 0) return (int)cudaSuccess;
     cudaStream_t st = (cudaStream_t)stream;
-    constexpr int EPC = 16 / sizeof(E);
-    const bool vec = R % EPC == 0 && ((uintptr_t)x | (uintptr_t)a) % 16 == 0;
-    return vec ? launch<true, E>(x, a, h0, out, B, S, R, st)
-               : launch<false, E>(x, a, h0, out, B, S, R, st);
+    const bool vec = R % 4 == 0 && ((uintptr_t)x | (uintptr_t)a) % 16 == 0;
+    return vec ? launch<true>(x, a, h0, out, B, S, R, st)
+               : launch<false>(x, a, h0, out, B, S, R, st);
 }
 
 // ---------------------------------------------------------------------------
@@ -354,7 +347,7 @@ __global__ void __launch_bounds__(THREADS)
 scan_kernel(const __grid_constant__ CUtensorMap map_x, const __grid_constant__ CUtensorMap map_a,
             const __grid_constant__ CUtensorMap map_out, const bf16_t* __restrict__ x,
             const bf16_t* __restrict__ a, const float* __restrict__ h0, bf16_t* __restrict__ out,
-            int S, int R)
+            int S, int R, bool pairs)
 {
     extern __shared__ __align__(16) unsigned char smem_bf16[];
     // TMA wants 128-byte aligned shared boxes; an offset from the shared
@@ -395,13 +388,28 @@ scan_kernel(const __grid_constant__ CUtensorMap map_x, const __grid_constant__ C
                 }
             } else {
                 const long long base = ((long long)b * S + (long long)st * T) * R + c0;
+                if (pairs) {
+                    // R even, x and a 4-byte aligned: an element pair (c, c + 1),
+                    // c even, is one 4-byte word, all in or all out; zeros past S, R
 #pragma unroll 4
-                for (int i = lane; i < TILE; i += 32) {
-                    const int u = i / CH, c = i % CH;
-                    const bool ok = st * T + u < S && c0 + c < R;
-                    const long long off = base + (long long)u * R + c;
-                    da[i] = ok ? a[off] : __float2bfloat16_rn(0.f);
-                    dx[i] = ok ? x[off] : __float2bfloat16_rn(0.f);
+                    for (int i = lane; i < TILE / 2; i += 32) {
+                        const int u = i / (CH / 2), c = 2 * (i % (CH / 2));
+                        const bool ok = st * T + u < S && c0 + c < R;
+                        const long long off = base + (long long)u * R + c;
+                        cp_async4(da + u * CH + c, ok ? a + off : a, ok);
+                        cp_async4(dx + u * CH + c, ok ? x + off : x, ok);
+                    }
+                    cp_async_commit();
+                    cp_async_wait_all();
+                } else {
+#pragma unroll 4
+                    for (int i = lane; i < TILE; i += 32) {
+                        const int u = i / CH, c = i % CH;
+                        const bool ok = st * T + u < S && c0 + c < R;
+                        const long long off = base + (long long)u * R + c;
+                        da[i] = ok ? a[off] : __float2bfloat16_rn(0.f);
+                        dx[i] = ok ? x[off] : __float2bfloat16_rn(0.f);
+                    }
                 }
                 __syncwarp();
                 if (lane == 0) tma::mbar_arrive(&full[slot]);
@@ -463,13 +471,14 @@ scan_kernel(const __grid_constant__ CUtensorMap map_x, const __grid_constant__ C
 
 template <bool TMA>
 int launch(const CUtensorMap& mx, const CUtensorMap& ma, const CUtensorMap& mo, const bf16_t* x,
-           const bf16_t* a, const float* h0, bf16_t* out, int B, int S, int R, cudaStream_t stream)
+           const bf16_t* a, const float* h0, bf16_t* out, int B, int S, int R, bool pairs,
+           cudaStream_t stream)
 {
     cudaError_t err = cudaFuncSetAttribute(scan_kernel<TMA>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                            (int)SMEM);
     if (err != cudaSuccess) return (int)err;
     dim3 grid((R + CH - 1) / CH, B);
-    scan_kernel<TMA><<<grid, THREADS, SMEM, stream>>>(mx, ma, mo, x, a, h0, out, S, R);
+    scan_kernel<TMA><<<grid, THREADS, SMEM, stream>>>(mx, ma, mo, x, a, h0, out, S, R, pairs);
     return (int)cudaGetLastError();
 }
 
@@ -480,13 +489,16 @@ int run(const bf16_t* x, const bf16_t* a, const float* h0, bf16_t* out, int B, i
     cudaStream_t st = (cudaStream_t)stream;
     CUtensorMap mx{}, ma{}, mo{};
     const bool tma = R % 8 == 0 && ((uintptr_t)x | (uintptr_t)a | (uintptr_t)out) % 16 == 0;
-    if (!tma) return launch<false>(mx, ma, mo, x, a, h0, out, B, S, R, st);
+    if (!tma) {
+        const bool pairs = R % 2 == 0 && ((uintptr_t)x | (uintptr_t)a) % 4 == 0;
+        return launch<false>(mx, ma, mo, x, a, h0, out, B, S, R, pairs, st);
+    }
     const CUtensorMapDataType dt = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
     int rc = tma::map_3d(&mx, dt, 2, x, R, S, B, CH, T);
     if (rc == 0) rc = tma::map_3d(&ma, dt, 2, a, R, S, B, CH, T);
     if (rc == 0) rc = tma::map_3d(&mo, dt, 2, out, R, S, B, CH, T);
     if (rc != 0) return rc;
-    return launch<true>(mx, ma, mo, x, a, h0, out, B, S, R, st);
+    return launch<true>(mx, ma, mo, x, a, h0, out, B, S, R, false, st);
 }
 
 }  // namespace bf16
@@ -497,7 +509,7 @@ int run(const bf16_t* x, const bf16_t* a, const float* h0, bf16_t* out, int B, i
 extern "C" int rg_lru_scan_f32(const float* x, const float* a, const float* h0,
                                float* out, int B, int S, int R, void* stream)
 {
-    return run<float>(x, a, h0, out, B, S, R, stream);
+    return run(x, a, h0, out, B, S, R, stream);
 }
 
 // x, a, out [B, S, R] contiguous bfloat16; h0 [B, R] contiguous float32.

@@ -23,7 +23,7 @@ version, so the two agree bit for bit.  Each mode has its own schedule:
   lane; a producer warp lands tiles of ``BF16_STAGE_STEPS`` steps in a ring
   of ``BF16_LOAD_STAGES`` slots by TMA, and each walked stage is staged in
   one of ``BF16_OUT_STAGES`` output slots and leaves as whole rows by a TMA
-  store (``bf16_schedule``).
+  store.
 
 Both modes of the Pallas kernel are ported: ``x`` and ``a`` float32, or
 both bfloat16 (``h0`` float32 either way, as the wrapper makes it).  A
@@ -47,7 +47,7 @@ from .ref import rg_lru_ref
 
 __all__ = ["LAUNCHES", "MODES", "F32_CHANNELS", "F32_STAGE_STEPS", "F32_RING_STAGES",
            "BF16_WALKERS", "BF16_CHANNELS", "BF16_STAGE_STEPS", "BF16_LOAD_STAGES",
-           "BF16_OUT_STAGES", "reset_launches", "ring_schedule", "bf16_schedule", "check_dtypes",
+           "BF16_OUT_STAGES", "reset_launches", "ring_schedule", "check_dtypes",
            "rg_lru_scan", "rg_lru_scan_plain", "rg_lru_scan_cuda"]
 
 NAME = "rg_lru_scan"
@@ -81,49 +81,6 @@ def ring_schedule(s: int) -> List[Tuple[str, int]]:
         if st + F32_RING_STAGES - 1 < n:
             events.append(("issue", st + F32_RING_STAGES - 1))
         events.append(("walk", st))
-    return events
-
-
-def bf16_schedule(s: int, r: int) -> List[Tuple[str, int, int, int, range, range]]:
-    """Every block's order of events over ``s`` steps and ``r`` channels in
-    the bf16 kernel, as one order its barriers allow: the producer warp runs
-    ahead as far as its ring's free slots let it.  Each event is ``(kind,
-    block, stage, slot, steps, channels)``, ``steps`` and ``channels`` the
-    part of the tile inside ``[0, s) x [0, r)``:
-
-    - ``load``: the producer lands stage ``st``'s tile of ``a`` and ``x`` in
-      ring slot ``st % BF16_LOAD_STAGES`` (zeros past ``s`` and ``r``), once
-      the walk of stage ``st - BF16_LOAD_STAGES`` has freed it;
-    - ``walk``: the walkers walk the ring slot in step order;
-    - ``stage``: they write its ``h_t`` in output slot ``st %
-      BF16_OUT_STAGES``;
-    - ``free``: they free the ring slot;
-    - ``left``: the store of an earlier stage has read its output slot
-      (waited for before the walkers pass the barrier after stage ``st``,
-      for the store that last read the slot stage ``st + 1`` writes);
-    - ``store``: one walker sends the output slot to device memory as whole
-      rows.
-    """
-    T, L, O, CH = BF16_STAGE_STEPS, BF16_LOAD_STAGES, BF16_OUT_STAGES, BF16_CHANNELS
-    n = -(-s // T)
-    events: List[Tuple[str, int, int, int, range, range]] = []
-    for blk in range(-(-r // CH)):
-        chans = range(blk * CH, min(blk * CH + CH, r))
-        order: List[Tuple[str, int, int]] = []
-        loaded, pending = 0, []
-        for st in range(n):
-            while loaded < n and loaded < st + L:    # slot of stage loaded - L freed
-                order.append(("load", loaded, loaded % L))
-                loaded += 1
-            order += [("walk", st, st % L), ("stage", st, st % O), ("free", st, st % L)]
-            while pending and pending[0] <= st + 1 - O:
-                done = pending.pop(0)
-                order.append(("left", done, done % O))
-            order.append(("store", st, st % O))
-            pending.append(st)
-        order += [("left", done, done % O) for done in pending]
-        events += [(kind, blk, st, slot, range(st * T, min(st * T + T, s)), chans)
-                   for kind, st, slot in order]
     return events
 
 

@@ -455,7 +455,9 @@ def test_cuda_bf16_flash_matches_plain(card, b, s, h, kv, d, kw):
                                    # b 1; s 1; s not a multiple of a stage; r a multiple
                                    # of 8 (TMA) but not of a block; r under one block
                                    (1, 3072, 4096), (2, 1, 4096), (2, 100, 4096),
-                                   (2, 300, 1000), (2, 300, 40)])
+                                   (2, 300, 1000), (2, 300, 40),
+                                   # r even but not a multiple of 8: 4-byte cp.async, no TMA
+                                   (2, 300, 1002)])
 def test_cuda_bf16_scan_bit_identical_to_plain(card, b, s, r):
     rng = np.random.default_rng(s)
     x = torch.from_numpy((rng.normal(size=(b, s, r)) * 0.1).astype(np.float32)).to(card, torch.bfloat16)
@@ -469,18 +471,20 @@ def test_cuda_bf16_scan_bit_identical_to_plain(card, b, s, r):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("offset", [1, 2])
 @pytest.mark.parametrize("which", ["x", "a"])
-def test_cuda_bf16_scan_off_16_bytes_bit_identical_to_plain(card, which):
-    """An operand 2 bytes off 16-byte alignment (a view at storage offset 1)
-    takes the kernel's path without TMA."""
+def test_cuda_bf16_scan_off_16_bytes_bit_identical_to_plain(card, which, offset):
+    """An operand 2 or 4 bytes off 16-byte alignment (a view at storage
+    offset 1 or 2) takes the kernel's path without TMA: element loads, or
+    4-byte cp.async of element pairs."""
     b, s, r = 2, 300, 4096
     rng = np.random.default_rng(r)
     ops = {"x": (rng.normal(size=(b, s, r)) * 0.1).astype(np.float32),
            "a": rng.uniform(0.85, 0.999, size=(b, s, r)).astype(np.float32)}
     t = {k: torch.from_numpy(v).to(card, torch.bfloat16) for k, v in ops.items()}
-    view = torch.empty(b * s * r + 1, dtype=torch.bfloat16, device=card)[1:].view(b, s, r)
+    view = torch.empty(b * s * r + offset, dtype=torch.bfloat16, device=card)[offset:].view(b, s, r)
     t[which] = view.copy_(t[which])
-    assert t[which].data_ptr() % 16 == 2
+    assert t[which].data_ptr() % 16 == 2 * offset
     rg_mod.reset_launches()
     out = rg_lru_scan(t["x"], t["a"])
     ref = rg_lru_scan_plain(t["x"], t["a"])

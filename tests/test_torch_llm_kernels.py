@@ -10,11 +10,13 @@ Tolerances: 3e-5 for attention and 2e-4 for the scan (tests/test_kernels.py's
 f32 bars).  Tests marked ``cuda`` hold the CUDA kernels against the plain
 versions on the card and skip elsewhere.  The kernels' schedules (head
 pairing, block order, live K/V tiles, the scan's prefetch ring) are checked
-here through their Python statements; the bf16 scan's schedule is also
-walked by an emulation of its dataflow that must equal the plain loop bit
-for bit.  A numpy emulation of tf32 rounding records why the flash kernel
+here through their Python statements; the bf16 scan's schedule is modelled
+here (``bf16_schedule``) and walked by an emulation of its dataflow that
+must equal the plain loop bit for bit.  A numpy emulation of tf32 rounding records why the flash kernel
 runs 3xTF32 and not one TF32 pass.
 """
+from typing import List, Tuple
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -44,7 +46,6 @@ from repro_torch.kernels.rg_lru_scan import (
     BF16_LOAD_STAGES,
     BF16_OUT_STAGES,
     BF16_STAGE_STEPS,
-    bf16_schedule,
     rg_lru_scan,
     rg_lru_scan_plain,
     ring_schedule,
@@ -345,6 +346,51 @@ def test_scan_ring_issues_each_stage_once_ahead_of_its_walk(s):
     assert issued == list(range(n)) and walked == list(range(n))
     # the stages cover the s steps once: full stages, then a short last one
     assert (n - 1) * STAGE_STEPS < s <= n * STAGE_STEPS
+
+
+def bf16_schedule(s: int, r: int) -> List[Tuple[str, int, int, int, range, range]]:
+    """A model of the bf16 kernel (``csrc/rg_lru_scan.cu``, namespace
+    ``bf16``): every block's order of events over ``s`` steps and ``r``
+    channels, as one order its barriers allow: the producer warp runs
+    ahead as far as its ring's free slots let it.  Each event is ``(kind,
+    block, stage, slot, steps, channels)``, ``steps`` and ``channels`` the
+    part of the tile inside ``[0, s) x [0, r)``:
+
+    - ``load``: the producer lands stage ``st``'s tile of ``a`` and ``x`` in
+      ring slot ``st % BF16_LOAD_STAGES`` (zeros past ``s`` and ``r``), once
+      the walk of stage ``st - BF16_LOAD_STAGES`` has freed it;
+    - ``walk``: the walkers walk the ring slot in step order;
+    - ``stage``: they write its ``h_t`` in output slot ``st %
+      BF16_OUT_STAGES``;
+    - ``free``: they free the ring slot;
+    - ``left``: the store of an earlier stage has read its output slot
+      (waited for before the walkers pass the barrier after stage ``st``,
+      for the store that last read the slot stage ``st + 1`` writes);
+    - ``store``: one walker sends the output slot to device memory as whole
+      rows.
+    """
+    T, L, O, CH = BF16_STAGE_STEPS, BF16_LOAD_STAGES, BF16_OUT_STAGES, BF16_CHANNELS
+    n = -(-s // T)
+    events: List[Tuple[str, int, int, int, range, range]] = []
+    for blk in range(-(-r // CH)):
+        chans = range(blk * CH, min(blk * CH + CH, r))
+        order: List[Tuple[str, int, int]] = []
+        loaded, pending = 0, []
+        for st in range(n):
+            while loaded < n and loaded < st + L:    # slot of stage loaded - L freed
+                order.append(("load", loaded, loaded % L))
+                loaded += 1
+            order += [("walk", st, st % L), ("stage", st, st % O), ("free", st, st % L)]
+            while pending and pending[0] <= st + 1 - O:
+                done = pending.pop(0)
+                order.append(("left", done, done % O))
+            order.append(("store", st, st % O))
+            pending.append(st)
+        order += [("left", done, done % O) for done in pending]
+        events += [(kind, blk, st, slot, range(st * T, min(st * T + T, s)), chans)
+                   for kind, st, slot in order]
+    return events
+
 
 
 @pytest.mark.parametrize("r", [8, 40, 100, 1000, 4096])
