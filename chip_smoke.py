@@ -52,7 +52,9 @@ Slice 2, the LLM serving path (RecurrentGemma-9B):
                 128 at the serve length, and the serve shapes (flash b=2,
                 s=3072, h=16, kv=1, d=256, window 2048, causal; scan b=2,
                 s=3072, r=4096; scan R not a multiple of 64 or of 4, S
-                shorter than the ring), tensors O(1); allclose at 3e-5
+                shorter than the ring), the dense archs' heads at head_dim
+                128 and granite-moe-1b-a400m's (16 / 8, head_dim 64) at
+                S = 1, 129, 3072, tensors O(1); allclose at 3e-5
                 (flash) / 2e-4 (scan) and max|err| / max|plain| under the
                 same bar; every scan case bit-identical to the plain loop.
 8. llm_times  — per kernel at the serve shape: ms per launch and per
@@ -310,8 +312,9 @@ dry-run's ``ModelConfig.dtype="bfloat16"``:
                    images) at prefix retention 1.0 and 0.5, within 2e-2 of
                    max|plain| with pruned units exactly 0; flash at
                    recurrentgemma-9b's heads (16 / 1, head_dim 256, window
-                   2048) and qwen3-32b's (64 / 8, head_dim 128) at S = 1,
-                   129, 3072, and gemma2-2b's softcap, within 3e-2 (and the
+                   2048), qwen3-32b's (64 / 8, head_dim 128) and
+                   llama4-maverick's (40 / 8, head_dim 128) at S = 1, 129,
+                   3072, and gemma2-2b's softcap, within 3e-2 (and the
                    bf16 ulps recorded); the scan at b 2, s 3072, r 4096 and
                    two ragged shapes, bit-identical.  ms a launch (a step for
                    pruned_matmul), the plain version, the library call
@@ -350,6 +353,45 @@ dry-run's ``ModelConfig.dtype="bfloat16"``:
                    envelope (max|bf16 logits - logits of the same weights
                    upcast to float32|) at the largest depth the card holds
                    in float32 (38 and ``DENSE_LAYERS``' 28).
+
+Slice 16, the MoE and xLSTM block kinds (``moe``, ``moe_local``, ``mlstm``,
+``slstm``):
+
+34. moe_xlstm_serve — ``serve_batch`` (batch 2, prompt 3072, 32 new tokens)
+                   at granite-moe-1b-a400m's full size in float32 (24
+                   layers, 32 experts top-8; then retention 0.5, 16
+                   experts), xlstm-1.3b's full size in float32 (48 blocks,
+                   7 mLSTM : 1 sLSTM; its random-weight float32 forward is
+                   chaotic there, so decode is held to ENVELOPE_EXCESS x its
+                   one-ulp logit envelope measured in the run, and one 7:1
+                   period, ``XLSTM_PERIOD`` blocks, to 2e-3; in both, the
+                   first group's decode states to 2e-3 of the forward's
+                   handoff relative to its largest value, ``decode_states``
+                   listing every group's) and
+                   llama4-maverick's full width in
+                   bf16 cut to ``LLAMA4_LAYERS`` = 2 of 48 layers (128
+                   experts of d_ff 8192 and the shared expert, vocab
+                   202 048, untied head): flash once per attention or MoE
+                   layer, the float32 scan once per sLSTM layer (the
+                   sLSTM's cell and normaliser in one launch), pruned_matmul
+                   never; two prefills bit-identical; the forward's aux
+                   loss finite and > 0 with MoE layers.  ``MoESpy``
+                   records each MoE layer's routed counts against its
+                   capacity (``moe.prefill``, ``moe.forward``: max count,
+                   dropped assignments, the factor that would drop none)
+                   and the smallest gap between the k-th and (k+1)-th router
+                   probability at the compared positions; ``spy_host_ms``
+                   is its own host time inside the timed serve.  Decode vs
+                   ``forward`` (2e-3; llama4 2E, E measured at
+                   ``LLAMA4_ENVELOPE_EXPERTS`` experts in float32 at a
+                   drop-free capacity, its float32 run replaying the bf16
+                   run's expert choices) is held on a run that dropped
+                   nothing: where the config's 1.25 dropped, a second run
+                   at ``drop_free_factor``.  On that run the forward
+                   replays the served run's expert choices, and each
+                   replayed row (a router near-tie tipped by rounding) is
+                   listed with its gap and held to have moved within
+                   ``ENVELOPE_EXCESS`` x the run's own spread.
 
 Then a ``{"phase": "done"}`` line with the script's seconds, a
 ``{"kernels": [...]}`` line, the ``nvidia-smi`` name/power line, and as the
@@ -414,6 +456,16 @@ BF16_FLASH_TOL = 3e-2
 BF16_TFLOPS = 989e12      # H100 SXM dense bf16 tensor-core peak, NVIDIA data sheet
 # bf16 serving at the JAX dry-run's dtype, every arch at its full depth
 BF16_SERVE = ("recurrentgemma-9b", "qwen3-32b")
+# slice 16: llama4-maverick at full width cut in depth to one (attn, moe)
+# period (37 GB in bf16); its bf16 envelope E at the same widths with the
+# experts cut to the largest power of two that float32 holds beside its
+# logits (41.6 GB), at a capacity factor of its expert count (drop-free, so
+# that E covers every routed row as the drop-free bar run does)
+LLAMA4_LAYERS = 2
+LLAMA4_ENVELOPE_EXPERTS = 64
+# one (7 mLSTM, 1 sLSTM) period of xlstm-1.3b, served beside the full 48
+# blocks and held to DECODE_TOL itself
+XLSTM_PERIOD = 8
 # the sweeps' checks that are the port's contract (the rest are accuracy
 # data of the quick fixtures, recorded)
 SWEEP_HELD = {
@@ -1289,6 +1341,18 @@ def dense_heads():
     return out
 
 
+def moe_attention(arch):
+    """(heads, kv heads, head_dim, flash keywords) of an MoE arch's
+    attention layers, from its config."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config(arch)
+    kw = {"window": cfg.window_size} if "moe_local" in cfg.block_pattern else {}
+    if cfg.attn_softcap:
+        kw["softcap"] = cfg.attn_softcap
+    return cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim, kw
+
+
 def phase_llm_kernel(report):
     import torch
     from repro_torch.kernels.flash_attention import flash_attention, flash_attention_plain
@@ -1323,6 +1387,9 @@ def phase_llm_kernel(report):
         # the dense archs' heads / kv heads at head_dim 128, global causal
         # attention: internlm2 16/8, qwen1.5 40/40, qwen3 64/8
         *[(2, n, h, kv, 128, {}) for h, kv in dense_heads() for n in (1, 129, 3072)],
+        # granite-moe-1b-a400m's float32 heads (16/8 at head_dim 64, global
+        # causal), as moe_xlstm_serve launches them
+        *[(2, n, *moe_attention("granite-moe-1b-a400m")) for n in (1, 129, 3072)],
     ]
     cases = []
     for b, s, h, kv, d, kw in flash_cases:
@@ -1435,13 +1502,205 @@ def phase_llm_times(report):
     return rec
 
 
-def _serve_once(cfg, label, gen_seed, phase="serve", decode_bar=DECODE_TOL):
+class MoESpy:
+    """Wraps the port's ``models.moe._dispatch_compute_combine`` while
+    ``installed()`` is open.  Records each call (one an MoE layer, in
+    order): its token count T, capacity C, the routed counts an expert and
+    the router probabilities; ``choices()`` gives each token's expert set
+    (sorted top-k) after the run, so a recorded run pays no device work of
+    the spy's.  ``host_s`` is the spy's own host time inside the calls.
+
+    With ``replay`` (one ``[T, k]`` table of expert sets a call) it also
+    makes each call follow those decisions: on a row whose top-k set
+    differs, the probabilities of the experts it would choose and those of
+    the replayed set are swapped pairwise (largest with largest), so the
+    row routes as replayed with gates that move by no more than the swapped
+    gaps.  ``flipped`` marks those rows."""
+
+    def __init__(self, replay=None):
+        self.calls = []
+        self.replay = replay
+        self.host_s = 0.0
+
+    def __call__(self, params, spec, xf, probs, e_lo, n_local):
+        import torch
+        from repro_torch.models import moe as moe_mod
+
+        t0 = time.perf_counter()
+        k = spec.num_experts_per_tok
+        rec = {"T": xf.shape[0], "C": moe_mod.capacity(spec, xf.shape[0]), "k": k, "probs": probs}
+        routed = probs
+        if self.replay is not None:
+            rec["choice"] = choice = torch.topk(probs, k, dim=-1).indices.sort(dim=-1).values
+            want = self.replay[len(self.calls)]
+            flipped = (choice != want).any(dim=-1)
+            rows = flipped.nonzero().flatten().tolist()
+            if rows:
+                routed = probs.clone()
+                for r in rows:
+                    mine, theirs = set(choice[r].tolist()), set(want[r].tolist())
+                    out_ = sorted(mine - theirs, key=lambda e: -float(probs[r, e]))
+                    in_ = sorted(theirs - mine, key=lambda e: -float(probs[r, e]))
+                    for i, j in zip(out_, in_):
+                        routed[r, i], routed[r, j] = probs[r, j], probs[r, i]
+                got = torch.topk(routed[rows], k, dim=-1).indices.sort(dim=-1).values
+                check(torch.equal(got, want[rows]), "moe replay: swapped rows do not route as replayed")
+            rec["flipped"] = flipped
+        self.host_s += time.perf_counter() - t0
+        out, counts = self.real(params, spec, xf, routed, e_lo, n_local)
+        rec["counts"] = counts
+        self.calls.append(rec)
+        return out, counts
+
+    def choices(self):
+        """Each call's expert sets, ``[T, k]`` sorted, from its probabilities."""
+        import torch
+
+        for c in self.calls:
+            if "choice" not in c:
+                c["choice"] = torch.topk(c["probs"], c["k"], dim=-1).indices.sort(dim=-1).values
+        return [c["choice"] for c in self.calls]
+
+    @contextlib.contextmanager
+    def installed(self):
+        from repro_torch.models import moe as moe_mod
+
+        self.real = moe_mod._dispatch_compute_combine
+        moe_mod._dispatch_compute_combine = self
+        try:
+            yield self
+        finally:
+            moe_mod._dispatch_compute_combine = self.real
+
+
+def moe_routing(calls) -> dict:
+    """Per MoE call (one a layer): the largest routed count of an expert,
+    the assignments past capacity, and the capacity factor that would have
+    kept every assignment (max count x E / (T k))."""
+    import torch
+
+    out = {"capacity": [c["C"] for c in calls], "max_count": [], "dropped": [], "needed_factor": []}
+    for c in calls:
+        counts = c["counts"]
+        out["max_count"].append(int(counts.max()))
+        out["dropped"].append(int(torch.clamp(counts - c["C"], min=0).sum()))
+        out["needed_factor"].append(out["max_count"][-1] * counts.numel() / (c["T"] * c["k"]))
+    return out
+
+
+def moe_replay_check(calls, ref_probs, width: int, positions) -> dict:
+    """After a replayed run: per row, the largest router-probability shift
+    against the run it replays (``ref_probs``, one ``[T, E]`` a layer).
+    ``envelope`` is the largest over the rows whose decisions agreed, the
+    rounding spread between the two runs; ``flip_shift`` the largest over
+    the replayed rows.  Each replayed row is listed with its layer, batch
+    row, position and gap between its k-th and (k+1)-th probability;
+    ``compared`` counts those at ``positions`` (rows laid out ``[b, width]``)."""
+    import torch
+
+    env, shift, flips = 0.0, 0.0, []
+    for layer, (c, ref) in enumerate(zip(calls, ref_probs)):
+        d = (c["probs"] - ref).abs().amax(dim=-1)
+        fl = c["flipped"]
+        env = max(env, float(d[~fl].max()) if bool((~fl).any()) else 0.0)
+        for r in fl.nonzero().flatten().tolist():
+            top = torch.topk(c["probs"][r], c["k"] + 1).values
+            shift = max(shift, float(d[r]))
+            flips.append({"layer": layer, "batch": r // width, "position": r % width,
+                          "gap": float(top[-2] - top[-1]), "shift": float(d[r])})
+    return {"envelope": env, "flip_shift": shift, "flips": len(flips),
+            "compared": sum(f["position"] in positions for f in flips), "first_flips": flips[:12]}
+
+
+def check_replay(rp: dict, label: str) -> None:
+    """Each replayed decision was a near-tie that rounding tipped: its row's
+    probabilities moved by at most ENVELOPE_EXCESS x the largest move of
+    every row whose decisions agreed."""
+    check(not rp["flips"] or rp["flip_shift"] <= ENVELOPE_EXCESS * rp["envelope"],
+          f"{label}: a replayed router decision moved {rp['flip_shift']} > "
+          f"{ENVELOPE_EXCESS} x the run's spread {rp['envelope']}")
+
+
+def one_ulp_logit_envelope(params, cfg, toks, s, ref) -> dict:
+    """The float32 rounding envelope of a model at these tokens: the largest
+    |forward logits - ``ref``| at the positions from ``s - 1`` on, over the
+    forward with every float32 parameter one ulp up, then one ulp down
+    (``params`` restored after)."""
+    from repro_torch.models import transformer as T
+
+    leaves = []
+    T.tree_map(lambda t: leaves.append(t) if t.dtype.is_floating_point else None, params)
+    saved = [t.clone() for t in leaves]
+    out = {}
+    for name, f in (("up", 1.0 + 2.0 ** -23), ("down", 1.0 - 2.0 ** -23)):
+        for t in leaves:
+            t.mul_(f)
+        lg = T.forward(params, cfg, {"tokens": toks})[0][:, s - 1:]
+        out[name] = float((lg - ref).abs().max())
+        for t, v in zip(leaves, saved):
+            t.copy_(v)
+    out["max"] = max(out["up"], out["down"])
+    return out
+
+
+def xlstm_state_check(params, cfg, state, toks) -> dict:
+    """The recurrent states decode leaves (``state``: a prefill over the
+    prompt, then a decode step a generated token) against the ones the
+    parallel form hands off after a prefill over all of ``toks`` (prompt +
+    generated).  Per group of the stacked blocks, the largest
+    |decode - forward| / max|forward| over its states (mLSTM ``C``, ``n``,
+    sLSTM ``c``, ``n``); the mLSTM's are first brought to the forward's
+    stabiliser (``C e^(m_dec - m_fwd)``), since the two forms may keep the
+    same state at different ``m``, whose largest difference is recorded."""
+    import torch
+    from repro_torch.models import transformer as T
+
+    _, fwd = T.prefill(params, cfg, {"tokens": toks}, max_len=toks.shape[1])
+    dec, ref = state["caches"]["blocks"], fwd["caches"]["blocks"]
+    per_group, m_diff = [], 0.0
+    for gi in range(next(iter(ref["s0"].values())).shape[0]):
+        err = 0.0
+        for j in range(len(cfg.block_pattern)):
+            d = {k: v[gi] for k, v in dec[f"s{j}"].items()}
+            r = {k: v[gi] for k, v in ref[f"s{j}"].items()}
+            if "m" in d:
+                m_diff = max(m_diff, float((d["m"] - r["m"]).abs().max()))
+                f = torch.exp(d["m"] - r["m"])
+                d = {"C": d["C"] * f[..., None, None], "n": d["n"] * f[..., None]}
+            for k, v in d.items():
+                err = max(err, float((v - r[k]).abs().max() / r[k].abs().max()))
+        per_group.append(err)
+    del fwd, dec, ref
+    return {"rel_err_per_group": per_group, "max_m_diff": m_diff}
+
+
+def _serve_once(cfg, label, gen_seed, phase="serve", decode_bar=DECODE_TOL, envelope=False,
+                state_groups=0):
     """serve_batch at ``cfg`` with the port's seeded init on the card; the
     launch counts are zeroed just before it and read just after: flash in
-    the mode of ``cfg.dtype`` once per attention layer, the scan in its
-    float32 mode (the model feeds it float32 in either dtype) once per
-    rglru layer, nothing else.  Then each step's logits against
-    ``forward`` over prompt + generated tokens, within ``decode_bar``."""
+    the mode of ``cfg.dtype`` once per attention layer (attn, local, moe,
+    moe_local), the scan in its float32 mode (the model feeds it float32 in
+    either dtype) once per rglru or slstm layer, nothing else.  A second
+    prefill alone, compared bit for bit with the first.  Then each step's
+    logits against ``forward`` over prompt + generated tokens, within
+    ``decode_bar``.  With MoE layers, ``MoESpy`` records the routing of the
+    prefill, the decode steps and the forward (the forward's router gaps at
+    the compared positions).  An assignment dropped at capacity in the
+    prefill or the forward changes what decode is compared with (the
+    reference's semantics), so the bar is then recorded and not held
+    (``decode_bar_held``): the caller reruns at a drop-free capacity.  On a
+    drop-free run the forward replays the served run's expert choices
+    (``MoESpy(replay=...)``): a router near-tie that rounding tipped the
+    other way is compared on the same decisions, provided the replayed
+    rows' probabilities moved by at most ``ENVELOPE_EXCESS`` x the largest
+    shift of every row whose decisions agreed (``moe.replay``).  With
+    ``envelope`` the bar is ``max(decode_bar, ENVELOPE_EXCESS x E1)``, E1 the
+    model's one-ulp logit envelope (``one_ulp_logit_envelope``) measured in
+    the same run: for a model whose float32 forward is chaotic at depth.
+    With ``state_groups`` (xLSTM stacks) the decode states of the first
+    that many groups of blocks are held to ``decode_bar`` relative to the
+    forward's handoff (``xlstm_state_check``), which chaos at depth does
+    not reach; the deeper groups' errors are recorded."""
     import torch
     from repro_torch.kernels import flash_attention as fa_mod
     from repro_torch.kernels import pruned_matmul as pm_mod
@@ -1452,6 +1711,8 @@ def _serve_once(cfg, label, gen_seed, phase="serve", decode_bar=DECODE_TOL):
 
     dev = torch.device(DEVICE)
     b, s, n = SERVE["batch"], SERVE["prompt"], SERVE["new_tokens"]
+    kinds = cfg.layer_kinds()
+    moe_layers = sum(k in ("moe", "moe_local") for k in kinds)
     gen = torch.Generator(device=dev).manual_seed(gen_seed)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1464,51 +1725,121 @@ def _serve_once(cfg, label, gen_seed, phase="serve", decode_bar=DECODE_TOL):
     torch.cuda.reset_peak_memory_stats()
     for mod in (fa_mod, rg_mod, pm_mod):
         mod.reset_launches()
-    out, logits = serve_batch(cfg, params, prompts, n, device=DEVICE, stats=stats, return_logits=True)
+    serve_spy = MoESpy()
+    with serve_spy.installed():
+        out, logits = serve_batch(cfg, params, prompts, n, device=DEVICE, stats=stats,
+                                  return_logits=True)
+    serve_calls = serve_spy.calls
     launches = {**fa_mod.LAUNCHES, **rg_mod.LAUNCHES}
     pm_launches = sum(pm_mod.LAUNCHES.values())
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    # a second prefill alone: its time without first-call costs
+    # a second prefill alone: its time without first-call costs, and its
+    # logits bit for bit against the first
     torch.cuda.synchronize()
     t1 = time.perf_counter()
-    T.prefill(params, cfg, {"tokens": prompts}, max_len=s + n)
+    again, again_state = T.prefill(params, cfg, {"tokens": prompts}, max_len=s + n)
     torch.cuda.synchronize()
     prefill2_s = time.perf_counter() - t1
-    # decode vs forward over prompt + generated tokens at the same positions
-    full, _ = T.forward(params, cfg, {"tokens": torch.cat([prompts, out], dim=1)})
+    prefill_bit_identical = bool(torch.equal(again, logits[:, 0]))
+    states = None
+    if state_groups:
+        # the served decode again from the second prefill, then its states
+        # against the forward's handoff over prompt + generated tokens
+        for i in range(n):
+            T.decode_step(params, cfg, again_state, out[:, i])
+        states = xlstm_state_check(params, cfg, again_state, torch.cat([prompts, out], dim=1))
+        states.update(held_groups=state_groups, bar=DECODE_TOL)
+    del again_state
+    # decode vs forward over prompt + generated tokens at the same positions;
+    # a drop-free MoE run's forward follows the served run's expert choices
+    held, replay, served_probs = True, None, None
+    if moe_layers:
+        served = moe_routing(serve_calls)          # the prefill's calls, then each step's
+        held = sum(served["dropped"]) == 0
+        if held:
+            def table(key, L):
+                pre = serve_calls[L][key].view(b, s, -1)
+                dec = torch.stack([serve_calls[moe_layers * (i + 1) + L][key] for i in range(n)], 1)
+                return torch.cat([pre, dec], dim=1).reshape(b * (s + n), -1)
+
+            serve_spy.choices()
+            replay = [table("choice", L) for L in range(moe_layers)]
+            served_probs = [table("probs", L) for L in range(moe_layers)]
+    fwd_spy = MoESpy(replay=replay)
+    with fwd_spy.installed():
+        full, aux = T.forward(params, cfg, {"tokens": torch.cat([prompts, out], dim=1)})
+    fwd_calls = fwd_spy.calls
     ref = full[:, s - 1:]
+    env = None
+    if envelope:
+        env = one_ulp_logit_envelope(params, cfg, torch.cat([prompts, out], dim=1), s, ref)
+        decode_bar = max(decode_bar, ENVELOPE_EXCESS * env["max"])
     diffs = (logits - ref).abs().amax(dim=(0, 2)).tolist()
     rec = {
         "phase": phase, "label": label, "arch": cfg.name, "retention": cfg.retention,
         "dtype": cfg.dtype,
         "num_layers": cfg.num_layers, "d_model": cfg.d_model, "d_ff": cfg.d_ff,
-        "rnn_width": cfg.rnn_width, "param_count": param_count(cfg),
+        "rnn_width": cfg.rnn_width, "num_experts": cfg.num_experts,
+        "param_count": param_count(cfg),
         "batch": b, "prompt": s, "new_tokens": n, "init_s": init_s,
         "prefill_s": stats["prefill_s"], "prefill_tok_per_s": b * s / stats["prefill_s"],
         "prefill_again_s": prefill2_s, "prefill_again_tok_per_s": b * s / prefill2_s,
+        "prefill_bit_identical": prefill_bit_identical,
         "decode_ms_per_token": stats["decode_s"] / n * 1e3,
         "decode_tok_per_s": b * n / stats["decode_s"],
         "weights_gb": weights_gb, "peak_mem_gb": peak_gb,
         "launches_per_prefill": launches, "pruned_matmul_launches": pm_launches,
         "max_logit_diff_vs_forward": max(diffs), "decode_bar": decode_bar,
-        "per_step_logit_diff": diffs,
-        "max_abs_logit": float(ref.abs().max()),
+        "one_ulp_envelope": env, "decode_states": states, "per_step_logit_diff": diffs,
+        "max_abs_logit": float(ref.abs().max()), "aux": float(aux),
         "logits_finite": bool(torch.isfinite(logits).all()),
         "tokens_in_range": bool(((out >= 0) & (out < cfg.vocab_size)).all()),
         "sample_tokens": out[0, :8].tolist(),
     }
+    if moe_layers:
+        check(len(serve_calls) == moe_layers * (n + 1) and len(fwd_calls) == moe_layers,
+              f"{label}: {len(serve_calls)} / {len(fwd_calls)} MoE calls for {moe_layers} layers")
+        routing = {"capacity_factor": cfg.moe_capacity_factor,
+                   # the spy's host time inside the timed serve (no device work)
+                   "spy_host_ms": serve_spy.host_s * 1e3,
+                   "prefill": {k: v[:moe_layers] for k, v in served.items()},
+                   "decode_dropped": sum(served["dropped"][moe_layers:]),
+                   "forward": moe_routing(fwd_calls)}
+        gaps = []
+        for c in fwd_calls:
+            if c["probs"].shape[1] > c["k"]:
+                top = torch.topk(c["probs"].view(b, s + n, -1)[:, s - 1:], c["k"] + 1, dim=-1).values
+                gaps.append(float((top[..., -2] - top[..., -1]).min()))
+        routing["min_router_gap_per_layer"] = gaps
+        routing["min_router_gap"] = min(gaps) if gaps else None
+        routing["dropped"] = (sum(routing["prefill"]["dropped"]) + routing["decode_dropped"]
+                              + sum(routing["forward"]["dropped"]))
+        # the forward's larger T has its own capacity: it may drop where the serve did not
+        held = held and routing["dropped"] == 0
+        if held:
+            routing["replay"] = moe_replay_check(fwd_calls, served_probs, s + n, range(s - 1, s + n))
+        rec["moe"] = routing
+    rec["decode_bar_held"] = held
     emit({k: v for k, v in rec.items() if k != "per_step_logit_diff"})
-    kinds = cfg.layer_kinds()
     expect = dict.fromkeys(launches, 0)
-    expect[fa_mod.MODES[T.param_dtype(cfg)][0]] = kinds.count("local") + kinds.count("attn")
-    expect[rg_mod.NAME] = kinds.count("rglru")
+    expect[fa_mod.MODES[T.param_dtype(cfg)][0]] = sum(
+        kinds.count(k) for k in ("attn", "local", "moe", "moe_local"))
+    expect[rg_mod.NAME] = kinds.count("rglru") + kinds.count("slstm")
     check(launches == expect, f"{label}: launches {launches} per prefill, want {expect}")
     check(pm_launches == 0, f"{label}: pruned_matmul launched on the LLM path")
     check(rec["logits_finite"] and rec["tokens_in_range"], f"{label}: non-finite logits or bad tokens")
     check(tuple(out.shape) == (b, n), f"{label}: generated shape {tuple(out.shape)}")
-    check(rec["max_logit_diff_vs_forward"] <= decode_bar,
-          f"{label}: decode differs from forward by {rec['max_logit_diff_vs_forward']} > {decode_bar}")
-    del params, prompts, out, logits, full, ref
+    if states:
+        check(max(states["rel_err_per_group"][:state_groups]) <= DECODE_TOL,
+              f"{label}: decode states of the first {state_groups} group(s) differ from the "
+              f"forward's handoff: {states}")
+    if held:
+        check(rec["max_logit_diff_vs_forward"] <= decode_bar,
+              f"{label}: decode differs from forward by {rec['max_logit_diff_vs_forward']} > {decode_bar}")
+        if "moe" in rec:
+            check_replay(rec["moe"]["replay"], label)
+    del params, prompts, out, logits, full, ref, again, serve_spy, fwd_spy, serve_calls, fwd_calls
+    del replay, served_probs
     torch.cuda.empty_cache()
     return rec
 
@@ -4376,14 +4707,15 @@ def _bf16_pm_cases(gen):
 
 
 def _bf16_cases():
-    """(label, b, s, h, kv, d, kw) of the bf16 flash cases: recurrentgemma-9b's
-    and qwen3-32b's heads at S = 1, 129, 3072, and gemma2-2b's softcap."""
+    """(label, b, s, h, kv, d, kw) of the bf16 flash cases: recurrentgemma-9b's,
+    qwen3-32b's and llama4-maverick's heads at S = 1, 129, 3072, and
+    gemma2-2b's softcap."""
     from repro_torch.configs import get_config
 
     out = []
-    for arch in ("recurrentgemma-9b", "qwen3-32b", "gemma2-2b"):
+    for arch in ("recurrentgemma-9b", "qwen3-32b", "llama4-maverick-400b-a17b", "gemma2-2b"):
         cfg = get_config(arch)
-        kw = {"window": cfg.window_size} if "local" in cfg.block_pattern else {}
+        kw = {"window": cfg.window_size} if {"local", "moe_local"} & set(cfg.block_pattern) else {}
         if cfg.attn_softcap:
             kw["softcap"] = cfg.attn_softcap
         lens = (SERVE["prompt"],) if arch == "gemma2-2b" else (1, 129, SERVE["prompt"])
@@ -4593,7 +4925,8 @@ def bf16_envelope(cfg, seed):
     logits of the same weights upcast exactly to float32 and run in
     float32|, teacher-forced over a batch of ``SERVE``'s shape at the
     positions ``_serve_once`` compares (the prompt's last and the new
-    tokens')."""
+    tokens').  With MoE layers the float32 run replays the bf16 run's
+    expert choices (``MoESpy``), so E compares the same decisions."""
     import torch
     from repro_torch.models import transformer as T
 
@@ -4603,14 +4936,24 @@ def bf16_envelope(cfg, seed):
     gen = torch.Generator(device=dev).manual_seed(seed)
     params = T.init_params(gen, cfg)
     toks = torch.randint(0, cfg.vocab_size, (b, s + n), generator=gen, device=dev)
-    low = T.forward(params, cfg, {"tokens": toks})[0][:, s - 1:].clone()
+    low_spy = MoESpy()
+    with low_spy.installed():
+        low = T.forward(params, cfg, {"tokens": toks})[0][:, s - 1:].clone()
     upcast_(params)
-    f32 = T.forward(params, cfg.replace(dtype="float32"), {"tokens": toks})[0][:, s - 1:]
+    # with MoE layers the float32 run follows the bf16 run's expert choices
+    f32_spy = MoESpy(replay=low_spy.choices())
+    with f32_spy.installed():
+        f32 = T.forward(params, cfg.replace(dtype="float32"), {"tokens": toks})[0][:, s - 1:]
     torch.cuda.synchronize()
     out = {"layers": cfg.num_layers, "E": float((low - f32).abs().max()),
            "max_abs_logit": float(f32.abs().max()), "seconds": time.perf_counter() - t0,
            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
-    del params, toks, low, f32
+    if low_spy.calls:
+        out["moe"] = {"capacity_factor": cfg.moe_capacity_factor,
+                      "dropped": sum(moe_routing(low_spy.calls)["dropped"]),
+                      "replay": moe_replay_check(f32_spy.calls, [c["probs"] for c in low_spy.calls],
+                                                 s + n, range(s - 1, s + n))}
+    del params, toks, low, f32, low_spy, f32_spy
     torch.cuda.empty_cache()
     return out
 
@@ -4641,6 +4984,104 @@ def phase_bf16_serve(report):
            "layers": {a: r["num_layers"] for a, r in out.items()}}
     emit(rec)
     report["bf16_serve"] = {**out, "seconds": rec["seconds"]}
+    return out
+
+
+# ---------------------------------------------------------------------------
+# slice 16: the MoE and xLSTM block kinds served
+# ---------------------------------------------------------------------------
+
+def drop_free_factor(cfg, rec) -> float:
+    """A capacity factor under which the run ``rec`` would have dropped no
+    assignment: twice the largest factor its prefill and forward needed (an
+    earlier layer's drops move a later layer's routing), at most
+    ``num_experts`` (which keeps every assignment by construction)."""
+    r = rec["moe"]
+    need = max(r["prefill"]["needed_factor"] + r["forward"]["needed_factor"])
+    return float(min(cfg.num_experts, max(2.0 * need, cfg.moe_capacity_factor)))
+
+
+def _serve_moe(cfg, label, seed, decode_bar=DECODE_TOL):
+    """``_serve_once`` at the config's capacity; where it dropped an
+    assignment, again at a drop-free capacity (``drop_free_factor``, then
+    ``num_experts`` if that still dropped), where the decode bar is held.
+    Two prefills bit-identical, and the forward's aux loss finite and
+    positive, in every run."""
+    runs = [_serve_once(cfg, label, seed, phase="moe_xlstm_serve", decode_bar=decode_bar)]
+    while not runs[-1]["decode_bar_held"]:
+        last = runs[-1]["moe"]["capacity_factor"]
+        check(last < cfg.num_experts, f"{label}: dropped assignments at capacity factor {last}")
+        cf = drop_free_factor(cfg, runs[-1]) if len(runs) == 1 else float(cfg.num_experts)
+        runs.append(_serve_once(cfg.replace(moe_capacity_factor=cf), f"{label}/drop_free_{cf:g}",
+                                seed, phase="moe_xlstm_serve", decode_bar=decode_bar))
+    for r in runs:
+        check(r["prefill_bit_identical"], f"{r['label']}: two prefills differ")
+        check(np.isfinite(r["aux"]) and r["aux"] > 0, f"{r['label']}: aux loss {r['aux']}")
+    return {**runs[0], "drop_free_runs": runs[1:]}
+
+
+def phase_moe_xlstm_serve(report):
+    """Slice 16: granite-moe-1b-a400m (full size, float32, then retention
+    0.5) and xlstm-1.3b (full size, float32, held to twice its one-ulp
+    envelope, and one 7:1 period held to 2e-3) through ``serve_batch``, and
+    llama4-maverick at full width in bf16 cut to ``LLAMA4_LAYERS`` layers,
+    its decode bar 2E with E measured at ``LLAMA4_ENVELOPE_EXPERTS``
+    experts in float32 beside its logits."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import serve_numerics
+    from repro_torch.models.config import apply_retention
+
+    t0 = time.perf_counter()
+    out = {}
+    with serve_numerics():
+        granite = get_config("granite-moe-1b-a400m")
+        check((granite.num_layers, granite.d_model, granite.num_experts, granite.experts_per_tok,
+               granite.d_ff) == (24, 1024, 32, 8, 512), "moe_xlstm_serve runs granite at full size")
+        out["granite-moe-1b-a400m"] = _serve_moe(granite, "granite-moe-1b-a400m/full", SERVE["seed"] + 40)
+        sub = apply_retention(granite, 0.5)
+        check(sub.num_experts == 16, f"granite at retention 0.5 keeps {sub.num_experts} experts")
+        out["granite-moe-1b-a400m/retention_0.5"] = _serve_moe(
+            sub, "granite-moe-1b-a400m/retention_0.5", SERVE["seed"] + 40)
+        xl = get_config("xlstm-1.3b")
+        check((xl.num_layers, xl.d_model, xl.num_heads) == (48, 2048, 4),
+              "moe_xlstm_serve runs xlstm-1.3b at full size")
+        # at 48 blocks the random-weight float32 forward is chaotic (one ulp
+        # of every parameter moves the logits as far as decode does), so the
+        # full size is held to its one-ulp envelope and one 7:1 period to
+        # 2e-3; in both, the first group's decode states to 2e-3 of the
+        # forward's handoff (the full stack's states written in place)
+        for label, c, env in (("xlstm-1.3b", xl, True),
+                              (f"xlstm-1.3b/{XLSTM_PERIOD}_of_48_layers", xl.replace(num_layers=XLSTM_PERIOD), False)):
+            rec = _serve_once(c, label, SERVE["seed"] + 41, phase="moe_xlstm_serve", envelope=env,
+                              state_groups=1)
+            check(rec["prefill_bit_identical"], f"{label}: two prefills differ")
+            check(rec["aux"] == 0.0, f"{label}: aux {rec['aux']} without MoE layers")
+            out[label] = rec
+        llama = get_config("llama4-maverick-400b-a17b")
+        check((llama.d_model, llama.num_experts, llama.d_ff, llama.vocab_size) == (5120, 128, 8192, 202_048)
+              and llama.shared_expert and not llama.tie_embeddings,
+              "moe_xlstm_serve runs llama4-maverick at full width")
+        cfg = llama.replace(num_layers=LLAMA4_LAYERS, dtype="bfloat16")
+        torch.cuda.reset_peak_memory_stats()
+        env_cfg = cfg.replace(num_experts=LLAMA4_ENVELOPE_EXPERTS,
+                              moe_capacity_factor=float(LLAMA4_ENVELOPE_EXPERTS))
+        env = bf16_envelope(env_cfg, SERVE["seed"] + 42)
+        env["num_experts"] = LLAMA4_ENVELOPE_EXPERTS
+        emit({"phase": "moe_xlstm_envelope", "arch": llama.name, **env})
+        check(0.0 < env["E"] < 1.0 and env["moe"]["dropped"] == 0,
+              f"moe_xlstm_serve llama4: envelope {env}")
+        check_replay(env["moe"]["replay"], "moe_xlstm_serve llama4 envelope")
+        rec = _serve_moe(cfg, f"llama4-maverick-400b-a17b/bf16/{LLAMA4_LAYERS}_of_{llama.num_layers}_layers",
+                         SERVE["seed"] + 43, decode_bar=2 * env["E"])
+        out["llama4-maverick-400b-a17b"] = {**rec, "envelope": env, "layers_full": llama.num_layers}
+    rec = {"phase": "moe_xlstm_serve_done", "seconds": time.perf_counter() - t0,
+           "dropped": {k: r.get("moe", {}).get("dropped") for k, r in out.items()},
+           "min_router_gap": {k: r.get("moe", {}).get("min_router_gap") for k, r in out.items()},
+           "drop_free_factors": {k: [d["moe"]["capacity_factor"] for d in r.get("drop_free_runs", [])]
+                                 for k, r in out.items()}}
+    emit(rec)
+    report["moe_xlstm_serve"] = {**out, "seconds": rec["seconds"]}
     return out
 
 
@@ -4733,6 +5174,8 @@ def main() -> int:
         bf16k = phase_bf16_kernel(report)
         save(report)
         bf16s = phase_bf16_serve(report)
+        save(report)
+        moex = phase_moe_xlstm_serve(report)
     steps = max(res.train_steps, 1)
     rb_steps = max(rb_res.train_steps, 1)
     s_steps = max(s_res.train_steps, 1)
@@ -4795,6 +5238,9 @@ def main() -> int:
             "ms_per_launch": t["ms_per_launch"],
             "shapes": f"one prefill of recurrentgemma-9b: {t['launches_per_prefill']} launches at {t['shape']}",
         }
+        # slice 16: launches of a prefill of each MoE / xLSTM run in float32
+        entry["moe_xlstm"] = {a: r["launches_per_prefill"][kname] for a, r in moex.items()
+                              if r["dtype"] == "float32"}
         if kname == "rg_lru_scan":
             entry.update(device_ms=t["device_ms"], device_ms_per_launch=t["device_ms_per_launch"])
         if kname == "flash_attention":
@@ -4825,8 +5271,9 @@ def main() -> int:
         })
     fl = bf16k["flash_attention_bf16"]
     timed = {c["case"].split()[0]: c for c in fl if "ms" in c}
+    bf16_runs = {**bf16s, **moex}
     per_arch = {a: {**{f: c[f] for f in ("case", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")},
-                    "launches": bf16s[a]["launches_per_prefill"]["flash_attention_bf16"]}
+                    "launches": bf16_runs[a]["launches_per_prefill"]["flash_attention_bf16"]}
                 for a, c in timed.items()}
     head = per_arch["qwen3-32b"]
     kernels.append({
@@ -4840,6 +5287,7 @@ def main() -> int:
         "shapes": f"one launch of a bf16 prefill of qwen3-32b at 64 layers ({head['case']}); "
                   "launches per prefill",
         "recurrentgemma-9b": per_arch["recurrentgemma-9b"],
+        "llama4-maverick-400b-a17b": {**per_arch["llama4-maverick-400b-a17b"], "layers": LLAMA4_LAYERS},
     })
     sc = next(c for c in bf16k["rg_lru_scan_bf16"] if "ms" in c)
     kernels.append({

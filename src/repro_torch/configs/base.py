@@ -1,10 +1,12 @@
 """Config registry, input shapes and the smoke reduction (port of
 ``repro/configs/base.py``).
 
-The port registers only the architectures whose block kinds it runs
-(``recurrentgemma-9b``, ``gemma2-2b`` and the dense attention archs
-``internlm2-1.8b``, ``qwen1.5-32b``, ``qwen3-32b``); ``get_config`` of any
-other name raises a ``ValueError`` that names it and points at ROADMAP.md.
+The port registers the architectures whose block kinds and fields it runs
+(``recurrentgemma-9b``, ``gemma2-2b``, the dense attention archs
+``internlm2-1.8b``, ``qwen1.5-32b``, ``qwen3-32b``, the MoE archs
+``granite-moe-1b-a400m``, ``llama4-maverick-400b-a17b`` and ``xlstm-1.3b``);
+``get_config`` of any other name raises a ``ValueError`` that names it and
+points at ROADMAP.md.
 """
 from __future__ import annotations
 
@@ -19,12 +21,9 @@ __all__ = ["register", "get_config", "smoke_config", "list_archs", "SHAPES", "In
 _REGISTRY: Dict[str, ModelConfig] = {}
 
 # the JAX package's other registered archs, which have no config file in the
-# port yet: MoE, xLSTM, Whisper and InternVL need kinds or fields the port
+# port yet: Whisper's encoder and InternVL's vision prefix are fields the port
 # refuses
-UNPORTED_ARCHS = (
-    "granite-moe-1b-a400m", "internvl2-76b", "llama4-maverick-400b-a17b", "whisper-small",
-    "xlstm-1.3b",
-)
+UNPORTED_ARCHS = ("internvl2-76b", "whisper-small")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -111,8 +110,11 @@ def _ensure_loaded():
     _LOADED = True
     from . import (  # noqa: F401
         gemma2_2b,
+        granite_moe_1b_a400m,
         internlm2_1_8b,
+        llama4_maverick_400b_a17b,
         qwen1_5_32b,
         qwen3_32b,
         recurrentgemma_9b,
+        xlstm_1_3b,
     )

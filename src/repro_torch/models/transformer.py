@@ -1,6 +1,9 @@
 """Model assembly for the LLM serving path (port of ``repro/models/transformer.py``).
 
-Decoder-only stacks of ``attn`` / ``local`` / ``rglru`` blocks.  Full periods
+Decoder-only stacks of the reference's six block kinds: ``attn`` / ``local``
+(attention + FFN), ``moe`` / ``moe_local`` (attention + mixture of experts,
+``moe_local`` windowed), ``rglru`` (RG-LRU + FFN) and ``mlstm`` / ``slstm``
+(one xLSTM cell, params ``{"ln", "cell"}``).  Full periods
 of ``cfg.block_pattern`` are parameter-stacked on a leading group axis
 (``params["blocks"]["s{j}"]``), exactly as the JAX package stacks them for
 ``lax.scan``; here a Python loop indexes one group at a time.  Remainder
@@ -8,7 +11,8 @@ layers are the list ``params["rem"]``.  ``constrain`` and ``jax.checkpoint``
 have no counterpart: on one device both are no-ops or training-only.
 
 Entry points:
-  * ``forward(params, cfg, batch)``               -> (logits, aux)
+  * ``forward(params, cfg, batch)``               -> (logits, aux), aux the
+    sum of the MoE layers' load-balance losses (0 without MoE layers)
   * ``prefill(params, cfg, batch, max_len)``      -> (last logits, state)
   * ``decode_step(params, cfg, state, token)``    -> (logits, state)
 
@@ -35,12 +39,16 @@ import torch
 
 from . import attention as attn_mod
 from . import ffn as ffn_mod
+from . import moe as moe_mod
 from . import rglru as rglru_mod
+from . import xlstm as xlstm_mod
 from .attention import AttnSpec
 from .config import ModelConfig
 from .ffn import FFNSpec
 from .layers import layer_norm, normal_init, rms_norm, softcap
+from .moe import MoESpec
 from .rglru import RGLRUSpec
+from .xlstm import XLSTMSpec
 
 __all__ = [
     "SUPPORTED_KINDS",
@@ -55,14 +63,10 @@ __all__ = [
     "tree_map",
 ]
 
-SUPPORTED_KINDS = ("attn", "local", "rglru")
-_REFUSED_KINDS = {
-    "moe": "mixture of experts",
-    "moe_local": "windowed mixture of experts",
-    "mlstm": "xLSTM mLSTM cells",
-    "slstm": "xLSTM sLSTM cells",
-}
-_ATTN_KINDS = ("attn", "local")
+SUPPORTED_KINDS = ("attn", "local", "moe", "moe_local", "rglru", "mlstm", "slstm")
+_ATTN_KINDS = ("attn", "local", "moe", "moe_local")
+_MOE_KINDS = ("moe", "moe_local")
+_XLSTM_KINDS = ("mlstm", "slstm")
 # ModelConfig.dtype -> torch dtype: the JAX package's two model dtypes (the
 # FL simulation's float32 and the dry-run's bfloat16)
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -78,8 +82,6 @@ def _refuse(field: str, why: str) -> ValueError:
 def validate_config(cfg: ModelConfig) -> None:
     """Raise ``ValueError`` naming the first field outside this slice."""
     for kind in cfg.block_pattern:
-        if kind in _REFUSED_KINDS:
-            raise _refuse("block_pattern", f"block kind {kind!r} ({_REFUSED_KINDS[kind]})")
         if kind not in SUPPORTED_KINDS:
             raise ValueError(f"ModelConfig.block_pattern: unknown block kind {kind!r}")
     if cfg.encoder_layers > 0:
@@ -136,7 +138,7 @@ def _attn_spec(cfg: ModelConfig, kind: str, causal: bool = True) -> AttnSpec:
         qk_norm=cfg.qk_norm,
         qkv_bias=cfg.qkv_bias,
         logit_softcap=cfg.attn_softcap,
-        window=cfg.window_size if kind == "local" else None,
+        window=cfg.window_size if kind in ("local", "moe_local") else None,
         causal=causal,
         rope_theta=cfg.rope_theta,
         use_rope=cfg.pos_embed == "rope",
@@ -147,8 +149,23 @@ def _ffn_spec(cfg: ModelConfig) -> FFNSpec:
     return FFNSpec(cfg.d_model, cfg.d_ff, gated=cfg.gated_ffn, activation=cfg.activation)
 
 
+def _moe_spec(cfg: ModelConfig) -> MoESpec:
+    return MoESpec(
+        d_model=cfg.d_model,
+        num_experts=cfg.num_experts,
+        num_experts_per_tok=cfg.experts_per_tok,
+        d_ff=cfg.d_ff,
+        capacity_factor=cfg.moe_capacity_factor,
+        shared_expert=cfg.shared_expert,
+    )
+
+
 def _rglru_spec(cfg: ModelConfig) -> RGLRUSpec:
     return RGLRUSpec(cfg.d_model, cfg.rnn_width or cfg.d_model, cfg.rnn_heads)
+
+
+def _xlstm_spec(cfg: ModelConfig) -> XLSTMSpec:
+    return XLSTMSpec(cfg.d_model, cfg.num_heads, cfg.xlstm_proj_factor, t_block=cfg.attn_q_block)
 
 
 # --------------------------------------------------------------------------
@@ -177,12 +194,16 @@ def _apply_norm(cfg: ModelConfig, p, x):
 def _init_block(gen: torch.Generator, cfg: ModelConfig, kind: str, lead=()):
     dev, dt = gen.device, param_dtype(cfg)
     if kind in _ATTN_KINDS:
-        return {
+        p = {
             "ln1": _init_norm(cfg, lead, dev),
             "attn": attn_mod.init_attention(gen, _attn_spec(cfg, kind), lead, dt),
             "ln2": _init_norm(cfg, lead, dev),
-            "ffn": ffn_mod.init_ffn(gen, _ffn_spec(cfg), lead, dt),
         }
+        if kind in _MOE_KINDS:
+            p["moe"] = moe_mod.init_moe(gen, _moe_spec(cfg), lead, dt)
+        else:
+            p["ffn"] = ffn_mod.init_ffn(gen, _ffn_spec(cfg), lead, dt)
+        return p
     if kind == "rglru":
         return {
             "ln1": _init_norm(cfg, lead, dev),
@@ -190,6 +211,9 @@ def _init_block(gen: torch.Generator, cfg: ModelConfig, kind: str, lead=()):
             "ln2": _init_norm(cfg, lead, dev),
             "ffn": ffn_mod.init_ffn(gen, _ffn_spec(cfg), lead, dt),
         }
+    if kind in _XLSTM_KINDS:
+        init = xlstm_mod.init_mlstm if kind == "mlstm" else xlstm_mod.init_slstm
+        return {"ln": _init_norm(cfg, lead, dev), "cell": init(gen, _xlstm_spec(cfg), lead, dt)}
     raise ValueError(f"unknown block kind {kind}")
 
 
@@ -227,25 +251,34 @@ def init_params(gen: torch.Generator, cfg: ModelConfig) -> Dict[str, Any]:
 # full-sequence forward (prefill)
 # --------------------------------------------------------------------------
 
+def _mix_fwd(cfg: ModelConfig, kind: str, p, x):
+    """The FFN or MoE half of an attention or RG-LRU block: (x, aux)."""
+    h_in = _apply_norm(cfg, p["ln2"], x)
+    if kind in _MOE_KINDS:
+        h, aux = moe_mod.moe_fwd(p["moe"], _moe_spec(cfg), h_in)
+        return x + h, aux
+    return x + ffn_mod.ffn_fwd(p["ffn"], _ffn_spec(cfg), h_in), None
+
+
 def _block_fwd(cfg: ModelConfig, kind: str, p, x, collect_cache: bool, cache_len: int = 0):
-    """Returns (x, cache_or_None)."""
-    cache = None
+    """Returns (x, aux_loss or None, cache_or_None)."""
+    cache = aux = None
     if kind in _ATTN_KINDS:
         h, (k, v) = attn_mod.attention_fwd(p["attn"], _attn_spec(cfg, kind),
                                            _apply_norm(cfg, p["ln1"], x))
-        x = x + h
-        x = x + ffn_mod.ffn_fwd(p["ffn"], _ffn_spec(cfg), _apply_norm(cfg, p["ln2"], x))
+        x, aux = _mix_fwd(cfg, kind, p, x + h)
         if collect_cache:
             cache = _ringify(cfg, kind, k, v, cache_len)
     elif kind == "rglru":
-        h, state = rglru_mod.rglru_fwd(p["rglru"], _rglru_spec(cfg), _apply_norm(cfg, p["ln1"], x))
+        h, cache = rglru_mod.rglru_fwd(p["rglru"], _rglru_spec(cfg), _apply_norm(cfg, p["ln1"], x))
+        x, _ = _mix_fwd(cfg, kind, p, x + h)
+    elif kind in _XLSTM_KINDS:
+        fwd = xlstm_mod.mlstm_fwd if kind == "mlstm" else xlstm_mod.slstm_fwd
+        h, cache = fwd(p["cell"], _xlstm_spec(cfg), _apply_norm(cfg, p["ln"], x))
         x = x + h
-        x = x + ffn_mod.ffn_fwd(p["ffn"], _ffn_spec(cfg), _apply_norm(cfg, p["ln2"], x))
-        if collect_cache:
-            cache = state
     else:
         raise ValueError(kind)
-    return x, cache
+    return x, aux, (cache if collect_cache else None)
 
 
 def _ringify(cfg: ModelConfig, kind: str, k, v, cache_len: int):
@@ -285,24 +318,31 @@ def _group(tree, gi: int):
 
 
 def _stack_fwd(params, cfg: ModelConfig, x, collect_cache: bool, cache_len: int = 0):
-    """Run all layers; returns (x, caches dict)."""
+    """Run all layers; returns (x, total_aux, caches dict), the aux losses
+    summed in layer order from a float32 zero as the JAX scan carries them."""
     g, rem = _split_layers(cfg)
     caches: Dict[str, Any] = {}
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     if g > 0:
         group_caches = []
         for gi in range(g):
             gp = _group(params["blocks"], gi)
             gc = {}
             for j, kind in enumerate(cfg.block_pattern):
-                x, gc[f"s{j}"] = _block_fwd(cfg, kind, gp[f"s{j}"], x, collect_cache, cache_len)
+                x, aux, gc[f"s{j}"] = _block_fwd(cfg, kind, gp[f"s{j}"], x, collect_cache,
+                                                 cache_len)
+                if aux is not None:
+                    aux_total = aux_total + aux
             group_caches.append(gc)
         if collect_cache:
             caches["blocks"] = _stack(group_caches)
     for i, kind in enumerate(rem):
-        x, cache = _block_fwd(cfg, kind, params["rem"][i], x, collect_cache, cache_len)
+        x, aux, cache = _block_fwd(cfg, kind, params["rem"][i], x, collect_cache, cache_len)
+        if aux is not None:
+            aux_total = aux_total + aux
         if collect_cache:
             caches.setdefault("rem", []).append(cache)
-    return x, caches
+    return x, aux_total, caches
 
 
 def _logits(params, cfg: ModelConfig, x):
@@ -319,12 +359,13 @@ def _logits(params, cfg: ModelConfig, x):
 
 @torch.no_grad()
 def forward(params, cfg: ModelConfig, batch) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Teacher-forced forward. Returns (logits [b, s, V], aux_loss = 0)."""
+    """Teacher-forced forward. Returns (logits [b, s, V], aux_loss), the MoE
+    layers' load-balance losses summed (0 without MoE layers)."""
     validate_config(cfg)
     x = _embed_inputs(params, cfg, batch["tokens"])
-    x, _ = _stack_fwd(params, cfg, x, collect_cache=False)
+    x, aux, _ = _stack_fwd(params, cfg, x, collect_cache=False)
     x = _apply_norm(cfg, params["final_norm"], x)
-    return _logits(params, cfg, x), torch.zeros((), dtype=torch.float32, device=x.device)
+    return _logits(params, cfg, x), aux
 
 
 # --------------------------------------------------------------------------
@@ -343,7 +384,7 @@ def prefill(params, cfg: ModelConfig, batch, max_len: int | None = None):
     s_total = x.shape[1]
     if max_len is None:
         max_len = 2 * s_total
-    x, caches = _stack_fwd(params, cfg, x, collect_cache=True, cache_len=max_len)
+    x, _, caches = _stack_fwd(params, cfg, x, collect_cache=True, cache_len=max_len)
     x = _apply_norm(cfg, params["final_norm"], x[:, -1:])
     logits = _logits(params, cfg, x)[:, 0]
     return logits, {"caches": caches, "pos": s_total}
@@ -355,6 +396,10 @@ def _init_block_cache(cfg: ModelConfig, kind: str, batch: int, cache_len: int, d
         return attn_mod.init_cache(_attn_spec(cfg, kind), batch, cache_len, dt, device)
     if kind == "rglru":
         return rglru_mod.init_rglru_state(_rglru_spec(cfg), batch, dt, device)
+    if kind == "mlstm":
+        return xlstm_mod.init_mlstm_state(_xlstm_spec(cfg), batch, device)
+    if kind == "slstm":
+        return xlstm_mod.init_slstm_state(_xlstm_spec(cfg), batch, device)
     raise ValueError(kind)
 
 
@@ -374,6 +419,10 @@ def init_decode_state(cfg: ModelConfig, batch: int, cache_len: int, device="cpu"
 
 
 def _block_decode(cfg: ModelConfig, kind: str, p, x, cache, position: int):
+    if kind in _XLSTM_KINDS:
+        dec = xlstm_mod.mlstm_decode if kind == "mlstm" else xlstm_mod.slstm_decode
+        h, cache = dec(p["cell"], _xlstm_spec(cfg), _apply_norm(cfg, p["ln"], x), cache)
+        return x + h, cache
     if kind in _ATTN_KINDS:
         h, cache = attn_mod.attention_decode(
             p["attn"], _attn_spec(cfg, kind), _apply_norm(cfg, p["ln1"], x), cache, position
@@ -384,8 +433,7 @@ def _block_decode(cfg: ModelConfig, kind: str, p, x, cache, position: int):
         )
     else:
         raise ValueError(kind)
-    x = x + h
-    x = x + ffn_mod.ffn_fwd(p["ffn"], _ffn_spec(cfg), _apply_norm(cfg, p["ln2"], x))
+    x, _ = _mix_fwd(cfg, kind, p, x + h)
     return x, cache
 
 

@@ -42,7 +42,8 @@ from repro_torch.models import transformer as TT
 
 PM_TOL = 2e-2
 FLASH_TOL = 3e-2
-ARCHS = ["recurrentgemma-9b", "gemma2-2b", "internlm2-1.8b", "qwen1.5-32b", "qwen3-32b"]
+ARCHS = ["recurrentgemma-9b", "gemma2-2b", "internlm2-1.8b", "qwen1.5-32b", "qwen3-32b",
+         "granite-moe-1b-a400m", "llama4-maverick-400b-a17b", "xlstm-1.3b"]
 
 
 @pytest.fixture(scope="module")
@@ -260,6 +261,14 @@ def test_bf16_init_and_decode_state_trees_match_jax(J, arch):
         # as in the JAX package: the recurrence's parameter and state in float32
         assert tp["blocks"]["s0"]["rglru"]["lam"].dtype == torch.float32
         assert ts["caches"]["blocks"]["s0"]["h"].dtype == torch.float32
+    if tc.num_experts:
+        # the MoE router stays float32, the experts take the model dtype
+        moe = tp["blocks"][f"s{tc.block_pattern.index('moe')}"]["moe"]
+        assert moe["w_router"].dtype == torch.float32 and moe["w_gate"].dtype == torch.bfloat16
+    if "mlstm" in tc.block_pattern:
+        # the xLSTM gates and recurrent states stay float32
+        assert tp["blocks"]["s0"]["cell"]["w_i"].dtype == torch.float32
+        assert ts["caches"]["blocks"]["s0"]["C"].dtype == torch.float32
 
 
 def test_bf16_leaves_round_trip_through_convert_bit_for_bit(J):
