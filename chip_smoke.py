@@ -393,6 +393,32 @@ Slice 16, the MoE and xLSTM block kinds (``moe``, ``moe_local``, ``mlstm``,
                    listed with its gap and held to have moved within
                    ``ENVELOPE_EXCESS`` x the run's own spread.
 
+Slice 17, the encoder-decoder and vision-prefix paths (whisper-small,
+internvl2-76b) and flash attention's cross mode (``t`` keys for ``s``
+queries, every key kept):
+
+35. encdec_prefix_serve — first ``encdec_flash``: the flash kernel at the
+                   path's shapes against its plain version (3e-5 float32,
+                   3e-2 bf16 of max|plain|): whisper-small's encoder
+                   self-attention over 1500 frames, decoder self-attention
+                   over the 3072-token prompt, cross-attention of the prompt
+                   to the frames, of 129 queries and of one; internvl2-76b's
+                   bf16 self-attention over 256 + 3072 positions and bf16
+                   cross cases at its heads (64 / 8, head_dim 128); every
+                   cross case timed (host loop and a graph of 10 launches)
+                   beside its bound (4 b h s t d FLOPs) and SDPA, with the
+                   card's clocks sampled meanwhile.  Then
+                   ``serve_batch`` (batch 2, prompt 3072, 32 new tokens) at
+                   whisper-small's full size in float32 with 1500 seeded
+                   encoder frames x 0.02: flash 36 times a prefill (12
+                   encoder, 12 decoder self, 12 in the cross spec, counted
+                   by ``FlashSpy``), decode vs ``forward`` within 2e-3, two
+                   prefills bit-identical; and internvl2-76b at full width
+                   in bf16 cut to ``INTERNVL_LAYERS`` of 80 layers with 256
+                   seeded prefix embeddings, its cache holding prefix, prompt
+                   and new tokens: decode vs ``forward`` within 2E, E at
+                   ``INTERNVL_ENVELOPE_LAYERS`` layers in float32.
+
 Then a ``{"phase": "done"}`` line with the script's seconds, a
 ``{"kernels": [...]}`` line, the ``nvidia-smi`` name/power line, and as the
 last line ``{"ok": true, "device": {...}}``.  Details go to
@@ -466,6 +492,14 @@ LLAMA4_ENVELOPE_EXPERTS = 64
 # one (7 mLSTM, 1 sLSTM) period of xlstm-1.3b, served beside the full 48
 # blocks and held to DECODE_TOL itself
 XLSTM_PERIOD = 8
+# slice 17: whisper-small's encoder frames, 30 s of audio after the stubbed
+# conv frontend (repro/launch/dryrun.py WHISPER_ENC_FRAMES); internvl2-76b at
+# full width cut in depth to what one card holds in bf16 beside the KV cache,
+# the 256-embedding prefix and the logits (1.71 GB a layer, 4.2 GB of
+# embedding and head), its bf16 envelope E at the most layers float32 holds
+ENC_FRAMES = 1500
+INTERNVL_LAYERS = 35
+INTERNVL_ENVELOPE_LAYERS = 15
 # the sweeps' checks that are the port's contract (the rest are accuracy
 # data of the quick fixtures, recorded)
 SWEEP_HELD = {
@@ -569,6 +603,33 @@ def time_ms(fn, iters: int = 5, warm: int = 2) -> float:
     e.record()
     e.synchronize()
     return s.elapsed_time(e) / iters
+
+
+@contextlib.contextmanager
+def clock_samples(out: dict, ms: int = 100):
+    """Samples the card's SM and memory clocks, power draw and temperature
+    every ``ms`` ms by ``nvidia-smi -lms`` while the block runs, and writes
+    each one's [min, median, max] and the count into ``out`` (``clocks``);
+    the sampler is stopped on exit."""
+    cmd = ["nvidia-smi", "--query-gpu=clocks.sm,clocks.mem,power.draw,temperature.gpu",
+           "--format=csv,noheader,nounits", f"--loop-ms={ms}"]
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+    try:
+        yield out
+    finally:
+        proc.terminate()
+        text = proc.communicate(timeout=60)[0]
+    rows = []
+    for line in text.splitlines():
+        try:
+            rows.append([float(f) for f in line.split(",")])
+        except ValueError:
+            continue
+    cols = np.array(rows).reshape(-1, 4)
+    out["clocks"] = {"samples": len(rows), **{
+        name: [float(cols[:, i].min()), float(np.median(cols[:, i])), float(cols[:, i].max())]
+        if len(rows) else None
+        for i, name in enumerate(("sm_mhz", "mem_mhz", "power_w", "temp_c"))}}
 
 
 def graph_ms(fn, iters: int = 20, calls: int = 1, replays=None) -> float:
@@ -1300,13 +1361,16 @@ def _rel_compare(out, ref, tol):
             "allclose": bool(torch.allclose(out, ref, atol=tol, rtol=tol))}
 
 
-def _qkv(gen, b, s, h, kv, d):
+def _qkv(gen, b, s, h, kv, d, t=None):
+    """Standard-normal q [b, s, h, d] and k, v [b, t, kv, d] (t = s but in
+    the cross mode)."""
     import torch
 
     dev = torch.device(DEVICE)
+    t = s if t is None else t
     return (torch.randn(b, s, h, d, generator=gen, device=dev),
-            torch.randn(b, s, kv, d, generator=gen, device=dev),
-            torch.randn(b, s, kv, d, generator=gen, device=dev))
+            torch.randn(b, t, kv, d, generator=gen, device=dev),
+            torch.randn(b, t, kv, d, generator=gen, device=dev))
 
 
 def _scan_inputs(gen, b, s, r, with_h0=True):
@@ -1434,8 +1498,11 @@ def phase_llm_kernel(report):
     return per
 
 
-def flash_pairs(s, causal, window):
-    """Kept (query, key) pairs of one head: what the function must compute."""
+def flash_pairs(s, causal, window, t=None):
+    """Kept (query, key) pairs of one head: what the function must compute
+    (the cross mode's ``t`` keys are all kept by every query)."""
+    if t is not None and t != s:
+        return s * t
     tot = 0
     for i in range(s):
         lo = max(0, i - window + 1) if window else 0
@@ -1674,6 +1741,48 @@ def xlstm_state_check(params, cfg, state, toks) -> dict:
     return {"rel_err_per_group": per_group, "max_m_diff": m_diff}
 
 
+def serve_extras(cfg, gen, b: int) -> dict:
+    """The batch's extra inputs, drawn from ``gen`` in the model dtype (none,
+    and no draw, for a decoder-only config): an encoder-decoder's
+    ``ENC_FRAMES`` frames and a vision-prefix model's ``num_prefix_embeds``
+    embeddings, standard normal x 0.02 as tests/test_models_smoke.py draws
+    them (the stubbed frontends' outputs)."""
+    import torch
+    from repro_torch.models import transformer as T
+
+    out, dt = {}, T.param_dtype(cfg)
+    for key, n in (("enc_embeds", ENC_FRAMES if cfg.encoder_layers else 0),
+                   ("prefix_embeds", cfg.num_prefix_embeds)):
+        if n:
+            out[key] = (0.02 * torch.randn(b, n, cfg.d_model, generator=gen, device=gen.device)).to(dt)
+    return out
+
+
+class FlashSpy:
+    """Counts the flash kernel launches in the cross spec (``causal=False``,
+    no window) while ``installed()`` is open (the model reaches
+    ``flash_attention_cuda`` through its module); it adds nothing on the
+    device."""
+
+    def __init__(self):
+        self.cross = 0
+
+    def __call__(self, q, k, v, **kw):
+        self.cross += not kw.get("causal", True) and kw.get("window") is None
+        return self.real(q, k, v, **kw)
+
+    @contextlib.contextmanager
+    def installed(self):
+        from repro_torch.kernels import flash_attention as fa_mod
+
+        self.real = fa_mod.flash_attention_cuda
+        fa_mod.flash_attention_cuda = self
+        try:
+            yield self
+        finally:
+            fa_mod.flash_attention_cuda = self.real
+
+
 def _serve_once(cfg, label, gen_seed, phase="serve", decode_bar=DECODE_TOL, envelope=False,
                 state_groups=0):
     """serve_batch at ``cfg`` with the port's seeded init on the card; the
@@ -1700,7 +1809,13 @@ def _serve_once(cfg, label, gen_seed, phase="serve", decode_bar=DECODE_TOL, enve
     With ``state_groups`` (xLSTM stacks) the decode states of the first
     that many groups of blocks are held to ``decode_bar`` relative to the
     forward's handoff (``xlstm_state_check``), which chaos at depth does
-    not reach; the deeper groups' errors are recorded."""
+    not reach; the deeper groups' errors are recorded.  An encoder-decoder
+    or vision-prefix config gets its extra inputs (``serve_extras``) in
+    every batch: flash then runs once per encoder layer and twice per
+    decoder attention layer (self, then cross: ``cross_launches_per_prefill``
+    counts the ones in the cross spec), and the cache holds the prefix too
+    (``P + s + new``, as ``serve_batch`` sizes it).  The card's clocks are
+    sampled over the serve and the second prefill (``serve_clocks``)."""
     import torch
     from repro_torch.kernels import flash_attention as fa_mod
     from repro_torch.kernels import pruned_matmul as pm_mod
@@ -1718,6 +1833,8 @@ def _serve_once(cfg, label, gen_seed, phase="serve", decode_bar=DECODE_TOL, enve
     t0 = time.perf_counter()
     params = T.init_params(gen, cfg)
     prompts = torch.randint(0, cfg.vocab_size, (b, s), generator=gen, device=dev)
+    extra = serve_extras(cfg, gen, b)
+    P = extra["prefix_embeds"].shape[1] if "prefix_embeds" in extra else 0
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     weights_gb = torch.cuda.memory_allocated() / 1e9
@@ -1725,21 +1842,22 @@ def _serve_once(cfg, label, gen_seed, phase="serve", decode_bar=DECODE_TOL, enve
     torch.cuda.reset_peak_memory_stats()
     for mod in (fa_mod, rg_mod, pm_mod):
         mod.reset_launches()
-    serve_spy = MoESpy()
-    with serve_spy.installed():
-        out, logits = serve_batch(cfg, params, prompts, n, device=DEVICE, stats=stats,
-                                  return_logits=True)
-    serve_calls = serve_spy.calls
-    launches = {**fa_mod.LAUNCHES, **rg_mod.LAUNCHES}
-    pm_launches = sum(pm_mod.LAUNCHES.values())
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    # a second prefill alone: its time without first-call costs, and its
-    # logits bit for bit against the first
-    torch.cuda.synchronize()
-    t1 = time.perf_counter()
-    again, again_state = T.prefill(params, cfg, {"tokens": prompts}, max_len=s + n)
-    torch.cuda.synchronize()
-    prefill2_s = time.perf_counter() - t1
+    serve_spy, flash_spy, sampled = MoESpy(), FlashSpy(), {}
+    with clock_samples(sampled):
+        with serve_spy.installed(), flash_spy.installed():
+            out, logits = serve_batch(cfg, params, prompts, n, extra, device=DEVICE, stats=stats,
+                                      return_logits=True)
+        serve_calls = serve_spy.calls
+        launches = {**fa_mod.LAUNCHES, **rg_mod.LAUNCHES}
+        pm_launches = sum(pm_mod.LAUNCHES.values())
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        # a second prefill alone: its time without first-call costs, and its
+        # logits bit for bit against the first
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        again, again_state = T.prefill(params, cfg, {"tokens": prompts, **extra}, max_len=P + s + n)
+        torch.cuda.synchronize()
+        prefill2_s = time.perf_counter() - t1
     prefill_bit_identical = bool(torch.equal(again, logits[:, 0]))
     states = None
     if state_groups:
@@ -1767,7 +1885,7 @@ def _serve_once(cfg, label, gen_seed, phase="serve", decode_bar=DECODE_TOL, enve
             served_probs = [table("probs", L) for L in range(moe_layers)]
     fwd_spy = MoESpy(replay=replay)
     with fwd_spy.installed():
-        full, aux = T.forward(params, cfg, {"tokens": torch.cat([prompts, out], dim=1)})
+        full, aux = T.forward(params, cfg, {"tokens": torch.cat([prompts, out], dim=1), **extra})
     fwd_calls = fwd_spy.calls
     ref = full[:, s - 1:]
     env = None
@@ -1789,6 +1907,8 @@ def _serve_once(cfg, label, gen_seed, phase="serve", decode_bar=DECODE_TOL, enve
         "decode_tok_per_s": b * n / stats["decode_s"],
         "weights_gb": weights_gb, "peak_mem_gb": peak_gb,
         "launches_per_prefill": launches, "pruned_matmul_launches": pm_launches,
+        "cross_launches_per_prefill": flash_spy.cross, "serve_clocks": sampled["clocks"],
+        "extra_inputs": {k: list(v.shape) for k, v in extra.items()}, "cache_len": P + s + n,
         "max_logit_diff_vs_forward": max(diffs), "decode_bar": decode_bar,
         "one_ulp_envelope": env, "decode_states": states, "per_step_logit_diff": diffs,
         "max_abs_logit": float(ref.abs().max()), "aux": float(aux),
@@ -1822,11 +1942,14 @@ def _serve_once(cfg, label, gen_seed, phase="serve", decode_bar=DECODE_TOL, enve
     rec["decode_bar_held"] = held
     emit({k: v for k, v in rec.items() if k != "per_step_logit_diff"})
     expect = dict.fromkeys(launches, 0)
-    expect[fa_mod.MODES[T.param_dtype(cfg)][0]] = sum(
-        kinds.count(k) for k in ("attn", "local", "moe", "moe_local"))
+    attn_layers = sum(kinds.count(k) for k in ("attn", "local", "moe", "moe_local"))
+    cross_layers = attn_layers if cfg.encoder_layers else 0
+    expect[fa_mod.MODES[T.param_dtype(cfg)][0]] = attn_layers + cross_layers + cfg.encoder_layers
     expect[rg_mod.NAME] = kinds.count("rglru") + kinds.count("slstm")
     check(launches == expect, f"{label}: launches {launches} per prefill, want {expect}")
     check(pm_launches == 0, f"{label}: pruned_matmul launched on the LLM path")
+    check(rec["cross_launches_per_prefill"] == cross_layers,
+          f"{label}: {rec['cross_launches_per_prefill']} cross-mode flash launches, want {cross_layers}")
     check(rec["logits_finite"] and rec["tokens_in_range"], f"{label}: non-finite logits or bad tokens")
     check(tuple(out.shape) == (b, n), f"{label}: generated shape {tuple(out.shape)}")
     if states:
@@ -1838,7 +1961,7 @@ def _serve_once(cfg, label, gen_seed, phase="serve", decode_bar=DECODE_TOL, enve
               f"{label}: decode differs from forward by {rec['max_logit_diff_vs_forward']} > {decode_bar}")
         if "moe" in rec:
             check_replay(rec["moe"]["replay"], label)
-    del params, prompts, out, logits, full, ref, again, serve_spy, fwd_spy, serve_calls, fwd_calls
+    del params, prompts, extra, out, logits, full, ref, again, serve_spy, fwd_spy, serve_calls, fwd_calls
     del replay, served_probs
     torch.cuda.empty_cache()
     return rec
@@ -4723,7 +4846,7 @@ def _bf16_cases():
     return out
 
 
-def flash_bf16_bound(b, s, h, kv, d, causal, window):
+def flash_bf16_bound(b, s, h, kv, d, causal, window, t=None):
     """Least card time of one bf16 flash launch under the Pallas semantics,
     vs q, k, v, o in bf16 read or written once; returns (ms, ms_ops,
     ms_bytes).  Q K^T runs as bf16 tensor-core products (exact in float32
@@ -4732,10 +4855,11 @@ def flash_bf16_bound(b, s, h, kv, d, causal, window):
     (8 + 8 + 8 bits, its whole significand), three bf16 passes at 989
     TFLOP/s, or two tf32 passes at 495 TFLOP/s.
     ops = 2 pairs d / 989 + min(3 x 2 pairs d / 989, 2 x 2 pairs d / 495)."""
-    pairs = flash_pairs(s, causal, window) * b * h
+    t = s if t is None else t
+    pairs = flash_pairs(s, causal, window, t) * b * h
     pv = min(3 * 2.0 * pairs * d / BF16_TFLOPS, 2 * 2.0 * pairs * d / TF32_TFLOPS)
     t_ops = (2.0 * pairs * d / BF16_TFLOPS + pv) * 1e3
-    t_bytes = 2.0 * (2 * b * s * h * d + 2 * b * s * kv * d) / HBM_BPS * 1e3
+    t_bytes = 2.0 * (2 * b * s * h * d + 2 * b * t * kv * d) / HBM_BPS * 1e3
     return max(t_ops, t_bytes), t_ops, t_bytes
 
 
@@ -4936,14 +5060,15 @@ def bf16_envelope(cfg, seed):
     gen = torch.Generator(device=dev).manual_seed(seed)
     params = T.init_params(gen, cfg)
     toks = torch.randint(0, cfg.vocab_size, (b, s + n), generator=gen, device=dev)
+    extra = serve_extras(cfg, gen, b)
     low_spy = MoESpy()
     with low_spy.installed():
-        low = T.forward(params, cfg, {"tokens": toks})[0][:, s - 1:].clone()
+        low = T.forward(params, cfg, {"tokens": toks, **extra})[0][:, s - 1:].clone()
     upcast_(params)
     # with MoE layers the float32 run follows the bf16 run's expert choices
     f32_spy = MoESpy(replay=low_spy.choices())
     with f32_spy.installed():
-        f32 = T.forward(params, cfg.replace(dtype="float32"), {"tokens": toks})[0][:, s - 1:]
+        f32 = T.forward(params, cfg.replace(dtype="float32"), {"tokens": toks, **extra})[0][:, s - 1:]
     torch.cuda.synchronize()
     out = {"layers": cfg.num_layers, "E": float((low - f32).abs().max()),
            "max_abs_logit": float(f32.abs().max()), "seconds": time.perf_counter() - t0,
@@ -4953,7 +5078,7 @@ def bf16_envelope(cfg, seed):
                       "dropped": sum(moe_routing(low_spy.calls)["dropped"]),
                       "replay": moe_replay_check(f32_spy.calls, [c["probs"] for c in low_spy.calls],
                                                  s + n, range(s - 1, s + n))}
-    del params, toks, low, f32, low_spy, f32_spy
+    del params, toks, extra, low, f32, low_spy, f32_spy
     torch.cuda.empty_cache()
     return out
 
@@ -5085,6 +5210,138 @@ def phase_moe_xlstm_serve(report):
     return out
 
 
+# ---------------------------------------------------------------------------
+# slice 17: encoder-decoder and vision-prefix serving, flash's cross mode
+# ---------------------------------------------------------------------------
+
+# what the ``kernels`` line carries of each timed cross case
+CROSS_FIELDS = ("case", "ms", "device_ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+                "achieved_tflops", "clocks")
+
+
+def encdec_flash_cases():
+    """(label, dtype, b, s, t, h, kv, d, causal) of the flash launches the
+    slice's main path makes and the cross-mode edges: whisper-small's
+    encoder self-attention (1500 frames), decoder self-attention (the
+    prompt) and cross-attention (prompt against frames, 28 live keys in the
+    last tile of either mode), a query count under (129) and of (1) one
+    decode step against the frames; internvl2-76b's bf16 self-attention over
+    prefix + prompt, and a cross case at its heads."""
+    from repro_torch.configs import get_config
+
+    w, iv = get_config("whisper-small"), get_config("internvl2-76b")
+    b, s, P = SERVE["batch"], SERVE["prompt"], iv.num_prefix_embeds
+    wh = (w.num_heads, w.num_kv_heads, w.resolved_head_dim)
+    ih = (iv.num_heads, iv.num_kv_heads, iv.resolved_head_dim)
+    return [("whisper encoder self", "float32", b, ENC_FRAMES, ENC_FRAMES, *wh, True),
+            ("whisper decoder self", "float32", b, s, s, *wh, True),
+            ("whisper cross", "float32", b, s, ENC_FRAMES, *wh, False),
+            ("whisper cross, t > s", "float32", b, 129, ENC_FRAMES, *wh, False),
+            ("whisper cross, one query", "float32", b, 1, ENC_FRAMES, *wh, False),
+            ("internvl self", "bfloat16", b, P + s, P + s, *ih, True),
+            ("internvl-like cross", "bfloat16", b, s, ENC_FRAMES, *ih, False),
+            ("internvl-like cross, t < s", "bfloat16", 1, 300, 77, *ih, False)]
+
+
+def encdec_flash(gen) -> list:
+    """Each case of ``encdec_flash_cases`` against the plain version, as
+    max|kernel - plain| / max|plain| (FLASH_TOL in float32, BF16_FLASH_TOL
+    in bf16); every cross case also timed beside its bound (4 b h s t d
+    FLOPs: FP32, 3xTF32 and bf16 rates, bytes once each) and SDPA on the
+    same tensors (K/V repeated to the query heads, no mask), the kernel's
+    device ms in a CUDA graph of 10 launches (the one-query case is short
+    beside its host work), and the card's clocks while these timings ran."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import flash_attention_cuda, flash_attention_plain, repeat_kv
+
+    out = []
+    for label, dt, b, s, t, h, kv, d, causal in encdec_flash_cases():
+        bf = dt == "bfloat16"
+        q, k, v = (x.to(torch.bfloat16) if bf else x for x in _qkv(gen, b, s, h, kv, d, t))
+        got = flash_attention_cuda(q, k, v, causal=causal)
+        ref = flash_attention_plain(q, k, v, causal=causal)
+        torch.cuda.synchronize()
+        tol = BF16_FLASH_TOL if bf else FLASH_TOL
+        c = {"case": f"{label}: b={b} s={s} t={t} h={h} kv={kv} d={d} causal={causal}", "dtype": dt,
+             "tol": tol, **_rel_compare(got.float(), ref.float(), tol)}
+        del got, ref
+        if not causal:
+            qt, kt, vt = (x.transpose(1, 2) for x in (q, repeat_kv(k, h // kv), repeat_kv(v, h // kv)))
+            flops = 4.0 * b * h * s * t * d
+            if bf:
+                bound, t_ops, t_bytes = flash_bf16_bound(b, s, h, kv, d, False, None, t)
+                c.update(bound_ms=bound, ops_ms=t_ops, bytes_ms=t_bytes)
+            else:
+                t_bytes = 4.0 * (2 * b * s * h * d + 2 * b * t * kv * d) / HBM_BPS * 1e3
+                t_ops, t_tc = flops / F32_TFLOPS * 1e3, 3.0 * flops / TF32_TFLOPS * 1e3
+                # its own bound: the 3xTF32 products at the tensor-core rate
+                c.update(bound_ms=max(t_tc, t_bytes), bound_fp32_ms=max(t_ops, t_bytes),
+                         ops_ms=t_tc, bytes_ms=t_bytes)
+            with clock_samples(c):
+                c.update(ms=time_ms(lambda: flash_attention_cuda(q, k, v, causal=False), iters=20),
+                         device_ms=graph_ms(lambda: flash_attention_cuda(q, k, v, causal=False), calls=10),
+                         library_ms=time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt), iters=20))
+            c.update(plain_ms=time_ms(lambda: flash_attention_plain(q, k, v, causal=False), iters=2, warm=1),
+                     flops=flops, bound_by="operations" if c["ops_ms"] >= c["bytes_ms"] else "bytes")
+            c["achieved_tflops"] = flops / (c["ms"] * 1e-3) / 1e12
+            del qt, kt, vt
+        out.append(c)
+        del q, k, v
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_encdec_prefix_serve(report):
+    """Slice 17: flash's cross mode against its plain version at the path's
+    shapes; whisper-small at full size in float32 (1500 encoder frames) and
+    internvl2-76b at full width in bf16 cut to ``INTERNVL_LAYERS`` layers
+    (256 prefix embeddings) through ``serve_batch``: decode vs forward
+    within 2e-3 (whisper) and 2E (internvl, E at
+    ``INTERNVL_ENVELOPE_LAYERS`` layers in float32), two prefills
+    bit-identical, flash 36 times a whisper prefill (12 in the cross mode;
+    ``_serve_once`` holds the counts)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import serve_numerics
+
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=DEVICE).manual_seed(17)
+    cases = encdec_flash(gen)
+    emit({"phase": "encdec_flash", "cases": cases})
+    bad = [c for c in cases if not (c["allclose"] or c["dtype"] == "bfloat16") or c["rel_err"] > c["tol"]]
+    check(not bad, "flash's cross mode or the slice's self shapes disagree with the plain version: "
+          + json.dumps(bad))
+    out = {"flash": cases}
+    with serve_numerics():
+        w = get_config("whisper-small")
+        check((w.num_layers, w.encoder_layers, w.d_model, w.num_heads, w.num_kv_heads, w.d_ff,
+               w.vocab_size, w.pos_embed) == (12, 12, 768, 12, 12, 3072, 51_865, "learned"),
+              "encdec_prefix_serve runs whisper-small at full size")
+        rec = _serve_once(w, "whisper-small/full", SERVE["seed"] + 50, phase="encdec_prefix_serve")
+        check(rec["prefill_bit_identical"], "whisper-small: two prefills differ")
+        out["whisper-small"] = rec
+        iv = get_config("internvl2-76b")
+        check((iv.d_model, iv.num_heads, iv.num_kv_heads, iv.resolved_head_dim, iv.d_ff, iv.vocab_size,
+               iv.num_prefix_embeds) == (8192, 64, 8, 128, 28_672, 128_256, 256),
+              "encdec_prefix_serve runs internvl2-76b at full width")
+        cfg = iv.replace(num_layers=INTERNVL_LAYERS, dtype="bfloat16")
+        torch.cuda.reset_peak_memory_stats()
+        env = bf16_envelope(cfg.replace(num_layers=INTERNVL_ENVELOPE_LAYERS), SERVE["seed"] + 51)
+        emit({"phase": "encdec_prefix_envelope", "arch": iv.name, **env})
+        check(0.0 < env["E"] < 1.0, f"encdec_prefix_serve internvl2-76b: envelope {env}")
+        rec = _serve_once(cfg, f"internvl2-76b/bf16/{INTERNVL_LAYERS}_of_{iv.num_layers}_layers",
+                          SERVE["seed"] + 52, phase="encdec_prefix_serve", decode_bar=2 * env["E"])
+        check(rec["prefill_bit_identical"], "internvl2-76b: two prefills differ")
+        out["internvl2-76b"] = {**rec, "envelope": env, "layers_full": iv.num_layers}
+    rec = {"phase": "encdec_prefix_serve_done", "seconds": time.perf_counter() - t0,
+           "layers": {"whisper-small": (w.encoder_layers, w.num_layers),
+                      "internvl2-76b": (INTERNVL_LAYERS, iv.num_layers)}}
+    emit(rec)
+    report["encdec_prefix_serve"] = {**out, "seconds": rec["seconds"]}
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -5176,6 +5433,8 @@ def main() -> int:
         bf16s = phase_bf16_serve(report)
         save(report)
         moex = phase_moe_xlstm_serve(report)
+        save(report)
+        encdec = phase_encdec_prefix_serve(report)
     steps = max(res.train_steps, 1)
     rb_steps = max(rb_res.train_steps, 1)
     s_steps = max(s_res.train_steps, 1)
@@ -5250,6 +5509,17 @@ def main() -> int:
                                   "launches": r["launches_per_prefill"][kname],
                                   "prefill_s": r["prefill_again_s"]}
                               for a, r in dense.items()}
+            # slice 17: whisper-small's launches and the cross mode at its shape
+            f32 = [c for c in encdec["flash"] if c["dtype"] == "float32"]
+            entry["max_abs_err"] = max(entry["max_abs_err"], max(c["err"] for c in f32))
+            entry["max_rel_err"] = max(entry["max_rel_err"], max(c["rel_err"] for c in f32))
+            ws = encdec["whisper-small"]
+            entry["whisper-small"] = {"launches": ws["launches_per_prefill"][kname],
+                                      "cross_launches": ws["cross_launches_per_prefill"],
+                                      "prefill_s": ws["prefill_again_s"]}
+            entry["cross"] = {"launches": ws["cross_launches_per_prefill"],
+                              "cases": [{f: c[f] for f in CROSS_FIELDS + ("bound_fp32_ms",)}
+                                        for c in f32 if "ms" in c]}
         kernels.append(entry)
     for kname, t in bf16k["pruned_matmul"].items():
         kernels.append({
@@ -5276,11 +5546,12 @@ def main() -> int:
                     "launches": bf16_runs[a]["launches_per_prefill"]["flash_attention_bf16"]}
                 for a, c in timed.items()}
     head = per_arch["qwen3-32b"]
+    fl_all = fl + [c for c in encdec["flash"] if c["dtype"] == "bfloat16"]
     kernels.append({
         "name": "flash_attention_bf16", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": REPLACES["flash_attention_bf16"], "launches": head["launches"],
-        "max_abs_err": max(c["err"] for c in fl), "max_rel_err": max(c["rel_err"] for c in fl),
+        "max_abs_err": max(c["err"] for c in fl_all), "max_rel_err": max(c["rel_err"] for c in fl_all),
         "max_ulps": max(c["ulps"] for c in fl),
         "ms": head["ms"], "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
         "bound_by": head["bound_by"], "library_ms": head["library_ms"],
@@ -5288,6 +5559,13 @@ def main() -> int:
                   "launches per prefill",
         "recurrentgemma-9b": per_arch["recurrentgemma-9b"],
         "llama4-maverick-400b-a17b": {**per_arch["llama4-maverick-400b-a17b"], "layers": LLAMA4_LAYERS},
+        # slice 17: internvl2-76b's launches and the cross mode at its heads
+        "internvl2-76b": {"layers": INTERNVL_LAYERS,
+                          "launches": encdec["internvl2-76b"]["launches_per_prefill"]["flash_attention_bf16"],
+                          "prefill_s": encdec["internvl2-76b"]["prefill_again_s"]},
+        "cross": {"launches": encdec["internvl2-76b"]["cross_launches_per_prefill"],
+                  "cases": [{f: c[f] for f in CROSS_FIELDS}
+                            for c in encdec["flash"] if c["dtype"] == "bfloat16" and "ms" in c]},
     })
     sc = next(c for c in bf16k["rg_lru_scan_bf16"] if "ms" in c)
     kernels.append({

@@ -7,7 +7,9 @@ the serving-side analogue of the paper's heterogeneous workers (port of
 
 Runs on the card unless ``--device cpu`` is given, and raises without one.
 Weights and prompts are seeded random (``torch.Generator``), so the sampled
-tokens are the port's own, not the JAX example's.
+tokens are the port's own, not the JAX example's.  ``--arch whisper-small``
+feeds 16 zero encoder frames and ``--arch internvl2-76b`` its zero prefix
+embeddings, as ``python -m repro_torch.launch.serve`` does.
 """
 import argparse
 import time
@@ -16,7 +18,7 @@ import torch
 
 from repro_torch.configs import list_archs, smoke_config
 from repro_torch.core.simulation import resolve_device
-from repro_torch.launch.serve import serve_batch
+from repro_torch.launch.serve import extra_inputs, serve_batch
 from repro_torch.models import transformer as T
 from repro_torch.models.config import apply_retention, param_count
 
@@ -38,7 +40,8 @@ def main(argv=None):
         prompts = torch.randint(0, cfg.vocab_size, (args.batch, 16),
                                 generator=torch.Generator(device=dev).manual_seed(1), device=dev)
         t0 = time.perf_counter()
-        gen = serve_batch(cfg, params, prompts, args.new_tokens, device=args.device)
+        gen = serve_batch(cfg, params, prompts, args.new_tokens, extra_inputs(cfg, args.batch, dev),
+                          device=args.device)
         dt = time.perf_counter() - t0
         print(f"[serve] {args.arch} gamma={gamma}: {param_count(cfg):,} params, "
               f"{args.batch * args.new_tokens / dt:6.1f} tok/s, sample {gen[0].cpu().numpy()[:6]}")

@@ -1,12 +1,13 @@
 """Config registry, input shapes and the smoke reduction (port of
 ``repro/configs/base.py``).
 
-The port registers the architectures whose block kinds and fields it runs
-(``recurrentgemma-9b``, ``gemma2-2b``, the dense attention archs
+The port registers all ten of the reference's architectures: the hybrid
+``recurrentgemma-9b``, ``gemma2-2b``, the dense attention archs
 ``internlm2-1.8b``, ``qwen1.5-32b``, ``qwen3-32b``, the MoE archs
-``granite-moe-1b-a400m``, ``llama4-maverick-400b-a17b`` and ``xlstm-1.3b``);
-``get_config`` of any other name raises a ``ValueError`` that names it and
-points at ROADMAP.md.
+``granite-moe-1b-a400m`` and ``llama4-maverick-400b-a17b``, ``xlstm-1.3b``,
+the encoder-decoder ``whisper-small`` and the vision-prefix
+``internvl2-76b``.  ``get_config`` of any other name raises a
+``ValueError`` that names it.
 """
 from __future__ import annotations
 
@@ -15,16 +16,9 @@ from typing import Dict
 
 from repro_torch.models.config import ModelConfig
 
-__all__ = ["register", "get_config", "smoke_config", "list_archs", "SHAPES", "InputShape",
-           "UNPORTED_ARCHS"]
+__all__ = ["register", "get_config", "smoke_config", "list_archs", "SHAPES", "InputShape"]
 
 _REGISTRY: Dict[str, ModelConfig] = {}
-
-# the JAX package's other registered archs, which have no config file in the
-# port yet: Whisper's encoder and InternVL's vision prefix are fields the port
-# refuses
-UNPORTED_ARCHS = ("internvl2-76b", "whisper-small")
-
 
 @dataclasses.dataclass(frozen=True)
 class InputShape:
@@ -50,10 +44,7 @@ def register(cfg: ModelConfig) -> ModelConfig:
 def get_config(name: str) -> ModelConfig:
     _ensure_loaded()
     if name not in _REGISTRY:
-        raise ValueError(
-            f"get_config: arch {name!r} has no config in repro_torch — not ported yet "
-            f"(see ROADMAP.md, queue A); ported archs: {sorted(_REGISTRY)}"
-        )
+        raise ValueError(f"get_config: unknown arch {name!r}; archs: {sorted(_REGISTRY)}")
     return _REGISTRY[name]
 
 
@@ -112,9 +103,11 @@ def _ensure_loaded():
         gemma2_2b,
         granite_moe_1b_a400m,
         internlm2_1_8b,
+        internvl2_76b,
         llama4_maverick_400b_a17b,
         qwen1_5_32b,
         qwen3_32b,
         recurrentgemma_9b,
+        whisper_small,
         xlstm_1_3b,
     )

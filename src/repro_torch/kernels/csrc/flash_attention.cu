@@ -12,10 +12,16 @@
 // with g = h / (H / KV), the kv head of query head h in the head-major order
 // of the model's _repeat_kv (src/repro/models/attention.py:93).  MQA/GQA
 // K/V are read in place: nothing is repeated in device memory.  Key j is
-// kept for query i iff j < S, (not causal or j <= i) and (no window or
+// kept for query i iff j < T, (not causal or j <= i) and (no window or
 // j > i - window).  q, o are contiguous [B, S, H, D]; k, v contiguous
-// [B, S, KV, D]; D is 64, 128 or 256; any S (ragged tiles are zero-filled
-// on load and masked).  All four are float32, or all bfloat16.
+// [B, T, KV, D]; D is 64, 128 or 256; any S and T (ragged tiles are
+// zero-filled on load and masked).  All four are float32, or all bfloat16.
+//
+// Cross mode: T != S is the model's cross-attention (a decoder's S queries
+// against an encoder's T frames, src/repro/models/attention.py:117-157 with
+// xkv), every key kept; the wrapper passes it with causal = 0 and no window
+// only.  Query tiles, the grid and its order follow S; the key tiles, their
+// loads and the key mask follow T.  Self-attention is T == S.
 //
 // Mask rule.  The TPU kernel writes -1e30 into masked scores and the JAX
 // model adds finfo(f32).min; here a masked key gets probability exactly 0
@@ -123,7 +129,7 @@ typedef __nv_bfloat16 bf16;
 
 struct Args {
     const void* q; const void* k; const void* v; void* o;
-    int B, S, H, KV, hpb, nqt, causal, window;
+    int B, S, T, H, KV, hpb, nqt, causal, window;   // S queries, T keys
     float scale, softcap;
 };
 
@@ -161,7 +167,7 @@ struct Place {
         kvh = head0 / (p.H / p.KV);
         whead = head0 + (16 * warp) / pos_n;
         wp0 = p0 + (16 * warp) % pos_n;
-        const int nkt = (p.S + bk - 1) / bk;
+        const int nkt = (p.T + bk - 1) / bk;
         kt_end = p.causal ? min(nkt, (min(p0 + pos_n, p.S) - 1) / bk + 1) : nkt;
         kt_begin = 0;
         if (p.window > 0) {
@@ -171,12 +177,12 @@ struct Place {
     }
     // some row of the warp keeps a key of the tile at k0
     __device__ __forceinline__ bool live(const Args& p, int k0, int bk) const {
-        return wp0 < p.S && !(p.causal && k0 > wp0 + 15) &&
+        return wp0 < p.S && k0 < p.T && !(p.causal && k0 > wp0 + 15) &&
                !(p.window > 0 && k0 + bk - 1 <= wp0 - p.window);
     }
     // every row of the warp keeps every key of the tile at k0
     __device__ __forceinline__ bool full(const Args& p, int k0, int bk) const {
-        return k0 + bk <= p.S && !(p.causal && k0 + bk - 1 > wp0) &&
+        return k0 + bk <= p.T && !(p.causal && k0 + bk - 1 > wp0) &&
                !(p.window > 0 && k0 <= wp0 + 15 - p.window);
     }
 };
@@ -207,7 +213,7 @@ __device__ __forceinline__ void online_softmax(float (&s)[NJ][4], float (&m)[2],
                 const int col = k0 + 8 * j + 2 * t + e;
                 float sv = s[j][2 * hh + e] * qk_scale;
                 if (capped) sv = cap * tanhf(sv);
-                const bool kp = full || (col < p.S && (!p.causal || col <= row) &&
+                const bool kp = full || (col < p.T && (!p.causal || col <= row) &&
                                          (p.window <= 0 || col > row - p.window));
                 keep |= (unsigned)kp << (2 * j + e);
                 s[j][2 * hh + e] = sv;
@@ -412,12 +418,12 @@ flash_attention_kernel(const Args p)
                               : gq;
         cp_async16(Qs + r * LDK + c, src, ok);
     }
-    // K or V rows k0 .. k0 + BK - 1 of kv head kvh (zeros past S)
+    // K or V rows k0 .. k0 + BK - 1 of kv head kvh (zeros past T)
     auto load_tile = [&](float* dst, const float* base, int ld, int k0) {
         for (int i = tid; i < BK * V4; i += THREADS) {
             const int r = i / V4, c = (i % V4) * 4;
-            const bool ok = k0 + r < S;
-            const float* src = ok ? base + ((long long)(pl.b * S + k0 + r) * p.KV + pl.kvh) * D + c
+            const bool ok = k0 + r < p.T;
+            const float* src = ok ? base + ((long long)(pl.b * p.T + k0 + r) * p.KV + pl.kvh) * D + c
                                   : base;
             cp_async16(dst + r * ld + c, src, ok);
         }
@@ -556,15 +562,15 @@ flash_attention_bf16_kernel(const Args p)
                              : gq;
         cp_async16(Qs + r * LD + c, src, ok);
     }
-    // K and V rows k0 .. k0 + BK - 1 of kv head kvh into ring stage st (zeros past S)
+    // K and V rows k0 .. k0 + BK - 1 of kv head kvh into ring stage st (zeros past T)
     auto load_kv = [&](int st, int k0) {
         bf16* Kd = KV + 2 * st * LY::kv_elems;
         bf16* Vd = Kd + LY::kv_elems;
 #pragma unroll 1          // rolled: no per-chunk offsets held across the tile loop
         for (int i = tid; i < BK * V8; i += THREADS) {
             const int r = i / V8, c = (i % V8) * 8;
-            const bool ok = k0 + r < S;
-            const long long off = ((long long)(pl.b * S + k0 + r) * p.KV + pl.kvh) * D + c;
+            const bool ok = k0 + r < p.T;
+            const long long off = ((long long)(pl.b * p.T + k0 + r) * p.KV + pl.kvh) * D + c;
             cp_async16(Kd + r * LD + c, ok ? gk + off : gk, ok);
             cp_async16(Vd + r * LD + c, ok ? gv + off : gv, ok);
         }
@@ -668,12 +674,14 @@ int launch(Args a, cudaStream_t stream)
 }
 
 template <bool BF16>
-int run(const void* q, const void* k, const void* v, void* o, int B, int S, int H, int KV,
+int run(const void* q, const void* k, const void* v, void* o, int B, int S, int T, int H, int KV,
         int D, int causal, int window, float softcap, float sqrt_d, void* stream)
 {
     if (B <= 0 || S <= 0 || H <= 0) return (int)cudaSuccess;
-    if (KV <= 0 || H % KV != 0) return (int)cudaErrorInvalidValue;
-    Args a{q, k, v, o, B, S, H, KV, 1, 1, causal, window, 1.f / sqrt_d, softcap};
+    if (KV <= 0 || H % KV != 0 || T <= 0) return (int)cudaErrorInvalidValue;
+    // causal masks and windows are self-attention's: T == S
+    if (T != S && (causal || window > 0)) return (int)cudaErrorInvalidValue;
+    Args a{q, k, v, o, B, S, T, H, KV, 1, 1, causal, window, 1.f / sqrt_d, softcap};
     cudaStream_t st = (cudaStream_t)stream;
     switch (D) {
         case 64: return launch<64, BF16>(a, st);
@@ -697,21 +705,22 @@ extern "C" long long flash_attention_smem_bytes(int D, int is_bf16)
     }
 }
 
-// q, o [B, S, H, D]; k, v [B, S, KV, D]; all contiguous float32.
+// q, o [B, S, H, D]; k, v [B, T, KV, D]; all contiguous float32.  T != S
+// (cross mode) only with causal = 0 and window <= 0.
 // window <= 0: no window; softcap <= 0: no softcap.  Returns a cudaError_t.
 extern "C" int flash_attention_f32(
     const float* q, const float* k, const float* v, float* o,
-    int B, int S, int H, int KV, int D, int causal, int window, float softcap,
+    int B, int S, int T, int H, int KV, int D, int causal, int window, float softcap,
     float sqrt_d, void* stream)
 {
-    return run<false>(q, k, v, o, B, S, H, KV, D, causal, window, softcap, sqrt_d, stream);
+    return run<false>(q, k, v, o, B, S, T, H, KV, D, causal, window, softcap, sqrt_d, stream);
 }
 
 // The same on contiguous bfloat16 q, k, v, o.
 extern "C" int flash_attention_bf16(
     const __nv_bfloat16* q, const __nv_bfloat16* k, const __nv_bfloat16* v, __nv_bfloat16* o,
-    int B, int S, int H, int KV, int D, int causal, int window, float softcap,
+    int B, int S, int T, int H, int KV, int D, int causal, int window, float softcap,
     float sqrt_d, void* stream)
 {
-    return run<true>(q, k, v, o, B, S, H, KV, D, causal, window, softcap, sqrt_d, stream);
+    return run<true>(q, k, v, o, B, S, T, H, KV, D, causal, window, softcap, sqrt_d, stream);
 }

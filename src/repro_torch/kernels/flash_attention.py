@@ -7,10 +7,16 @@ The function is
 
 with an optional causal mask, sliding window (key j kept for query i iff
 ``j > i - window``) and Gemma-2 logit softcap.  ``q`` is ``[b, s, h, d]``;
-``k`` and ``v`` are ``[b, s, kv, d]`` with ``h % kv == 0``, and query head
+``k`` and ``v`` are ``[b, t, kv, d]`` with ``h % kv == 0``, and query head
 ``h`` reads kv head ``h // (h / kv)`` — the head order of the model's
 ``_repeat_kv`` — so MQA/GQA K/V are never repeated on the card.  Unlike the
 TPU wrapper, any ``s`` is taken.
+
+Cross mode: ``t != s`` is the model's cross-attention (Whisper's decoder
+reading the encoder's ``t`` frames; ``repro/models/attention.py:117-157``
+with ``xkv``): queries at positions ``arange(s)``, keys at ``arange(t)``,
+every key kept.  It takes ``causal=False`` and ``window=None`` only; any
+other combination with ``t != s`` raises ``ValueError`` (``check_cross``).
 
 Mask value: the TPU kernel writes ``-1e30`` into masked scores and the JAX
 model (``attention._mask_bias``) and ``ref.flash_attention_ref`` use
@@ -70,6 +76,7 @@ __all__ = [
     "heads_per_block",
     "block_order",
     "kv_tile_range",
+    "check_cross",
 ]
 
 NAME = "flash_attention"
@@ -99,6 +106,14 @@ def check_dtypes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
             raise ValueError(f"flash_attention: {nm} must have q's dtype {q.dtype}, got {t.dtype}")
 
 
+def check_cross(s: int, t: int, causal: bool, window: Optional[int]) -> None:
+    """``t`` keys for ``s`` queries: the causal mask and the window are
+    self-attention's and need ``t == s``."""
+    if t != s and (causal or window is not None):
+        raise ValueError(f"flash_attention: cross mode (t={t} keys for s={s} queries) takes "
+                         f"causal=False and window=None, got causal={causal}, window={window}")
+
+
 def repeat_kv(x: torch.Tensor, rep: int) -> torch.Tensor:
     """``[b, t, kv, d] -> [b, t, kv * rep, d]``, head ``h`` from kv head
     ``h // rep`` (``repro/models/attention.py:_repeat_kv``)."""
@@ -111,6 +126,7 @@ def repeat_kv(x: torch.Tensor, rep: int) -> torch.Tensor:
 def flash_attention_plain(q, k, v, *, causal: bool = True, window: Optional[int] = None,
                           softcap: Optional[float] = None) -> torch.Tensor:
     check_dtypes(q, k, v)
+    check_cross(q.shape[1], k.shape[1], causal, window)
     rep = q.shape[2] // k.shape[2]
     return flash_attention_ref(q, repeat_kv(k, rep), repeat_kv(v, rep),
                                causal=causal, window=window, softcap=softcap)
@@ -134,11 +150,14 @@ def block_order(b: int, s: int, h: int, kv: int, rows: int = ROWS):
 
 
 def kv_tile_range(p0: int, positions: int, s: int, causal: bool, window: Optional[int],
-                  block_k: int):
-    """``[begin, end)`` of the K/V tiles that a block of query positions
-    ``p0 .. p0 + positions - 1`` walks: none wholly above the causal diagonal
-    of its newest row, none wholly out of the window of its oldest."""
-    nkt = -(-s // block_k)
+                  block_k: int, t: Optional[int] = None):
+    """``[begin, end)`` of the K/V tiles of ``t`` keys (default ``s``) that a
+    block of query positions ``p0 .. p0 + positions - 1`` walks: none wholly
+    above the causal diagonal of its newest row, none wholly out of the
+    window of its oldest; in the cross mode (``t != s``) all of them."""
+    t = s if t is None else t
+    check_cross(s, t, causal, window)
+    nkt = -(-t // block_k)
     end = min(nkt, (min(p0 + positions, s) - 1) // block_k + 1) if causal else nkt
     begin = 0
     if window:
@@ -159,7 +178,7 @@ def _lib():
         lib = load_library(NAME)
         P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         for _, entry in MODES.values():
-            getattr(lib, entry).argtypes = [P, P, P, P, I, I, I, I, I, I, I, F, F, P]
+            getattr(lib, entry).argtypes = [P, P, P, P, I, I, I, I, I, I, I, I, F, F, P]
             getattr(lib, entry).restype = I
         lib.flash_attention_smem_bytes.argtypes = [I, I]
         lib.flash_attention_smem_bytes.restype = ctypes.c_longlong
@@ -186,15 +205,16 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True, window: Optional[int] 
             raise ValueError(f"{nm} must be [b, s, heads, d], got {tuple(t.shape)}")
     check_dtypes(q, k, v)
     b, s, h, d = q.shape
-    kv = k.shape[2]
-    if tuple(k.shape) != (b, s, kv, d) or tuple(v.shape) != tuple(k.shape):
+    t, kv = k.shape[1], k.shape[2]
+    if tuple(k.shape) != (b, t, kv, d) or tuple(v.shape) != tuple(k.shape):
         raise ValueError(f"k {tuple(k.shape)} / v {tuple(v.shape)} do not match q {tuple(q.shape)}")
+    check_cross(s, t, causal, window)
     if kv == 0 or h % kv:
         raise ValueError(f"{h} query heads are not a multiple of {kv} kv heads")
     if d not in HEAD_DIMS:
         raise ValueError(f"head_dim {d}: the flash kernel takes {HEAD_DIMS}")
-    if b * s >= 2 ** 31:
-        raise ValueError(f"b={b}, s={s}: the kernel counts b * s positions in 32 bits")
+    if b * max(s, t) >= 2 ** 31:
+        raise ValueError(f"b={b}, s={s}, t={t}: the kernel counts b * s and b * t positions in 32 bits")
     if window is not None and window < 1:
         raise ValueError(f"window must be >= 1, got {window}")
     if softcap is not None and softcap <= 0:
@@ -205,7 +225,7 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True, window: Optional[int] 
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = getattr(_lib(), entry)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-        b, s, h, kv, d, int(bool(causal)), int(window or 0), float(softcap or 0.0),
+        b, s, t, h, kv, d, int(bool(causal)), int(window or 0), float(softcap or 0.0),
         float(math.sqrt(d)), stream,
     )
     if rc != 0:
@@ -217,7 +237,8 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True, window: Optional[int] 
 def flash_attention(q, k, v, *, causal: bool = True, window: Optional[int] = None,
                     softcap: Optional[float] = None) -> torch.Tensor:
     """Blocked online-softmax attention; ``k``/``v`` at their own kv head
-    count.  CPU tensors take the plain version, CUDA tensors the kernel."""
+    count and, in the cross mode, their own length.  CPU tensors take the
+    plain version, CUDA tensors the kernel."""
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, window=window, softcap=softcap)
     if q.device.type != "cuda":

@@ -30,21 +30,24 @@ def pruned_matmul_ref(
 
 def flash_attention_ref(
     q: torch.Tensor,          # [b, s, h, d]
-    k: torch.Tensor,          # [b, s, h, d]  (kv already repeated to h)
+    k: torch.Tensor,          # [b, t, h, d]  (kv already repeated to h)
     v: torch.Tensor,
     *,
     causal: bool = True,
     window: Optional[int] = None,
     softcap: Optional[float] = None,
 ) -> torch.Tensor:
-    """softmax(softcap(q k^T / sqrt(d)), masked with finfo(f32).min) v."""
+    """softmax(softcap(q k^T / sqrt(d)), masked with finfo(f32).min) v,
+    queries at positions ``arange(s)`` and keys at ``arange(t)``
+    (``repro/models/attention.py:_mask_bias``)."""
     b, s, h, d = q.shape
+    t = k.shape[1]
     scores = torch.einsum("bshd,bthd->bhst", q.float(), k.float()) / math.sqrt(d)
     if softcap is not None:
         scores = softcap * torch.tanh(scores / softcap)
     qp = torch.arange(s, device=q.device)[:, None]
-    kp = torch.arange(s, device=q.device)[None, :]
-    keep = torch.ones((s, s), dtype=torch.bool, device=q.device)
+    kp = torch.arange(t, device=q.device)[None, :]
+    keep = torch.ones((s, t), dtype=torch.bool, device=q.device)
     if causal:
         keep &= kp <= qp
     if window is not None:

@@ -3,7 +3,11 @@
 
 A batch of prompts -> ``prefill`` builds the ring-buffer KV caches and
 recurrent states (attention through the flash kernel, the RG-LRU
-recurrence through the scan kernel) -> token-by-token greedy decode.
+recurrence through the scan kernel) -> token-by-token greedy decode.  An
+encoder-decoder (whisper-small) takes its encoder frames and a
+vision-prefix model (internvl2-76b) its prefix embeddings through
+``extra_batch``; ``main`` builds them as the reference's does (zeros: 16
+frames, ``num_prefix_embeds`` embeddings).
 ``--retention`` serves an AdaptCL-reconfigured sub-model.  Runs on the card
 unless ``--device cpu`` is given; ``device="cuda"`` without a card raises.
 The model's dtype is its config's (``ModelConfig.dtype``, float32 or the
@@ -26,7 +30,10 @@ from repro_torch.core.simulation import ieee_f32, resolve_device
 from repro_torch.models import transformer as T
 from repro_torch.models.config import apply_retention
 
-__all__ = ["serve_batch", "serve_numerics", "main"]
+__all__ = ["serve_batch", "serve_numerics", "extra_inputs", "main", "CLI_ENC_FRAMES"]
+
+# Encoder frames of the CLI's stubbed audio frontend (repro/launch/serve.py:62).
+CLI_ENC_FRAMES = 16
 
 
 def _sync(dev: torch.device) -> None:
@@ -50,11 +57,16 @@ def serve_numerics():
             matmul.allow_bf16_reduced_precision_reduction = saved
 
 
-def serve_batch(cfg, params, prompts: torch.Tensor, new_tokens: int = 16, *,
+def serve_batch(cfg, params, prompts: torch.Tensor, new_tokens: int = 16, extra_batch=None, *,
                 device="cuda", stats: Optional[Dict] = None, return_logits: bool = False):
     """prompts [b, s] -> generated [b, new_tokens] (greedy), on ``device``.
 
     ``params`` must already lie on ``device`` (nothing is moved quietly).
+    ``extra_batch`` adds ``enc_embeds`` / ``prefix_embeds`` to the prefill's
+    batch (moved to ``device``).  The cache holds the prefix too: its
+    capacity is ``P + s + new_tokens`` for a prefix of ``P`` embeddings
+    (the reference's ``s + new_tokens`` would push the prefix out of every
+    full-attention layer's ring once ``P > new_tokens``).
     With ``stats`` a dict, the prefill and decode wall seconds are written
     into it (the device is synchronised at each boundary).  With
     ``return_logits``, also returns the ``[b, new_tokens + 1, V]`` logits:
@@ -69,11 +81,13 @@ def serve_batch(cfg, params, prompts: torch.Tensor, new_tokens: int = 16, *,
         raise ValueError(f"params lie on {leaf.device}, serve_batch runs on {dev}")
     prompts = prompts.to(dev)
     b, s = prompts.shape
+    batch = {"tokens": prompts, **{k: v.to(dev) for k, v in (extra_batch or {}).items()}}
+    max_len = T._prefix_len(cfg, batch) + s + new_tokens
     kept = []
     with serve_numerics():
         _sync(dev)
         t0 = time.perf_counter()
-        logits, state = T.prefill(params, cfg, {"tokens": prompts}, max_len=s + new_tokens)
+        logits, state = T.prefill(params, cfg, batch, max_len=max_len)
         if stats is not None:
             _sync(dev)
             stats["prefill_s"] = time.perf_counter() - t0
@@ -97,6 +111,19 @@ def serve_batch(cfg, params, prompts: torch.Tensor, new_tokens: int = 16, *,
     return gen
 
 
+def extra_inputs(cfg, batch: int, device) -> Dict[str, torch.Tensor]:
+    """The reference CLI's extra batch: zero prefix embeddings for a
+    vision-prefix model, ``CLI_ENC_FRAMES`` zero encoder frames for an
+    encoder-decoder (the stubbed frontends' outputs), in the model dtype."""
+    dt, extra = T.param_dtype(cfg), {}
+    if cfg.num_prefix_embeds:
+        extra["prefix_embeds"] = torch.zeros(batch, cfg.num_prefix_embeds, cfg.d_model,
+                                             dtype=dt, device=device)
+    if cfg.encoder_layers:
+        extra["enc_embeds"] = torch.zeros(batch, CLI_ENC_FRAMES, cfg.d_model, dtype=dt, device=device)
+    return extra
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--arch", required=True)
@@ -118,7 +145,8 @@ def main(argv=None):
                             generator=gen, device=dev)
     stats: Dict = {}
     t0 = time.perf_counter()
-    out = serve_batch(cfg, params, prompts, args.new_tokens, device=args.device, stats=stats)
+    out = serve_batch(cfg, params, prompts, args.new_tokens, extra_inputs(cfg, args.batch, dev),
+                      device=args.device, stats=stats)
     dt = time.perf_counter() - t0
     tps = args.batch * args.new_tokens / dt
     print(f"[serve] {cfg.name} retention={cfg.retention} on {dev}: generated "

@@ -1,12 +1,14 @@
-"""Grouped-query self-attention (port of ``repro/models/attention.py``).
+"""Grouped-query attention (port of ``repro/models/attention.py``).
 
 Supports GQA/MQA (num_kv_heads <= num_heads), rotary embeddings, qk-norm,
-QKV bias, the Gemma-2 logit softcap and causal / sliding-window masks.
-Prefill (``attention_fwd``) goes through ``kernels.flash_attention``: the
-CUDA kernel on the card, its plain version on the CPU, with K/V at their
-own head count.  Single-token decode (``attention_decode``) against the
-ring-buffer cache is plain torch, as the JAX package runs it outside any
-kernel.  Cross-attention (Whisper's encoder) is not ported.
+QKV bias, the Gemma-2 logit softcap, causal / sliding-window masks and
+cross-attention (Whisper's decoder reading the encoder's output).  Prefill
+(``attention_fwd``, self- or, with ``xkv``, cross-attention) goes through
+``kernels.flash_attention``: the CUDA kernel on the card, its plain version
+on the CPU, with K/V at their own head count and, across, their own length.
+Single-token decode against the ring-buffer cache (``attention_decode``)
+and against the encoder's static K/V (``cross_attention_decode``) is plain
+torch, as the JAX package runs it outside any kernel.
 """
 from __future__ import annotations
 
@@ -19,7 +21,8 @@ import torch
 from ..kernels.flash_attention import flash_attention, repeat_kv
 from .layers import apply_rope, dense_init, rms_norm, rotary_embedding, softcap
 
-__all__ = ["AttnSpec", "init_attention", "attention_fwd", "init_cache", "attention_decode"]
+__all__ = ["AttnSpec", "init_attention", "attention_fwd", "init_cache", "attention_decode",
+           "cross_attention_decode"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -64,10 +67,11 @@ def _proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return (x @ w.reshape(d, h * k)).reshape(*x.shape[:-1], h, k)
 
 
-def _project_qkv(params, spec: AttnSpec, x: torch.Tensor, positions: torch.Tensor):
+def _project_qkv(params, spec: AttnSpec, x: torch.Tensor, xkv: torch.Tensor,
+                 q_positions: torch.Tensor, kv_positions: torch.Tensor):
     q = _proj(x, params["wq"])
-    k = _proj(x, params["wk"])
-    v = _proj(x, params["wv"])
+    k = _proj(xkv, params["wk"])
+    v = _proj(xkv, params["wv"])
     if spec.qkv_bias:
         q = q + params["bq"]
         k = k + params["bk"]
@@ -76,9 +80,11 @@ def _project_qkv(params, spec: AttnSpec, x: torch.Tensor, positions: torch.Tenso
         q = rms_norm(q, params["q_norm"])
         k = rms_norm(k, params["k_norm"])
     if spec.use_rope:
-        sin, cos = rotary_embedding(positions, spec.head_dim, spec.rope_theta)
-        q = apply_rope(q, sin, cos)
-        k = apply_rope(k, sin, cos)
+        sin_q, cos_q = rotary_embedding(q_positions, spec.head_dim, spec.rope_theta)
+        sin_k, cos_k = ((sin_q, cos_q) if kv_positions is q_positions
+                        else rotary_embedding(kv_positions, spec.head_dim, spec.rope_theta))
+        q = apply_rope(q, sin_q, cos_q)
+        k = apply_rope(k, sin_k, cos_k)
     return q, k, v
 
 
@@ -88,14 +94,20 @@ def _out_proj(o: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
     return o.reshape(*o.shape[:-2], h * k) @ wo.reshape(h * k, d)
 
 
-def attention_fwd(params, spec: AttnSpec, x: torch.Tensor
+def attention_fwd(params, spec: AttnSpec, x: torch.Tensor, *, xkv: Optional[torch.Tensor] = None
                   ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
-    """Full-sequence self-attention (prefill).  Returns (output [b, s, d],
-    (k, v)): the raw post-rope K/V at ``num_kv_heads``, reusable by the
-    decode cache."""
-    s = x.shape[1]
-    positions = torch.arange(s, device=x.device)
-    q, k, v = _project_qkv(params, spec, x, positions)
+    """Full-sequence attention (prefill): self-attention over ``x``, or with
+    ``xkv [b, t, d]`` cross-attention of ``x``'s queries (positions
+    ``arange(s)``) to ``xkv``'s keys (positions ``arange(t)``), as the
+    reference's ``attention_fwd(xkv=...)``, which its decoder calls with a
+    non-causal, windowless spec.  Returns (output [b, s, d], (k, v)): the
+    raw post-rope K/V at ``num_kv_heads``, reusable by the decode cache."""
+    q_pos = torch.arange(x.shape[1], device=x.device)
+    if xkv is None:
+        xkv, kv_pos = x, q_pos
+    else:
+        kv_pos = torch.arange(xkv.shape[1], device=x.device)
+    q, k, v = _project_qkv(params, spec, x, xkv, q_pos, kv_pos)
     o = flash_attention(q, k, v, causal=spec.causal, window=spec.window,
                         softcap=spec.logit_softcap)
     return _out_proj(o.to(x.dtype), params["wo"]), (k, v)
@@ -119,7 +131,7 @@ def attention_decode(params, spec: AttnSpec, x: torch.Tensor, cache, position: i
     the new K/V into slot ``position % L`` of ``cache`` in place (the JAX
     version returns a new cache) and returns (out [b, 1, d], cache)."""
     q_pos = torch.tensor([position], device=x.device)
-    q, k_new, v_new = _project_qkv(params, spec, x, q_pos)
+    q, k_new, v_new = _project_qkv(params, spec, x, x, q_pos, q_pos)
     L = cache["k"].shape[1]
     slot = position % L
     cache["k"][:, slot] = k_new[:, 0]
@@ -140,3 +152,22 @@ def attention_decode(params, spec: AttnSpec, x: torch.Tensor, cache, position: i
     probs = torch.softmax(scores, dim=-1)
     out = torch.einsum("bhst,bthk->bshk", probs, vr)
     return _out_proj(out.to(x.dtype), params["wo"]), cache
+
+
+def cross_attention_decode(params, spec: AttnSpec, x: torch.Tensor, enc_k: torch.Tensor,
+                           enc_v: torch.Tensor) -> torch.Tensor:
+    """Decode-time cross-attention of ``x [b, 1, d]`` to the encoder's static
+    K/V ``[b, t, kv, hd]`` (no cache update).  As the reference: the query
+    takes its bias and ``q_norm`` but no rope; no softcap and no mask."""
+    q = _proj(x, params["wq"])
+    if spec.qkv_bias:
+        q = q + params["bq"]
+    if spec.qk_norm:
+        q = rms_norm(q, params["q_norm"])
+    rep = spec.num_heads // spec.num_kv_heads
+    kr = repeat_kv(enc_k.float(), rep)
+    vr = repeat_kv(enc_v.float(), rep)
+    scores = torch.einsum("bshk,bthk->bhst", q.float(), kr) / math.sqrt(spec.head_dim)
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bhst,bthk->bshk", probs, vr)
+    return _out_proj(out.to(x.dtype), params["wo"])

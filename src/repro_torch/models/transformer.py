@@ -1,9 +1,19 @@
 """Model assembly for the LLM serving path (port of ``repro/models/transformer.py``).
 
-Decoder-only stacks of the reference's six block kinds: ``attn`` / ``local``
+Decoder stacks of the reference's six block kinds: ``attn`` / ``local``
 (attention + FFN), ``moe`` / ``moe_local`` (attention + mixture of experts,
 ``moe_local`` windowed), ``rglru`` (RG-LRU + FFN) and ``mlstm`` / ``slstm``
-(one xLSTM cell, params ``{"ln", "cell"}``).  Full periods
+(one xLSTM cell, params ``{"ln", "cell"}``).  With ``cfg.encoder_layers``
+(Whisper) an encoder of ``attn`` blocks (``params["enc_blocks"]["s0"]``,
+stacked over its layers) runs over ``batch["enc_embeds"]`` plus learned
+positions ``enc_pos``, and every attention block of the decoder adds a
+cross-attention step (``lnx``, ``xattn``) to its output after its
+self-attention.  As in the reference, the encoder's self-attention is
+causal (``_run_encoder``; Whisper's own encoder is bidirectional).  With
+``cfg.num_prefix_embeds`` (InternVL) ``batch["prefix_embeds"]`` go in front
+of the token embeddings; ``forward`` drops their positions and ``prefill``
+counts them in the cache.  ``pos_embed="learned"`` adds ``pos_embed`` rows
+to the embedded sequence and each decode step.  Full periods
 of ``cfg.block_pattern`` are parameter-stacked on a leading group axis
 (``params["blocks"]["s{j}"]``), exactly as the JAX package stacks them for
 ``lax.scan``; here a Python loop indexes one group at a time.  Remainder
@@ -17,7 +27,9 @@ Entry points:
   * ``decode_step(params, cfg, state, token)``    -> (logits, state)
 
 The decode state holds ring-buffer KV caches and recurrent states, stacked
-over groups like the parameters, and the next position as a Python int.
+over groups like the parameters, and the next position as a Python int; an
+encoder-decoder's attention caches are ``{"self": ring, "cross_k",
+"cross_v"}``, the cross K/V the raw ``enc_out @ wk`` / ``wv`` of prefill.
 
 ``cfg.dtype`` is "float32" or "bfloat16", the JAX dry-run's dtype: every
 parameter and state leaf takes the dtype of its JAX counterpart (the
@@ -27,9 +39,9 @@ float32 as in the JAX package, and the logits come out float32.
 ``decode_step`` updates the caches in place (the JAX version returns new
 arrays), so a step writes one ring slot instead of copying the cache.
 
-Block kinds ``moe``/``moe_local``/``mlstm``/``slstm``, the encoder, vision
-prefix embeddings, learned positions and dtypes other than float32 and
-bfloat16 are refused by name (``validate_config``).
+Dtypes other than float32 and bfloat16 are refused by name
+(``validate_config``), as are unknown block kinds, norms and position
+embeddings.
 """
 from __future__ import annotations
 
@@ -84,13 +96,8 @@ def validate_config(cfg: ModelConfig) -> None:
     for kind in cfg.block_pattern:
         if kind not in SUPPORTED_KINDS:
             raise ValueError(f"ModelConfig.block_pattern: unknown block kind {kind!r}")
-    if cfg.encoder_layers > 0:
-        raise _refuse("encoder_layers", f"encoder_layers={cfg.encoder_layers} (enc-dec models)")
-    if cfg.num_prefix_embeds > 0:
-        raise _refuse("num_prefix_embeds",
-                      f"num_prefix_embeds={cfg.num_prefix_embeds} (vision prefix embeddings)")
-    if cfg.pos_embed != "rope":
-        raise _refuse("pos_embed", f"pos_embed={cfg.pos_embed!r} (only 'rope' runs)")
+    if cfg.pos_embed not in ("rope", "learned"):
+        raise ValueError(f"ModelConfig.pos_embed: unknown {cfg.pos_embed!r}")
     if cfg.dtype not in DTYPES:
         raise _refuse("dtype", f"dtype={cfg.dtype!r} (the port runs {sorted(DTYPES)})")
     if cfg.norm_style not in ("rms", "layernorm"):
@@ -119,9 +126,12 @@ def _stack(trees: List[Any]):
 
 def _copy_into(dst, src) -> None:
     """Write a block's new decode cache into its (stacked) slot in place
-    (an attention cache comes back as the same, already updated, views)."""
+    (an attention cache comes back as the same, already updated, views;
+    an encoder-decoder's nests its ring under ``"self"``)."""
     for k, v in src.items():
-        if v is not dst[k]:
+        if isinstance(v, dict):
+            _copy_into(dst[k], v)
+        elif v is not dst[k]:
             dst[k].copy_(v)
 
 
@@ -143,6 +153,11 @@ def _attn_spec(cfg: ModelConfig, kind: str, causal: bool = True) -> AttnSpec:
         rope_theta=cfg.rope_theta,
         use_rope=cfg.pos_embed == "rope",
     )
+
+
+def _cross_spec(cfg: ModelConfig) -> AttnSpec:
+    """The decoder's cross-attention: every encoder frame kept."""
+    return _attn_spec(cfg, "attn", causal=False)
 
 
 def _ffn_spec(cfg: ModelConfig) -> FFNSpec:
@@ -191,7 +206,10 @@ def _apply_norm(cfg: ModelConfig, p, x):
     return rms_norm(x, p["scale"])
 
 
-def _init_block(gen: torch.Generator, cfg: ModelConfig, kind: str, lead=()):
+def _init_block(gen: torch.Generator, cfg: ModelConfig, kind: str, lead=(), cross: bool = False):
+    """One block's params; ``cross`` adds an attention block's cross step
+    (``lnx``, ``xattn``), as the reference gives every decoder block of an
+    encoder-decoder."""
     dev, dt = gen.device, param_dtype(cfg)
     if kind in _ATTN_KINDS:
         p = {
@@ -203,6 +221,9 @@ def _init_block(gen: torch.Generator, cfg: ModelConfig, kind: str, lead=()):
             p["moe"] = moe_mod.init_moe(gen, _moe_spec(cfg), lead, dt)
         else:
             p["ffn"] = ffn_mod.init_ffn(gen, _ffn_spec(cfg), lead, dt)
+        if cross:
+            p["lnx"] = _init_norm(cfg, lead, dev)
+            p["xattn"] = attn_mod.init_attention(gen, _cross_spec(cfg), lead, dt)
         return p
     if kind == "rglru":
         return {
@@ -233,17 +254,24 @@ def init_params(gen: torch.Generator, cfg: ModelConfig) -> Dict[str, Any]:
     validate_config(cfg)
     dt = param_dtype(cfg)
     params: Dict[str, Any] = {"embed": normal_init(gen, (cfg.vocab_size, cfg.d_model), 0.02, dt)}
+    if cfg.pos_embed == "learned":
+        params["pos_embed"] = normal_init(gen, (cfg.max_position, cfg.d_model), 0.01, dt)
     g, rem = _split_layers(cfg)
+    cross = cfg.encoder_layers > 0
     if g > 0:
         params["blocks"] = {
-            f"s{j}": _init_block(gen, cfg, kind, lead=(g,))
+            f"s{j}": _init_block(gen, cfg, kind, lead=(g,), cross=cross)
             for j, kind in enumerate(cfg.block_pattern)
         }
     if rem:
-        params["rem"] = [_init_block(gen, cfg, kind) for kind in rem]
+        params["rem"] = [_init_block(gen, cfg, kind, cross=cross) for kind in rem]
     params["final_norm"] = _init_norm(cfg, (), gen.device)
     if not cfg.tie_embeddings:
         params["lm_head"] = normal_init(gen, (cfg.d_model, cfg.vocab_size), 0.02, dt)
+    if cross:
+        params["enc_blocks"] = {"s0": _init_block(gen, cfg, "attn", lead=(cfg.encoder_layers,))}
+        params["enc_norm"] = _init_norm(cfg, (), gen.device)
+        params["enc_pos"] = normal_init(gen, (cfg.max_position, cfg.d_model), 0.01, dt)
     return params
 
 
@@ -260,15 +288,22 @@ def _mix_fwd(cfg: ModelConfig, kind: str, p, x):
     return x + ffn_mod.ffn_fwd(p["ffn"], _ffn_spec(cfg), h_in), None
 
 
-def _block_fwd(cfg: ModelConfig, kind: str, p, x, collect_cache: bool, cache_len: int = 0):
-    """Returns (x, aux_loss or None, cache_or_None)."""
+def _block_fwd(cfg: ModelConfig, kind: str, p, x, enc_out, collect_cache: bool,
+               cache_len: int = 0):
+    """Returns (x, aux_loss or None, cache_or_None); ``enc_out`` is the
+    encoder's output that a block's cross step reads (None without)."""
     cache = aux = None
     if kind in _ATTN_KINDS:
         h, (k, v) = attn_mod.attention_fwd(p["attn"], _attn_spec(cfg, kind),
                                            _apply_norm(cfg, p["ln1"], x))
-        x, aux = _mix_fwd(cfg, kind, p, x + h)
+        x = x + h
+        if "xattn" in p:
+            h, _ = attn_mod.attention_fwd(p["xattn"], _cross_spec(cfg),
+                                          _apply_norm(cfg, p["lnx"], x), xkv=enc_out)
+            x = x + h
+        x, aux = _mix_fwd(cfg, kind, p, x)
         if collect_cache:
-            cache = _ringify(cfg, kind, k, v, cache_len)
+            cache = _ringify(cfg, kind, k, v, cache_len, p, enc_out)
     elif kind == "rglru":
         h, cache = rglru_mod.rglru_fwd(p["rglru"], _rglru_spec(cfg), _apply_norm(cfg, p["ln1"], x))
         x, _ = _mix_fwd(cfg, kind, p, x + h)
@@ -281,9 +316,12 @@ def _block_fwd(cfg: ModelConfig, kind: str, p, x, collect_cache: bool, cache_len
     return x, aux, (cache if collect_cache else None)
 
 
-def _ringify(cfg: ModelConfig, kind: str, k, v, cache_len: int):
+def _ringify(cfg: ModelConfig, kind: str, k, v, cache_len: int, p, enc_out):
     """Prefill K/V as the ring-buffer decode cache of capacity ``cache_len``
-    (windowed layers clamp it to the window, so the ring rotates)."""
+    (windowed layers clamp it to the window, so the ring rotates).  A block
+    with a cross step also keeps the encoder's K/V for decode, as the
+    reference computes them: ``enc_out @ wk`` / ``wv``, without the bias or
+    ``k_norm`` that its prefill applies."""
     spec = _attn_spec(cfg, kind)
     b, s = k.shape[0], k.shape[1]
     L = min(cache_len, spec.window) if spec.window is not None else cache_len
@@ -302,14 +340,65 @@ def _ringify(cfg: ModelConfig, kind: str, k, v, cache_len: int):
         pos = torch.cat([torch.arange(s, dtype=torch.int32, device=dev),
                          torch.full((pad,), -1, dtype=torch.int32, device=dev)])
         pos = pos[None].expand(b, L).contiguous()
-    return {"k": kk, "v": vv, "pos": pos}
+    cache = {"k": kk, "v": vv, "pos": pos}
+    if "xattn" in p:
+        cache = {"self": cache, "cross_k": attn_mod._proj(enc_out, p["xattn"]["wk"]),
+                 "cross_v": attn_mod._proj(enc_out, p["xattn"]["wv"])}
+    return cache
 
 
-def _embed_inputs(params, cfg: ModelConfig, tokens: torch.Tensor) -> torch.Tensor:
+def _embed_tokens(params, cfg: ModelConfig, tokens: torch.Tensor) -> torch.Tensor:
     x = params["embed"][tokens]
     if cfg.embed_scale:
         x = x * torch.tensor(cfg.d_model**0.5, dtype=x.dtype, device=x.device)
     return x
+
+
+def _learned(table: torch.Tensor, start: int, n: int) -> torch.Tensor:
+    """Rows ``start .. start + n - 1`` of a learned position table, ``[1, n, d]``."""
+    if start + n > table.shape[0]:
+        raise ValueError(f"positions {start}..{start + n - 1} pass the {table.shape[0]} rows "
+                         "of the learned position table (ModelConfig.max_position)")
+    return table[start:start + n][None]
+
+
+def _prefix_len(cfg: ModelConfig, batch) -> int:
+    """The vision prefix's length in ``batch`` (0 without one)."""
+    if cfg.num_prefix_embeds and "prefix_embeds" in batch:
+        return batch["prefix_embeds"].shape[1]
+    return 0
+
+
+def _embed_inputs(params, cfg: ModelConfig, batch) -> torch.Tensor:
+    """Token embeddings, after the vision prefix where the batch has one,
+    plus learned positions over the whole sequence (the reference's order)."""
+    x = _embed_tokens(params, cfg, batch["tokens"])
+    if _prefix_len(cfg, batch):
+        x = torch.cat([batch["prefix_embeds"].to(x.dtype), x], dim=1)
+    if cfg.pos_embed == "learned":
+        x = x + _learned(params["pos_embed"], 0, x.shape[1])
+    return x
+
+
+def _run_encoder(params, cfg: ModelConfig, enc_embeds: torch.Tensor) -> torch.Tensor:
+    """The encoder over ``enc_embeds [b, t, d]``: learned positions, then its
+    ``attn`` blocks, then ``enc_norm``.  Its self-attention is causal, as the
+    reference's ``_run_encoder`` builds it (``_attn_spec``'s default)."""
+    x = enc_embeds.to(param_dtype(cfg))
+    x = x + _learned(params["enc_pos"], 0, x.shape[1])
+    for li in range(cfg.encoder_layers):
+        x, _, _ = _block_fwd(cfg, "attn", _group(params["enc_blocks"], li)["s0"], x, None, False)
+    return _apply_norm(cfg, params["enc_norm"], x)
+
+
+def _encoder_out(params, cfg: ModelConfig, batch):
+    """The encoder's output for ``batch`` (None without an encoder)."""
+    if not cfg.encoder_layers:
+        return None
+    if "enc_embeds" not in batch:
+        raise ValueError(f"{cfg.name}: an encoder-decoder's batch needs 'enc_embeds' "
+                         "[b, frames, d_model]")
+    return _run_encoder(params, cfg, batch["enc_embeds"])
 
 
 def _group(tree, gi: int):
@@ -317,7 +406,7 @@ def _group(tree, gi: int):
     return tree_map(lambda t: t[gi], tree)
 
 
-def _stack_fwd(params, cfg: ModelConfig, x, collect_cache: bool, cache_len: int = 0):
+def _stack_fwd(params, cfg: ModelConfig, x, enc_out, collect_cache: bool, cache_len: int = 0):
     """Run all layers; returns (x, total_aux, caches dict), the aux losses
     summed in layer order from a float32 zero as the JAX scan carries them."""
     g, rem = _split_layers(cfg)
@@ -329,15 +418,16 @@ def _stack_fwd(params, cfg: ModelConfig, x, collect_cache: bool, cache_len: int 
             gp = _group(params["blocks"], gi)
             gc = {}
             for j, kind in enumerate(cfg.block_pattern):
-                x, aux, gc[f"s{j}"] = _block_fwd(cfg, kind, gp[f"s{j}"], x, collect_cache,
-                                                 cache_len)
+                x, aux, gc[f"s{j}"] = _block_fwd(cfg, kind, gp[f"s{j}"], x, enc_out,
+                                                 collect_cache, cache_len)
                 if aux is not None:
                     aux_total = aux_total + aux
             group_caches.append(gc)
         if collect_cache:
             caches["blocks"] = _stack(group_caches)
     for i, kind in enumerate(rem):
-        x, aux, cache = _block_fwd(cfg, kind, params["rem"][i], x, collect_cache, cache_len)
+        x, aux, cache = _block_fwd(cfg, kind, params["rem"][i], x, enc_out, collect_cache,
+                                   cache_len)
         if aux is not None:
             aux_total = aux_total + aux
         if collect_cache:
@@ -359,12 +449,14 @@ def _logits(params, cfg: ModelConfig, x):
 
 @torch.no_grad()
 def forward(params, cfg: ModelConfig, batch) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Teacher-forced forward. Returns (logits [b, s, V], aux_loss), the MoE
-    layers' load-balance losses summed (0 without MoE layers)."""
+    """Teacher-forced forward. Returns (logits [b, s_text, V], aux_loss), the
+    MoE layers' load-balance losses summed (0 without MoE layers); the
+    vision prefix's positions are dropped."""
     validate_config(cfg)
-    x = _embed_inputs(params, cfg, batch["tokens"])
-    x, aux, _ = _stack_fwd(params, cfg, x, collect_cache=False)
-    x = _apply_norm(cfg, params["final_norm"], x)
+    enc_out = _encoder_out(params, cfg, batch)
+    x = _embed_inputs(params, cfg, batch)
+    x, aux, _ = _stack_fwd(params, cfg, x, enc_out, collect_cache=False)
+    x = _apply_norm(cfg, params["final_norm"], x[:, _prefix_len(cfg, batch):])
     return _logits(params, cfg, x), aux
 
 
@@ -376,24 +468,34 @@ def forward(params, cfg: ModelConfig, batch) -> Tuple[torch.Tensor, torch.Tensor
 def prefill(params, cfg: ModelConfig, batch, max_len: int | None = None):
     """Returns (last-position logits [b, V], decode state).
 
-    ``max_len``: total KV-cache capacity (prefill length + decode headroom);
-    defaults to 2x the prompt length.
+    ``max_len``: total KV-cache capacity (prefill length, the vision prefix
+    included, + decode headroom); defaults to 2x that length.  A capacity
+    under the prefill length keeps only its last ``max_len`` positions (the
+    reference's ring), which turns full attention into a window.
     """
     validate_config(cfg)
-    x = _embed_inputs(params, cfg, batch["tokens"])
+    enc_out = _encoder_out(params, cfg, batch)
+    x = _embed_inputs(params, cfg, batch)
     s_total = x.shape[1]
     if max_len is None:
         max_len = 2 * s_total
-    x, _, caches = _stack_fwd(params, cfg, x, collect_cache=True, cache_len=max_len)
+    x, _, caches = _stack_fwd(params, cfg, x, enc_out, collect_cache=True, cache_len=max_len)
     x = _apply_norm(cfg, params["final_norm"], x[:, -1:])
     logits = _logits(params, cfg, x)[:, 0]
     return logits, {"caches": caches, "pos": s_total}
 
 
-def _init_block_cache(cfg: ModelConfig, kind: str, batch: int, cache_len: int, device):
+def _init_block_cache(cfg: ModelConfig, kind: str, batch: int, cache_len: int, enc_len: int,
+                      device):
     dt = param_dtype(cfg)
     if kind in _ATTN_KINDS:
-        return attn_mod.init_cache(_attn_spec(cfg, kind), batch, cache_len, dt, device)
+        spec = _attn_spec(cfg, kind)
+        c = attn_mod.init_cache(spec, batch, cache_len, dt, device)
+        if cfg.encoder_layers:
+            shape = (batch, enc_len, spec.num_kv_heads, spec.head_dim)
+            c = {"self": c, "cross_k": torch.zeros(shape, dtype=dt, device=device),
+                 "cross_v": torch.zeros(shape, dtype=dt, device=device)}
+        return c
     if kind == "rglru":
         return rglru_mod.init_rglru_state(_rglru_spec(cfg), batch, dt, device)
     if kind == "mlstm":
@@ -403,18 +505,22 @@ def _init_block_cache(cfg: ModelConfig, kind: str, batch: int, cache_len: int, d
     raise ValueError(kind)
 
 
-def init_decode_state(cfg: ModelConfig, batch: int, cache_len: int, device="cpu"):
+def init_decode_state(cfg: ModelConfig, batch: int, cache_len: int, enc_len: int = 0, *,
+                      device="cpu"):
+    """An empty decode state; ``enc_len`` is an encoder-decoder's frame count
+    (the cross K/V's length)."""
     validate_config(cfg)
     g, rem = _split_layers(cfg)
     caches: Dict[str, Any] = {}
     if g > 0:
         caches["blocks"] = {
             f"s{j}": tree_map(lambda t: t[None].repeat(g, *([1] * t.dim())),
-                              _init_block_cache(cfg, kind, batch, cache_len, device))
+                              _init_block_cache(cfg, kind, batch, cache_len, enc_len, device))
             for j, kind in enumerate(cfg.block_pattern)
         }
     if rem:
-        caches["rem"] = [_init_block_cache(cfg, kind, batch, cache_len, device) for kind in rem]
+        caches["rem"] = [_init_block_cache(cfg, kind, batch, cache_len, enc_len, device)
+                         for kind in rem]
     return {"caches": caches, "pos": 0}
 
 
@@ -424,16 +530,25 @@ def _block_decode(cfg: ModelConfig, kind: str, p, x, cache, position: int):
         h, cache = dec(p["cell"], _xlstm_spec(cfg), _apply_norm(cfg, p["ln"], x), cache)
         return x + h, cache
     if kind in _ATTN_KINDS:
-        h, cache = attn_mod.attention_decode(
-            p["attn"], _attn_spec(cfg, kind), _apply_norm(cfg, p["ln1"], x), cache, position
-        )
+        # the ring is written in place, so an encoder-decoder's cache dict
+        # stays the one passed in
+        cross = "cross_k" in cache
+        h, _ = attn_mod.attention_decode(p["attn"], _attn_spec(cfg, kind),
+                                         _apply_norm(cfg, p["ln1"], x),
+                                         cache["self"] if cross else cache, position)
+        x = x + h
+        if cross:
+            x = x + attn_mod.cross_attention_decode(p["xattn"], _cross_spec(cfg),
+                                                    _apply_norm(cfg, p["lnx"], x),
+                                                    cache["cross_k"], cache["cross_v"])
     elif kind == "rglru":
         h, cache = rglru_mod.rglru_decode(
             p["rglru"], _rglru_spec(cfg), _apply_norm(cfg, p["ln1"], x), cache
         )
+        x = x + h
     else:
         raise ValueError(kind)
-    x, _ = _mix_fwd(cfg, kind, p, x + h)
+    x, _ = _mix_fwd(cfg, kind, p, x)
     return x, cache
 
 
@@ -442,7 +557,9 @@ def decode_step(params, cfg: ModelConfig, state, token: torch.Tensor):
     """One decode step. token: [b] int. Returns (logits [b, V], state), the
     state's caches updated in place."""
     position = int(state["pos"])
-    x = _embed_inputs(params, cfg, token[:, None])
+    x = _embed_tokens(params, cfg, token[:, None])
+    if cfg.pos_embed == "learned":
+        x = x + _learned(params["pos_embed"], position, 1)
     g, rem = _split_layers(cfg)
     caches = state["caches"]
     for gi in range(g):

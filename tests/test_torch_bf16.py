@@ -43,7 +43,8 @@ from repro_torch.models import transformer as TT
 PM_TOL = 2e-2
 FLASH_TOL = 3e-2
 ARCHS = ["recurrentgemma-9b", "gemma2-2b", "internlm2-1.8b", "qwen1.5-32b", "qwen3-32b",
-         "granite-moe-1b-a400m", "llama4-maverick-400b-a17b", "xlstm-1.3b"]
+         "granite-moe-1b-a400m", "llama4-maverick-400b-a17b", "xlstm-1.3b", "whisper-small",
+         "internvl2-76b"]
 
 
 @pytest.fixture(scope="module")

@@ -5,7 +5,9 @@ held against the JAX Pallas kernels in interpret mode (``repro.kernels.ops``,
 as tests/test_kernels.py runs them) and against ``repro.kernels.ref``, on the
 f32 cases of tests/test_kernels.py.  MQA/GQA cases (K/V at their own head
 count) are held against the JAX model's ``_sdpa``; ragged sequence lengths,
-which the TPU wrapper does not take, against ``flash_attention_ref``.
+which the TPU wrapper does not take, against ``flash_attention_ref``; the
+cross mode (``t`` keys for ``s != t`` queries, no mask) against ``_sdpa``
+under the model's non-causal mask.
 Tolerances: 3e-5 for attention and 2e-4 for the scan (tests/test_kernels.py's
 f32 bars).  Tests marked ``cuda`` hold the CUDA kernels against the plain
 versions on the card and skip elsewhere.  The kernels' schedules (head
@@ -135,6 +137,43 @@ def test_flash_ragged_seq_matches_ref(s, h, kv, kw):
     np.testing.assert_allclose(out, j_ref, atol=FLASH_TOL, rtol=FLASH_TOL)
 
 
+# (s, t, h, kv, kw) of the cross mode: Whisper's MHA at t above and below s
+# and off the 32- and 64-key tiles, one query (decode), GQA, a softcap
+CROSS_CASES = [
+    (12, 16, 4, 4, {}), (129, 150, 4, 4, {}), (1, 45, 4, 1, {}), (70, 33, 8, 2, {}),
+    (40, 97, 4, 2, {"softcap": 30.0}),
+]
+
+
+@pytest.mark.parametrize("s,t,h,kv,kw", CROSS_CASES)
+def test_flash_cross_mode_matches_jax_sdpa(s, t, h, kv, kw):
+    b, d = 2, 64
+    rng = np.random.default_rng(s * 1000 + t)
+    q = rng.normal(size=(b, s, h, d)).astype(np.float32)
+    k, v = (rng.normal(size=(b, t, kv, d)).astype(np.float32) for _ in range(2))
+    out = flash_attention(_t(q), _t(k), _t(v), causal=False, **kw).numpy()
+    spec = JAttnSpec(d_model=h * d, num_heads=h, num_kv_heads=kv, head_dim=d, causal=False,
+                     logit_softcap=kw.get("softcap"))
+    bias = j_mask_bias(spec, jnp.arange(s), jnp.arange(t), jnp.float32)
+    j_out = np.asarray(j_sdpa(spec, jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), bias))
+    assert out.shape == (b, s, h, d)
+    np.testing.assert_allclose(out, j_out, atol=FLASH_TOL, rtol=FLASH_TOL)
+
+
+@pytest.mark.parametrize("kw", [{}, {"causal": True}, {"window": 8}, {"causal": False, "window": 8}])
+def test_flash_cross_mode_refuses_causal_and_window(kw):
+    """``t != s`` takes no causal mask and no window: each is
+    self-attention's (the default ``causal=True`` included)."""
+    q, k = torch.zeros(1, 8, 2, 64), torch.zeros(1, 5, 1, 64)
+    for call in (lambda: flash_attention(q, k, k, **kw), lambda: flash_attention_plain(q, k, k, **kw),
+                 lambda: kv_tile_range(0, 64, 8, kw.get("causal", True), kw.get("window"), 32, t=5)):
+        with pytest.raises(ValueError, match="causal"):
+            call()
+    # the same call at t == s, and the cross mode without either, run
+    flash_attention_plain(q, q[:, :, :1], q[:, :, :1], **kw)
+    assert flash_attention_plain(q, k, k, causal=False).shape == (1, 8, 2, 64)
+
+
 def _scan_inputs(seed, b=8, s=512, r=256):
     rng = np.random.default_rng(seed)
     x = (rng.normal(size=(b, s, r)) * 0.1).astype(np.float32)
@@ -232,9 +271,19 @@ SERVE_HEADS = (16, 1, 256, {"window": 2048})
     # head dims 64 and 128 at the serve length
     (2, 3072, 16, 1, 64, {"window": 2048}),
     (2, 3072, 16, 1, 128, {"window": 2048}),
+    # the cross mode (t keys, kw["t"]): whisper-small's 12 heads against 1500
+    # encoder frames (28 live keys in the last tile of either mode) at t
+    # below s, above s and one query; internvl-like GQA 64/8 at head_dim 128
+    (2, 3072, 12, 12, 64, {"t": 1500, "causal": False}),
+    (2, 129, 12, 12, 64, {"t": 1500, "causal": False}),
+    (2, 1, 12, 12, 64, {"t": 1500, "causal": False}),
+    (1, 300, 64, 8, 128, {"t": 77, "causal": False}),
 ])
 def test_cuda_flash_kernel_matches_plain(card, b, s, h, kv, d, kw):
-    q, k, v = (_t(a).to(card) for a in _qkv(s + h, b, s, h, kv, d))
+    kw = dict(kw)
+    t = kw.pop("t", s)
+    q, k, v = (_t(a).to(card) for a in _qkv(s + h, b, max(s, t), h, kv, d))
+    q, k, v = q[:, :s].contiguous(), k[:, :t].contiguous(), v[:, :t].contiguous()
     before = fa_mod.LAUNCHES["flash_attention"]
     out = flash_attention(q, k, v, **kw)
     ref = flash_attention_plain(q, k, v, **kw)
@@ -325,6 +374,20 @@ def test_kv_tile_range_holds_exactly_the_live_tiles(s, positions, causal, window
         # every live tile is walked; the walk starts and ends on live tiles
         assert begin <= live[0] and live[-1] < end
         assert begin in live and end - 1 in live
+
+
+@pytest.mark.parametrize("mode", list(MODES))
+@pytest.mark.parametrize("s,t", [(3072, 1500), (129, 1500), (1, 1500), (12, 16), (24, 16), (300, 77)])
+def test_kv_tile_range_cross_mode_walks_every_key_tile(s, t, mode):
+    """Cross mode: every block of query positions walks all of the ``t``
+    keys' tiles, the last one ragged (1500 frames leave 28 keys in it at 32
+    and at 64 keys a tile)."""
+    bk = MODES[mode]
+    for positions in (64, 128):
+        for p0 in range(0, s, positions):
+            assert kv_tile_range(p0, positions, s, False, None, bk, t=t) == (0, -(-t // bk))
+    if t == 1500:
+        assert t - (-(-t // bk) - 1) * bk == 28
 
 
 @pytest.mark.parametrize("s", [1, 31, 32, 100, 127, 128, 129, 255, 1000, 3072])

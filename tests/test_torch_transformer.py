@@ -20,6 +20,7 @@ import pytest
 import torch
 
 from repro.configs import get_config as j_get_config
+from repro.configs import list_archs as j_list_archs
 from repro.configs import smoke_config as j_smoke_config
 from repro.models import attention as j_attn
 from repro.models import layers as j_layers
@@ -48,7 +49,8 @@ BLOCK_TOL = 1e-5
 LOGIT_TOL = 1e-4
 DECODE_TOL = 2e-3
 ARCHS = ["recurrentgemma-9b", "gemma2-2b", "internlm2-1.8b", "qwen1.5-32b", "qwen3-32b",
-         "granite-moe-1b-a400m", "llama4-maverick-400b-a17b", "xlstm-1.3b"]
+         "granite-moe-1b-a400m", "llama4-maverick-400b-a17b", "xlstm-1.3b", "whisper-small",
+         "internvl2-76b"]
 # the dense attention archs: GQA 16/8 and 64/8, MHA 40/40 with a QKV bias,
 # qk-norm, rope_theta 1e6
 DENSE = ["internlm2-1.8b", "qwen1.5-32b", "qwen3-32b"]
@@ -100,16 +102,21 @@ def test_full_size_recurrentgemma_layout():
     kinds = cfg.layer_kinds()
     assert kinds.count("local") == 12 and kinds.count("rglru") == 26
     assert t_configs.list_archs() == ["gemma2-2b", "granite-moe-1b-a400m", "internlm2-1.8b",
-                                      "llama4-maverick-400b-a17b", "qwen1.5-32b", "qwen3-32b",
-                                      "recurrentgemma-9b", "xlstm-1.3b"]
+                                      "internvl2-76b", "llama4-maverick-400b-a17b", "qwen1.5-32b",
+                                      "qwen3-32b", "recurrentgemma-9b", "whisper-small",
+                                      "xlstm-1.3b"]
 
 
 def test_unported_arch_is_refused_by_name():
-    assert t_configs.base.UNPORTED_ARCHS == ("internvl2-76b", "whisper-small")
-    with pytest.raises(ValueError, match=r"whisper-small.*ROADMAP"):
-        t_configs.get_config("whisper-small")
-    with pytest.raises(ValueError, match=r"internvl2-76b.*ROADMAP"):
-        t_configs.smoke_config("internvl2-76b")
+    """Every arch of the reference is registered now (whisper-small and
+    internvl2-76b since slice 17); an unknown name is refused by name."""
+    assert not hasattr(t_configs.base, "UNPORTED_ARCHS")
+    assert t_configs.list_archs() == sorted(j_list_archs())
+    whisper, internvl = t_configs.get_config("whisper-small"), t_configs.smoke_config("internvl2-76b")
+    assert (whisper.encoder_layers, whisper.pos_embed) == (12, "learned")
+    assert internvl.num_prefix_embeds == 8
+    with pytest.raises(ValueError, match=r"no-such-arch"):
+        t_configs.get_config("no-such-arch")
 
 
 # ---------------------------------------------------------------------------
@@ -126,7 +133,7 @@ def _shapes(tree):
 
 @pytest.mark.parametrize("which", ["recurrentgemma-4l", "recurrentgemma-9b", "gemma2-2b",
                                    "granite-moe-1b-a400m", "llama4-maverick-400b-a17b",
-                                   "xlstm-1.3b"])
+                                   "xlstm-1.3b", "whisper-small", "internvl2-76b"])
 def test_init_params_tree_shapes_dtypes_match_jax(which):
     if which == "recurrentgemma-4l":
         tc, jc = _rgemma_cfg()
@@ -416,28 +423,32 @@ _BASE = ModelConfig(name="t", arch_type="dense", num_layers=2, d_model=64, num_h
 
 
 @pytest.mark.parametrize("field,value,match", [
-    # the four block kinds of slice 16: no longer refused, they run
+    # the four block kinds of slice 16 and the three fields of slice 17: no
+    # longer refused, they run
     ("block_pattern", ("moe",), None),
     ("block_pattern", ("attn", "moe_local"), None),
     ("block_pattern", ("mlstm",), None),
     ("block_pattern", ("slstm",), None),
-    ("encoder_layers", 2, "encoder_layers"),
-    ("num_prefix_embeds", 8, "num_prefix_embeds"),
-    ("pos_embed", "learned", "pos_embed"),
+    ("encoder_layers", 2, None),
+    ("num_prefix_embeds", 8, None),
+    ("pos_embed", "learned", None),
     ("dtype", "float16", "dtype"),
 ])
 def test_out_of_slice_fields_are_refused_by_name(field, value, match):
     cfg = _BASE.replace(**{field: value})
     if match is None:
-        # a ported block kind inits, prefills and serves on the CPU
-        cfg = cfg.replace(num_experts=4, experts_per_tok=2, window_size=8)
+        # a ported block kind or field inits, prefills and serves on the CPU
+        # (an encoder-decoder with 16 zero frames, a prefix model with its
+        # zero prefix: the serve CLI's extra inputs)
+        cfg = cfg.replace(num_experts=4, experts_per_tok=2, window_size=8, max_position=64)
         TT.validate_config(cfg)
         params = TT.init_params(torch.Generator().manual_seed(0), cfg)
         prompts = torch.randint(0, cfg.vocab_size, (2, 12), generator=torch.Generator().manual_seed(0))
-        logits, state = TT.prefill(params, cfg, {"tokens": prompts})
+        extra = t_serve.extra_inputs(cfg, 2, "cpu")
+        logits, state = TT.prefill(params, cfg, {"tokens": prompts, **extra})
         assert logits.shape == (2, cfg.vocab_size) and bool(torch.isfinite(logits).all())
-        assert state["pos"] == 12
-        gen = t_serve.serve_batch(cfg, params, prompts, 2, device="cpu")
+        assert state["pos"] == 12 + cfg.num_prefix_embeds
+        gen = t_serve.serve_batch(cfg, params, prompts, 2, extra, device="cpu")
         assert tuple(gen.shape) == (2, 2)
         return
     for call in (lambda: TT.init_params(torch.Generator(), cfg),
