@@ -43,7 +43,7 @@ Slice 2, the LLM serving path (RecurrentGemma-9B):
 
 6. llm_build  — nvcc seconds and, for every kernel entry of
                 ``csrc/flash_attention.cu`` and ``csrc/rg_lru_scan.cu``, its
-                registers and ptxas' spill line (all three sources are
+                registers and ptxas' spill line (all four sources are
                 compiled together in phase 1); fails on any spill.
 7. llm_kernel — both kernels against their plain versions on the card: the
                 CPU tests' cases, MQA/GQA and ragged lengths, head counts
@@ -419,6 +419,34 @@ queries, every key kept):
                    and new tokens: decode vs ``forward`` within 2E, E at
                    ``INTERNVL_ENVELOPE_LAYERS`` layers in float32.
 
+Slice 18, LLM training (``launch/train.py``: ``lm_loss``, AdamW) through the
+backward kernels of flash attention (``csrc/flash_attention_bwd.cu``) and
+the RG-LRU scan (``rg_lru_scan_bwd_f32`` in ``csrc/rg_lru_scan.cu``):
+
+36. llm_train_kernel — each backward kernel against its plain backward
+                   (``kernels/ref.py``): flash at recurrentgemma-9b's
+                   training shape (b 8, s 64, 16 / 1, head_dim 256, window
+                   2048) and at b 2, s 3072 where the window bites,
+                   qwen3-32b's heads (64 / 8, 128, causal), gemma2-2b's (8 /
+                   4, 256, softcap 50), whisper-small's cross shape (12 / 12,
+                   64, 1500 frames) and its training shapes, within
+                   ``FLASH_BWD_TOL`` of max|plain|, two runs bit-identical;
+                   the scan at b 8, s 64 and b 2, s 3072, r 4096 (and ragged
+                   cases) bit for bit.  Each timed case beside its bound, the
+                   plain backward and autograd's backward of SDPA with the
+                   same mask; ptxas' registers and spills of the backward
+                   entries (fails on any spill).
+37. llm_train     — ``train_loop`` (5 steps, batch 8 x 64 tokens, AdamW 3e-4)
+                   on recurrentgemma-9b at full width cut to
+                   ``TRAIN_LAYERS`` and on whisper-small at full size: losses,
+                   steady ms a step, peak GB, launches a step of each kernel
+                   in each direction (counts zeroed just before the loop).
+                   The first step is held first: loss and every gradient leaf
+                   with the kernels against the same step with the model
+                   modules' kernel names bound to the plain versions, within
+                   ``LOSS_BAR`` / ``GRAD_BAR``; the plain step with TF32
+                   products must miss ``GRAD_BAR``.
+
 Then a ``{"phase": "done"}`` line with the script's seconds, a
 ``{"kernels": [...]}`` line, the ``nvidia-smi`` name/power line, and as the
 last line ``{"ok": true, "device": {...}}``.  Details go to
@@ -459,8 +487,14 @@ REPLACES = {
     "flash_attention_bf16": "src/repro/kernels/flash_attention.py:120 (pallas_call -> _kernel :31, "
                             "bf16 q, k, v)",
     "rg_lru_scan_bf16": "src/repro/kernels/rg_lru_scan.py:68 (pallas_call -> _kernel :32, bf16 x, a)",
+    # slice 18: the backward kernels replace no Pallas kernel (the reference's
+    # have no VJP and it trains through jnp); each is the VJP of the kernel named
+    "flash_attention_bwd": "none: VJP of src/repro/kernels/flash_attention.py:120, which has "
+                           "none; the reference trains through jnp (src/repro/models/attention.py:117)",
+    "rg_lru_scan_bwd": "none: VJP of src/repro/kernels/rg_lru_scan.py:68, which has none; the "
+                       "reference trains through associative_scan (src/repro/models/rglru.py:99)",
 }
-KERNEL_SOURCES = ("pruned_matmul", "flash_attention", "rg_lru_scan")
+KERNEL_SOURCES = ("pruned_matmul", "flash_attention", "rg_lru_scan", "flash_attention_bwd")
 FLASH_TOL = 3e-5          # tests/test_kernels.py's f32 attention bar
 SCAN_TOL = 2e-4           # tests/test_kernels.py's RG-LRU bar
 DECODE_TOL = 2e-3         # tests/test_models_smoke.py's decode-vs-forward bar
@@ -500,6 +534,24 @@ XLSTM_PERIOD = 8
 ENC_FRAMES = 1500
 INTERNVL_LAYERS = 35
 INTERNVL_ENVELOPE_LAYERS = 15
+# slice 18: LLM training, the reference train_loop's batch 8 x 64 tokens and
+# AdamW at 3e-4, 5 steps.  recurrentgemma-9b at full width cut in depth to
+# TRAIN_LAYERS (3 (rglru, rglru, local) periods, 2.84 B params: AdamW's
+# float32 params, grads, m and v take 45.4 GB, the held first step holds a
+# second gradient tree, and the tied embedding's two gradients and the
+# optimizer's temporaries are 4.2 GB each; PERF.md section 4)
+TRAIN_LAYERS = 9
+TRAIN = {"steps": 5, "batch": 8, "seq": 64, "lr": 3e-4, "seed": 0}
+# the flash backward against its plain version: max|kernel - plain| over dq,
+# dk, dv over the largest max|plain| of the three (FP32 FFMA against float32
+# einsums in another order; the scan backward is held bit for bit)
+FLASH_BWD_TOL = 1e-4
+# the kernels' first training step against the same step on the plain
+# versions: the loss within LOSS_BAR relative, every gradient leaf within
+# GRAD_BAR of its max|plain|; the same plain step with TF32 products must
+# miss GRAD_BAR (the control that shows the bar can fail)
+LOSS_BAR = 1e-5
+GRAD_BAR = 1e-4
 # the sweeps' checks that are the port's contract (the rest are accuracy
 # data of the quick fixtures, recorded)
 SWEEP_HELD = {
@@ -693,11 +745,17 @@ def bound_ms(B, M, K, N, row, inm, outm, blocks):
 # phases
 # ---------------------------------------------------------------------------
 
-def phase_build(report):
+def phase_build(report, builds=None):
+    """One nvcc per source, all started together.  ``builds``: the future of
+    the ``build.build_all(KERNEL_SOURCES)`` that ``main`` starts before torch
+    loads (``seconds`` is then the wait here; ``nvcc_seconds`` the build's
+    own); without one the build runs here."""
     from repro_torch.kernels import build
 
     t0 = time.perf_counter()
-    build.build_all(KERNEL_SOURCES)     # one nvcc per source, all started together
+    if builds is not None:
+        builds.result()
+    build.build_all(KERNEL_SOURCES)     # builds only what is not built yet
     for name in KERNEL_SOURCES:
         build.load_library(name)
     secs = time.perf_counter() - t0
@@ -5342,7 +5400,355 @@ def phase_encdec_prefix_serve(report):
     return out
 
 
+# ---------------------------------------------------------------------------
+# slice 18: LLM training (lm_loss, AdamW, launch/train.py) with the backward
+# kernels of flash attention and the RG-LRU scan
+# ---------------------------------------------------------------------------
+
+def flash_bwd_bound(b, s, h, kv, d, causal, window, t=None):
+    """Least card time of one flash backward: the five products of a
+    backward (S, dP, dQ, dK, dV: 10 x kept pairs x d FLOPs) at the FP32 rate
+    against the bytes (q, o, dO, k, v read once; dq, dk, dv written once);
+    returns (ms, bound_by)."""
+    t = s if t is None else t
+    flops = 10.0 * flash_pairs(s, causal, window, t) * b * h * d
+    byts = 4.0 * (4 * b * s * h * d + 4 * b * t * kv * d)
+    t_ops, t_bytes = flops / F32_TFLOPS * 1e3, byts / HBM_BPS * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def _flash_bwd_cases():
+    """(label, b, s, t, h, kv, d, keywords, timed): the training shapes of
+    ``llm_train`` first, then the long and wide ones."""
+    from repro_torch.configs import get_config
+
+    rg = get_config("recurrentgemma-9b")
+    rg_heads = (rg.num_heads, rg.num_kv_heads, rg.resolved_head_dim)
+    qwen = get_config("qwen3-32b")
+    gemma = get_config("gemma2-2b")
+    ws = get_config("whisper-small")
+    wh = (ws.num_heads, ws.num_kv_heads, ws.resolved_head_dim)
+    b, s = TRAIN["batch"], TRAIN["seq"]
+    from repro_torch.launch.train import ENC_FRAMES as FRAMES
+
+    return [
+        ("recurrentgemma-9b train", b, s, s, *rg_heads, {"window": rg.window_size}, True),
+        ("recurrentgemma-9b window", 2, 3072, 3072, *rg_heads, {"window": rg.window_size}, True),
+        ("qwen3-32b causal", 1, 3072, 3072, qwen.num_heads, qwen.num_kv_heads,
+         qwen.resolved_head_dim, {}, True),
+        ("gemma2-2b softcap", 2, 3072, 3072, gemma.num_heads, gemma.num_kv_heads,
+         gemma.resolved_head_dim, {"softcap": gemma.attn_softcap}, True),
+        ("whisper-small cross", 2, 448, ENC_FRAMES, *wh, {"causal": False}, True),
+        ("whisper-small train encoder", b, FRAMES, FRAMES, *wh, {}, False),
+        ("whisper-small train decoder", b, s, s, *wh, {}, False),
+        ("whisper-small train cross", b, s, FRAMES, *wh, {"causal": False}, False),
+        ("ragged GQA window", 2, 333, 333, 6, 2, 128, {"window": 70}, False),
+        ("one query", 2, 1, 1, 4, 1, 64, {}, False),
+    ]
+
+
+def sdpa_bwd_ms(q, k, v, do, kw):
+    """The library yardstick (timed only): autograd's backward of SDPA with
+    the same mask, K/V repeated to the query heads; None under a softcap,
+    which SDPA cannot apply."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import repeat_kv
+
+    if kw.get("softcap"):
+        return None
+    s, t, rep = q.shape[1], k.shape[1], q.shape[2] // k.shape[2]
+    qp = torch.arange(s, device=q.device)[:, None]
+    kp = torch.arange(t, device=q.device)[None, :]
+    mask = torch.ones((s, t), dtype=torch.bool, device=q.device)
+    if kw.get("causal", True):
+        mask &= kp <= qp
+    if kw.get("window"):
+        mask &= kp > qp - kw["window"]
+    qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_(True)
+                  for x in (q, repeat_kv(k, rep), repeat_kv(v, rep)))
+    out = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
+    g = do.transpose(1, 2)
+    ms = time_ms(lambda: torch.autograd.grad(out, (qt, kt, vt), g, retain_graph=True),
+                 iters=3, warm=1)
+    del out, qt, kt, vt, mask
+    return ms
+
+
+def phase_llm_train_kernel(report):
+    """Slice 18: the two backward kernels against their plain backwards."""
+    import torch
+    from repro_torch.kernels import build
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import rg_lru_scan as rg
+
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=DEVICE).manual_seed(18)
+    rec = {"phase": "llm_train_kernel", "tol": FLASH_BWD_TOL,
+           "build": {"flash_attention_bwd": {
+               "nvcc_seconds": build.BUILD_SECONDS.get("flash_attention_bwd"),
+               "entries": ptxas_entries(build.PTXAS_LOG.get("flash_attention_bwd", "")),
+               "dynamic_smem_bytes": {d: fa.bwd_smem_bytes(d) for d in fa.HEAD_DIMS}},
+               "rg_lru_scan_bwd": [e for e in ptxas_entries(build.PTXAS_LOG.get("rg_lru_scan", ""))
+                                   if "bwd" in e["entry"]]}}
+    entries = rec["build"]["flash_attention_bwd"]["entries"] + rec["build"]["rg_lru_scan_bwd"]
+    check(len(entries) == 7 and all(e["spills"] for e in entries),
+          "ptxas lines of the backward kernels: " + json.dumps(entries))
+    check(all("0 bytes spill stores, 0 bytes spill loads" in e["spills"] for e in entries),
+          "a backward kernel spills registers: " + json.dumps(entries))
+    flash = []
+    for label, b, s, t, h, kv, d, kw, timed in _flash_bwd_cases():
+        q, k, v = _qkv(gen, b, s, h, kv, d, t)
+        do = torch.randn(q.shape, generator=gen, device=DEVICE)
+        o = fa.flash_attention_cuda(q, k, v, **kw)
+        got = fa.flash_attention_bwd_cuda(q, k, v, o, do, **kw)
+        again = fa.flash_attention_bwd_cuda(q, k, v, o, do, **kw)
+        ref = fa.flash_attention_bwd_plain(q, k, v, o, do, **kw)
+        torch.cuda.synchronize()
+        top = max(float(r.abs().max()) for r in ref)
+        errs = [float((g - r).abs().max()) for g, r in zip(got, ref)]
+        c = {"case": label, "shape": f"b={b} s={s} t={t} h={h} kv={kv} d={d} {kw}",
+             "err": max(errs), "ref_max": top, "rel_err": max(errs) / top,
+             "rel_err_dq_dk_dv": [e / top for e in errs],
+             "bit_identical_runs": all(torch.equal(x, y) for x, y in zip(got, again))}
+        del got, again, ref
+        if timed:
+            causal = kw.get("causal", True)
+            c["ms"] = time_ms(lambda: fa.flash_attention_bwd_cuda(q, k, v, o, do, **kw), iters=3,
+                              warm=1)
+            c["plain_ms"] = time_ms(lambda: fa.flash_attention_bwd_plain(q, k, v, o, do, **kw),
+                                    iters=2, warm=1)
+            c["library_ms"] = sdpa_bwd_ms(q, k, v, do, kw)
+            c["fwd_ms"] = time_ms(lambda: fa.flash_attention_cuda(q, k, v, **kw), iters=3, warm=1)
+            c["bound_ms"], c["bound_by"] = flash_bwd_bound(b, s, h, kv, d, causal,
+                                                           kw.get("window"), t)
+            c["achieved_tflops"] = (10.0 * flash_pairs(s, causal, kw.get("window"), t) * b * h * d
+                                    / (c["ms"] * 1e-3) / 1e12)
+        flash.append(c)
+        del q, k, v, do, o
+        torch.cuda.empty_cache()
+    scan = []
+    for b, s, r, timed in [(TRAIN["batch"], TRAIN["seq"], 4096, True), (2, 3072, 4096, True),
+                           (3, 70, 33, False), (2, 1, 100, False), (1, 257, 4100, False)]:
+        x, a, h0 = _scan_inputs(gen, b, s, r)
+        dh = torch.randn(x.shape, generator=gen, device=DEVICE)
+        h = rg.rg_lru_scan_cuda(x, a, h0)
+        got = rg.rg_lru_scan_bwd_cuda(a, h, h0, dh)
+        again = rg.rg_lru_scan_bwd_cuda(a, h, h0, dh)
+        ref = rg.rg_lru_scan_bwd_plain(a, h, h0, dh)
+        torch.cuda.synchronize()
+        bits = lambda xs, ys: all(torch.equal(x.view(torch.int32), y.view(torch.int32))
+                                  for x, y in zip(xs, ys))
+        c = {"case": f"b={b} s={s} r={r}",
+             "err": max(float((g - w).abs().max()) for g, w in zip(got, ref)),
+             "bit_identical": bits(got, ref), "bit_identical_runs": bits(got, again)}
+        if timed:
+            c["ms"] = time_ms(lambda: rg.rg_lru_scan_bwd_cuda(a, h, h0, dh), iters=20)
+            c["device_ms"] = graph_ms(lambda: rg.rg_lru_scan_bwd_cuda(a, h, h0, dh), iters=10,
+                                      calls=10)
+            c["plain_ms"] = time_ms(lambda: rg.rg_lru_scan_bwd_plain(a, h, h0, dh), iters=1,
+                                    warm=1)
+            c["library_ms"] = None
+            byts = 4.0 * (5 * b * s * r + 2 * b * r)
+            t_ops, t_bytes = 3.0 * b * s * r / F32_TFLOPS * 1e3, byts / HBM_BPS * 1e3
+            c["bound_ms"] = max(t_ops, t_bytes)
+            c["bound_by"] = "operations" if t_ops >= t_bytes else "bytes"
+        scan.append(c)
+        del x, a, h0, dh, h, got, again, ref
+    rec.update(flash_attention_bwd=flash, rg_lru_scan_bwd=scan,
+               seconds=time.perf_counter() - t0)
+    emit(rec)
+    report["llm_train_kernel"] = rec
+    bad = [c for c in flash if not c["rel_err"] <= FLASH_BWD_TOL]
+    check(not bad, "flash backward disagrees with its plain version: " + json.dumps(bad))
+    check(all(c["bit_identical_runs"] for c in flash),
+          "two flash backward runs differ: " + json.dumps(flash))
+    check(all(c["bit_identical"] and c["bit_identical_runs"] for c in scan),
+          "the scan backward is not bit-identical to the plain backward: " + json.dumps(scan))
+    return rec
+
+
+@contextlib.contextmanager
+def plain_kernels():
+    """The model modules' kernel names bound to the plain versions (their
+    forwards and autograd's backward of them) for the block; restored on
+    exit.  Used only to hold the kernels' training step."""
+    import repro_torch.models.attention as attention
+    import repro_torch.models.rglru as rglru
+    import repro_torch.models.xlstm as xlstm
+    from repro_torch.kernels.flash_attention import flash_attention_plain
+    from repro_torch.kernels.rg_lru_scan import rg_lru_scan_plain
+
+    saved = [(attention, "flash_attention", flash_attention_plain),
+             (rglru, "rg_lru_scan", rg_lru_scan_plain), (xlstm, "rg_lru_scan", rg_lru_scan_plain)]
+    old = [getattr(m, n) for m, n, _ in saved]
+    for m, n, f in saved:
+        setattr(m, n, f)
+    try:
+        yield
+    finally:
+        for (m, n, _), f in zip(saved, old):
+            setattr(m, n, f)
+
+
+def train_launches() -> dict:
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import rg_lru_scan as rg
+
+    return {"flash_attention": fa.LAUNCHES["flash_attention"],
+            "flash_attention_bwd": fa.BWD_LAUNCHES[fa.BWD],
+            "rg_lru_scan": rg.LAUNCHES["rg_lru_scan"], "rg_lru_scan_bwd": rg.BWD_LAUNCHES[rg.BWD]}
+
+
+def reset_train_launches() -> None:
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import rg_lru_scan as rg
+
+    fa.reset_launches()
+    rg.reset_launches()
+
+
+def grad_gap(grads, ref) -> dict:
+    """Per leaf max|g - ref| / max|ref|; the largest, its leaf, and the
+    count of leaves."""
+    from repro_torch.optim.optimizers import tree_leaves
+
+    worst, where, n = 0.0, None, 0
+    for i, (g, r) in enumerate(zip(tree_leaves(grads), tree_leaves(ref))):
+        top = float(r.abs().max())
+        if top > 0:
+            gap = float((g - r).abs().max()) / top
+        else:
+            gap = float("inf") if bool(g.abs().max() > 0) else 0.0
+        if gap > worst:
+            worst, where = gap, i
+        n += 1
+    return {"max_rel": worst, "leaf": where, "leaves": n}
+
+
+def _train_one(cfg, label):
+    import torch
+    from repro_torch.data.synthetic import SyntheticLMTask
+    from repro_torch.launch.train import SEQ_LEN, loss_and_grads, train_batch, train_loop
+    from repro_torch.models import transformer as T
+    from repro_torch.models.config import param_count
+
+    dev = torch.device(DEVICE)
+    seed = TRAIN["seed"]
+    check(TRAIN["seq"] == SEQ_LEN, f"train_loop's sequences are {SEQ_LEN} tokens")
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    params = T.init_params(torch.Generator(device=dev).manual_seed(seed), cfg)
+    # the batch of train_loop's first step
+    toks = SyntheticLMTask(cfg.vocab_size, TRAIN["seq"], seed).sample(
+        TRAIN["batch"], np.random.default_rng(seed))
+    batch = train_batch(cfg, toks, dev)
+    # the first step, held: the kernels against the plain versions, and a
+    # control (the plain path with TF32 products) that must miss the bar
+    reset_train_launches()
+    loss_k, grads_k = loss_and_grads(params, cfg, batch)
+    held_launches = train_launches()
+    with plain_kernels():
+        loss_p, grads_p = loss_and_grads(params, cfg, batch)
+    plain_launches = train_launches()
+    gap = grad_gap(grads_k, grads_p)
+    del grads_k
+    with plain_kernels(), cuda_flags(tf32=True):
+        loss_c, grads_c = loss_and_grads(params, cfg, batch)
+    control = grad_gap(grads_c, grads_p)
+    del grads_c, grads_p
+    torch.cuda.empty_cache()
+    held = {"loss_kernels": float(loss_k), "loss_plain": float(loss_p),
+            "loss_rel_gap": abs(float(loss_k) - float(loss_p)) / abs(float(loss_p)),
+            "grad_gap": gap, "tf32_control_loss": float(loss_c), "tf32_control_grad_gap": control,
+            "launches": held_launches,
+            "plain_launches": {k: plain_launches[k] - held_launches[k] for k in plain_launches}}
+    held_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    # the main path: train_loop from this init, counts zeroed just before
+    stats = {}
+    torch.cuda.reset_peak_memory_stats()
+    reset_train_launches()
+    _, losses, secs = train_loop(cfg, TRAIN["steps"], TRAIN["batch"], TRAIN["lr"], seed, 0,
+                                 params=params, device=DEVICE, stats=stats)
+    launches = train_launches()
+    steps = TRAIN["steps"]
+    kinds = cfg.layer_kinds()
+    attn_layers = sum(kinds.count(k) for k in ("attn", "local", "moe", "moe_local"))
+    attn_layers = attn_layers * (2 if cfg.encoder_layers else 1) + cfg.encoder_layers
+    rec = {"phase": "llm_train", "run": label, "params": param_count(cfg),
+           "layers": cfg.num_layers, "d_model": cfg.d_model, "vocab": cfg.vocab_size,
+           "steps": steps, "batch": TRAIN["batch"], "seq": TRAIN["seq"], "lr": TRAIN["lr"],
+           "losses": losses, "step_s": stats["step_s"],
+           "steady_ms_per_step": 1e3 * float(np.mean(stats["step_s"][1:])),
+           "first_step_ms": 1e3 * stats["step_s"][0], "loop_s": secs,
+           "peak_gb": torch.cuda.max_memory_allocated() / 1e9, "held_peak_gb": held_peak_gb,
+           "launches": launches, "launches_per_step": {k: v / steps for k, v in launches.items()},
+           "expected_per_step": {"flash_attention": attn_layers,
+                                 "rg_lru_scan": kinds.count("rglru") + kinds.count("slstm")},
+           "first_loss_equals_held": losses[0] == float(loss_k),
+           "held_first_step": held, "seconds": time.perf_counter() - t0}
+    emit(rec)
+    del params
+    torch.cuda.empty_cache()
+    return rec
+
+
+def phase_llm_train(report):
+    """Slice 18: ``train_loop`` on recurrentgemma-9b at full width cut to
+    ``TRAIN_LAYERS`` and on whisper-small at full size."""
+    from repro_torch.configs import get_config
+
+    t0 = time.perf_counter()
+    rg = get_config("recurrentgemma-9b")
+    check(TRAIN_LAYERS % len(rg.block_pattern) == 0 and TRAIN_LAYERS >= 2 * len(rg.block_pattern),
+          "TRAIN_LAYERS is a whole number of periods, at least two")
+    ws = get_config("whisper-small")
+    out = {"recurrentgemma-9b": _train_one(rg.replace(num_layers=TRAIN_LAYERS),
+                                           f"recurrentgemma-9b/{TRAIN_LAYERS}_of_{rg.num_layers}_layers"),
+           "whisper-small": _train_one(ws, "whisper-small")}
+    rec = {"phase": "llm_train_done", "seconds": time.perf_counter() - t0,
+           "grad_bar": GRAD_BAR, "loss_bar": LOSS_BAR}
+    emit(rec)
+    report["llm_train"] = {**out, **rec}
+    for arch, r in out.items():
+        h = r["held_first_step"]
+        check(all(np.isfinite(r["losses"])), f"llm_train {arch}: losses {r['losses']}")
+        check(h["loss_rel_gap"] <= LOSS_BAR and h["grad_gap"]["max_rel"] <= GRAD_BAR,
+              f"llm_train {arch}: the kernels' first step misses the plain one: " + json.dumps(h))
+        check(h["tf32_control_grad_gap"]["max_rel"] > GRAD_BAR,
+              f"llm_train {arch}: the TF32 control stays inside the bar: " + json.dumps(h))
+        check(not any(h["plain_launches"].values()),
+              f"llm_train {arch}: the plain step launched kernels: " + json.dumps(h))
+        check(abs(r["losses"][0] - h["loss_kernels"]) <= LOSS_BAR * abs(h["loss_kernels"]),
+              f"llm_train {arch}: train_loop's first loss {r['losses'][0]} is not the held "
+              f"step's {h['loss_kernels']}")
+        for k, n in r["expected_per_step"].items():
+            for key in (k, k + "_bwd"):
+                check(r["launches_per_step"][key] == n and h["launches"][key] == n,
+                      f"llm_train {arch}: {key} launched {r['launches_per_step'][key]} times a "
+                      f"step, expected {n}")
+        check(r["launches"]["flash_attention_bwd"] > 0, f"llm_train {arch}: no flash backward")
+    check(out["recurrentgemma-9b"]["launches"]["rg_lru_scan_bwd"] > 0,
+          "llm_train: recurrentgemma-9b launched no scan backward")
+    return out
+
+
 def main() -> int:
+    if not (ROOT / "src" / "repro_torch").is_dir():
+        print("chip_smoke: src/repro_torch not found beside the script", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT / "src"))
+    from concurrent.futures import ThreadPoolExecutor
+
+    from repro_torch.kernels import build
+
+    # the nvcc runs overlap torch's import and the card's start-up; a failed
+    # build raises in phase_build, and every nvcc has ended when main returns
+    with ThreadPoolExecutor(max_workers=1) as pool:
+        return run(pool.submit(build.build_all, KERNEL_SOURCES))
+
+
+def run(builds) -> int:
     try:
         import torch
     except ImportError:
@@ -5351,16 +5757,12 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the card", file=sys.stderr)
         return 2
-    if not (ROOT / "src" / "repro_torch").is_dir():
-        print("chip_smoke: src/repro_torch not found beside the script", file=sys.stderr)
-        return 2
-    sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.core.simulation import ieee_f32
 
     report = {}
     t0 = time.perf_counter()
     with ieee_f32():
-        card = phase_build(report)
+        card = phase_build(report, builds)
         save(report)
         errs = phase_kernel(report)
         save(report)
@@ -5435,6 +5837,10 @@ def main() -> int:
         moex = phase_moe_xlstm_serve(report)
         save(report)
         encdec = phase_encdec_prefix_serve(report)
+        save(report)
+        ltk = phase_llm_train_kernel(report)
+        save(report)
+        trained = phase_llm_train(report)
     steps = max(res.train_steps, 1)
     rb_steps = max(rb_res.train_steps, 1)
     s_steps = max(s_res.train_steps, 1)
@@ -5583,6 +5989,35 @@ def main() -> int:
                   "after bf16_kernel's products and flash (second_graph_: a second graph there), "
                   "first_* before them",
     })
+    # slice 18: the backward kernels, per training step of recurrentgemma-9b
+    rgt, wst = trained["recurrentgemma-9b"], trained["whisper-small"]
+    for kname, cases in (("flash_attention_bwd", ltk["flash_attention_bwd"]),
+                         ("rg_lru_scan_bwd", ltk["rg_lru_scan_bwd"])):
+        head = cases[0]
+        n = rgt["launches_per_step"][kname]
+        entry = {
+            "name": kname, "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/" + (
+                "flash_attention_bwd.cu" if kname == "flash_attention_bwd" else "rg_lru_scan.cu"),
+            "replaces": REPLACES[kname], "launches": rgt["launches"][kname],
+            "launches_per_step": n, "max_abs_err": max(c["err"] for c in cases),
+            "ms": head["ms"] * n, "plain_ms": head["plain_ms"] * n,
+            "bound_ms": head["bound_ms"] * n, "bound_by": head["bound_by"],
+            "library_ms": None if head["library_ms"] is None else head["library_ms"] * n,
+            "ms_per_launch": head["ms"],
+            "shapes": f"one training step of recurrentgemma-9b at {TRAIN_LAYERS} layers: {n} "
+                      f"launches at {head.get('shape', head['case'])}",
+            "whisper-small": {"launches": wst["launches"][kname],
+                              "launches_per_step": wst["launches_per_step"][kname]},
+            "cases": [{f: c[f] for f in ("case", "ms", "plain_ms", "library_ms", "bound_ms",
+                                         "bound_by") if f in c} for c in cases if "ms" in c],
+        }
+        if kname == "flash_attention_bwd":
+            entry["max_rel_err"] = max(c["rel_err"] for c in cases)
+        else:
+            entry.update(bit_identical=all(c["bit_identical"] for c in cases),
+                         device_ms=head["device_ms"] * n)
+        kernels.append(entry)
     report["kernels"] = kernels
     report["card"] = card
     report["seconds"] = time.perf_counter() - t0

@@ -254,7 +254,7 @@ class LocalTrainer:
             with torch.no_grad():
                 g = dict(zip(keys, grads))
                 q = {k: v.detach() for k, v in q.items()}
-                updates, st2 = opt.update(g, st)
+                updates, st2 = opt.update(g, st, q)
                 q2 = apply_updates(q, updates)
                 if valid is None:
                     p, st = q2, st2

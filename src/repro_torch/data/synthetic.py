@@ -1,8 +1,9 @@
-"""Synthetic image task + the paper's Non-IID partition (host numpy).
+"""Synthetic image task + the paper's Non-IID partition, and the token task
+of the LLM trainer (host numpy).
 
-Port of ``repro/data/synthetic.py`` (the parts the simulator uses).  The
-data is drawn with numpy from the seed, exactly as the JAX package draws it,
-so both packages train on byte-identical images and shards.
+Port of ``repro/data/synthetic.py``.  The data is drawn with numpy from the
+seed, exactly as the JAX package draws it, so both packages train on
+byte-identical images, shards, batches and token sequences.
 
 Non-IID partition follows AdaptCL §IV-A: (1-s%) of the data is split IID
 across workers; the remaining s% is sorted by label and dealt sequentially —
@@ -13,11 +14,12 @@ partitioner.
 from __future__ import annotations
 
 import dataclasses
-from typing import List
+from typing import Iterator, List, Tuple
 
 import numpy as np
 
-__all__ = ["SyntheticImageTask", "partition_dirichlet", "partition_noniid"]
+__all__ = ["SyntheticImageTask", "partition_dirichlet", "partition_noniid", "batch_iterator",
+           "SyntheticLMTask"]
 
 
 @dataclasses.dataclass
@@ -112,3 +114,40 @@ def partition_dirichlet(
         shards[w].extend(leftover[pos : pos + need])
         pos += need
     return [np.sort(np.array(sh, dtype=np.int64)) for sh in shards]
+
+
+def batch_iterator(
+    x: np.ndarray, y: np.ndarray, batch_size: int, epochs: float, rng: np.random.Generator
+) -> Iterator[Tuple[np.ndarray, np.ndarray]]:
+    """`epochs` may be fractional (DC-ASGD uses E=0.5)."""
+    n = len(x)
+    total = int(round(epochs * n))
+    done = 0
+    while done < total:
+        order = rng.permutation(n)
+        for i in range(0, n, batch_size):
+            if done >= total:
+                return
+            idx = order[i : i + batch_size]
+            yield x[idx], y[idx]
+            done += len(idx)
+
+
+@dataclasses.dataclass
+class SyntheticLMTask:
+    """Token sequences from a sparse Markov chain (for transformer smoke/train)."""
+
+    vocab_size: int = 512
+    seq_len: int = 64
+    seed: int = 0
+
+    def sample(self, batch: int, rng: np.random.Generator) -> np.ndarray:
+        trans = np.random.default_rng(self.seed).integers(
+            0, self.vocab_size, (self.vocab_size, 4)
+        )
+        toks = np.empty((batch, self.seq_len), np.int32)
+        toks[:, 0] = rng.integers(0, self.vocab_size, batch)
+        for t in range(1, self.seq_len):
+            choice = rng.integers(0, 4, batch)
+            toks[:, t] = trans[toks[:, t - 1], choice]
+        return toks

@@ -63,6 +63,9 @@
 // beside it all read 0.053-0.058 ms: two channels a lane (half the shared
 // loads), 128 channels a block, 32-step stages, a fourth or fifth ring
 // slot, a third output slot, a producer that sleeps between polls.
+//
+// The float32 backward (rg_lru_scan_bwd_f32, namespace bwd) is described
+// where it is defined.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -503,7 +506,113 @@ int run(const bf16_t* x, const bf16_t* a, const float* h0, bf16_t* out, int B, i
 
 }  // namespace bf16
 
+// ---------------------------------------------------------------------------
+// float32 backward: the reverse recurrence.  Replaces no TPU kernel: the
+// JAX package trains through jnp (src/repro/models/rglru.py:99 runs
+// associative_scan) and its Pallas scan has no VJP.  The port runs the scan
+// kernel on its forward path on the card, so training there needs this one.
+// With g_t the gradient that reaches h_t from the loss:
+//
+//   g_{S-1} = dh_{S-1},   g_t = dh_t + a_{t+1} g_{t+1},
+//   dx_t = g_t,   da_t = g_t h_{t-1} (h_{-1} = h0),   dh0 = a_0 g_0.
+//
+// Each step is a rounded multiply then a rounded add (__fmul_rn,
+// __fadd_rn), the operations autograd applies to the plain loop, so the
+// result is bit-identical to the plain backward (kernels/ref.py
+// rg_lru_bwd_ref) and, up to the sign of a zero, to autograd of the plain
+// forward.  One warp owns 32 neighbouring channels of one batch row, one
+// channel a lane, and walks the steps from the last, in chunks of U steps.
+// Each lane copies its own channel's dh_t, a_t and h_{t-1} of a chunk into
+// shared memory by 4-byte cp.async (a warp's copies of one step are one
+// 128-byte segment of each array), NB - 1 chunks ahead of its walk, in a
+// ring of NB chunks; a lane reads only what it copied.  Bound: bytes,
+// 5 * B * S * R * 4 (dh, a, h read, dx, da written) over 3.35 TB/s.
+// ---------------------------------------------------------------------------
+namespace bwd {
+
+constexpr int U = 32;    // steps of one chunk
+constexpr int NB = 3;    // chunks of the ring: NB - 1 in flight during a walk
+
+__device__ __forceinline__ void wait_ring() {
+    asm volatile("cp.async.wait_group %0;\n" :: "n"(NB - 2) : "memory");
+}
+
+__global__ void __launch_bounds__(32)
+scan_bwd_kernel(const float* __restrict__ dh, const float* __restrict__ a,
+                const float* __restrict__ h, const float* __restrict__ h0,
+                float* __restrict__ dx, float* __restrict__ da, float* __restrict__ dh0,
+                int S, int R)
+{
+    __shared__ float ring[NB][3][U][32];      // [chunk slot][dh, a, h_{t-1}][step][lane]
+    const int lane = threadIdx.x;
+    const int c = blockIdx.x * 32 + lane;
+    const bool mine = c < R;
+    const int b = blockIdx.y;
+    const long long base = (long long)b * S * R + (mine ? c : 0);
+    const float h_init = mine ? h0[(long long)b * R + c] : 0.f;
+    const int nch = (S + U - 1) / U;
+    // chunk k holds steps S - 1 - k U, S - 2 - k U, ... (at most U of them)
+    auto fill = [&](int k) {
+        if (k < nch) {
+            const int hi = S - 1 - k * U, n = min(U, hi + 1);
+            float (*slot)[U][32] = ring[k % NB];
+            for (int u = 0; u < n; ++u) {
+                const int t = hi - u;
+                const long long off = base + (long long)t * R;
+                cp_async4(&slot[0][u][lane], mine ? dh + off : dh, mine);
+                cp_async4(&slot[1][u][lane], mine ? a + off : a, mine);
+                cp_async4(&slot[2][u][lane], mine && t > 0 ? h + off - R : h, mine && t > 0);
+            }
+        }
+        cp_async_commit();
+    };
+#pragma unroll
+    for (int k = 0; k < NB - 1; ++k) fill(k);
+    float g = 0.f, a_next = 0.f;
+    for (int k = 0; k < nch; ++k) {
+        __syncwarp();            // every lane is done reading the slot refilled next
+        fill(k + NB - 1);
+        wait_ring();             // this lane's copies of chunk k have landed
+        const float (*slot)[U][32] = ring[k % NB];
+        const int hi = S - 1 - k * U, n = min(U, hi + 1);
+        for (int u = 0; u < n; ++u) {
+            const int t = hi - u;
+            const float dhv = slot[0][u][lane];
+            const float hp = t > 0 ? slot[2][u][lane] : h_init;
+            g = t == S - 1 ? dhv : __fadd_rn(dhv, __fmul_rn(a_next, g));
+            a_next = slot[1][u][lane];
+            if (mine) {
+                const long long off = base + (long long)t * R;
+                dx[off] = g;
+                da[off] = __fmul_rn(g, hp);
+            }
+        }
+    }
+    cp_async_wait_all();
+    if (mine) dh0[(long long)b * R + c] = __fmul_rn(a_next, g);
+}
+
+int run(const float* dh, const float* a, const float* h, const float* h0, float* dx, float* da,
+        float* dh0, int B, int S, int R, void* stream)
+{
+    if (B <= 0 || S <= 0 || R <= 0) return (int)cudaSuccess;
+    dim3 grid((R + 31) / 32, B);
+    scan_bwd_kernel<<<grid, 32, 0, (cudaStream_t)stream>>>(dh, a, h, h0, dx, da, dh0, S, R);
+    return (int)cudaGetLastError();
+}
+
+}  // namespace bwd
+
 }  // namespace
+
+// The float32 backward: dh, a, h, dx, da [B, S, R]; h0, dh0 [B, R]; all
+// contiguous float32; h is the forward's output.  Returns a cudaError_t.
+extern "C" int rg_lru_scan_bwd_f32(const float* dh, const float* a, const float* h,
+                                   const float* h0, float* dx, float* da, float* dh0, int B,
+                                   int S, int R, void* stream)
+{
+    return bwd::run(dh, a, h, h0, dx, da, dh0, B, S, R, stream);
+}
 
 // x, a, out [B, S, R]; h0 [B, R]; contiguous float32.  Returns a cudaError_t.
 extern "C" int rg_lru_scan_f32(const float* x, const float* a, const float* h0,

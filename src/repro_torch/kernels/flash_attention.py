@@ -50,6 +50,20 @@ functions state the kernel's schedule in Python, for the tests; the CUDA
 source computes the same.  ``LAUNCHES`` counts each mode's launches under
 its own key (``flash_attention``, ``flash_attention_bf16``), each
 incremented only right after one.
+
+Gradients (the port's own: the Pallas kernel has no VJP, and the reference
+trains through jnp attention): when autograd records the call,
+``flash_attention`` goes through ``_FlashAttention``, which keeps q, k, v and
+its output o.  Its backward computes ``D = rowsum(dO * O)``, ``dS = P (dP -
+D)`` (times ``1 - tanh^2(s / c)`` under a softcap, then ``/ sqrt(d)``),
+``dQ = dS K``, ``dK = dS^T Q``, ``dV = P^T dO``, with dK and dV summed over
+each kv head's query heads: on a CPU tensor by the plain formulas
+(``ref.flash_attention_bwd_ref``), on a CUDA tensor by
+``csrc/flash_attention_bwd.cu`` (its own library, so the forward's source
+and bits stay as they are), whose one entry point launches a dQ kernel and
+a dK/dV kernel and counts once in ``BWD_LAUNCHES``.  Every
+float32 mode of the forward has a backward; the bf16 mode's raises
+``NotImplementedError`` (ROADMAP.md, queue B).
 """
 from __future__ import annotations
 
@@ -59,7 +73,7 @@ from typing import Dict, Optional
 
 import torch
 
-from .ref import flash_attention_ref
+from .ref import flash_attention_bwd_ref, flash_attention_ref
 
 __all__ = [
     "LAUNCHES",
@@ -77,6 +91,11 @@ __all__ = [
     "block_order",
     "kv_tile_range",
     "check_cross",
+    "BWD",
+    "BWD_LAUNCHES",
+    "flash_attention_bwd_plain",
+    "flash_attention_bwd_cuda",
+    "bwd_smem_bytes",
 ]
 
 NAME = "flash_attention"
@@ -86,6 +105,8 @@ MODES = {
     torch.bfloat16: ("flash_attention_bf16", "flash_attention_bf16"),
 }
 LAUNCHES: Dict[str, int] = {key: 0 for key, _ in MODES.values()}
+BWD = "flash_attention_bwd"   # the backward's library and launch-count key
+BWD_LAUNCHES: Dict[str, int] = {BWD: 0}
 HEAD_DIMS = (64, 128, 256)   # the kernel's template instances
 ROWS = 128                   # query rows (head, position) of one kernel block
 # keys of one K/V tile, per mode
@@ -93,8 +114,9 @@ BLOCK_K = {torch.float32: 32, torch.bfloat16: 64}
 
 
 def reset_launches() -> None:
-    for key in LAUNCHES:
-        LAUNCHES[key] = 0
+    for counts in (LAUNCHES, BWD_LAUNCHES):
+        for key in counts:
+            counts[key] = 0
 
 
 def check_dtypes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
@@ -194,9 +216,8 @@ def smem_bytes(head_dim: int, dtype: torch.dtype = torch.float32) -> int:
     return int(_lib().flash_attention_smem_bytes(head_dim, int(dtype == torch.bfloat16)))
 
 
-def flash_attention_cuda(q, k, v, *, causal: bool = True, window: Optional[int] = None,
-                         softcap: Optional[float] = None) -> torch.Tensor:
-    """Launch the kernel once on CUDA tensors (checked, made contiguous)."""
+def _check_cuda(q, k, v, causal, window, softcap):
+    """The kernels' argument checks; returns ``(b, s, t, h, kv, d)``."""
     dev = q.device
     for nm, t in (("q", q), ("k", k), ("v", v)):
         if t.device != dev or t.device.type != "cuda":
@@ -219,6 +240,14 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True, window: Optional[int] 
         raise ValueError(f"window must be >= 1, got {window}")
     if softcap is not None and softcap <= 0:
         raise ValueError(f"softcap must be > 0, got {softcap}")
+    return b, s, t, h, kv, d
+
+
+def flash_attention_cuda(q, k, v, *, causal: bool = True, window: Optional[int] = None,
+                         softcap: Optional[float] = None) -> torch.Tensor:
+    """Launch the kernel once on CUDA tensors (checked, made contiguous)."""
+    b, s, t, h, kv, d = _check_cuda(q, k, v, causal, window, softcap)
+    dev = q.device
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     o = torch.empty_like(q)
     key, entry = MODES[q.dtype]
@@ -234,13 +263,114 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True, window: Optional[int] 
     return o
 
 
-def flash_attention(q, k, v, *, causal: bool = True, window: Optional[int] = None,
-                    softcap: Optional[float] = None) -> torch.Tensor:
-    """Blocked online-softmax attention; ``k``/``v`` at their own kv head
-    count and, in the cross mode, their own length.  CPU tensors take the
-    plain version, CUDA tensors the kernel."""
+def check_bwd_dtype(q: torch.Tensor) -> None:
+    if q.dtype != torch.float32:
+        raise NotImplementedError(
+            f"flash_attention: the backward runs in float32 only, got {q.dtype}: the bf16 "
+            "backward is not ported yet (ROADMAP.md, queue B)")
+
+
+def flash_attention_bwd_plain(q, k, v, o, do, *, causal: bool = True,
+                              window: Optional[int] = None, softcap: Optional[float] = None):
+    """(dq, dk, dv) of the float32 function: ``ref.flash_attention_bwd_ref``."""
+    check_bwd_dtype(q)
+    check_dtypes(q, k, v)
+    check_cross(q.shape[1], k.shape[1], causal, window)
+    return flash_attention_bwd_ref(q, k, v, o, do, causal=causal, window=window, softcap=softcap)
+
+
+def bwd_smem_bytes(head_dim: int):
+    """Dynamic shared memory of one block of the backward's dQ and dK/dV
+    kernels at ``head_dim``."""
+    lib = _bwd_lib()
+    return (int(lib.flash_attention_bwd_smem_bytes(head_dim, 0)),
+            int(lib.flash_attention_bwd_smem_bytes(head_dim, 1)))
+
+
+_BWD_LIB = None
+
+
+def _bwd_lib():
+    global _BWD_LIB
+    if _BWD_LIB is None:
+        from .build import load_library
+
+        lib = load_library(BWD)
+        P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        lib.flash_attention_bwd_f32.argtypes = [P] * 10 + [I] * 8 + [F, F, P]
+        lib.flash_attention_bwd_f32.restype = I
+        lib.flash_attention_bwd_smem_bytes.argtypes = [I, I]
+        lib.flash_attention_bwd_smem_bytes.restype = ctypes.c_longlong
+        _BWD_LIB = lib
+    return _BWD_LIB
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t`` contiguous at a 16-byte aligned address (the kernels' float4
+    loads)."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def flash_attention_bwd_cuda(q, k, v, o, do, *, causal: bool = True,
+                             window: Optional[int] = None, softcap: Optional[float] = None):
+    """Launch the backward once on float32 CUDA tensors: the dQ kernel,
+    then the dK/dV kernel; returns (dq, dk, dv)."""
+    check_bwd_dtype(q)
+    b, s, t, h, kv, d = _check_cuda(q, k, v, causal, window, softcap)
+    for nm, x in (("o", o), ("do", do)):
+        if x.device != q.device or tuple(x.shape) != tuple(q.shape) or x.dtype != q.dtype:
+            raise ValueError(f"{nm} {tuple(x.shape)} {x.dtype} on {x.device} does not match q")
+    q, k, v, o, do = (_aligned(x) for x in (q, k, v, o, do))
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    scratch = torch.empty((2, b, h, s), dtype=torch.float32, device=q.device)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    rc = _bwd_lib().flash_attention_bwd_f32(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
+        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), scratch[0].data_ptr(), scratch[1].data_ptr(),
+        b, s, t, h, kv, d, int(bool(causal)), int(window or 0), float(softcap or 0.0),
+        float(math.sqrt(d)), stream,
+    )
+    if rc != 0:
+        raise RuntimeError(f"flash_attention backward launch failed: cudaError {rc}")
+    BWD_LAUNCHES[BWD] += 1
+    return dq, dk, dv
+
+
+def _forward(q, k, v, causal, window, softcap):
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, window=window, softcap=softcap)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention runs on CPU or CUDA tensors, got {q.device}")
     return flash_attention_cuda(q, k, v, causal=causal, window=window, softcap=softcap)
+
+
+class _FlashAttention(torch.autograd.Function):
+    """Attention with its backward; each direction dispatches on the device
+    (plain versions on the CPU, kernels on the card)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, softcap):
+        o = _forward(q, k, v, causal, window, softcap)
+        ctx.save_for_backward(q, k, v, o)
+        ctx.mode = {"causal": causal, "window": window, "softcap": softcap}
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o = ctx.saved_tensors
+        bwd = flash_attention_bwd_plain if q.device.type == "cpu" else flash_attention_bwd_cuda
+        dq, dk, dv = bwd(q, k, v, o, do, **ctx.mode)
+        return dq, dk, dv, None, None, None
+
+
+def flash_attention(q, k, v, *, causal: bool = True, window: Optional[int] = None,
+                    softcap: Optional[float] = None) -> torch.Tensor:
+    """Blocked online-softmax attention; ``k``/``v`` at their own kv head
+    count and, in the cross mode, their own length.  CPU tensors take the
+    plain version, CUDA tensors the kernel.  Under autograd (an input that
+    requires grad) the call records ``_FlashAttention``, whose backward
+    dispatches the same way."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        return _FlashAttention.apply(q, k, v, causal, window, softcap)
+    return _forward(q, k, v, causal, window, softcap)

@@ -1,8 +1,11 @@
 """Plain PyTorch oracles of the kernels (port of ``repro/kernels/ref.py``).
 
-Each takes float32 or bfloat16 operands; bf16 ones are upcast, the function
-is computed in float32 and its result rounded to bf16 once, as the Pallas
-kernels compute it."""
+Each forward takes float32 or bfloat16 operands; bf16 ones are upcast, the
+function is computed in float32 and its result rounded to bf16 once, as the
+Pallas kernels compute it.  The two backwards (``flash_attention_bwd_ref``,
+``rg_lru_bwd_ref``) have no counterpart in the reference, whose Pallas
+kernels carry no VJP: they are the explicit gradient formulas, in float32,
+that the port's backward kernels compute and are held against."""
 from __future__ import annotations
 
 import math
@@ -10,7 +13,8 @@ from typing import Optional
 
 import torch
 
-__all__ = ["pruned_matmul_ref", "flash_attention_ref", "rg_lru_ref"]
+__all__ = ["pruned_matmul_ref", "flash_attention_ref", "rg_lru_ref",
+           "flash_attention_bwd_ref", "rg_lru_bwd_ref"]
 
 
 def pruned_matmul_ref(
@@ -74,3 +78,79 @@ def rg_lru_ref(
         h = a32[:, t] * h + x32[:, t]
         out[:, t] = h
     return out.to(x.dtype)
+
+
+def flash_attention_bwd_ref(
+    q: torch.Tensor,          # [b, s, h, d]
+    k: torch.Tensor,          # [b, t, kv, d], h % kv == 0 (not repeated)
+    v: torch.Tensor,
+    o: torch.Tensor,          # [b, s, h, d] the forward's output
+    do: torch.Tensor,         # [b, s, h, d] its incoming gradient
+    *,
+    causal: bool = True,
+    window: Optional[int] = None,
+    softcap: Optional[float] = None,
+):
+    """(dq, dk, dv) of ``flash_attention_ref`` with K/V at their own ``kv``
+    heads, query head ``h`` reading kv head ``h // (h / kv)``, by the
+    explicit formulas: ``P`` recomputed as the forward computes it,
+    ``D = rowsum(dO * O)``, ``dS = P * (dO V^T - D)``, times ``1 -
+    tanh^2(s / c)`` under a softcap, then ``/ sqrt(d)``; ``dQ = dS K``,
+    ``dK = dS^T Q`` and ``dV = P^T dO``, summed over the query heads of each
+    kv head."""
+    b, s, h, d = q.shape
+    t, kv = k.shape[1], k.shape[2]
+    rep = h // kv
+    q32, do32 = q.float(), do.float()
+    kr = k.float().repeat_interleave(rep, dim=2)
+    vr = v.float().repeat_interleave(rep, dim=2)
+    s1 = torch.einsum("bshd,bthd->bhst", q32, kr) / math.sqrt(d)
+    scores = s1
+    if softcap is not None:
+        th = torch.tanh(s1 / softcap)
+        scores = softcap * th
+    qp = torch.arange(s, device=q.device)[:, None]
+    kp = torch.arange(t, device=q.device)[None, :]
+    keep = torch.ones((s, t), dtype=torch.bool, device=q.device)
+    if causal:
+        keep &= kp <= qp
+    if window is not None:
+        keep &= kp > qp - window
+    p = torch.softmax(scores.masked_fill(~keep, torch.finfo(torch.float32).min), dim=-1)
+    dp = torch.einsum("bshd,bthd->bhst", do32, vr)
+    dsum = (do32 * o.float()).sum(-1).transpose(1, 2)[..., None]        # [b, h, s, 1]
+    ds = p * (dp - dsum)
+    if softcap is not None:
+        ds = ds * (1.0 - th * th)
+    ds = ds / math.sqrt(d)
+    dq = torch.einsum("bhst,bthd->bshd", ds, kr)
+    dk = torch.einsum("bhst,bshd->bthd", ds, q32).reshape(b, t, kv, rep, d).sum(3)
+    dv = torch.einsum("bhst,bshd->bthd", p, do32).reshape(b, t, kv, rep, d).sum(3)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def rg_lru_bwd_ref(
+    a: torch.Tensor,          # [b, s, r] the forward's decays
+    h: torch.Tensor,          # [b, s, r] the forward's output
+    h0: Optional[torch.Tensor],   # [b, r] its initial state (zeros when None)
+    dh: torch.Tensor,         # [b, s, r] the incoming gradient
+):
+    """(dx, da, dh0) of ``rg_lru_ref``, walking the steps backwards:
+    ``g = dh_t + a_{t+1} g`` (``g = dh_{s-1}`` at the last step), ``dx_t =
+    g``, ``da_t = g h_{t-1}`` with ``h_{-1} = h0``, and ``dh0 = a_0 g``: a
+    rounded multiply and a rounded add a step, the operations autograd
+    applies to ``rg_lru_ref``, so the two agree bit for bit up to the sign
+    of a zero."""
+    b, s, r = a.shape
+    a32, h32, dh32 = a.float(), h.float(), dh.float()
+    hinit = (torch.zeros((b, r), dtype=torch.float32, device=a.device) if h0 is None
+             else h0.float())
+    dx = torch.empty((b, s, r), dtype=torch.float32, device=a.device)
+    da = torch.empty_like(dx)
+    g = dh32[:, s - 1]
+    for t in range(s - 1, -1, -1):
+        if t < s - 1:
+            g = dh32[:, t] + a32[:, t + 1] * g
+        dx[:, t] = g
+        da[:, t] = g * (h32[:, t - 1] if t > 0 else hinit)
+    return dx, da, a32[:, 0] * g

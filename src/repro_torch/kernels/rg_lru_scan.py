@@ -35,6 +35,17 @@ Any other dtype, float16 included, and mixed dtypes are refused by name.
 A CPU tensor runs the plain version (``ref.rg_lru_ref``); a CUDA tensor
 launches the kernel or raises.  ``LAUNCHES`` counts each mode's kernel
 launches under its own key (``rg_lru_scan``, ``rg_lru_scan_bf16``).
+
+Gradients (the port's own: the Pallas kernel has no VJP, and the reference
+trains through ``associative_scan``): when autograd records the call,
+``rg_lru_scan`` goes through ``_RGLRUScan``, which keeps ``a``, ``h0`` and
+its output ``h`` and runs the reverse recurrence ``g_t = dh_t + a_{t+1}
+g_{t+1}``, ``dx = g``, ``da_t = g_t h_{t-1}``, ``dh0 = a_0 g_0``: on a CPU
+tensor by the plain backward (``ref.rg_lru_bwd_ref``), on a CUDA tensor by
+the kernel ``rg_lru_scan_bwd_f32`` (counted in ``BWD_LAUNCHES``).
+Both do the plain loop's rounded multiply and add, so they agree bit for
+bit.  Only the float32 mode has a backward; the bf16 mode's raises
+``NotImplementedError`` (ROADMAP.md, queue B).
 """
 from __future__ import annotations
 
@@ -43,18 +54,21 @@ from typing import Dict, List, Optional, Tuple
 
 import torch
 
-from .ref import rg_lru_ref
+from .ref import rg_lru_bwd_ref, rg_lru_ref
 
 __all__ = ["LAUNCHES", "MODES", "F32_CHANNELS", "F32_STAGE_STEPS", "F32_RING_STAGES",
            "BF16_WALKERS", "BF16_CHANNELS", "BF16_STAGE_STEPS", "BF16_LOAD_STAGES",
-           "BF16_OUT_STAGES", "reset_launches", "ring_schedule", "check_dtypes",
-           "rg_lru_scan", "rg_lru_scan_plain", "rg_lru_scan_cuda"]
+           "BF16_OUT_STAGES", "BWD", "BWD_LAUNCHES", "reset_launches", "ring_schedule",
+           "check_dtypes", "rg_lru_scan", "rg_lru_scan_plain", "rg_lru_scan_cuda",
+           "rg_lru_scan_bwd_plain", "rg_lru_scan_bwd_cuda"]
 
 NAME = "rg_lru_scan"
 # the kernel's element types: launch-count key and C entry point
 MODES = {torch.float32: (NAME, "rg_lru_scan_f32"),
          torch.bfloat16: ("rg_lru_scan_bf16", "rg_lru_scan_bf16")}
 LAUNCHES: Dict[str, int] = {key: 0 for key, _ in MODES.values()}
+BWD = "rg_lru_scan_bwd"   # launch-count key of the float32 backward kernel
+BWD_LAUNCHES: Dict[str, int] = {BWD: 0}
 # the float32 kernel (csrc/rg_lru_scan.cu, top namespace)
 F32_CHANNELS = 64      # channels of one block (one warp, two a lane)
 F32_STAGE_STEPS = 32   # steps of one ring stage
@@ -85,8 +99,9 @@ def ring_schedule(s: int) -> List[Tuple[str, int]]:
 
 
 def reset_launches() -> None:
-    for key in LAUNCHES:
-        LAUNCHES[key] = 0
+    for counts in (LAUNCHES, BWD_LAUNCHES):
+        for key in counts:
+            counts[key] = 0
 
 
 def check_dtypes(x: torch.Tensor, a: torch.Tensor, h0: Optional[torch.Tensor]) -> None:
@@ -118,6 +133,8 @@ def _lib():
         for _, entry in MODES.values():
             getattr(lib, entry).argtypes = [P, P, P, P, I, I, I, P]
             getattr(lib, entry).restype = I
+        lib.rg_lru_scan_bwd_f32.argtypes = [P, P, P, P, P, P, P, I, I, I, P]
+        lib.rg_lru_scan_bwd_f32.restype = I
         _LIB = lib
     return _LIB
 
@@ -149,10 +166,48 @@ def rg_lru_scan_cuda(x: torch.Tensor, a: torch.Tensor, h0: torch.Tensor) -> torc
     return out
 
 
-def rg_lru_scan(x: torch.Tensor, a: torch.Tensor,
-                h0: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """``h_t = a_t h_{t-1} + x_t``; CPU tensors take the plain version, CUDA
-    tensors the kernel."""
+def check_bwd_dtype(a: torch.Tensor) -> None:
+    if a.dtype != torch.float32:
+        raise NotImplementedError(
+            f"rg_lru_scan: the backward runs in float32 only, got {a.dtype}: the bf16 "
+            "backward is not ported yet (ROADMAP.md, queue B)")
+
+
+def rg_lru_scan_bwd_plain(a: torch.Tensor, h: torch.Tensor, h0: Optional[torch.Tensor],
+                          dh: torch.Tensor):
+    """(dx, da, dh0) of the float32 scan: ``ref.rg_lru_bwd_ref``."""
+    check_bwd_dtype(a)
+    return rg_lru_bwd_ref(a, h, h0, dh)
+
+
+def rg_lru_scan_bwd_cuda(a: torch.Tensor, h: torch.Tensor, h0: torch.Tensor, dh: torch.Tensor):
+    """Launch the backward kernel once on float32 CUDA tensors: (dx, da,
+    dh0)."""
+    check_bwd_dtype(a)
+    dev = a.device
+    for nm, t in (("a", a), ("h", h), ("h0", h0), ("dh", dh)):
+        if t.device != dev or t.device.type != "cuda":
+            raise ValueError(f"{nm} must lie on {dev}, got {t.device}")
+        if t.dtype != torch.float32:
+            raise ValueError(f"rg_lru_scan backward: {nm} must be float32, got {t.dtype}")
+    b, s, r = a.shape
+    if tuple(h.shape) != (b, s, r) or tuple(dh.shape) != (b, s, r) or tuple(h0.shape) != (b, r):
+        raise ValueError(f"a {tuple(a.shape)}, h {tuple(h.shape)}, dh {tuple(dh.shape)} and "
+                         f"h0 {tuple(h0.shape)} do not match")
+    if b > 65535:
+        raise ValueError(f"b={b}: the kernel's grid takes b <= 65535")
+    a, h, h0, dh = a.contiguous(), h.contiguous(), h0.contiguous(), dh.contiguous()
+    dx, da, dh0 = torch.empty_like(a), torch.empty_like(a), torch.empty_like(h0)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    rc = _lib().rg_lru_scan_bwd_f32(dh.data_ptr(), a.data_ptr(), h.data_ptr(), h0.data_ptr(),
+                                    dx.data_ptr(), da.data_ptr(), dh0.data_ptr(), b, s, r, stream)
+    if rc != 0:
+        raise RuntimeError(f"rg_lru_scan backward kernel launch failed: cudaError {rc}")
+    BWD_LAUNCHES[BWD] += 1
+    return dx, da, dh0
+
+
+def _forward(x: torch.Tensor, a: torch.Tensor, h0: Optional[torch.Tensor]) -> torch.Tensor:
     if x.device.type == "cpu":
         return rg_lru_scan_plain(x, a, h0)
     if x.device.type != "cuda":
@@ -160,3 +215,35 @@ def rg_lru_scan(x: torch.Tensor, a: torch.Tensor,
     if h0 is None:
         h0 = torch.zeros((x.shape[0], x.shape[2]), dtype=torch.float32, device=x.device)
     return rg_lru_scan_cuda(x, a, h0)
+
+
+class _RGLRUScan(torch.autograd.Function):
+    """The scan with its backward; each direction dispatches on the device
+    (plain versions on the CPU, kernels on the card)."""
+
+    @staticmethod
+    def forward(ctx, x, a, h0):
+        h = _forward(x, a, h0)
+        ctx.save_for_backward(a, h0, h)
+        return h
+
+    @staticmethod
+    def backward(ctx, dh):
+        a, h0, h = ctx.saved_tensors
+        if a.device.type == "cpu":
+            dx, da, dh0 = rg_lru_scan_bwd_plain(a, h, h0, dh)
+        else:
+            if h0 is None:
+                h0 = torch.zeros((a.shape[0], a.shape[2]), dtype=torch.float32, device=a.device)
+            dx, da, dh0 = rg_lru_scan_bwd_cuda(a, h, h0, dh)
+        return dx, da, (dh0 if ctx.needs_input_grad[2] else None)
+
+
+def rg_lru_scan(x: torch.Tensor, a: torch.Tensor,
+                h0: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``h_t = a_t h_{t-1} + x_t``; CPU tensors take the plain version, CUDA
+    tensors the kernel.  Under autograd (an input that requires grad) the
+    call records ``_RGLRUScan``, whose backward dispatches the same way."""
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in (x, a, h0)):
+        return _RGLRUScan.apply(x, a, h0)
+    return _forward(x, a, h0)

@@ -141,7 +141,9 @@ def _dispatch_compute_combine(params, spec: MoESpec, xf: torch.Tensor, probs: to
     for e0 in range(0, E_here, step):
         sl = slice(e0, e0 + step)
         h = silu(torch.bmm(buf[sl], params["w_gate"][sl])) * torch.bmm(buf[sl], params["w_up"][sl])
-        torch.bmm(h, params["w_down"][sl], out=out_e[sl])
+        # written into the buffer by a copy, not bmm(out=), which autograd
+        # cannot record
+        out_e[sl] = torch.bmm(h, params["w_down"][sl])
 
     gathered = out_buf[dest] * keep_x                          # [N, D], sorted order
     w = gate.reshape(N)[sort_idx].to(dt)

@@ -1,4 +1,4 @@
-"""Model assembly for the LLM serving path (port of ``repro/models/transformer.py``).
+"""Model assembly for the LLM serving and training paths (port of ``repro/models/transformer.py``).
 
 Decoder stacks of the reference's six block kinds: ``attn`` / ``local``
 (attention + FFN), ``moe`` / ``moe_local`` (attention + mixture of experts,
@@ -23,6 +23,8 @@ have no counterpart: on one device both are no-ops or training-only.
 Entry points:
   * ``forward(params, cfg, batch)``               -> (logits, aux), aux the
     sum of the MoE layers' load-balance losses (0 without MoE layers)
+  * ``lm_loss(params, cfg, batch)``               -> next-token cross
+    entropy + aux, differentiable (``launch/train.py`` trains on it)
   * ``prefill(params, cfg, batch, max_len)``      -> (last logits, state)
   * ``decode_step(params, cfg, state, token)``    -> (logits, state)
 
@@ -69,6 +71,7 @@ __all__ = [
     "param_dtype",
     "init_params",
     "forward",
+    "lm_loss",
     "prefill",
     "init_decode_state",
     "decode_step",
@@ -447,17 +450,39 @@ def _logits(params, cfg: ModelConfig, x):
     return logits
 
 
-@torch.no_grad()
 def forward(params, cfg: ModelConfig, batch) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Teacher-forced forward. Returns (logits [b, s_text, V], aux_loss), the
-    MoE layers' load-balance losses summed (0 without MoE layers); the
-    vision prefix's positions are dropped."""
+    """Teacher-forced forward (the training forward). Returns (logits [b,
+    s_text, V], aux_loss), the MoE layers' load-balance losses summed (0
+    without MoE layers); the vision prefix's positions are dropped.  Autograd
+    records it where the params require grad (``lm_loss``); nothing on it
+    writes in place into a tensor that autograd keeps."""
     validate_config(cfg)
     enc_out = _encoder_out(params, cfg, batch)
     x = _embed_inputs(params, cfg, batch)
     x, aux, _ = _stack_fwd(params, cfg, x, enc_out, collect_cache=False)
     x = _apply_norm(cfg, params["final_norm"], x[:, _prefix_len(cfg, batch):])
     return _logits(params, cfg, x), aux
+
+
+def lm_loss(params, cfg: ModelConfig, batch) -> torch.Tensor:
+    """Next-token cross entropy (+ MoE aux), labels = tokens shifted left
+    (JAX ``lm_loss``): ``log_softmax`` of the float32 logits, each label's
+    log-probability by the reference's one-hot contraction, averaged over
+    the positions that ``batch["loss_mask"]`` keeps (all without one)."""
+    logits, aux = forward(params, cfg, batch)
+    logits = logits[:, :-1]
+    labels = batch["tokens"][:, 1:]
+    logp = torch.log_softmax(logits, dim=-1)
+    # the one-hot built in logp's dtype (F.one_hot would build it in int64)
+    onehot = torch.zeros_like(logp).scatter_(-1, labels[..., None].long(), 1.0)
+    ll = torch.einsum("bsv,bsv->bs", logp, onehot)
+    mask = batch.get("loss_mask")
+    if mask is not None:
+        mask = mask[:, 1:].to(ll.dtype)
+        ce = -(ll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+    else:
+        ce = -ll.mean()
+    return ce + aux
 
 
 # --------------------------------------------------------------------------

@@ -1,38 +1,160 @@
-"""SGD with momentum over flat ``{path: tensor}`` dicts.
+"""Optimizers over trees of tensors: SGD, momentum, AdamW.
 
-Port of the ``momentum`` optimizer of ``repro/optim/optimizers.py``:
-``v <- beta * v + g`` and the update ``-lr * v`` is added to the params
-(torch's SGD with dampening 0, written functionally because the masked
-trainer gates every step by a validity mask and re-masks after training).
+Port of ``repro/optim/optimizers.py``, its optax-style API included:
+``init(params) -> state`` and ``update(grads, state, params) -> (updates,
+state)``, the updates added to the params by ``apply_updates``.  A tree is
+a tensor or nested dicts / lists / tuples of tensors: the simulator's flat
+``{path: tensor}`` dicts and the LLM's parameter trees alike.  Every update
+repeats the reference's operations in its order, each Python scalar taken
+in float32 as JAX's weak types take it and AdamW's bias corrections as
+float32 tensors (``1 - b ** t``), so both packages take the same steps from
+the same gradients.  ``params`` may be left out of ``update`` where no
+weight decay reads it (the simulator's momentum).
+
+``step_(params, grads, state) -> state`` takes the same step in place, leaf
+by leaf, with the same operations and roundings: the params and the
+optimizer state are overwritten, so a step holds no second copy of either,
+only a few temporaries of one leaf (the LLM trainer, ``launch/train.py``).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, Tuple
+from typing import Any, Callable, List, Tuple
 
 import torch
 
-__all__ = ["Optimizer", "momentum", "apply_updates"]
-
-Tensors = Dict[str, torch.Tensor]
+__all__ = ["Optimizer", "sgd", "momentum", "adamw", "apply_updates", "tree_map", "tree_leaves"]
 
 
 @dataclasses.dataclass(frozen=True)
 class Optimizer:
-    init: Callable[[Tensors], Tensors]
-    update: Callable[[Tensors, Tensors], Tuple[Tensors, Tensors]]
+    init: Callable[[Any], Any]
+    update: Callable[..., Tuple[Any, Any]]
+    step_: Callable[[Any, Any, Any], Any]
 
 
-def apply_updates(params: Tensors, updates: Tensors) -> Tensors:
-    return {k: params[k] + updates[k] for k in params}
+def tree_map(fn, tree, *rest):
+    """``fn`` over the leaves of ``tree`` and the matching leaves of ``rest``."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, tree[k], *(r[k] for r in rest)) for k in tree}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_map(fn, t, *(r[i] for r in rest)) for i, t in enumerate(tree))
+    return fn(tree, *rest)
 
 
-def momentum(lr: float, beta: float = 0.9) -> Optimizer:
-    def init(params: Tensors) -> Tensors:
-        return {k: torch.zeros_like(v) for k, v in params.items()}
+def tree_leaves(tree) -> List[torch.Tensor]:
+    """The leaves in ``tree_map``'s order."""
+    out: List[torch.Tensor] = []
+    tree_map(out.append, tree)
+    return out
 
-    def update(grads: Tensors, state: Tensors) -> Tuple[Tensors, Tensors]:
-        new_v = {k: beta * state[k] + grads[k] for k in grads}
-        return {k: -lr * v for k, v in new_v.items()}, new_v
 
-    return Optimizer(init, update)
+def apply_updates(params, updates):
+    return tree_map(lambda p, u: (p + u).to(p.dtype), params, updates)
+
+
+def _add_(p: torch.Tensor, u: torch.Tensor) -> None:
+    """``p <- (p + u).to(p.dtype)`` in place."""
+    if p.dtype == u.dtype:
+        p.add_(u)
+    else:
+        p.copy_(p + u)
+
+
+def sgd(lr: float) -> Optimizer:
+    def update(grads, state, params=None):
+        return tree_map(lambda g: g * -lr, grads), state
+
+    def step_(params, grads, state):
+        tree_map(lambda p, g: _add_(p, g * -lr), params, grads)
+        return state
+
+    return Optimizer(lambda p: (), update, step_)
+
+
+def momentum(lr: float, beta: float = 0.9, weight_decay: float = 0.0) -> Optimizer:
+    def init(params):
+        return tree_map(torch.zeros_like, params)
+
+    def decayed(grads, params):
+        if not weight_decay:
+            return grads
+        if params is None:
+            raise ValueError("momentum with weight_decay needs update(grads, state, params)")
+        return tree_map(lambda g, p: g + weight_decay * p, grads, params)
+
+    def update(grads, state, params=None):
+        new_v = tree_map(lambda v, g: beta * v + g, state, decayed(grads, params))
+        return tree_map(lambda v: -lr * v, new_v), new_v
+
+    def step_(params, grads, state):
+        def leaf(p, g, v):
+            v.mul_(beta).add_(g)
+            _add_(p, v * -lr)
+
+        tree_map(leaf, params, decayed(grads, params), state)
+        return state
+
+    return Optimizer(init, update, step_)
+
+
+def adamw(
+    lr: float,
+    b1: float = 0.9,
+    b2: float = 0.95,
+    eps: float = 1e-8,
+    weight_decay: float = 0.0,
+    state_dtype: torch.dtype = torch.float32,
+) -> Optimizer:
+    """AdamW; ``state_dtype=torch.bfloat16`` keeps ``m`` and ``v`` in bf16
+    (each rounded once a step, after its float32 update)."""
+
+    def init(params):
+        leaves = tree_leaves(params)
+        dev = leaves[0].device if leaves else None
+        zeros = lambda p: torch.zeros(p.shape, dtype=state_dtype, device=p.device)
+        return {"m": tree_map(zeros, params), "v": tree_map(zeros, params),
+                "t": torch.zeros((), dtype=torch.int32, device=dev)}
+
+    def corrections(t: torch.Tensor):
+        tf = t.to(torch.float32)
+        return tuple(1 - torch.pow(torch.tensor(b, dtype=torch.float32, device=t.device), tf)
+                     for b in (b1, b2))
+
+    def ema_(s: torch.Tensor, beta: float, x: torch.Tensor) -> None:
+        """``s <- (beta * s + (1 - beta) * x)`` in float32, rounded once to
+        ``s``'s dtype (a float32 ``s`` is its own ``.float()``: updated in
+        place)."""
+        s.copy_(s.float().mul_(beta).add_(x * (1 - beta)))
+
+    def leaf_(p, g, m, v, bc1, bc2) -> torch.Tensor:
+        """Updates ``m`` and ``v`` in place; returns the update of ``p``."""
+        ema_(m, b1, g)
+        ema_(v, b2, g * g)
+        u = m.float() / bc1
+        den = (v.float() / bc2).sqrt_().add_(eps)
+        u.div_(den)
+        del den
+        if weight_decay:
+            u.add_(p.float() * weight_decay)
+        return u.mul_(-lr)
+
+    def update(grads, state, params=None):
+        t = state["t"] + 1
+        bc1, bc2 = corrections(t)
+        m, v = tree_map(torch.clone, state["m"]), tree_map(torch.clone, state["v"])
+        if params is None:
+            if weight_decay:
+                raise ValueError("adamw with weight_decay needs update(grads, state, params)")
+            params = grads
+        updates = tree_map(lambda p, g, m_, v_: leaf_(p, g, m_, v_, bc1, bc2), params, grads, m, v)
+        return updates, {"m": m, "v": v, "t": t}
+
+    def step_(params, grads, state):
+        t = state["t"] + 1
+        bc1, bc2 = corrections(t)
+        tree_map(lambda p, g, m_, v_: _add_(p, leaf_(p, g, m_, v_, bc1, bc2)),
+                 params, grads, state["m"], state["v"])
+        return {"m": state["m"], "v": state["v"], "t": t}
+
+    return Optimizer(init, update, step_)
