@@ -432,10 +432,12 @@ the RG-LRU scan (``rg_lru_scan_bwd_f32`` in ``csrc/rg_lru_scan.cu``):
                    64, 1500 frames) and its training shapes, within
                    ``FLASH_BWD_TOL`` of max|plain|, two runs bit-identical;
                    the scan at b 8, s 64 and b 2, s 3072, r 4096 (and ragged
-                   cases) bit for bit.  Each timed case beside its bound, the
-                   plain backward and autograd's backward of SDPA with the
-                   same mask; ptxas' registers and spills of the backward
-                   entries (fails on any spill).
+                   cases) bit for bit.  Each timed case beside its bound
+                   (flash: 3xTF32 products at the tensor-core rate, as the
+                   forward's, the FFMA rate's beside it), the plain backward
+                   and autograd's backward of SDPA with the same mask;
+                   ptxas' registers and spills of the backward entries
+                   (fails on any spill).
 37. llm_train     — ``train_loop`` (5 steps, batch 8 x 64 tokens, AdamW 3e-4)
                    on recurrentgemma-9b at full width cut to
                    ``TRAIN_LAYERS`` and on whisper-small at full size: losses,
@@ -445,7 +447,11 @@ the RG-LRU scan (``rg_lru_scan_bwd_f32`` in ``csrc/rg_lru_scan.cu``):
                    with the kernels against the same step with the model
                    modules' kernel names bound to the plain versions, within
                    ``LOSS_BAR`` / ``GRAD_BAR``; the plain step with TF32
-                   products must miss ``GRAD_BAR``.
+                   products must miss ``GRAD_BAR``.  The trained params
+                   must not require grad.  Then one more step in a
+                   ``torch.profiler`` window: its device time by kernel
+                   group (GEMMs, each port kernel, the rest) beside its wall
+                   time.
 
 Then a ``{"phase": "done"}`` line with the script's seconds, a
 ``{"kernels": [...]}`` line, the ``nvidia-smi`` name/power line, and as the
@@ -457,6 +463,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import re
 import subprocess
 import sys
 import time
@@ -745,17 +752,11 @@ def bound_ms(B, M, K, N, row, inm, outm, blocks):
 # phases
 # ---------------------------------------------------------------------------
 
-def phase_build(report, builds=None):
-    """One nvcc per source, all started together.  ``builds``: the future of
-    the ``build.build_all(KERNEL_SOURCES)`` that ``main`` starts before torch
-    loads (``seconds`` is then the wait here; ``nvcc_seconds`` the build's
-    own); without one the build runs here."""
+def phase_build(report):
     from repro_torch.kernels import build
 
     t0 = time.perf_counter()
-    if builds is not None:
-        builds.result()
-    build.build_all(KERNEL_SOURCES)     # builds only what is not built yet
+    build.build_all(KERNEL_SOURCES)     # one nvcc per source, all started together
     for name in KERNEL_SOURCES:
         build.load_library(name)
     secs = time.perf_counter() - t0
@@ -5406,15 +5407,19 @@ def phase_encdec_prefix_serve(report):
 # ---------------------------------------------------------------------------
 
 def flash_bwd_bound(b, s, h, kv, d, causal, window, t=None):
-    """Least card time of one flash backward: the five products of a
-    backward (S, dP, dQ, dK, dV: 10 x kept pairs x d FLOPs) at the FP32 rate
-    against the bytes (q, o, dO, k, v read once; dq, dk, dv written once);
-    returns (ms, bound_by)."""
+    """Least card time of one flash backward, as the forward's own bound:
+    the five products of a backward (S, dP, dQ, dK, dV: 10 x kept pairs x d
+    FLOPs) as 3xTF32 tensor-core products (3 x FLOPs at the TF32 rate, the
+    card's fastest float32-faithful product) against the bytes (q, o, dO, k,
+    v read once; dq, dk, dv written once); returns (ms, bound_by, the same
+    bound with the products at the FP32 FFMA rate)."""
     t = s if t is None else t
     flops = 10.0 * flash_pairs(s, causal, window, t) * b * h * d
     byts = 4.0 * (4 * b * s * h * d + 4 * b * t * kv * d)
-    t_ops, t_bytes = flops / F32_TFLOPS * 1e3, byts / HBM_BPS * 1e3
-    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+    t_tc, t_fp32 = 3.0 * flops / TF32_TFLOPS * 1e3, flops / F32_TFLOPS * 1e3
+    t_bytes = byts / HBM_BPS * 1e3
+    return (max(t_tc, t_bytes), "operations" if t_tc >= t_bytes else "bytes",
+            max(t_fp32, t_bytes))
 
 
 def _flash_bwd_cases():
@@ -5520,8 +5525,8 @@ def phase_llm_train_kernel(report):
                                     iters=2, warm=1)
             c["library_ms"] = sdpa_bwd_ms(q, k, v, do, kw)
             c["fwd_ms"] = time_ms(lambda: fa.flash_attention_cuda(q, k, v, **kw), iters=3, warm=1)
-            c["bound_ms"], c["bound_by"] = flash_bwd_bound(b, s, h, kv, d, causal,
-                                                           kw.get("window"), t)
+            c["bound_ms"], c["bound_by"], c["bound_fp32_ms"] = flash_bwd_bound(
+                b, s, h, kv, d, causal, kw.get("window"), t)
             c["achieved_tflops"] = (10.0 * flash_pairs(s, causal, kw.get("window"), t) * b * h * d
                                     / (c["ms"] * 1e-3) / 1e12)
         flash.append(c)
@@ -5591,6 +5596,79 @@ def plain_kernels():
             setattr(m, n, f)
 
 
+@contextlib.contextmanager
+def timed_steps(out: list):
+    """``launch.train.make_train_step`` bound, for the block, to one whose
+    steps append their wall seconds, the card synchronised, to ``out``."""
+    import torch
+    from repro_torch.launch import train
+
+    make = train.make_train_step
+
+    def timed(cfg, opt):
+        step = make(cfg, opt)
+
+        def run(*args):
+            t = time.perf_counter()
+            r = step(*args)
+            torch.cuda.synchronize()
+            out.append(time.perf_counter() - t)
+            return r
+
+        return run
+
+    train.make_train_step = timed
+    try:
+        yield out
+    finally:
+        train.make_train_step = make
+
+
+STEP_KERNELS = (("flash_bwd", "flash_attention_bwd"), ("flash_attention", "flash_attention"),
+                ("scan_bwd", "rg_lru_scan_bwd"), ("scan", "rg_lru_scan"))
+GEMM_NAMES = re.compile(r"gemm|gemv|xmma|cutlass", re.I)
+
+
+def profile_step(cfg, params, batch) -> dict:
+    """One more training step (AdamW from a fresh state) in a
+    ``torch.profiler`` window: the device time of its kernels by group (the
+    GEMMs, each of the port's kernels, the rest), beside the step's wall
+    time, and the largest of the rest by name (its first 120 characters)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.launch.train import make_train_step
+    from repro_torch.optim.optimizers import adamw
+
+    opt = adamw(TRAIN["lr"])
+    state = opt.init(params)
+    step = make_train_step(cfg, opt)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        step(params, state, batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+    del state
+    groups = {"gemm": 0.0, **{k: 0.0 for _, k in STEP_KERNELS}, "other": 0.0}
+    other = {}
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        ms = e.time_range.elapsed_us() / 1e3
+        key = next((k for pat, k in STEP_KERNELS if pat in e.name), None)
+        if key is None and GEMM_NAMES.search(e.name):
+            key = "gemm"
+        if key is None:
+            key = "other"
+            other[e.name] = other.get(e.name, 0.0) + ms
+        groups[key] += ms
+    device = sum(groups.values())
+    return {"wall_ms": 1e3 * wall, "device_ms": device, "busy_share": device / (1e3 * wall),
+            "device_ms_by_group": groups,
+            "other_top": [(n[:120], ms) for n, ms in sorted(other.items(), key=lambda kv: -kv[1])[:8]]}
+
+
 def train_launches() -> dict:
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import rg_lru_scan as rg
@@ -5632,6 +5710,7 @@ def _train_one(cfg, label):
     from repro_torch.launch.train import SEQ_LEN, loss_and_grads, train_batch, train_loop
     from repro_torch.models import transformer as T
     from repro_torch.models.config import param_count
+    from repro_torch.optim.optimizers import tree_leaves
 
     dev = torch.device(DEVICE)
     seed = TRAIN["seed"]
@@ -5665,12 +5744,17 @@ def _train_one(cfg, label):
             "plain_launches": {k: plain_launches[k] - held_launches[k] for k in plain_launches}}
     held_peak_gb = torch.cuda.max_memory_allocated() / 1e9
     # the main path: train_loop from this init, counts zeroed just before
-    stats = {}
+    step_s = []
     torch.cuda.reset_peak_memory_stats()
     reset_train_launches()
-    _, losses, secs = train_loop(cfg, TRAIN["steps"], TRAIN["batch"], TRAIN["lr"], seed, 0,
-                                 params=params, device=DEVICE, stats=stats)
+    with timed_steps(step_s):
+        _, losses, secs = train_loop(cfg, TRAIN["steps"], TRAIN["batch"], TRAIN["lr"], seed, 0,
+                                     params=params, device=DEVICE)
     launches = train_launches()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    check(not any(p.requires_grad for p in tree_leaves(params)),
+          f"{label}: train_loop's params still require grad")
+    prof = profile_step(cfg, params, batch)
     steps = TRAIN["steps"]
     kinds = cfg.layer_kinds()
     attn_layers = sum(kinds.count(k) for k in ("attn", "local", "moe", "moe_local"))
@@ -5678,10 +5762,10 @@ def _train_one(cfg, label):
     rec = {"phase": "llm_train", "run": label, "params": param_count(cfg),
            "layers": cfg.num_layers, "d_model": cfg.d_model, "vocab": cfg.vocab_size,
            "steps": steps, "batch": TRAIN["batch"], "seq": TRAIN["seq"], "lr": TRAIN["lr"],
-           "losses": losses, "step_s": stats["step_s"],
-           "steady_ms_per_step": 1e3 * float(np.mean(stats["step_s"][1:])),
-           "first_step_ms": 1e3 * stats["step_s"][0], "loop_s": secs,
-           "peak_gb": torch.cuda.max_memory_allocated() / 1e9, "held_peak_gb": held_peak_gb,
+           "losses": losses, "step_s": step_s,
+           "steady_ms_per_step": 1e3 * float(np.mean(step_s[1:])),
+           "first_step_ms": 1e3 * step_s[0], "loop_s": secs,
+           "peak_gb": peak_gb, "held_peak_gb": held_peak_gb, "profiled_step": prof,
            "launches": launches, "launches_per_step": {k: v / steps for k, v in launches.items()},
            "expected_per_step": {"flash_attention": attn_layers,
                                  "rg_lru_scan": kinds.count("rglru") + kinds.count("slstm")},
@@ -5734,21 +5818,6 @@ def phase_llm_train(report):
 
 
 def main() -> int:
-    if not (ROOT / "src" / "repro_torch").is_dir():
-        print("chip_smoke: src/repro_torch not found beside the script", file=sys.stderr)
-        return 2
-    sys.path.insert(0, str(ROOT / "src"))
-    from concurrent.futures import ThreadPoolExecutor
-
-    from repro_torch.kernels import build
-
-    # the nvcc runs overlap torch's import and the card's start-up; a failed
-    # build raises in phase_build, and every nvcc has ended when main returns
-    with ThreadPoolExecutor(max_workers=1) as pool:
-        return run(pool.submit(build.build_all, KERNEL_SOURCES))
-
-
-def run(builds) -> int:
     try:
         import torch
     except ImportError:
@@ -5757,12 +5826,16 @@ def run(builds) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the card", file=sys.stderr)
         return 2
+    if not (ROOT / "src" / "repro_torch").is_dir():
+        print("chip_smoke: src/repro_torch not found beside the script", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.core.simulation import ieee_f32
 
     report = {}
     t0 = time.perf_counter()
     with ieee_f32():
-        card = phase_build(report, builds)
+        card = phase_build(report)
         save(report)
         errs = phase_kernel(report)
         save(report)
@@ -6003,6 +6076,7 @@ def run(builds) -> int:
             "launches_per_step": n, "max_abs_err": max(c["err"] for c in cases),
             "ms": head["ms"] * n, "plain_ms": head["plain_ms"] * n,
             "bound_ms": head["bound_ms"] * n, "bound_by": head["bound_by"],
+            **({"bound_fp32_ms": head["bound_fp32_ms"] * n} if "bound_fp32_ms" in head else {}),
             "library_ms": None if head["library_ms"] is None else head["library_ms"] * n,
             "ms_per_launch": head["ms"],
             "shapes": f"one training step of recurrentgemma-9b at {TRAIN_LAYERS} layers: {n} "
@@ -6010,7 +6084,8 @@ def run(builds) -> int:
             "whisper-small": {"launches": wst["launches"][kname],
                               "launches_per_step": wst["launches_per_step"][kname]},
             "cases": [{f: c[f] for f in ("case", "ms", "plain_ms", "library_ms", "bound_ms",
-                                         "bound_by") if f in c} for c in cases if "ms" in c],
+                                         "bound_by", "bound_fp32_ms") if f in c}
+                      for c in cases if "ms" in c],
         }
         if kname == "flash_attention_bwd":
             entry["max_rel_err"] = max(c["rel_err"] for c in cases)

@@ -23,7 +23,7 @@ from __future__ import annotations
 
 import argparse
 import time
-from typing import Dict, Optional
+from typing import Dict
 
 import numpy as np
 import torch
@@ -47,11 +47,17 @@ def loss_and_grads(params, cfg: ModelConfig, batch):
     """``(loss, grads)`` of ``lm_loss`` at ``params``; ``grads`` is a tree
     like ``params`` (``jax.value_and_grad``)."""
     leaves = tree_leaves(params)
-    with torch.enable_grad():
-        for p in leaves:
-            p.requires_grad_(True)
-        loss = T.lm_loss(params, cfg, batch)
-        grads = iter(torch.autograd.grad(loss, leaves))
+    was = [p.requires_grad for p in leaves]
+    try:
+        with torch.enable_grad():
+            for p in leaves:
+                p.requires_grad_(True)
+            loss = T.lm_loss(params, cfg, batch)
+            grads = iter(torch.autograd.grad(loss, leaves))
+    finally:
+        # the params leave as they came: a later forward records no graph
+        for p, w in zip(leaves, was):
+            p.requires_grad_(w)
     return loss.detach(), tree_map(lambda _: next(grads), params)
 
 
@@ -92,12 +98,9 @@ def train_loop(
     *,
     params=None,
     device="cuda",
-    stats: Optional[Dict] = None,
 ):
     """Returns ``(params, losses, seconds)`` as the reference's.  ``params``
-    must already lie on ``device``; it is trained in place.  With ``stats``
-    a dict, each step's wall seconds (the device synchronised by the loss's
-    read) go into ``stats["step_s"]``."""
+    must already lie on ``device``; it is trained in place."""
     dev = resolve_device(device, "train_loop device")
     T.validate_config(cfg)
     if params is None:
@@ -113,12 +116,9 @@ def train_loop(
     with ieee_f32():
         t0 = time.perf_counter()
         for i in range(steps):
-            ts = time.perf_counter()
             b = train_batch(cfg, task.sample(batch, rng), dev)
             params, opt_state, loss = step_fn(params, opt_state, b)
             losses.append(float(loss))
-            if stats is not None:
-                stats.setdefault("step_s", []).append(time.perf_counter() - ts)
             if log_every and (i + 1) % log_every == 0:
                 print(f"step {i+1:4d} loss {np.mean(losses[-log_every:]):.4f}")
         dt = time.perf_counter() - t0

@@ -11,10 +11,14 @@ float32 tensors (``1 - b ** t``), so both packages take the same steps from
 the same gradients.  ``params`` may be left out of ``update`` where no
 weight decay reads it (the simulator's momentum).
 
-``step_(params, grads, state) -> state`` takes the same step in place, leaf
-by leaf, with the same operations and roundings: the params and the
-optimizer state are overwritten, so a step holds no second copy of either,
-only a few temporaries of one leaf (the LLM trainer, ``launch/train.py``).
+Each optimizer is one rule, ``begin(state) -> (leaf_, slots, finish)``:
+``slots`` are the state's trees shaped like the params, ``leaf_(p, g,
+*slot leaves)`` updates one leaf's slots in place and returns that leaf's
+update, and ``finish(slots)`` is the next state.  ``update`` runs the rule
+on copies of the slots; ``step_(params, grads, state) -> state`` runs it on
+the slots themselves and adds each update to its param in place, so a step
+holds no second copy of the params or the state, only a few temporaries of
+one leaf (the LLM trainer, ``launch/train.py``).
 """
 from __future__ import annotations
 
@@ -29,8 +33,21 @@ __all__ = ["Optimizer", "sgd", "momentum", "adamw", "apply_updates", "tree_map",
 @dataclasses.dataclass(frozen=True)
 class Optimizer:
     init: Callable[[Any], Any]
-    update: Callable[..., Tuple[Any, Any]]
-    step_: Callable[[Any, Any, Any], Any]
+    begin: Callable[[Any], Tuple[Callable[..., torch.Tensor], List[Any], Callable[[List[Any]], Any]]]
+
+    def update(self, grads, state, params=None):
+        """``(updates, state)``; ``state`` is left as it was."""
+        leaf_, slots, finish = self.begin(state)
+        slots = [tree_map(torch.clone, s) for s in slots]
+        if params is None:
+            params = tree_map(lambda g: None, grads)
+        return tree_map(leaf_, params, grads, *slots), finish(slots)
+
+    def step_(self, params, grads, state):
+        """The same step, the params and the state updated in place."""
+        leaf_, slots, finish = self.begin(state)
+        tree_map(lambda p, g, *s: _add_(p, leaf_(p, g, *s)), params, grads, *slots)
+        return finish(slots)
 
 
 def tree_map(fn, tree, *rest):
@@ -61,41 +78,26 @@ def _add_(p: torch.Tensor, u: torch.Tensor) -> None:
         p.copy_(p + u)
 
 
+def _decayed(p, name: str) -> torch.Tensor:
+    """The param that weight decay reads; ``update`` may have been given none."""
+    if p is None:
+        raise ValueError(f"{name} with weight_decay needs update(grads, state, params)")
+    return p
+
+
 def sgd(lr: float) -> Optimizer:
-    def update(grads, state, params=None):
-        return tree_map(lambda g: g * -lr, grads), state
-
-    def step_(params, grads, state):
-        tree_map(lambda p, g: _add_(p, g * -lr), params, grads)
-        return state
-
-    return Optimizer(lambda p: (), update, step_)
+    return Optimizer(lambda p: (), lambda state: (lambda p, g: g * -lr, [], lambda s: state))
 
 
 def momentum(lr: float, beta: float = 0.9, weight_decay: float = 0.0) -> Optimizer:
-    def init(params):
-        return tree_map(torch.zeros_like, params)
+    def leaf_(p, g, v):
+        if weight_decay:
+            g = g + weight_decay * _decayed(p, "momentum")
+        v.mul_(beta).add_(g)
+        return v * -lr
 
-    def decayed(grads, params):
-        if not weight_decay:
-            return grads
-        if params is None:
-            raise ValueError("momentum with weight_decay needs update(grads, state, params)")
-        return tree_map(lambda g, p: g + weight_decay * p, grads, params)
-
-    def update(grads, state, params=None):
-        new_v = tree_map(lambda v, g: beta * v + g, state, decayed(grads, params))
-        return tree_map(lambda v: -lr * v, new_v), new_v
-
-    def step_(params, grads, state):
-        def leaf(p, g, v):
-            v.mul_(beta).add_(g)
-            _add_(p, v * -lr)
-
-        tree_map(leaf, params, decayed(grads, params), state)
-        return state
-
-    return Optimizer(init, update, step_)
+    return Optimizer(lambda params: tree_map(torch.zeros_like, params),
+                     lambda state: (leaf_, [state], lambda s: s[0]))
 
 
 def adamw(
@@ -127,34 +129,21 @@ def adamw(
         place)."""
         s.copy_(s.float().mul_(beta).add_(x * (1 - beta)))
 
-    def leaf_(p, g, m, v, bc1, bc2) -> torch.Tensor:
-        """Updates ``m`` and ``v`` in place; returns the update of ``p``."""
-        ema_(m, b1, g)
-        ema_(v, b2, g * g)
-        u = m.float() / bc1
-        den = (v.float() / bc2).sqrt_().add_(eps)
-        u.div_(den)
-        del den
-        if weight_decay:
-            u.add_(p.float() * weight_decay)
-        return u.mul_(-lr)
-
-    def update(grads, state, params=None):
+    def begin(state):
         t = state["t"] + 1
         bc1, bc2 = corrections(t)
-        m, v = tree_map(torch.clone, state["m"]), tree_map(torch.clone, state["v"])
-        if params is None:
+
+        def leaf_(p, g, m, v) -> torch.Tensor:
+            ema_(m, b1, g)
+            ema_(v, b2, g * g)
+            u = m.float() / bc1
+            den = (v.float() / bc2).sqrt_().add_(eps)
+            u.div_(den)
+            del den
             if weight_decay:
-                raise ValueError("adamw with weight_decay needs update(grads, state, params)")
-            params = grads
-        updates = tree_map(lambda p, g, m_, v_: leaf_(p, g, m_, v_, bc1, bc2), params, grads, m, v)
-        return updates, {"m": m, "v": v, "t": t}
+                u.add_(_decayed(p, "adamw").float() * weight_decay)
+            return u.mul_(-lr)
 
-    def step_(params, grads, state):
-        t = state["t"] + 1
-        bc1, bc2 = corrections(t)
-        tree_map(lambda p, g, m_, v_: _add_(p, leaf_(p, g, m_, v_, bc1, bc2)),
-                 params, grads, state["m"], state["v"])
-        return {"m": state["m"], "v": state["v"], "t": t}
+        return leaf_, [state["m"], state["v"]], lambda s: {"m": s[0], "v": s[1], "t": t}
 
-    return Optimizer(init, update, step_)
+    return Optimizer(init, begin)

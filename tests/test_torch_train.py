@@ -229,3 +229,15 @@ def test_train_cli_runs_on_cpu_and_refuses_a_missing_card(capsys):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             t_train.train_loop(t_configs.smoke_config("gemma2-2b"), 1, 1, device="cuda")
+
+
+def test_trained_params_leave_without_grad():
+    # the trainer sets requires_grad on the leaves only for its own grads:
+    # the params it returns record no graph in a later forward
+    tc = t_configs.smoke_config("gemma2-2b")
+    params, losses, _ = t_train.train_loop(tc, 1, 1, log_every=0, device="cpu")
+    assert np.isfinite(losses[0])
+    assert not any(p.requires_grad for p in t_opt.tree_leaves(params))
+    toks = torch.as_tensor(np.random.default_rng(0).integers(0, tc.vocab_size, (1, 5)))
+    logits, _ = TT.forward(params, tc, {"tokens": toks})
+    assert logits.grad_fn is None
