@@ -435,8 +435,12 @@ the RG-LRU scan (``rg_lru_scan_bwd_f32`` in ``csrc/rg_lru_scan.cu``):
                    cases) bit for bit.  Each timed case beside its bound
                    (flash: 3xTF32 products at the tensor-core rate, as the
                    forward's, the FFMA rate's beside it), the plain backward
-                   and autograd's backward of SDPA with the same mask;
-                   ptxas' registers and spills of the backward entries
+                   and autograd's backward of SDPA with the same mask, its
+                   achieved TFLOP/s of the five products and the dK/dV
+                   walk's ``n_split`` (the kernel's own, which must be
+                   ``bwd_n_split``'s; the training shape's is > 1); ptxas'
+                   registers and spills of the backward entries and each
+                   flash instance's registers and dynamic shared memory
                    (fails on any spill).
 37. llm_train     — ``train_loop`` (5 steps, batch 8 x 64 tokens, AdamW 3e-4)
                    on recurrentgemma-9b at full width cut to
@@ -5489,18 +5493,31 @@ def phase_llm_train_kernel(report):
 
     t0 = time.perf_counter()
     gen = torch.Generator(device=DEVICE).manual_seed(18)
+    flash_entries = ptxas_entries(build.PTXAS_LOG.get("flash_attention_bwd", ""))
+    smem = {d: fa.bwd_smem_bytes(d) for d in fa.HEAD_DIMS}
+    # registers and dynamic shared memory of each (kernel, head dim) instance
+    instances = {}
+    for e in flash_entries:
+        m = re.search(r"flash_bwd_(dq|dkv)ILi(\d+)E", e["entry"])
+        if m:
+            kern, d = m.group(1), int(m.group(2))
+            instances[f"{kern}<{d}>"] = {"registers": e["registers"],
+                                         "dynamic_smem_bytes": smem[d][kern == "dkv"]}
     rec = {"phase": "llm_train_kernel", "tol": FLASH_BWD_TOL,
            "build": {"flash_attention_bwd": {
                "nvcc_seconds": build.BUILD_SECONDS.get("flash_attention_bwd"),
-               "entries": ptxas_entries(build.PTXAS_LOG.get("flash_attention_bwd", "")),
-               "dynamic_smem_bytes": {d: fa.bwd_smem_bytes(d) for d in fa.HEAD_DIMS}},
+               "entries": flash_entries, "instances": instances,
+               "dynamic_smem_bytes": smem},
                "rg_lru_scan_bwd": [e for e in ptxas_entries(build.PTXAS_LOG.get("rg_lru_scan", ""))
                                    if "bwd" in e["entry"]]}}
-    entries = rec["build"]["flash_attention_bwd"]["entries"] + rec["build"]["rg_lru_scan_bwd"]
-    check(len(entries) == 7 and all(e["spills"] for e in entries),
+    # dq and dkv at each head dim, the split reduce, and the scan's backward
+    entries = flash_entries + rec["build"]["rg_lru_scan_bwd"]
+    check(len(entries) == 2 * len(fa.HEAD_DIMS) + 2 and len(instances) == 2 * len(fa.HEAD_DIMS)
+          and all(e["spills"] for e in entries),
           "ptxas lines of the backward kernels: " + json.dumps(entries))
     check(all("0 bytes spill stores, 0 bytes spill loads" in e["spills"] for e in entries),
           "a backward kernel spills registers: " + json.dumps(entries))
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     flash = []
     for label, b, s, t, h, kv, d, kw, timed in _flash_bwd_cases():
         q, k, v = _qkv(gen, b, s, h, kv, d, t)
@@ -5515,7 +5532,9 @@ def phase_llm_train_kernel(report):
         c = {"case": label, "shape": f"b={b} s={s} t={t} h={h} kv={kv} d={d} {kw}",
              "err": max(errs), "ref_max": top, "rel_err": max(errs) / top,
              "rel_err_dq_dk_dv": [e / top for e in errs],
-             "bit_identical_runs": all(torch.equal(x, y) for x, y in zip(got, again))}
+             "bit_identical_runs": all(torch.equal(x, y) for x, y in zip(got, again)),
+             "n_split": fa.bwd_n_split_cuda(b, s, t, h, kv, d, sms),
+             "n_split_mirror": fa.bwd_n_split(b, s, t, h, kv, d, sms)}
         del got, again, ref
         if timed:
             causal = kw.get("causal", True)
@@ -5566,6 +5585,9 @@ def phase_llm_train_kernel(report):
     report["llm_train_kernel"] = rec
     bad = [c for c in flash if not c["rel_err"] <= FLASH_BWD_TOL]
     check(not bad, "flash backward disagrees with its plain version: " + json.dumps(bad))
+    check(all(c["n_split"] == c["n_split_mirror"] for c in flash) and flash[0]["n_split"] > 1,
+          "the flash backward's n_split: " + json.dumps([[c["case"], c["n_split"],
+                                                          c["n_split_mirror"]] for c in flash]))
     check(all(c["bit_identical_runs"] for c in flash),
           "two flash backward runs differ: " + json.dumps(flash))
     check(all(c["bit_identical"] and c["bit_identical_runs"] for c in scan),
@@ -6084,7 +6106,8 @@ def main() -> int:
             "whisper-small": {"launches": wst["launches"][kname],
                               "launches_per_step": wst["launches_per_step"][kname]},
             "cases": [{f: c[f] for f in ("case", "ms", "plain_ms", "library_ms", "bound_ms",
-                                         "bound_by", "bound_fp32_ms") if f in c}
+                                         "bound_by", "bound_fp32_ms", "achieved_tflops", "n_split")
+                       if f in c}
                       for c in cases if "ms" in c],
         }
         if kname == "flash_attention_bwd":

@@ -205,7 +205,7 @@ def engines(s: Settings):
 
 
 # the reference's order; its tenth entry, roofline_table, reads TPU dry-run
-# output and is not ported (ROADMAP.md A8)
+# output and is not ported (ROADMAP.md A6)
 BENCHES = (
     ("table2_main", table2_main),
     ("table4_heterogeneity", table4_heterogeneity),

@@ -60,10 +60,17 @@ D)`` (times ``1 - tanh^2(s / c)`` under a softcap, then ``/ sqrt(d)``),
 each kv head's query heads: on a CPU tensor by the plain formulas
 (``ref.flash_attention_bwd_ref``), on a CUDA tensor by
 ``csrc/flash_attention_bwd.cu`` (its own library, so the forward's source
-and bits stay as they are), whose one entry point launches a dQ kernel and
-a dK/dV kernel and counts once in ``BWD_LAUNCHES``.  Every
+and bits stay as they are), whose one entry point launches a dQ kernel, a
+dK/dV kernel and, where the dK/dV walk is split, a reduce kernel, and
+counts once in ``BWD_LAUNCHES``.  Every
 float32 mode of the forward has a backward; the bf16 mode's raises
-``NotImplementedError`` (ROADMAP.md, queue B).
+``NotImplementedError`` (ROADMAP.md, queue B).  The backward's kernels run
+every product in 3xTF32 on the tensor cores; ``BWD_TUNE`` gives their rows
+a block and a streamed tile per head dim, and ``bwd_q_tile_range``,
+``bwd_n_split`` and ``bwd_dkv_walk`` state the dK/dV kernel's schedule in
+Python, for the tests: where its key blocks do not fill the card, each
+block's walk over (query head, live query tile) pairs is cut into
+``n_split`` contiguous ranges, summed afterwards in split order.
 """
 from __future__ import annotations
 
@@ -96,6 +103,12 @@ __all__ = [
     "flash_attention_bwd_plain",
     "flash_attention_bwd_cuda",
     "bwd_smem_bytes",
+    "BWD_TUNE",
+    "bwd_blocks",
+    "bwd_q_tile_range",
+    "bwd_n_split",
+    "bwd_n_split_cuda",
+    "bwd_dkv_walk",
 ]
 
 NAME = "flash_attention"
@@ -111,6 +124,13 @@ HEAD_DIMS = (64, 128, 256)   # the kernel's template instances
 ROWS = 128                   # query rows (head, position) of one kernel block
 # keys of one K/V tile, per mode
 BLOCK_K = {torch.float32: 32, torch.bfloat16: 64}
+# the backward's Tune<D> (csrc/flash_attention_bwd.cu): per head dim, (warps
+# sharing 16 rows, rows of a streamed tile) of the dQ kernel, then of the
+# dK/dV kernel; a block has BWD_WARPS warps
+BWD_TUNE = {64: (1, 64, 1, 32), 128: (1, 32, 2, 32), 256: (2, 16, 4, 32)}
+BWD_WARPS = 8
+BWD_ROW_PAD = 64       # the lse / D scratch's rows: s rounded up to this
+BWD_MAX_SPLIT = 16     # most ranges one dK/dV key block's walk is cut into
 
 
 def reset_launches() -> None:
@@ -187,6 +207,61 @@ def kv_tile_range(p0: int, positions: int, s: int, causal: bool, window: Optiona
         if t >= 0:
             begin = t // block_k + 1
     return begin, end
+
+
+def bwd_blocks(d: int):
+    """``(dq rows, key tile, dkv keys, query tile)`` of the backward's
+    blocks at head dim ``d``: a block of ``BWD_WARPS`` warps owns 16 rows
+    for every ``split`` of them."""
+    q_split, q_tile, kv_split, kv_tile = BWD_TUNE[d]
+    return 16 * BWD_WARPS // q_split, q_tile, 16 * BWD_WARPS // kv_split, kv_tile
+
+
+def bwd_q_tile_range(j0: int, keys: int, s: int, causal: bool, window: Optional[int],
+                     block_q: int, t: Optional[int] = None):
+    """``[begin, end)`` of the query tiles of ``block_q`` rows that the dK/dV
+    block of keys ``j0 .. j0 + keys - 1`` (of ``t``, default ``s``) walks:
+    none wholly above the causal diagonal of its oldest key, none wholly past
+    the window of its newest."""
+    t = s if t is None else t
+    check_cross(s, t, causal, window)
+    nqt = -(-s // block_q)
+    last = min(j0 + keys, t) - 1
+    begin = min(nqt, j0 // block_q) if causal else 0
+    end = min(nqt, (last + window - 1) // block_q + 1) if window else nqt
+    return begin, end
+
+
+def bwd_n_split(b: int, s: int, t: int, h: int, kv: int, d: int, sms: int) -> int:
+    """The ranges each dK/dV key block's walk is cut into on a card of
+    ``sms`` SMs: 1 where the ``ceil(t / keys) * kv * b`` blocks fill the
+    SMs; else the count up to ``BWD_MAX_SPLIT`` (and the ``h / kv`` heads'
+    query tiles) whose grid takes the fewest waves per split, the smallest
+    on a tie.  The shape and the SM count decide it, not the mask."""
+    _, _, keys, tile = bwd_blocks(d)
+    base = -(-t // keys) * kv * b
+    if base >= sms:
+        return 1
+    items = (h // kv) * -(-s // tile)
+    best, best_waves = 1, 1
+    for n in range(2, min(BWD_MAX_SPLIT, items) + 1):
+        waves = -(-base * n // sms)
+        if waves * best < best_waves * n:
+            best, best_waves = n, waves
+    return best
+
+
+def bwd_dkv_walk(split: int, n_split: int, j0: int, s: int, h: int, kv: int, d: int,
+                 causal: bool, window: Optional[int], t: Optional[int] = None):
+    """The ``(query head within the group, query tile)`` pairs that split
+    ``split`` of ``n_split`` of the dK/dV block at key ``j0`` walks, in
+    order: a contiguous range of the block's pairs, head-major."""
+    _, _, keys, tile = bwd_blocks(d)
+    begin, end = bwd_q_tile_range(j0, keys, s, causal, window, tile, t)
+    nq = max(0, end - begin)
+    items = (h // kv) * nq
+    lo, hi = items * split // n_split, items * (split + 1) // n_split
+    return [(i // nq, begin + i % nq) for i in range(lo, hi)]
 
 
 _LIB = None
@@ -287,6 +362,11 @@ def bwd_smem_bytes(head_dim: int):
             int(lib.flash_attention_bwd_smem_bytes(head_dim, 1)))
 
 
+def bwd_n_split_cuda(b: int, s: int, t: int, h: int, kv: int, d: int, sms: int) -> int:
+    """The kernel's own n_split for the shape (``bwd_n_split`` mirrors it)."""
+    return int(_bwd_lib().flash_attention_bwd_n_split(b, s, t, h, kv, d, sms))
+
+
 _BWD_LIB = None
 
 
@@ -297,10 +377,12 @@ def _bwd_lib():
 
         lib = load_library(BWD)
         P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.flash_attention_bwd_f32.argtypes = [P] * 10 + [I] * 8 + [F, F, P]
+        lib.flash_attention_bwd_f32.argtypes = [P] * 11 + [I] * 8 + [F, F, I, I, P]
         lib.flash_attention_bwd_f32.restype = I
         lib.flash_attention_bwd_smem_bytes.argtypes = [I, I]
         lib.flash_attention_bwd_smem_bytes.restype = ctypes.c_longlong
+        lib.flash_attention_bwd_n_split.argtypes = [I] * 7
+        lib.flash_attention_bwd_n_split.restype = I
         _BWD_LIB = lib
     return _BWD_LIB
 
@@ -314,8 +396,9 @@ def _aligned(t: torch.Tensor) -> torch.Tensor:
 
 def flash_attention_bwd_cuda(q, k, v, o, do, *, causal: bool = True,
                              window: Optional[int] = None, softcap: Optional[float] = None):
-    """Launch the backward once on float32 CUDA tensors: the dQ kernel,
-    then the dK/dV kernel; returns (dq, dk, dv)."""
+    """Launch the backward once on float32 CUDA tensors: the dQ kernel, the
+    dK/dV kernel and, at ``n_split`` > 1, the reduce kernel; returns (dq, dk,
+    dv)."""
     check_bwd_dtype(q)
     b, s, t, h, kv, d = _check_cuda(q, k, v, causal, window, softcap)
     for nm, x in (("o", o), ("do", do)):
@@ -323,13 +406,19 @@ def flash_attention_bwd_cuda(q, k, v, o, do, *, causal: bool = True,
             raise ValueError(f"{nm} {tuple(x.shape)} {x.dtype} on {x.device} does not match q")
     q, k, v, o, do = (_aligned(x) for x in (q, k, v, o, do))
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    scratch = torch.empty((2, b, h, s), dtype=torch.float32, device=q.device)
+    sp = -(-s // BWD_ROW_PAD) * BWD_ROW_PAD
+    scratch = torch.empty((2, b, h, sp), dtype=torch.float32, device=q.device)
+    sms = torch.cuda.get_device_properties(q.device).multi_processor_count
+    n_split = bwd_n_split(b, s, t, h, kv, d, sms)
+    # the splits' partial dK, dV: [2, n_split, b, t, kv, d]
+    part = torch.empty((2, n_split, b, t, kv, d) if n_split > 1 else (4,), dtype=torch.float32,
+                       device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     rc = _bwd_lib().flash_attention_bwd_f32(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
         dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), scratch[0].data_ptr(), scratch[1].data_ptr(),
-        b, s, t, h, kv, d, int(bool(causal)), int(window or 0), float(softcap or 0.0),
-        float(math.sqrt(d)), stream,
+        part.data_ptr(), b, s, t, h, kv, d, int(bool(causal)), int(window or 0),
+        float(softcap or 0.0), float(math.sqrt(d)), sms, n_split, stream,
     )
     if rc != 0:
         raise RuntimeError(f"flash_attention backward launch failed: cudaError {rc}")

@@ -7,7 +7,7 @@ over the fleet axis, everything after it is replicated.  Here a rank holds
 its ``W_local`` rows itself, so the layout is a record: which axis, how many
 shards, which rows this rank owns, and the spec string the reference
 reports in ``SimResult.shard_spec``.  The LLM parameter and batch specs
-belong to ROADMAP item A12.
+belong to ROADMAP item A6.
 """
 from __future__ import annotations
 

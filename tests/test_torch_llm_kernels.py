@@ -54,6 +54,8 @@ from repro_torch.kernels.rg_lru_scan import (
 )
 from repro_torch.kernels.rg_lru_scan import F32_RING_STAGES as RING_STAGES
 from repro_torch.kernels.rg_lru_scan import F32_STAGE_STEPS as STAGE_STEPS
+from torch_tf32 import mm_tf32 as _mm
+from torch_tf32 import tf32_rna as _tf32_rna
 
 FLASH_TOL = 3e-5
 SCAN_TOL = 2e-4
@@ -563,13 +565,6 @@ def test_bf16_scan_schedule_emulation_is_bit_identical_to_plain(b, s, r):
 # why 3xTF32: a numpy emulation of the kernel's arithmetic against float64
 # ---------------------------------------------------------------------------
 
-def _tf32_rna(x):
-    """Round float32 to tf32 (10 mantissa bits), nearest, ties away from
-    zero: the kernel's integer form of cvt.rna.tf32.f32."""
-    bits = np.ascontiguousarray(x, np.float32).view(np.uint32)
-    return ((bits + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
-
-
 def _tf32_rna_reference(x):
     """The same rounding from its definition, in float64."""
     x = np.asarray(x, np.float64)
@@ -577,16 +572,6 @@ def _tf32_rna_reference(x):
     scaled = np.abs(m) * 2.0 ** 11           # 11 significant bits
     r = np.floor(scaled + 0.5)               # ties away from zero on |m|
     return (np.sign(m) * r * 2.0 ** (e - 11)).astype(np.float32)
-
-
-def _mm(a, b, passes):
-    """a @ b with both operands rounded to tf32: one pass hi*hi, or three
-    (hi*lo + lo*hi + hi*hi); products summed in float32."""
-    ah, bh = _tf32_rna(a), _tf32_rna(b)
-    if passes == 1:
-        return ah @ bh
-    al, bl = _tf32_rna(a - ah), _tf32_rna(b - bh)
-    return (ah @ bl + al @ bh) + ah @ bh
 
 
 def _attention(q, k, v, matmul):

@@ -14,7 +14,12 @@ slices onto +0).
 
 ``flash_attention`` and ``rg_lru_scan`` under autograd record
 ``_FlashAttention`` / ``_RGLRUScan``, which run these plain backwards on the
-CPU; the bf16 modes' backwards raise ``NotImplementedError``.  Tests marked
+CPU; the bf16 modes' backwards raise ``NotImplementedError``.  The flash
+backward kernel's schedule is checked through its Python statement (its
+constants against the CUDA source; every live (query head, query tile) pair
+of every dK/dV key block walked once across the splits, in the unsplit
+order), and a numpy emulation of its five products records why they run in
+3xTF32 and not one TF32 pass.  Tests marked
 ``cuda`` hold the backward kernels against the plain backwards on the card
 (this file imports no JAX, so ``python -m pytest -q -m cuda
 tests/test_torch_train_kernels.py`` runs there) and skip elsewhere.
@@ -33,11 +38,12 @@ from repro_torch.kernels.ref import (
     rg_lru_ref,
 )
 from repro_torch.kernels.rg_lru_scan import rg_lru_scan
+from torch_tf32 import mm_tf32, tf32_rna
 
 BWD_TOL = 1e-5
-# the kernel against the plain backward on the card: FP32 FFMA against
-# float32 einsums in another order, and P recomputed from the row's
-# log-sum-exp instead of softmax's max and sum
+# the kernel against the plain backward on the card: 3xTF32 tensor-core
+# products against float32 einsums in another order, and P recomputed from
+# the row's log-sum-exp instead of softmax's max and sum
 CUDA_BWD_TOL = 1e-4
 
 
@@ -146,6 +152,133 @@ def test_bf16_backwards_raise_naming_the_roadmap():
 
 
 # ---------------------------------------------------------------------------
+# the flash backward kernel's schedule and arithmetic, in Python
+# ---------------------------------------------------------------------------
+
+def test_bwd_schedule_constants_are_the_kernels():
+    """The Python statement's constants are those the CUDA source builds with."""
+    import re
+
+    from repro_torch.kernels import build
+
+    src = (build.CSRC / "flash_attention_bwd.cu").read_text()
+    tune = {int(d): tuple(int(x) for x in rest) for d, *rest in re.findall(
+        r"struct Tune<(\d+)> \{ static constexpr int Q_SPLIT = (\d+), Q_TILE = (\d+), "
+        r"KV_SPLIT = (\d+), KV_TILE = (\d+); \};", src)}
+    assert tune == fa_mod.BWD_TUNE and set(tune) == set(fa_mod.HEAD_DIMS)
+
+    def const(name):
+        return int(re.search(rf"constexpr int {name} = (\d+);", src).group(1))
+
+    assert (fa_mod.BWD_WARPS, fa_mod.BWD_ROW_PAD, fa_mod.BWD_MAX_SPLIT) == (
+        const("WARPS"), const("ROW_PAD"), const("MAX_SPLIT"))
+
+
+# (s, t, h, kv, d, kw): causal, windows, the cross mode, GQA groups that the
+# splits cut mid-head, one query, the training shapes
+SPLIT_SHAPES = [
+    (64, 64, 16, 1, 256, {"window": 2048}),
+    (333, 333, 6, 2, 128, {"window": 70}),
+    (100, 100, 6, 2, 128, {}),
+    (77, 77, 6, 2, 256, {"window": 20}),
+    (150, 150, 4, 2, 64, {"window": 33}),
+    (64, 64, 12, 12, 64, {}),
+    (40, 150, 8, 2, 256, {"causal": False}),
+    (45, 1500, 12, 12, 64, {"causal": False}),
+    (29, 29, 2, 2, 64, {"causal": False, "window": 5}),
+    (1, 1, 4, 1, 64, {}),
+]
+
+
+@pytest.mark.parametrize("s,t,h,kv,d,kw", SPLIT_SHAPES)
+@pytest.mark.parametrize("b", [1, 2, 8])
+def test_bwd_splits_walk_every_live_pair_once_in_order(b, s, t, h, kv, d, kw):
+    causal, window = kw.get("causal", True), kw.get("window")
+    _, _, keys, tile = fa_mod.bwd_blocks(d)
+    rep = h // kv
+
+    def kept(i, j):
+        return i < s and j < t and (not causal or j <= i) and (window is None or j > i - window)
+
+    for sms in (132, 16, 1000):
+        n = fa_mod.bwd_n_split(b, s, t, h, kv, d, sms)
+        base = -(-t // keys) * kv * b
+        assert 1 <= n <= fa_mod.BWD_MAX_SPLIT
+        if base >= sms:
+            assert n == 1
+        else:
+            # the fewest waves per split among the counts it may take
+            cost = lambda m: -(-base * m // sms) / m
+            cands = range(1, min(fa_mod.BWD_MAX_SPLIT, rep * -(-s // tile)) + 1)
+            assert cost(n) == min(cost(m) for m in cands)
+            assert all(cost(m) > cost(n) for m in cands if m < n)
+        for j0 in range(0, t, keys):
+            whole = fa_mod.bwd_dkv_walk(0, 1, j0, s, h, kv, d, causal, window, t)
+            live = [qt for qt in range(-(-s // tile))
+                    if any(kept(i, j) for i in range(qt * tile, (qt + 1) * tile)
+                           for j in range(j0, min(j0 + keys, t)))]
+            assert whole == [(hh, qt) for hh in range(rep) for qt in live]
+            parts = [fa_mod.bwd_dkv_walk(sp, n, j0, s, h, kv, d, causal, window, t)
+                     for sp in range(n)]
+            assert [x for part in parts for x in part] == whole
+
+
+def test_bwd_splits_fill_the_card_at_the_training_shapes():
+    """recurrentgemma-9b's training shape (b 8, s 64, 16/1, d 256) has 16
+    dK/dV blocks of 32 keys: 8 splits make 128 blocks on 132 SMs.  The long
+    shapes and whisper-small's fill the card unsplit."""
+    assert fa_mod.bwd_n_split(8, 64, 64, 16, 1, 256, 132) == 8
+    for shape in [(2, 3072, 3072, 16, 1, 256), (1, 3072, 3072, 64, 8, 128),
+                  (2, 3072, 3072, 8, 4, 256), (2, 448, 1500, 12, 12, 64),
+                  (8, 64, 1500, 12, 12, 64)]:
+        assert fa_mod.bwd_n_split(*shape, 132) == 1
+
+
+def _bwd_products(q, k, v, o, do, mm, dt):
+    """The five products of one causal head's backward (S, dP, dQ, dK, dV)
+    through ``mm``, the elementwise steps in ``dt``."""
+    sc = dt(1 / np.sqrt(q.shape[1]))
+    s = np.where(np.tril(np.ones((q.shape[0], k.shape[0]), bool)), mm(q, k.T) * sc, -np.inf)
+    p = np.exp(s - s.max(-1, keepdims=True))
+    p = (p / p.sum(-1, keepdims=True)).astype(dt)
+    ds = (p * (mm(do, v.T) - (do * o).sum(-1, keepdims=True)) * sc).astype(dt)
+    return mm(ds, k), mm(ds.T, q), mm(p.T, do)
+
+
+def _mm_kernel(a, b):
+    """a @ b as the backward kernel takes it: hi = tf32(x) rounded, lo = x -
+    hi left whole and read by the tensor core as its top 19 bits;
+    hi*lo + lo*hi + hi*hi summed in float32."""
+    def cut(x):
+        return (np.ascontiguousarray(x, np.float32).view(np.uint32)
+                & np.uint32(0xFFFFE000)).view(np.float32)
+
+    ah, bh = tf32_rna(a), tf32_rna(b)
+    return (ah @ cut(b - bh) + cut(a - ah) @ bh) + ah @ bh
+
+
+def test_three_tf32_passes_keep_the_backward_bar_and_one_does_not():
+    s, d = 256, 256
+    rng = np.random.default_rng(29)
+    q, k, v, do = (rng.normal(size=(s, d)).astype(np.float32) for _ in range(4))
+    x64 = [x.astype(np.float64) for x in (q, k, v, do)]
+    sc = np.where(np.tril(np.ones((s, s), bool)), x64[0] @ x64[1].T / np.sqrt(d), -np.inf)
+    p64 = np.exp(sc - sc.max(-1, keepdims=True))
+    o64 = (p64 / p64.sum(-1, keepdims=True)) @ x64[2]
+    ref = _bwd_products(*x64[:3], o64, x64[3], np.matmul, np.float64)
+    top = max(np.abs(r).max() for r in ref)
+
+    def err(mm):
+        got = _bwd_products(q, k, v, o64.astype(np.float32), do, mm, np.float32)
+        return max(np.abs(g - r).max() for g, r in zip(got, ref)) / top
+
+    err32 = err(np.matmul)
+    for err3 in (err(lambda a, b: mm_tf32(a, b, 3)), err(_mm_kernel)):
+        assert err3 <= CUDA_BWD_TOL and err3 <= 4 * err32
+    assert err(lambda a, b: mm_tf32(a, b, 1)) > CUDA_BWD_TOL
+
+
+# ---------------------------------------------------------------------------
 # on the card: the backward kernels against the plain backwards
 # ---------------------------------------------------------------------------
 
@@ -165,6 +298,15 @@ def card():
     (1, 2200, 2200, 16, 1, 256, {"window": 2048}),
     (2, 64, 16, 12, 12, 64, {"causal": False}),
     (1, 300, 300, 8, 4, 256, {"softcap": 50.0}),
+    # dK/dV walks cut into n_split > 1 ranges that cut GQA groups mid-head,
+    # over ragged key blocks (12 splits at d 128, 9 at d 256 on 132 SMs)
+    (2, 100, 100, 6, 2, 128, {}),
+    (1, 77, 77, 6, 2, 256, {"window": 20}),
+    # every head dim under a window; the cross mode with ragged key tiles
+    (1, 150, 150, 4, 2, 64, {"window": 33}),
+    (1, 150, 150, 4, 1, 128, {"window": 40}),
+    (1, 45, 1500, 12, 12, 64, {"causal": False}),
+    (2, 40, 150, 8, 2, 256, {"causal": False}),
 ])
 def test_cuda_flash_backward_matches_plain(card, b, s, t, h, kv, d, kw):
     q, k, v, do = _qkv(s + t + h, b, s, t, h, kv, d, device=card)
@@ -178,6 +320,16 @@ def test_cuda_flash_backward_matches_plain(card, b, s, t, h, kv, d, kw):
     # no atomics: a second run gives the same bits
     for x, y in zip(got, fa_mod.flash_attention_bwd_cuda(q, k, v, o, do, **kw)):
         assert torch.equal(x, y)
+
+
+@pytest.mark.cuda
+def test_cuda_bwd_n_split_is_the_mirrors(card):
+    sms = torch.cuda.get_device_properties(card).multi_processor_count
+    for s, t, h, kv, d, _ in SPLIT_SHAPES:
+        for b in (1, 2, 8):
+            for n in (sms, 16, 1000):
+                assert fa_mod.bwd_n_split_cuda(b, s, t, h, kv, d, n) == fa_mod.bwd_n_split(
+                    b, s, t, h, kv, d, n)
 
 
 @pytest.mark.cuda
