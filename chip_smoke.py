@@ -110,8 +110,8 @@ skew 0.5) and the drift, crash, outage and wave faults:
                     a bar the same run with TF32 products must exceed; at
                     least one skipped or degraded round, one churn, one
                     recovery and one drift event.
-16. dgc           — the same scenario with dgc_sparsity 0.9 and resident
-                    momentum, pruning at fixed rates in index order (see
+16. dgc           — the same scenario cut to ``DGC_ROUNDS`` = 4 rounds,
+                    with dgc_sparsity 0.9 and resident momentum, pruning at fixed rates in index order (see
                     DGC_RATES), masked, block_skip against dense: identical prune
                     events and scenario rounds; update times equal except
                     on a (round, row) whose realized kept counts differ by
@@ -375,7 +375,7 @@ Slice 16, the MoE and xLSTM block kinds (``moe``, ``moe_local``, ``mlstm``,
                    layer, the float32 scan once per sLSTM layer (the
                    sLSTM's cell and normaliser in one launch), pruned_matmul
                    never; two prefills bit-identical; the forward's aux
-                   loss finite and > 0 with MoE layers.  ``MoESpy``
+                   loss finite and > 0 with MoE layers.  ``RoutingSpy``
                    records each MoE layer's routed counts against its
                    capacity (``moe.prefill``, ``moe.forward``: max count,
                    dropped assignments, the factor that would drop none)
@@ -456,6 +456,31 @@ the RG-LRU scan (``rg_lru_scan_bwd_f32`` in ``csrc/rg_lru_scan.cu``):
                    ``torch.profiler`` window: its device time by kernel
                    group (GEMMs, each port kernel, the rest) beside its wall
                    time.
+
+Slice 20, checkpoints, the quickstart and the expert-parallel MoE path:
+
+38. quickstart    — ``examples/torch_quickstart.py``'s ``main`` on the card
+                   (smoke internlm2-1.8b, 60 AdamW steps, the gamma = 0.6
+                   sub-model served): the loss falls, flash launched once
+                   per attention layer in each step's forward and backward
+                   and in the sub-model's prefill; the trained params saved
+                   with a global index and a CIG order and reloaded (every
+                   leaf and extra bit for bit, the same greedy tokens and
+                   logits served), and a bf16 leaf through its ``<V2``
+                   member.
+39. moe_ep        — ``moe_fwd``'s expert-parallel path on 2 model ranks
+                   sharing the card over gloo (``launch.mesh.moe_serve``):
+                   granite-moe-1b-a400m at full size in float32 at capacity
+                   factor 1.25 and drop-free, llama4-maverick in bf16 at full
+                   width cut to ``LLAMA4_LAYERS``, each rank holding half of
+                   the experts; against the one-rank run of the same params
+                   (routing per MoE call equal with its choices replayed,
+                   the first MoE layer bit for bit its sums in the path's
+                   order on one rank, float32 within ``EP_FIRST_TOL`` of the
+                   one-rank path, logits at
+                   ``moe_xlstm_serve``'s bar, ranks and two runs bit-
+                   identical); held and peak GB per rank against one rank,
+                   the psum's ms and transport.
 
 Then a ``{"phase": "done"}`` line with the script's seconds, a
 ``{"kernels": [...]}`` line, the ``nvidia-smi`` name/power line, and as the
@@ -1632,77 +1657,6 @@ def phase_llm_times(report):
     return rec
 
 
-class MoESpy:
-    """Wraps the port's ``models.moe._dispatch_compute_combine`` while
-    ``installed()`` is open.  Records each call (one an MoE layer, in
-    order): its token count T, capacity C, the routed counts an expert and
-    the router probabilities; ``choices()`` gives each token's expert set
-    (sorted top-k) after the run, so a recorded run pays no device work of
-    the spy's.  ``host_s`` is the spy's own host time inside the calls.
-
-    With ``replay`` (one ``[T, k]`` table of expert sets a call) it also
-    makes each call follow those decisions: on a row whose top-k set
-    differs, the probabilities of the experts it would choose and those of
-    the replayed set are swapped pairwise (largest with largest), so the
-    row routes as replayed with gates that move by no more than the swapped
-    gaps.  ``flipped`` marks those rows."""
-
-    def __init__(self, replay=None):
-        self.calls = []
-        self.replay = replay
-        self.host_s = 0.0
-
-    def __call__(self, params, spec, xf, probs, e_lo, n_local):
-        import torch
-        from repro_torch.models import moe as moe_mod
-
-        t0 = time.perf_counter()
-        k = spec.num_experts_per_tok
-        rec = {"T": xf.shape[0], "C": moe_mod.capacity(spec, xf.shape[0]), "k": k, "probs": probs}
-        routed = probs
-        if self.replay is not None:
-            rec["choice"] = choice = torch.topk(probs, k, dim=-1).indices.sort(dim=-1).values
-            want = self.replay[len(self.calls)]
-            flipped = (choice != want).any(dim=-1)
-            rows = flipped.nonzero().flatten().tolist()
-            if rows:
-                routed = probs.clone()
-                for r in rows:
-                    mine, theirs = set(choice[r].tolist()), set(want[r].tolist())
-                    out_ = sorted(mine - theirs, key=lambda e: -float(probs[r, e]))
-                    in_ = sorted(theirs - mine, key=lambda e: -float(probs[r, e]))
-                    for i, j in zip(out_, in_):
-                        routed[r, i], routed[r, j] = probs[r, j], probs[r, i]
-                got = torch.topk(routed[rows], k, dim=-1).indices.sort(dim=-1).values
-                check(torch.equal(got, want[rows]), "moe replay: swapped rows do not route as replayed")
-            rec["flipped"] = flipped
-        self.host_s += time.perf_counter() - t0
-        out, counts = self.real(params, spec, xf, routed, e_lo, n_local)
-        rec["counts"] = counts
-        self.calls.append(rec)
-        return out, counts
-
-    def choices(self):
-        """Each call's expert sets, ``[T, k]`` sorted, from its probabilities."""
-        import torch
-
-        for c in self.calls:
-            if "choice" not in c:
-                c["choice"] = torch.topk(c["probs"], c["k"], dim=-1).indices.sort(dim=-1).values
-        return [c["choice"] for c in self.calls]
-
-    @contextlib.contextmanager
-    def installed(self):
-        from repro_torch.models import moe as moe_mod
-
-        self.real = moe_mod._dispatch_compute_combine
-        moe_mod._dispatch_compute_combine = self
-        try:
-            yield self
-        finally:
-            moe_mod._dispatch_compute_combine = self.real
-
-
 def moe_routing(calls) -> dict:
     """Per MoE call (one a layer): the largest routed count of an expert,
     the assignments past capacity, and the capacity factor that would have
@@ -1855,14 +1809,14 @@ def _serve_once(cfg, label, gen_seed, phase="serve", decode_bar=DECODE_TOL, enve
     either dtype) once per rglru or slstm layer, nothing else.  A second
     prefill alone, compared bit for bit with the first.  Then each step's
     logits against ``forward`` over prompt + generated tokens, within
-    ``decode_bar``.  With MoE layers, ``MoESpy`` records the routing of the
+    ``decode_bar``.  With MoE layers, ``RoutingSpy`` records the routing of the
     prefill, the decode steps and the forward (the forward's router gaps at
     the compared positions).  An assignment dropped at capacity in the
     prefill or the forward changes what decode is compared with (the
     reference's semantics), so the bar is then recorded and not held
     (``decode_bar_held``): the caller reruns at a drop-free capacity.  On a
     drop-free run the forward replays the served run's expert choices
-    (``MoESpy(replay=...)``): a router near-tie that rounding tipped the
+    (``RoutingSpy(replay=...)``): a router near-tie that rounding tipped the
     other way is compared on the same decisions, provided the replayed
     rows' probabilities moved by at most ``ENVELOPE_EXCESS`` x the largest
     shift of every row whose decisions agreed (``moe.replay``).  With
@@ -1886,6 +1840,7 @@ def _serve_once(cfg, label, gen_seed, phase="serve", decode_bar=DECODE_TOL, enve
     from repro_torch.launch.serve import serve_batch
     from repro_torch.models import transformer as T
     from repro_torch.models.config import param_count
+    from repro_torch.models.moe import RoutingSpy
 
     dev = torch.device(DEVICE)
     b, s, n = SERVE["batch"], SERVE["prompt"], SERVE["new_tokens"]
@@ -1905,7 +1860,7 @@ def _serve_once(cfg, label, gen_seed, phase="serve", decode_bar=DECODE_TOL, enve
     torch.cuda.reset_peak_memory_stats()
     for mod in (fa_mod, rg_mod, pm_mod):
         mod.reset_launches()
-    serve_spy, flash_spy, sampled = MoESpy(), FlashSpy(), {}
+    serve_spy, flash_spy, sampled = RoutingSpy(), FlashSpy(), {}
     with clock_samples(sampled):
         with serve_spy.installed(), flash_spy.installed():
             out, logits = serve_batch(cfg, params, prompts, n, extra, device=DEVICE, stats=stats,
@@ -1946,7 +1901,7 @@ def _serve_once(cfg, label, gen_seed, phase="serve", decode_bar=DECODE_TOL, enve
             serve_spy.choices()
             replay = [table("choice", L) for L in range(moe_layers)]
             served_probs = [table("probs", L) for L in range(moe_layers)]
-    fwd_spy = MoESpy(replay=replay)
+    fwd_spy = RoutingSpy(replay=replay)
     with fwd_spy.installed():
         full, aux = T.forward(params, cfg, {"tokens": torch.cat([prompts, out], dim=1), **extra})
     fwd_calls = fwd_spy.calls
@@ -2598,6 +2553,10 @@ KEPT_TIE_FRACTION = 1e-4
 # dgc phase therefore prunes at fixed rates in index order, as ``parity``
 # does: the budgets and the order are the same in both runs by construction.
 DGC_RATES = [round(0.08 * w, 2) for w in range(10)]      # 0.0 .. 0.72
+# the DGC runs' depth: two prune events (rounds 2 and 4) and the drift, crash
+# and churn of FLEET; cut from FLEET_ROUNDS to keep the script inside its
+# time limit (the outage of rounds 5-6 is held by ``scenario``)
+DGC_ROUNDS = 4
 
 
 def dgc_clock_mismatches(a, a_rounds, b, b_rounds):
@@ -2633,12 +2592,12 @@ def phase_dgc(report):
         reset_launches()
         torch.cuda.reset_peak_memory_stats()
         try:
-            res = run_simulation(fleet_sim(compute=compute, **kw))
+            res = run_simulation(fleet_sim(compute=compute, rounds=DGC_ROUNDS, **kw))
         finally:
             undo()
         out[compute] = (res, records, sim_launches(), torch.cuda.max_memory_allocated() / 2**30)
     (bs, bs_dgc, launches, peak), (dn, dn_dgc, _, _) = out["block_skip"], out["dense"]
-    envelope = one_ulp_envelope(fleet_sim(compute="dense", **kw), dn)
+    envelope = one_ulp_envelope(fleet_sim(compute="dense", rounds=DGC_ROUNDS, **kw), dn)
     live = first_live_round(dn)
     fr = first_round(fleet_sim(rounds=live, local_epochs=0.25, compute="block_skip", **kw),
                      fleet_sim(rounds=live, local_epochs=0.25, compute="dense", **kw), dgc=True)
@@ -2648,6 +2607,7 @@ def phase_dgc(report):
     mismatches = dgc_clock_mismatches(bs, bs_dgc, dn, dn_dgc)
     rec = {
         "phase": "dgc", "dgc_sparsity": 0.9, "resident_momentum": True, "rates": DGC_RATES,
+        "rounds": DGC_ROUNDS,
         "launches": launches, "peak_mem_gb": peak,
         "steady_ms_per_step": steady_ms(bs), "dense_steady_ms_per_step": steady_ms(dn),
         "walltime_s": [bs.walltime_s, dn.walltime_s],
@@ -3346,10 +3306,10 @@ def phase_fused_dgc(report, dgc_rec, dense, dense_dgc):
     kw = dict(dgc_sparsity=0.9, resident_momentum=True, fixed_pruned_rates=[DGC_RATES, DGC_RATES])
     records, undo = fused_dgc_spy()
     try:
-        res = run_simulation(fused_fleet_sim(**kw))
+        res = run_simulation(fused_fleet_sim(rounds=DGC_ROUNDS, **kw))
     finally:
         undo()
-    again = run_simulation(fused_fleet_sim(**kw))
+    again = run_simulation(fused_fleet_sim(rounds=DGC_ROUNDS, **kw))
     ut = np.array(res.update_times)
     live = [i for i in range(len(ut)) if not np.isnan(ut[i]).all()]
     # one compressor call per live round (skipped rounds do not compress)
@@ -5113,9 +5073,10 @@ def bf16_envelope(cfg, seed):
     float32|, teacher-forced over a batch of ``SERVE``'s shape at the
     positions ``_serve_once`` compares (the prompt's last and the new
     tokens').  With MoE layers the float32 run replays the bf16 run's
-    expert choices (``MoESpy``), so E compares the same decisions."""
+    expert choices (``RoutingSpy``), so E compares the same decisions."""
     import torch
     from repro_torch.models import transformer as T
+    from repro_torch.models.moe import RoutingSpy
 
     dev = torch.device(DEVICE)
     b, s, n = SERVE["batch"], SERVE["prompt"], SERVE["new_tokens"]
@@ -5124,12 +5085,12 @@ def bf16_envelope(cfg, seed):
     params = T.init_params(gen, cfg)
     toks = torch.randint(0, cfg.vocab_size, (b, s + n), generator=gen, device=dev)
     extra = serve_extras(cfg, gen, b)
-    low_spy = MoESpy()
+    low_spy = RoutingSpy()
     with low_spy.installed():
         low = T.forward(params, cfg, {"tokens": toks, **extra})[0][:, s - 1:].clone()
     upcast_(params)
     # with MoE layers the float32 run follows the bf16 run's expert choices
-    f32_spy = MoESpy(replay=low_spy.choices())
+    f32_spy = RoutingSpy(replay=low_spy.choices())
     with f32_spy.installed():
         f32 = T.forward(params, cfg.replace(dtype="float32"), {"tokens": toks, **extra})[0][:, s - 1:]
     torch.cuda.synchronize()
@@ -5839,6 +5800,333 @@ def phase_llm_train(report):
     return out
 
 
+# ---------------------------------------------------------------------------
+# slice 20: checkpoints and the quickstart, and the expert-parallel MoE path
+# ---------------------------------------------------------------------------
+
+# the first MoE layer's output on the expert-parallel path against the
+# one-rank path, of max|out|, in float32 (only the order of the sums
+# differs).  In bf16 each rank's partial output is rounded before the
+# partials are added, and the partials can be larger than their sum, so no
+# bar relative to |out| holds: there the first layer is held bit for bit to
+# the same sums in the path's order on one rank (``_ep_order``), as float32
+# is too, and its distance from the one-rank path is recorded
+EP_FIRST_TOL = 1e-5
+# the expert-parallel runs: EP["ranks"] model ranks sharing the card over
+# gloo, batch 2 x EP["prompt"] tokens and EP["new_tokens"] decode steps at
+# full width (a short prompt keeps the two slice-20 phases under a minute)
+EP = {"ranks": 2, "batch": 2, "prompt": 256, "new_tokens": 4, "seed": 50}
+
+
+def phase_quickstart(report):
+    """Slice 20: ``examples/torch_quickstart.py``'s ``main`` on the card at
+    its defaults (smoke internlm2-1.8b, 60 AdamW steps, batch 8, lr 1e-3,
+    then the gamma = 0.6 sub-model served): the loss falls; flash launched
+    once per attention layer in each step's forward and backward and in the
+    sub-model's prefill, none in the cross spec (``FlashSpy``; counts zeroed
+    just before ``main``).  The trained params saved with a global index
+    and a CIG order (``repro_torch.checkpoint``) and reloaded onto the
+    card: every leaf and extra bit for bit; the reloaded and the trained
+    model served with identical greedy tokens and logits.  A bf16 leaf's
+    round trip through its ``<V2`` member, bit for bit."""
+    import importlib.util
+    import shutil
+    import tempfile
+    import zipfile
+
+    import torch
+    from repro_torch.checkpoint import load_checkpoint, save_checkpoint, tree_from_checkpoint
+    from repro_torch.kernels import flash_attention as fa_mod
+    from repro_torch.launch.serve import serve_batch
+    from repro_torch.optim.optimizers import tree_leaves
+
+    t0 = time.perf_counter()
+    spec = importlib.util.spec_from_file_location("torch_quickstart",
+                                                  ROOT / "examples" / "torch_quickstart.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    fa_mod.reset_launches()
+    spy = FlashSpy()
+    with spy.installed():
+        q = mod.main([])
+    fwd, bwd = dict(fa_mod.LAUNCHES), dict(fa_mod.BWD_LAUNCHES)
+    main_s = time.perf_counter() - t0
+    cfg, sub, params = q["cfg"], q["sub_cfg"], q["params"]
+    steps = len(q["losses"])
+    attn = sum(k in ("attn", "local", "moe", "moe_local") for k in cfg.layer_kinds())
+    sub_attn = sum(k in ("attn", "local", "moe", "moe_local") for k in sub.layer_kinds())
+    want_fwd = {**dict.fromkeys(fwd, 0), "flash_attention": steps * attn + sub_attn}
+    want_bwd = {**dict.fromkeys(bwd, 0), "flash_attention_bwd": steps * attn}
+    # the checkpoint: a global index and a CIG order for each FFN layer of
+    # the 0.6 sub-model (seeded), as a worker's and the server's
+    rng = np.random.default_rng(EP["seed"])
+    order = {f"layer{i}/ffn": rng.permutation(cfg.d_ff) for i in range(cfg.num_layers)}
+    gidx = {k: np.sort(v[: sub.d_ff]) for k, v in order.items()}
+    meta = {"arch": cfg.name, "retention": 1.0, "steps": steps}
+    tmp = Path(tempfile.mkdtemp(prefix="quickstart_ckpt_"))
+    try:
+        t1 = time.perf_counter()
+        save_checkpoint(str(tmp / "trained"), params, step=steps, global_index=gidx,
+                        importance_order=order, meta=meta)
+        save_s = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        flat, extras = load_checkpoint(str(tmp / "trained"))
+        loaded = tree_from_checkpoint(flat, device=DEVICE, like=params)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t1
+        size = (tmp / "trained.npz").stat().st_size
+        leaves = list(zip(tree_leaves(params), tree_leaves(loaded)))
+        leaves_equal = all(a.dtype == b.dtype and a.shape == b.shape and torch.equal(a, b)
+                           for a, b in leaves)
+        extras_equal = (extras["step"] == steps and extras["meta"] == meta
+                        and all(np.array_equal(extras["global_index"][k], v) for k, v in gidx.items())
+                        and all(np.array_equal(extras["importance_order"][k], v)
+                                for k, v in order.items())
+                        and extras["global_index"].keys() == gidx.keys())
+        prompts = q["prompts"]
+        tok_a, log_a = serve_batch(cfg, params, prompts, 8, device=DEVICE, return_logits=True)
+        tok_b, log_b = serve_batch(cfg, loaded, prompts, 8, device=DEVICE, return_logits=True)
+        # a bf16 leaf through the <V2 bytes
+        bf = torch.randn(3, 5, generator=torch.Generator(device=DEVICE).manual_seed(1),
+                         device=DEVICE).bfloat16()
+        save_checkpoint(str(tmp / "bf16"), {"w": bf})
+        with zipfile.ZipFile(tmp / "bf16.npz") as z:
+            header_v2 = b"'descr': '<V2'" in z.read("param::w.npy")
+        back = tree_from_checkpoint(load_checkpoint(str(tmp / "bf16"))[0], device=DEVICE)["w"]
+        bf16_equal = back.dtype == torch.bfloat16 and torch.equal(back.view(torch.int16),
+                                                                  bf.view(torch.int16))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    gen = q["generated"]
+    rec = {"phase": "quickstart", "arch": cfg.name, "params": sum(t.numel() for t in tree_leaves(params)),
+           "sub_model": {"retention": sub.retention, "d_ff": sub.d_ff,
+                         "generated": gen.cpu().tolist()},
+           "steps": steps, "loss_first": q["losses"][0], "loss_last": q["losses"][-1],
+           "train_s": q["seconds"], "ms_per_step": q["seconds"] / steps * 1e3,
+           "main_s": main_s, "flash_launches": fwd, "flash_bwd_launches": bwd,
+           "expected_launches": {**want_fwd, **want_bwd}, "cross_launches": spy.cross,
+           "checkpoint": {"bytes": size, "save_s": save_s, "load_s": load_s,
+                          "leaves": len(leaves), "leaves_bit_identical": leaves_equal,
+                          "extras_equal": extras_equal, "bf16_header_v2": header_v2,
+                          "bf16_bit_identical": bf16_equal},
+           "reloaded_tokens_equal": bool(torch.equal(tok_a, tok_b)),
+           "reloaded_logits_bit_identical": bool(torch.equal(log_a, log_b)),
+           "seconds": time.perf_counter() - t0}
+    emit(rec)
+    report["quickstart"] = rec
+    check(q["losses"][-1] < q["losses"][0], f"quickstart: loss {q['losses'][0]} -> {q['losses'][-1]}")
+    check(fwd == want_fwd and bwd == want_bwd and spy.cross == 0,
+          f"quickstart: flash launches {fwd} / {bwd}, want {want_fwd} / {want_bwd}")
+    check(leaves_equal and extras_equal, "quickstart: the reloaded checkpoint differs")
+    check(header_v2 and bf16_equal, "quickstart: the bf16 leaf did not round-trip as <V2")
+    check(rec["reloaded_tokens_equal"] and rec["reloaded_logits_bit_identical"],
+          "quickstart: the reloaded model serves otherwise")
+    check(tuple(gen.shape) == (2, 8) and bool(((gen >= 0) & (gen < sub.vocab_size)).all()),
+          "quickstart: the sub-model's tokens")
+    del params, loaded, q
+    torch.cuda.empty_cache()
+    return rec
+
+
+def _ep_order(p, spec, x, n):
+    """The expert-parallel ``moe_fwd`` of ``x`` computed on this device in
+    the path's order: rank ``r``'s experts ``[r E/n, (r+1) E/n)`` and
+    ``1 / n`` of the shared expert, each rank's partial rounded in the
+    activation dtype, the partials added in rank order."""
+    import torch
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models.layers import silu
+
+    b, s, D = x.shape
+    xf = x.reshape(b * s, D)
+    E = spec.num_experts
+    probs = torch.softmax(xf.float() @ p["w_router"][:, :E], dim=-1)
+    el = E // n
+    total = None
+    for r in range(n):
+        mine = {k: p[k][r * el:(r + 1) * el].contiguous() for k in ("w_gate", "w_up", "w_down")}
+        out, _ = moe_mod._dispatch_compute_combine(mine, spec, xf, probs, r * el, el)
+        if spec.shared_expert:
+            sf = p["ws_gate"].shape[1] // n
+            cols = slice(r * sf, (r + 1) * sf)
+            sh = (silu(xf @ p["ws_gate"][:, cols].contiguous())
+                  * (xf @ p["ws_up"][:, cols].contiguous()))
+            out = out + sh @ p["ws_down"][cols].contiguous()
+        total = out if total is None else total + out
+    return total.reshape(b, s, D)
+
+
+def _ep_reference(cfg, label):
+    """The one-rank run of an ``moe_ep`` case on the card: the seeded init,
+    ``serve_batch`` of a seeded batch (its greedy tokens, logits and the
+    routing of every MoE call), then the first MoE layer's ``moe_fwd`` on
+    that layer's prefill input; its peak memory from after the init."""
+    import torch
+    from repro_torch.launch.mesh import first_moe_params
+    from repro_torch.launch.serve import serve_batch, serve_numerics
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models import transformer as T
+    from repro_torch.models.moe import RoutingSpy
+    from repro_torch.optim.optimizers import tree_leaves
+
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev).manual_seed(EP["seed"])
+    params = T.init_params(gen, cfg)
+    prompts = torch.randint(0, cfg.vocab_size, (EP["batch"], EP["prompt"]),
+                            generator=torch.Generator(device=dev).manual_seed(EP["seed"] + 1),
+                            device=dev)
+    torch.cuda.synchronize()
+    held = sum(t.numel() * t.element_size() for t in tree_leaves(params))
+    torch.cuda.reset_peak_memory_stats()
+    firsts = []
+    real = moe_mod.moe_fwd
+
+    def tap(p, spec, x):
+        if not firsts:
+            firsts.append(x.detach().clone())
+        return real(p, spec, x)
+
+    spy = RoutingSpy()
+    moe_mod.moe_fwd = tap
+    try:
+        with spy.installed():
+            out, logits = serve_batch(cfg, params, prompts, EP["new_tokens"], device=DEVICE,
+                                      return_logits=True)
+            with serve_numerics(), torch.no_grad():
+                first = real(first_moe_params(params, cfg), T._moe_spec(cfg), firsts[0])
+    finally:
+        moe_mod.moe_fwd = real
+    with serve_numerics(), torch.no_grad():
+        ordered = _ep_order(first_moe_params(params, cfg), T._moe_spec(cfg), firsts[0], EP["ranks"])
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    ref = {"label": label, "prompts": prompts.cpu().numpy(), "tokens": out.cpu().numpy(),
+           "logits": logits.float().cpu(), "first_x": firsts[0].float().cpu().numpy(),
+           "first_out": first[0].float().cpu(), "first_aux": float(first[1]),
+           "first_ep_order": ordered.float().cpu(),
+           "choices": [c.cpu().numpy() for c in spy.choices()],
+           "calls": [{"T": c["T"], "C": c["C"], "counts": c["counts"].cpu(),
+                      "probs": c["probs"].float().cpu()} for c in spy.calls],
+           "held_bytes": held, "peak_bytes": peak}
+    del params, logits, first, firsts, spy, ordered
+    torch.cuda.empty_cache()
+    return ref
+
+
+def phase_moe_ep(report, moex):
+    """Slice 20: the expert-parallel MoE path (``moe_fwd`` under a
+    ``make_local_mesh(1, 2)`` mesh) on ``EP["ranks"]`` ranks sharing the
+    card over gloo (NCCL refuses two ranks on one device; gloo takes the
+    card tensors itself, ``gloo-cuda``), each rank holding its half of the
+    experts and of the shared expert: granite-moe-1b-a400m at full size in
+    float32 at its capacity factor 1.25 and drop-free (E / k), and
+    llama4-maverick at full width in bf16 cut to ``LLAMA4_LAYERS`` layers.
+    Each against the one-rank run of the same params on the card
+    (``_ep_reference``), the ranks fed its greedy tokens and replaying its
+    expert choices (``RoutingSpy``): per MoE call the token count,
+    capacity and routed counts equal (so the dropped assignments too), each
+    replayed row a near-tie within ``ENVELOPE_EXCESS`` x the spread of the
+    rows that agreed; the first MoE layer's output bit for bit the same
+    sums in the path's order on one rank (``_ep_order``) and, in float32,
+    within ``EP_FIRST_TOL`` of max|out| of the one-rank path; the logits within ``moe_xlstm_serve``'s bar (float32
+    ``DECODE_TOL``, bf16 2E with its E); the two ranks' logits equal and two
+    runs bit-identical.  Reports what each rank held and its peak beside
+    the one-rank run's, and the ms of one psum of the first layer's output
+    beside the same psum staged through host memory explicitly."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch import mesh as tmesh
+
+    t0 = time.perf_counter()
+    granite = get_config("granite-moe-1b-a400m")
+    llama = get_config("llama4-maverick-400b-a17b")
+    drop_free = float(granite.num_experts // granite.experts_per_tok)
+    runs = {"granite-moe-1b-a400m/cf1.25": (granite, DECODE_TOL),
+            f"granite-moe-1b-a400m/cf{drop_free:g}": (granite.replace(moe_capacity_factor=drop_free),
+                                                      DECODE_TOL),
+            f"llama4-maverick-400b-a17b/bf16/{LLAMA4_LAYERS}_of_{llama.num_layers}_layers":
+                (llama.replace(num_layers=LLAMA4_LAYERS, dtype="bfloat16"),
+                 2 * moex["llama4-maverick-400b-a17b"]["envelope"]["E"])}
+    refs = {label: _ep_reference(cfg, label) for label, (cfg, _) in runs.items()}
+    ref_s = time.perf_counter() - t0
+    cases = [{"cfg": cfg, "seed": EP["seed"], "data": 1, "model": EP["ranks"], "device": DEVICE,
+              "prompts": r["prompts"], "forced": r["tokens"],
+              "replay": r["choices"], "first_x": r["first_x"], "runs": 2}
+             for (cfg, _), r in zip(runs.values(), refs.values())]
+    t1 = time.perf_counter()
+    ranks = tmesh.run_ranks(EP["ranks"], tmesh.moe_serve, (cases,), device=DEVICE, backend="gloo",
+                            join_timeout_s=600)
+    job_s = time.perf_counter() - t1
+    out = {}
+    for i, (label, (cfg, bar)) in enumerate(runs.items()):
+        ref, rs = refs[label], [r[i] for r in ranks]
+        r0 = rs[0]
+        calls = r0["routing"]
+        counts_equal = len(calls) == len(ref["calls"]) and all(
+            (c["T"], c["C"]) == (rc["T"], rc["C"]) and np.array_equal(c["counts"], rc["counts"].numpy())
+            for c, rc in zip(calls, ref["calls"]))
+        replay = moe_replay_check(
+            [{"probs": torch.as_tensor(c["probs"]), "flipped": torch.as_tensor(c["flipped"]),
+              "k": c["k"]} for c in calls],
+            [rc["probs"] for rc in ref["calls"]], 1, [0])
+        routing = moe_routing([{**c, "counts": torch.as_tensor(c["counts"])} for c in calls])
+        first_scale = float(ref["first_out"].abs().max())
+        first_err = float(np.abs(r0["first_out"] - ref["first_out"].numpy()).max())
+        first_order_equal = bool(np.array_equal(r0["first_out"], ref["first_ep_order"].numpy()))
+        logit_diff = float(np.abs(r0["logits"] - ref["logits"].numpy()).max())
+        rec = {"phase": "moe_ep", "label": label, "arch": cfg.name, "dtype": cfg.dtype,
+               "num_layers": cfg.num_layers, "d_model": cfg.d_model, "num_experts": cfg.num_experts,
+               "capacity_factor": cfg.moe_capacity_factor, "ranks": EP["ranks"],
+               "mesh": r0["shape"], "backend": r0["backend"], "transport": r0["transport"],
+               "batch": EP["batch"], "prompt": EP["prompt"], "new_tokens": EP["new_tokens"],
+               "held_gb_per_rank": [r["held_bytes"] / 1e9 for r in rs],
+               "held_gb_one_rank": ref["held_bytes"] / 1e9,
+               "peak_gb_per_rank": [r["peak_bytes"] / 1e9 for r in rs],
+               "peak_gb_one_rank": ref["peak_bytes"] / 1e9,
+               "psum_ms": r0["psum_ms"], "psum_bytes": r0["psum_bytes"],
+               "collective_calls": r0["collective_calls"], "flash_launches": r0["flash_launches"],
+               "rank_init_s": [r["init_s"] for r in rs], "run_s": r0["seconds"],
+               "routing": {k: v for k, v in routing.items() if k != "needed_factor"},
+               "dropped": sum(routing["dropped"]), "counts_equal": counts_equal,
+               "replay": replay, "first_layer_err": first_err, "first_layer_max": first_scale,
+               "first_layer_rel_err": first_err / first_scale,
+               "first_layer_tol": EP_FIRST_TOL if cfg.dtype == "float32" else None,
+               "first_layer_equals_ep_order": first_order_equal,
+               "first_aux": [r0["first_aux"], ref["first_aux"]],
+               "max_logit_diff_vs_one_rank": logit_diff, "logit_bar": bar,
+               "max_abs_logit": float(ref["logits"].abs().max()),
+               "ranks_logits_equal": all(np.array_equal(r["logits"], r0["logits"]) for r in rs),
+               "runs_bit_identical": all(r["runs_bit_identical"] for r in rs)}
+        emit(rec)
+        out[label] = rec
+        attn = sum(k in ("attn", "local", "moe", "moe_local") for k in cfg.layer_kinds())
+        mode = "flash_attention_bf16" if cfg.dtype == "bfloat16" else "flash_attention"
+        check(counts_equal, f"moe_ep {label}: routing differs from the one-rank run")
+        check_replay(replay, f"moe_ep {label}")
+        check(first_order_equal, f"moe_ep {label}: the first MoE layer is not its sums in the "
+              "path's order on one rank")
+        check(cfg.dtype != "float32" or first_err <= EP_FIRST_TOL * first_scale,
+              f"moe_ep {label}: first MoE layer {first_err} > {EP_FIRST_TOL} x {first_scale}")
+        check(logit_diff <= bar, f"moe_ep {label}: logits {logit_diff} > {bar}")
+        check(rec["ranks_logits_equal"] and rec["runs_bit_identical"],
+              f"moe_ep {label}: ranks or runs differ")
+        check(all(r["held_bytes"] < ref["held_bytes"] for r in rs),
+              f"moe_ep {label}: a rank holds as much as one rank")
+        check(r0["flash_launches"][mode] == 2 * attn,
+              f"moe_ep {label}: flash launches {r0['flash_launches']}, want {2 * attn} {mode}")
+        check(r0["transport"] == "gloo-cuda" and r0["collective_calls"]["all_gather"] > 0,
+              f"moe_ep {label}: collectives {r0['transport']} {r0['collective_calls']}")
+    rec = {"phase": "moe_ep_done", "seconds": time.perf_counter() - t0, "reference_s": ref_s,
+           "job_s": job_s, "dropped": {k: r["dropped"] for k, r in out.items()},
+           "peak_gb": {k: [r["peak_gb_one_rank"], max(r["peak_gb_per_rank"])] for k, r in out.items()}}
+    emit(rec)
+    report["moe_ep"] = {**out, "seconds": rec["seconds"]}
+    check(out[f"granite-moe-1b-a400m/cf{drop_free:g}"]["dropped"] == 0,
+          "moe_ep: the drop-free granite run dropped")
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -5936,6 +6224,10 @@ def main() -> int:
         ltk = phase_llm_train_kernel(report)
         save(report)
         trained = phase_llm_train(report)
+        save(report)
+        quick = phase_quickstart(report)
+        save(report)
+        ep = phase_moe_ep(report, moex)
     steps = max(res.train_steps, 1)
     rb_steps = max(rb_res.train_steps, 1)
     s_steps = max(s_res.train_steps, 1)
@@ -6021,6 +6313,12 @@ def main() -> int:
             entry["cross"] = {"launches": ws["cross_launches_per_prefill"],
                               "cases": [{f: c[f] for f in CROSS_FIELDS + ("bound_fp32_ms",)}
                                         for c in f32 if "ms" in c]}
+            # slice 20: the quickstart's training and serving, and each
+            # expert-parallel rank's two serves of the float32 runs
+            entry["quickstart"] = {"launches": quick["flash_launches"][kname],
+                                   "steps": quick["steps"]}
+            entry["moe_ep"] = {k: r["flash_launches"][kname] for k, r in ep.items()
+                               if r["dtype"] == "float32"}
         kernels.append(entry)
     for kname, t in bf16k["pruned_matmul"].items():
         kernels.append({
@@ -6067,6 +6365,9 @@ def main() -> int:
         "cross": {"launches": encdec["internvl2-76b"]["cross_launches_per_prefill"],
                   "cases": [{f: c[f] for f in CROSS_FIELDS}
                             for c in encdec["flash"] if c["dtype"] == "bfloat16" and "ms" in c]},
+        # slice 20: each expert-parallel rank's two serves of llama4-maverick
+        "moe_ep": {k: r["flash_launches"]["flash_attention_bf16"] for k, r in ep.items()
+                   if r["dtype"] == "bfloat16"},
     })
     sc = next(c for c in bf16k["rg_lru_scan_bf16"] if "ms" in c)
     kernels.append({
@@ -6112,6 +6413,8 @@ def main() -> int:
         }
         if kname == "flash_attention_bwd":
             entry["max_rel_err"] = max(c["rel_err"] for c in cases)
+            entry["quickstart"] = {"launches": quick["flash_bwd_launches"][kname],
+                                   "steps": quick["steps"]}
         else:
             entry.update(bit_identical=all(c["bit_identical"] for c in cases),
                          device_ms=head["device_ms"] * n)

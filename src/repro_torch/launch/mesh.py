@@ -1,5 +1,6 @@
-"""The fleet mesh over ``torch.distributed`` (port of ``make_fleet_mesh`` in
-``repro/launch/mesh.py``), and a launcher of its ranks on one node.
+"""The meshes over ``torch.distributed`` (port of ``repro/launch/mesh.py``):
+the fleet mesh, the LLM's ``(data, model)`` mesh and the production mesh
+record, and a launcher of ranks on one node.
 
 The reference's mesh is one controller over ``jax.devices()``; the port's
 is one process per rank of a process group, each driving one device: NCCL
@@ -14,6 +15,15 @@ on the card, gloo on the CPU, and nothing falls back from one to the other.
   first ``n_dev`` ranks (default: all of them; more raises, as in the
   reference).  It runs one collective at once, so a group that cannot start
   raises here, and records how long that took (``init_s``);
+* ``make_local_mesh(data=1, model=1)`` — the LLM's 2-D ``ModelMesh`` over
+  the running group, ranks row-major with ``model`` minor (as
+  ``jax.make_mesh``), one subgroup along each axis; ``with mesh:`` sets
+  ``sharding.specs.current_mesh()``, under which ``models.moe`` takes its
+  expert-parallel path.  As in the reference, ``data * model`` over the
+  world size becomes ``(world, 1)``;
+* ``make_production_mesh(multi_pod=False)`` — the ``(16, 16)`` /
+  ``(2, 16, 16)`` shape record that the sharding rules read; it starts no
+  group.  ``HARDWARE`` holds the card's datasheet figures;
 * ``spawn_ranks`` / ``run_ranks`` — ``n`` spawned processes on this node,
   each calling ``target(mesh, *args)`` under its own group, with a group
   timeout and a join timeout.  ``target`` must live in this package
@@ -30,6 +40,19 @@ lie from the one-rank run's.  On a node with several cards, one rank per
 card::
 
     PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.mesh --torchrun
+
+``--moe-ep ARCH`` serves ``ARCH`` (``--smoke``: its reduced config) on a
+``(1, ranks)`` mesh, the experts split over the ranks (the ``moe_serve``
+entry), against the same model on one rank in this process, and prints the
+largest logit difference, whether two runs were bit-identical and what
+each rank held::
+
+    PYTHONPATH=src python -m repro_torch.launch.mesh --moe-ep granite-moe-1b-a400m --smoke --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.mesh --moe-ep granite-moe-1b-a400m --backend gloo
+    PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.mesh --torchrun --moe-ep granite-moe-1b-a400m
+
+(``--backend gloo`` on the card lets the ranks share one card, which NCCL
+refuses.)
 """
 from __future__ import annotations
 
@@ -52,7 +75,14 @@ import torch
 import torch.distributed as dist
 import torch.multiprocessing as mp
 
+from repro_torch.sharding.specs import mesh_context
+
 __all__ = [
+    "HARDWARE",
+    "ModelMesh",
+    "ProductionMesh",
+    "make_local_mesh",
+    "make_production_mesh",
     "FleetMesh",
     "fleet_group",
     "make_fleet_mesh",
@@ -66,6 +96,15 @@ __all__ = [
 
 GROUP_TIMEOUT_S = 60.0     # a collective waiting longer than this raises
 JOIN_TIMEOUT_S = 240.0     # a spawned job taking longer than this is killed
+
+# NVIDIA H100 80GB HBM3 (SXM5, 700 W) datasheet figures, per card
+HARDWARE = {
+    "name": "NVIDIA H100 80GB HBM3",
+    "peak_flops_bf16": 989e12,   # FLOP/s, dense bf16 tensor core (datasheet)
+    "hbm_bandwidth": 3.35e12,    # bytes/s (datasheet)
+    "nvlink_bandwidth": 450e9,   # bytes/s in each direction, NVLink 4 (datasheet)
+    "hbm_bytes": 80e9,           # 80 GB (datasheet)
+}
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -93,23 +132,27 @@ class FleetMesh:
 @contextlib.contextmanager
 def fleet_group(world_size: Optional[int] = None, rank: Optional[int] = None, *,
                 device="cuda", init_file: Optional[str] = None,
-                timeout_s: float = GROUP_TIMEOUT_S):
+                timeout_s: float = GROUP_TIMEOUT_S, backend: Optional[str] = None):
     """Start the default process group for the duration of the context:
     NCCL when ``device`` is the card (each rank on card ``local rank``),
-    gloo on the CPU.  Rendezvous at ``init_file`` (``file://``); without one
-    under ``torchrun`` (``WORLD_SIZE`` set) at ``env://``, else a one-rank
-    group on a temporary file."""
+    gloo on the CPU; ``backend="gloo"`` with ``device="cuda"`` puts gloo
+    ranks on the card (several ranks may share one, which NCCL refuses).
+    Rendezvous at ``init_file`` (``file://``); without one under
+    ``torchrun`` (``WORLD_SIZE`` set) at ``env://``, else a one-rank group
+    on a temporary file."""
     dev = torch.device(device)
     if dist.is_initialized():
         raise RuntimeError("a torch.distributed process group is already running")
     if dev.type == "cuda":
         if not torch.cuda.is_available():
             raise RuntimeError("fleet_group(device='cuda') but no CUDA device is visible")
-        backend = "nccl"
+        backend = backend or "nccl"
     elif dev.type == "cpu":
-        backend = "gloo"
+        backend = backend or "gloo"
     else:
         raise ValueError(f"fleet_group: no backend for device {device!r}")
+    if (backend, dev.type) not in TRANSPORTS:
+        raise ValueError(f"fleet_group: backend {backend!r} does not run on {dev.type}")
     tmp = None
     if init_file is None and "WORLD_SIZE" in os.environ:
         method = "env://"
@@ -126,7 +169,7 @@ def fleet_group(world_size: Optional[int] = None, rank: Optional[int] = None, *,
             init_file = os.path.join(tmp, "store")
         method = f"file://{init_file}"
         local = rank
-    if backend == "nccl":
+    if dev.type == "cuda":
         torch.cuda.set_device(local % torch.cuda.device_count())
     dist.init_process_group(backend, init_method=method, world_size=world_size, rank=rank,
                             timeout=datetime.timedelta(seconds=timeout_s))
@@ -167,13 +210,134 @@ def make_fleet_mesh(n_dev: Optional[int] = None, axis: str = "fleet") -> FleetMe
 
 
 # ---------------------------------------------------------------------------
+# the LLM's (data, model) mesh and the production record
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(eq=False)
+class ProductionMesh(mesh_context):
+    """The reference's production mesh as a shape record: axis name to
+    size.  The sharding rules read only ``shape``; ``with mesh:`` sets
+    ``current_mesh()`` as the reference's does, but no rank sits on it, so
+    nothing executes under it (``models.moe`` refuses it)."""
+
+    shape: Dict[str, int]
+
+    @property
+    def axis_names(self):
+        return tuple(self.shape)
+
+    @property
+    def size(self) -> int:
+        return int(np.prod(list(self.shape.values())))
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> ProductionMesh:
+    """Single pod: 16 x 16 = 256 devices, axes (data, model).  Multi-pod:
+    2 x 16 x 16 = 512, axes (pod, data, model); ``pod`` is the cross-pod
+    data-parallel axis."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return ProductionMesh(dict(zip(axes, shape)))
+
+
+class ModelMesh(mesh_context):
+    """A 2-D ``(data, model)`` mesh of ranks of the running group.  This
+    process sits at ``coords`` (axis name to index) on ``device``;
+    ``axes[name]`` is a ``FleetMesh`` of the ranks that share its other
+    coordinate, whose ``group`` the collectives of that axis run over
+    (``sharding.collectives``), and ``group`` holds every rank of the mesh.
+    ``transport`` names how the collectives move the tensors: ``"nccl"``,
+    ``"gloo"`` (CPU tensors) or ``"gloo-cuda"``: gloo ranks on the card
+    (several may share one, which NCCL refuses), whose collectives gloo
+    takes on card tensors itself, copying them through host memory."""
+
+    def __init__(self, shape, coords, axes, device, transport, rank, group, init_s=0.0):
+        self.group = group
+        self.shape = dict(shape)
+        self.coords = dict(coords)
+        self.axes = dict(axes)
+        self.device = device
+        self.transport = transport
+        self.rank = rank
+        self.init_s = init_s
+
+    @property
+    def size(self) -> int:
+        return int(np.prod(list(self.shape.values())))
+
+
+# the transport of each (backend, device) pair a group may run: gloo takes
+# every collective on card tensors (all_gather, all_reduce, broadcast,
+# gather, reduce, reduce_scatter, all_to_all; PERF.md section 6, PR 30)
+TRANSPORTS = {("nccl", "cuda"): "nccl", ("gloo", "cpu"): "gloo", ("gloo", "cuda"): "gloo-cuda"}
+
+
+def make_local_mesh(data: int = 1, model: int = 1, *, device=None) -> Optional[ModelMesh]:
+    """The ``(data, model)`` mesh of the first ``data * model`` ranks of the
+    running group (``data * model`` over the world size becomes
+    ``(world, 1)``, the reference's rule).  Rank ``r`` sits at
+    ``(r // model, r % model)``.  Every rank of the group must call it (the
+    subgroups are collective to create); a rank past the mesh gets None.
+    ``device`` defaults to the card under NCCL and the CPU under gloo;
+    ``device="cuda"`` under gloo puts this rank on the card (ranks sharing
+    one card)."""
+    if not dist.is_initialized():
+        raise RuntimeError("make_local_mesh needs a running torch.distributed group: "
+                           "enter launch.mesh.fleet_group(...) or start under torchrun")
+    world, rank = dist.get_world_size(), dist.get_rank()
+    if data * model > world:
+        data, model = world, 1
+    backend = str(dist.get_backend())
+    if device is None:
+        device = (torch.device("cuda", torch.cuda.current_device()) if backend == "nccl"
+                  else torch.device("cpu"))
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    transport = TRANSPORTS.get((backend, device.type))
+    if transport is None:
+        raise ValueError(f"make_local_mesh: backend {backend} does not run on {device}")
+    n = data * model
+    t0 = time.perf_counter()
+    rows = [list(range(d * model, (d + 1) * model)) for d in range(data)]
+    cols = [list(range(m, n, model)) for m in range(model)]
+    whole = dist.group.WORLD if n == world else dist.new_group(list(range(n)))
+    mine = {}
+    for name, lists in (("model", rows), ("data", cols)):
+        for ranks in lists:
+            g = dist.new_group(ranks)     # every rank creates every group
+            if rank in ranks:
+                mine[name] = (g, ranks)
+    if rank >= n:
+        return None
+    coords = {"data": rank // model, "model": rank % model}
+    axes = {name: FleetMesh(group=g, size=len(ranks), rank=ranks.index(rank), device=device,
+                            axis=name)
+            for name, (g, ranks) in mine.items()}
+    mesh = ModelMesh({"data": data, "model": model}, coords,
+                     {"data": axes["data"], "model": axes["model"]}, device, transport, rank,
+                     group=whole)
+    from repro_torch.sharding.collectives import all_gather_fleet
+
+    for axis in mesh.axes.values():
+        all_gather_fleet(torch.zeros(1, device=device), axis)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    mesh.init_s = time.perf_counter() - t0
+    return mesh
+
+
+# ---------------------------------------------------------------------------
 # the launcher: n ranks on this node
 # ---------------------------------------------------------------------------
 
-def _rank_main(rank, n, init_file, device, timeout_s, axis, target, args, results):
+def _rank_main(rank, n, init_file, device, timeout_s, axis, job_file, results, backend=None):
     torch.set_num_threads(1)
     try:
-        with fleet_group(n, rank, device=device, init_file=init_file, timeout_s=timeout_s):
+        with open(job_file, "rb") as f:
+            target, args = pickle.load(f)
+        with fleet_group(n, rank, device=device, init_file=init_file, timeout_s=timeout_s,
+                         backend=backend):
             out = target(make_fleet_mesh(n, axis), *args)
         results.put((rank, True, pickle.dumps(out)))
     except BaseException:      # reported to the parent, which raises it there
@@ -227,18 +391,25 @@ class RankJob:
 
 
 def spawn_ranks(n: int, target: Callable, args: Sequence = (), *, device="cpu",
-                axis: str = "fleet", timeout_s: float = GROUP_TIMEOUT_S) -> RankJob:
+                axis: str = "fleet", timeout_s: float = GROUP_TIMEOUT_S,
+                backend: Optional[str] = None) -> RankJob:
     """Start ``n`` ranks (spawned processes, one torch thread each), each
     calling ``target(mesh, *args)`` with its ``FleetMesh``; returns at once.
     The group meets at a file in a fresh temporary directory, so jobs
-    running side by side never share a rendezvous."""
+    running side by side never share a rendezvous.  ``backend``: as
+    ``fleet_group``'s."""
     ctx = mp.get_context("spawn")
     tmp = tempfile.mkdtemp(prefix="fleet_ranks_")
     init_file = os.path.join(tmp, "store")
+    # the target and its arguments reach the ranks through a file: through
+    # the spawn pipe a few MB of arrays took seconds
+    job_file = os.path.join(tmp, "job.pkl")
+    with open(job_file, "wb") as f:
+        pickle.dump((target, tuple(args)), f, protocol=pickle.HIGHEST_PROTOCOL)
     results = ctx.Queue()
     procs = [ctx.Process(target=_rank_main, daemon=True,
-                         args=(r, n, init_file, str(device), timeout_s, axis, target, tuple(args),
-                               results))
+                         args=(r, n, init_file, str(device), timeout_s, axis, job_file,
+                               results, backend))
              for r in range(n)]
     for p in procs:
         p.start()
@@ -247,10 +418,10 @@ def spawn_ranks(n: int, target: Callable, args: Sequence = (), *, device="cpu",
 
 def run_ranks(n: int, target: Callable, args: Sequence = (), *, device="cpu",
               axis: str = "fleet", timeout_s: float = GROUP_TIMEOUT_S,
-              join_timeout_s: float = JOIN_TIMEOUT_S) -> List[Any]:
+              join_timeout_s: float = JOIN_TIMEOUT_S, backend: Optional[str] = None) -> List[Any]:
     """``spawn_ranks`` and ``join``: each rank's return value, in rank order."""
-    return spawn_ranks(n, target, args, device=device, axis=axis,
-                       timeout_s=timeout_s).join(join_timeout_s)
+    return spawn_ranks(n, target, args, device=device, axis=axis, timeout_s=timeout_s,
+                       backend=backend).join(join_timeout_s)
 
 
 # ---------------------------------------------------------------------------
@@ -346,8 +517,193 @@ def collective_times(mesh: FleetMesh, shapes, iters: int = 20):
             "all_reduce_ms": timed(lambda: dist.all_reduce(flat.clone(), group=mesh.group))}
 
 
+def first_moe_params(params, cfg):
+    """The first MoE layer's ``moe`` params (views) of a model tree."""
+    from repro_torch.models import transformer as T
+
+    g, rem = T._split_layers(cfg)
+    if g > 0:
+        for j, kind in enumerate(cfg.block_pattern):
+            if kind in ("moe", "moe_local"):
+                return T._group(params["blocks"][f"s{j}"]["moe"], 0)
+    for i, kind in enumerate(rem):
+        if kind in ("moe", "moe_local"):
+            return params["rem"][i]["moe"]
+    raise ValueError(f"{cfg.name} has no MoE layer")
+
+
+def _cut_in_place(tree, specs, mesh) -> None:
+    """``shard_tree`` leaf by leaf inside ``tree``: each cut leaf replaced by
+    its block as soon as that is copied, so the full tree is never held
+    beside its blocks."""
+    from repro_torch.sharding.specs import local_slice
+
+    for k in (range(len(tree)) if isinstance(tree, list) else list(tree)):
+        if isinstance(tree[k], (dict, list)):
+            _cut_in_place(tree[k], specs[k], mesh)
+        elif any(a is not None for a in specs[k]):
+            tree[k] = local_slice(tree[k], specs[k], mesh).clone()
+
+
+def _timed_ms(fn, dev, iters: int = 10) -> float:
+    fn()
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    return (time.perf_counter() - t0) * 1e3 / iters
+
+
+def moe_serve(world: FleetMesh, cases):
+    """Expert-parallel serving on the ranks of ``world``: for each case (a
+    dict), the ``(data, model)`` mesh of ``make_local_mesh(case["data"],
+    case["model"], device=)``, the model ``case["cfg"]`` drawn
+    from ``case["seed"]`` on the mesh's device by each rank in turn and cut
+    to its block at once (``models.moe.ep_pspec``), then under ``with
+    mesh:`` ``case["runs"]`` times a prefill of ``case["prompts"]`` and a
+    decode step for each column of ``case["forced"]`` (the tokens fed, as a
+    greedy serve fed them), routing recorded by ``RoutingSpy`` (replaying
+    ``case["replay"]`` where given).  With ``case["first_x"]``, also the
+    first MoE layer's ``moe_fwd`` on it.  Returns per case (None on a rank
+    outside the mesh) numpy results of the first run, whether every later
+    run was bit-identical, peak and held bytes, the flash launches of all
+    runs, and the ms of one model-axis psum of the first layer's output,
+    beside the same psum on a host copy (staged through host memory
+    explicitly)."""
+    from repro_torch.kernels import flash_attention as fa_mod
+    from repro_torch.launch.serve import serve_numerics
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models import transformer as T
+    from repro_torch.optim.optimizers import tree_leaves
+    from repro_torch.sharding import collectives as C
+    from repro_torch.sharding.specs import tree_pspecs
+
+    out = []
+    for case in cases:
+        mesh = make_local_mesh(case["data"], case["model"], device=case.get("device"))
+        if mesh is None:
+            out.append(None)
+            continue
+        cfg, dev = case["cfg"], mesh.device
+        cuda = dev.type == "cuda"
+        t0 = time.perf_counter()
+        params = None
+        for r in range(mesh.size):
+            if mesh.rank == r:
+                params = T.init_params(torch.Generator(device=dev).manual_seed(case["seed"]), cfg)
+                _cut_in_place(params, tree_pspecs(params, mesh, moe_mod.ep_pspec(cfg.num_experts)),
+                              mesh)
+                if cuda:
+                    torch.cuda.synchronize(dev)
+                    torch.cuda.empty_cache()
+            dist.barrier(group=mesh.group)
+        init_s = time.perf_counter() - t0
+        held = sum(t.numel() * t.element_size() for t in tree_leaves(params))
+        dt = T.param_dtype(cfg)
+        prompts = torch.as_tensor(case["prompts"], device=dev)
+        forced = torch.as_tensor(case["forced"], device=dev)
+        replay = case.get("replay")
+        if cuda:
+            torch.cuda.reset_peak_memory_stats(dev)
+        runs = []
+        C.reset_calls()
+        fa_mod.reset_launches()
+        for _ in range(case.get("runs", 2)):
+            spy = moe_mod.RoutingSpy(
+                replay=None if replay is None else [torch.as_tensor(t, device=dev) for t in replay])
+            t1 = time.perf_counter()
+            with serve_numerics(), mesh, spy.installed():
+                b, s = prompts.shape
+                logits, state = T.prefill(params, cfg, {"tokens": prompts},
+                                          max_len=s + forced.shape[1])
+                kept = [logits]
+                for j in range(forced.shape[1]):
+                    logits, state = T.decode_step(params, cfg, state, forced[:, j])
+                    kept.append(logits)
+                first = None
+                if case.get("first_x") is not None:
+                    x = torch.as_tensor(case["first_x"], device=dev).to(dt)
+                    with torch.no_grad():
+                        first = moe_mod.moe_fwd(first_moe_params(params, cfg), T._moe_spec(cfg), x)
+                if cuda:
+                    torch.cuda.synchronize(dev)
+            runs.append({"logits": torch.stack(kept, dim=1), "spy": spy, "first": first,
+                         "seconds": time.perf_counter() - t1})
+            del state
+        calls = dict(C.CALLS)
+        launches = {k: v for k, v in fa_mod.LAUNCHES.items()}
+        peak = torch.cuda.max_memory_allocated(dev) if cuda else None
+        r0 = runs[0]
+        same = all(torch.equal(r["logits"], r0["logits"])
+                   and (r0["first"] is None or (torch.equal(r["first"][0], r0["first"][0])
+                                                and torch.equal(r["first"][1], r0["first"][1])))
+                   and all(torch.equal(a["counts"], b_["counts"])
+                           for a, b_ in zip(r["spy"].calls, r0["spy"].calls))
+                   for r in runs[1:])
+        psum_ms = {}
+        if r0["first"] is not None:
+            y, axis = r0["first"][0], mesh.axes["model"]
+            psum_ms[mesh.transport] = _timed_ms(lambda: C.psum_fleet(y, axis), dev)
+            if cuda:
+                psum_ms["host_staged"] = _timed_ms(lambda: C.psum_fleet(y.cpu(), axis).to(dev), dev)
+        out.append({
+            "coords": mesh.coords, "shape": mesh.shape, "transport": mesh.transport,
+            "backend": mesh.axes["model"].backend, "init_s": init_s,
+            "seconds": [r["seconds"] for r in runs], "runs_bit_identical": same,
+            "held_bytes": held, "peak_bytes": peak, "collective_calls": calls,
+            "flash_launches": launches,
+            "psum_ms": psum_ms, "psum_bytes": None if r0["first"] is None
+            else r0["first"][0].numel() * r0["first"][0].element_size(),
+            "logits": r0["logits"].float().cpu().numpy(),
+            "first_out": None if r0["first"] is None else r0["first"][0].float().cpu().numpy(),
+            "first_aux": None if r0["first"] is None else float(r0["first"][1]),
+            "routing": [{"T": c["T"], "C": c["C"], "k": c["k"],
+                         "counts": c["counts"].cpu().numpy(),
+                         "probs": c["probs"].float().cpu().numpy(),
+                         "flipped": None if "flipped" not in c
+                         else c["flipped"].cpu().numpy()} for c in r0["spy"].calls],
+        })
+        del params, runs, r0
+        if cuda:
+            torch.cuda.empty_cache()
+    return out
+
+
+def moe_layer(world: FleetMesh, cases):
+    """``moe_fwd`` alone on the ranks of ``world``: for each case (a dict),
+    the mesh of ``make_local_mesh(case["data"], case["model"])``, the full
+    numpy ``case["params"]`` cut to this rank's block
+    (``shard_tree(..., ep_pspec(E))``) and ``case["x"]``; returns per case
+    (None outside the mesh) the output, aux, the routing of this rank's
+    dispatch (T, C, counts) and the blocks it held."""
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.sharding.specs import shard_tree
+
+    out = []
+    for case in cases:
+        mesh = make_local_mesh(case["data"], case["model"])
+        if mesh is None:
+            out.append(None)
+            continue
+        spec = case["spec"]
+        full = {k: torch.as_tensor(v) for k, v in case["params"].items()}
+        mine = shard_tree({"moe": full}, mesh, moe_mod.ep_pspec(spec.num_experts))["moe"]
+        spy = moe_mod.RoutingSpy()
+        with torch.no_grad(), mesh, spy.installed():
+            y, aux = moe_mod.moe_fwd(mine, spec, torch.as_tensor(case["x"]))
+        out.append({"coords": mesh.coords, "out": y.numpy(), "aux": float(aux),
+                    "held": {k: v.numpy() for k, v in mine.items()},
+                    "routing": [{"T": c["T"], "C": c["C"], "counts": c["counts"].numpy()}
+                                for c in spy.calls]})
+    return out
+
+
 ENTRIES: Dict[str, Callable] = {"simulate": simulate, "collectives": collectives,
-                                "collab": collab, "collective_times": collective_times}
+                                "collab": collab, "collective_times": collective_times,
+                                "moe_serve": moe_serve, "moe_layer": moe_layer}
 
 
 def _to_numpy(tree):
@@ -420,7 +776,14 @@ def main(argv=None) -> int:
                     help="the tests' tiny VGG, or VGG16_CIFAR at full width")
     ap.add_argument("--torchrun", action="store_true",
                     help="this process is one rank started by torchrun")
+    ap.add_argument("--moe-ep", metavar="ARCH",
+                    help="serve ARCH expert-parallel over the ranks (module docstring)")
+    ap.add_argument("--smoke", action="store_true", help="--moe-ep: the reduced config")
+    ap.add_argument("--backend", choices=("nccl", "gloo"), default=None,
+                    help="the group's backend (default: NCCL on the card, gloo on the CPU)")
     args = ap.parse_args(argv)
+    if args.moe_ep:
+        return _moe_ep_main(args)
     sim = _demo_sim(args)
     if args.torchrun:
         with fleet_group(device=args.device):
@@ -442,6 +805,52 @@ def main(argv=None) -> int:
                           for k in one.global_params),
                       "one_rank": _summary(one), "mesh": _summary(many[0]),
                       "collectives_by_ranks": coll}), flush=True)
+    return 0
+
+
+def _moe_ep_main(args) -> int:
+    from repro_torch.configs import get_config, smoke_config
+    from repro_torch.launch.serve import serve_batch
+    from repro_torch.models import transformer as T
+
+    cfg = smoke_config(args.moe_ep) if args.smoke else get_config(args.moe_ep)
+    if not cfg.num_experts:
+        raise ValueError(f"--moe-ep: {cfg.name} has no experts")
+    dev = torch.device(args.device)
+    case = {"cfg": cfg, "seed": args.seed, "data": 1, "model": None, "device": args.device,
+            "runs": 2}
+
+    def summary(r, ref_logits=None):
+        out = {k: r[k] for k in ("shape", "transport", "backend", "runs_bit_identical",
+                                 "held_bytes", "peak_bytes", "psum_ms", "seconds")}
+        out["dropped"] = [int(np.maximum(c["counts"] - c["C"], 0).sum()) for c in r["routing"]]
+        if ref_logits is not None:
+            out["max_logit_diff_vs_one_rank"] = float(np.abs(r["logits"] - ref_logits).max())
+        return out
+
+    if args.torchrun:
+        with fleet_group(device=args.device, backend=args.backend):
+            world = make_fleet_mesh()
+            gen = torch.Generator(device=dev).manual_seed(args.seed + 1)
+            prompts = torch.randint(0, cfg.vocab_size, (2, 16), generator=gen, device=dev)
+            case.update(model=world.size, prompts=prompts.cpu().numpy(),
+                        forced=prompts[:, :4].cpu().numpy())
+            r = moe_serve(world, [case])[0]
+            if world.rank == 0:
+                print(json.dumps({"arch": cfg.name, **summary(r)}), flush=True)
+        return 0
+    params = T.init_params(torch.Generator(device=dev).manual_seed(args.seed), cfg)
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 1)
+    prompts = torch.randint(0, cfg.vocab_size, (2, 16), generator=gen, device=dev)
+    out, logits = serve_batch(cfg, params, prompts, 4, device=dev, return_logits=True)
+    del params
+    case.update(model=args.ranks, prompts=prompts.cpu().numpy(), forced=out.cpu().numpy())
+    ranks = run_ranks(args.ranks, moe_serve, ([case],), device=args.device, backend=args.backend)
+    ref = logits.float().cpu().numpy()
+    print(json.dumps({"arch": cfg.name, "ranks": args.ranks,
+                      "ranks_equal": all(np.array_equal(r[0]["logits"], ranks[0][0]["logits"])
+                                         for r in ranks),
+                      **summary(ranks[0][0], ref)}, default=float), flush=True)
     return 0
 
 

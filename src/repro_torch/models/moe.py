@@ -1,5 +1,5 @@
-"""Mixture-of-Experts FFN with sort-based (dropping) dispatch (port of the
-local path of ``repro/models/moe.py``).
+"""Mixture-of-Experts FFN with sort-based (dropping) dispatch, local and
+expert-parallel (port of ``repro/models/moe.py``).
 
 Tokens are routed top-k by a float32 router, sorted by expert, packed into
 a static ``[E, C, D]`` buffer of ``C = capacity(spec, T)`` slots an expert,
@@ -20,25 +20,43 @@ card agree bit for bit.  The expert products and the router are library
 products (``torch.bmm`` / ``@``), as they are plain einsums outside any
 Pallas kernel in the reference.
 
-Only the local path is ported: ``moe_fwd`` always takes it, as the
-reference does when no mesh has a ``model`` axis.  The expert-parallel
-``shard_map`` path (``repro/models/moe.py:149-191``) waits for the mesh
-specs of ROADMAP.md item A6.
+**Expert-parallel path.**  Under ``sharding.specs.current_mesh()`` with a
+``model`` axis of ``n > 1`` ranks and ``E % n == 0`` (``E`` the spec's
+``num_experts``), each rank holds only its ``E / n`` experts (``w_gate``,
+``w_up``, ``w_down`` cut along the expert dimension), ``1 / n`` of the
+shared expert (``ws_gate`` / ``ws_up`` columns, ``ws_down`` rows) and the
+whole router: the reference's ``shard_map`` in-specs, which
+``shard_tree(params, mesh, ep_pspec(E))`` cuts.  The tokens are those of
+this rank's ``(pod,) data`` shard of the batch (all of them where the
+batch does not divide, as decode at batch 1); each rank routes them over
+all ``E`` experts, dispatches to its own ``[m E/n, (m+1) E/n)`` with the
+capacity of its token count, and the partial outputs are added over the
+model axis in rank order (``sharding.collectives.psum_fleet`` over the
+mesh's model axis), so runs are bit-identical.  The output is gathered
+back over the data axis, so ``moe_fwd`` takes and returns the whole batch
+on every rank, as the reference's global arrays.  ``aux`` is the mean over the data and model
+axes.  The path serves: it runs under ``no_grad`` and refuses autograd.
+The local path stays for no mesh, ``n == 1`` and ``E % n != 0``.
 
 Experts are a prunable AdaptCL unit (whole-expert pruning): a reconfigured
 model has fewer experts, and the router's extra columns are ignored.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
+import sys
+import time
 from typing import Optional, Sequence, Tuple
 
 import torch
 
+from repro_torch.sharding.specs import current_mesh, local_slice
+
 from .layers import dense_init, silu
 
-__all__ = ["MoESpec", "init_moe", "moe_fwd", "capacity"]
+__all__ = ["MoESpec", "init_moe", "moe_fwd", "capacity", "ep_pspec", "RoutingSpy"]
 
 # the experts' products run over chunks of experts whose [e, C, F]
 # temporaries stay under this many bytes: a drop-free llama4-maverick layer
@@ -172,7 +190,146 @@ def _moe_local(params, spec: MoESpec, x: torch.Tensor):
     return out.reshape(b, s, D), aux
 
 
+def _n_model(mesh) -> int:
+    return 0 if mesh is None else int(mesh.shape.get("model", 0))
+
+
+def ep_pspec(num_experts: int):
+    """The expert-parallel path's in-specs as a ``shard_tree`` rule: in
+    every MoE block whose ``num_experts`` divide over the ``model`` axis,
+    the experts cut along their expert dimension and the shared expert's
+    hidden dimension cut ``n`` ways; every other leaf whole."""
+
+    def rule(path: str, shape, mesh):
+        parts = path.split("/")
+        n = _n_model(mesh)
+        if "moe" not in parts or n <= 1 or num_experts % n:
+            return ()
+        stk = 1 if "blocks" in parts else 0
+        name = parts[-1]
+        spec = [None] * len(shape)
+        if name in ("w_gate", "w_up", "w_down"):
+            spec[stk] = "model"
+        elif name in ("ws_gate", "ws_up"):
+            spec[stk + 1] = "model"
+        elif name == "ws_down":
+            spec[stk] = "model"
+        return tuple(spec)
+
+    return rule
+
+
+def _moe_ep(params, spec: MoESpec, x: torch.Tensor, mesh, n: int):
+    from repro_torch.sharding.collectives import all_gather_fleet, psum_fleet
+
+    if torch.is_grad_enabled() and (x.requires_grad or params["w_gate"].requires_grad):
+        raise NotImplementedError("the expert-parallel MoE path serves only (no_grad): "
+                                  "training under a model mesh is ROADMAP.md item A6")
+    E_loc = params["w_gate"].shape[0]
+    E = spec.num_experts
+    if not hasattr(mesh, "axes"):
+        raise ValueError(f"{mesh!r} is a shape record: the expert-parallel path runs on the "
+                         "ranks of launch.mesh.make_local_mesh")
+    if E_loc * n != E:
+        raise ValueError(f"expert-parallel moe_fwd takes this rank's {E // n} of {E} experts "
+                         f"(shard_tree(params, mesh, ep_pspec({E}))), got {E_loc}")
+    n_ba = mesh.shape["data"]
+    ba = ("data",) if x.shape[0] % n_ba == 0 else ()   # decode at batch 1: replicate tokens
+    xx = local_slice(x, ("data",), mesh) if ba else x
+    b, s, D = xx.shape
+    T = b * s
+    xf = xx.reshape(T, D)
+    logits = xf.float() @ params["w_router"][:, :E]
+    probs = torch.softmax(logits, dim=-1)
+    m = mesh.coords["model"]
+    out, counts = _dispatch_compute_combine(params, spec, xf, probs, m * E_loc, E_loc)
+    if spec.shared_expert:
+        sh = silu(xf @ params["ws_gate"]) * (xf @ params["ws_up"])
+        out = out + sh @ params["ws_down"]
+    out = psum_fleet(out, mesh.axes["model"])
+    frac = counts.float() / max(T * spec.num_experts_per_tok, 1)
+    aux = spec.router_aux_weight * E * torch.sum(frac * probs.mean(dim=0))
+    for ax in (*ba, "model"):
+        if mesh.shape[ax] > 1:
+            aux = psum_fleet(aux, mesh.axes[ax]) / mesh.shape[ax]
+    out = out.reshape(b, s, D)
+    if ba and n_ba > 1:
+        out = all_gather_fleet(out, mesh.axes["data"])
+    return out, aux
+
+
 def moe_fwd(params, spec: MoESpec, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Returns (output [b, s, d], router load-balance aux loss scalar), on
-    the local path."""
-    return _moe_local(params, spec, x)
+    """Returns (output [b, s, d], router load-balance aux loss scalar):
+    expert-parallel under a mesh whose ``model`` axis of ``n > 1`` ranks
+    divides the experts, else local (module docstring)."""
+    mesh = current_mesh()
+    n = _n_model(mesh)
+    if n <= 1 or spec.num_experts % n:
+        return _moe_local(params, spec, x)
+    return _moe_ep(params, spec, x, mesh, n)
+
+
+class RoutingSpy:
+    """Wraps ``_dispatch_compute_combine`` while ``installed()`` is open.
+    Records each call (one an MoE layer, in order): its token count T,
+    capacity C, the routed counts an expert and the router probabilities;
+    ``choices()`` gives each token's expert set (sorted top-k) after the
+    run, so a recorded run pays no device work of the spy's.  ``host_s`` is
+    the spy's own host time inside the calls.
+
+    With ``replay`` (one ``[T, k]`` table of expert sets a call) it also
+    makes each call follow those decisions: on a row whose top-k set
+    differs, the probabilities of the experts it would choose and those of
+    the replayed set are swapped pairwise (largest with largest), so the
+    row routes as replayed with gates that move by no more than the swapped
+    gaps.  ``flipped`` marks those rows."""
+
+    def __init__(self, replay=None):
+        self.calls = []
+        self.replay = replay
+        self.host_s = 0.0
+
+    def __call__(self, params, spec, xf, probs, e_lo, n_local):
+        t0 = time.perf_counter()
+        k = spec.num_experts_per_tok
+        rec = {"T": xf.shape[0], "C": capacity(spec, xf.shape[0]), "k": k, "probs": probs}
+        routed = probs
+        if self.replay is not None:
+            rec["choice"] = choice = torch.topk(probs, k, dim=-1).indices.sort(dim=-1).values
+            want = self.replay[len(self.calls)]
+            flipped = (choice != want).any(dim=-1)
+            rows = flipped.nonzero().flatten().tolist()
+            if rows:
+                routed = probs.clone()
+                for r in rows:
+                    mine, theirs = set(choice[r].tolist()), set(want[r].tolist())
+                    out_ = sorted(mine - theirs, key=lambda e: -float(probs[r, e]))
+                    in_ = sorted(theirs - mine, key=lambda e: -float(probs[r, e]))
+                    for i, j in zip(out_, in_):
+                        routed[r, i], routed[r, j] = probs[r, j], probs[r, i]
+                got = torch.topk(routed[rows], k, dim=-1).indices.sort(dim=-1).values
+                if not torch.equal(got, want[rows]):
+                    raise RuntimeError("moe replay: swapped rows do not route as replayed")
+            rec["flipped"] = flipped
+        self.host_s += time.perf_counter() - t0
+        out, counts = self.real(params, spec, xf, routed, e_lo, n_local)
+        rec["counts"] = counts
+        self.calls.append(rec)
+        return out, counts
+
+    def choices(self):
+        """Each call's expert sets, ``[T, k]`` sorted, from its probabilities."""
+        for c in self.calls:
+            if "choice" not in c:
+                c["choice"] = torch.topk(c["probs"], c["k"], dim=-1).indices.sort(dim=-1).values
+        return [c["choice"] for c in self.calls]
+
+    @contextlib.contextmanager
+    def installed(self):
+        mod = sys.modules[__name__]
+        self.real = mod._dispatch_compute_combine
+        mod._dispatch_compute_combine = self
+        try:
+            yield self
+        finally:
+            mod._dispatch_compute_combine = self.real

@@ -51,6 +51,8 @@ from typing import Any, Dict, List, Tuple
 
 import torch
 
+from repro_torch.sharding.specs import current_mesh
+
 from . import attention as attn_mod
 from . import ffn as ffn_mod
 from . import moe as moe_mod
@@ -469,6 +471,10 @@ def lm_loss(params, cfg: ModelConfig, batch) -> torch.Tensor:
     (JAX ``lm_loss``): ``log_softmax`` of the float32 logits, each label's
     log-probability by the reference's one-hot contraction, averaged over
     the positions that ``batch["loss_mask"]`` keeps (all without one)."""
+    mesh = current_mesh()
+    if mesh is not None and mesh.shape.get("model", 1) > 1:
+        raise NotImplementedError("lm_loss under a model mesh: training on the expert-parallel "
+                                  "path is ROADMAP.md item A6")
     logits, aux = forward(params, cfg, batch)
     logits = logits[:, :-1]
     labels = batch["tokens"][:, 1:]

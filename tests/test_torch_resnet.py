@@ -242,8 +242,15 @@ def jax_refs():
             with jax.enable_x64(dtype == np.float64):
                 jp = {k: jnp.asarray(v.astype(dtype)) for k, v in pm.items()}
                 xj = jnp.asarray(x.astype(dtype))
-                lj = np.asarray(apply(jp, xj))
-                gj = jax.jit(jax.grad(lambda p: _loss_j(apply(p, xj))))(jp)
+
+                def loss(p):
+                    logits = apply(p, xj)
+                    return _loss_j(logits), logits
+
+                # the logits come out of the gradient's one jitted call (an
+                # eager forward took 2-4 s of op-by-op dispatch)
+                gj, lj = jax.jit(jax.grad(loss, has_aux=True))(jp)
+                lj = np.asarray(lj)
                 assert lj.dtype == dtype
                 out += [lj, {k: np.asarray(v) for k, v in gj.items()}]
         cache[(net, form)] = (pm, um, x, *out)
