@@ -446,7 +446,9 @@ the RG-LRU scan (``rg_lru_scan_bwd_f32`` in ``csrc/rg_lru_scan.cu``):
                    on recurrentgemma-9b at full width cut to
                    ``TRAIN_LAYERS`` and on whisper-small at full size: losses,
                    steady ms a step, peak GB, launches a step of each kernel
-                   in each direction (counts zeroed just before the loop).
+                   in each direction (counts zeroed just before the loop;
+                   since slice 21 each forward kernel launches twice a
+                   step, once more in remat's recompute).
                    The first step is held first: loss and every gradient leaf
                    with the kernels against the same step with the model
                    modules' kernel names bound to the plain versions, within
@@ -462,8 +464,9 @@ Slice 20, checkpoints, the quickstart and the expert-parallel MoE path:
 38. quickstart    — ``examples/torch_quickstart.py``'s ``main`` on the card
                    (smoke internlm2-1.8b, 60 AdamW steps, the gamma = 0.6
                    sub-model served): the loss falls, flash launched once
-                   per attention layer in each step's forward and backward
-                   and in the sub-model's prefill; the trained params saved
+                   per attention layer in each step's forward, again in its
+                   remat recompute (slice 21), once in its backward and in
+                   the sub-model's prefill; the trained params saved
                    with a global index and a CIG order and reloaded (every
                    leaf and extra bit for bit, the same greedy tokens and
                    logits served), and a bf16 leaf through its ``<V2``
@@ -481,6 +484,24 @@ Slice 20, checkpoints, the quickstart and the expert-parallel MoE path:
                    ``moe_xlstm_serve``'s bar, ranks and two runs bit-
                    identical); held and peak GB per rank against one rank,
                    the psum's ms and transport.
+
+Slice 21, the dry-run and roofline tooling (``launch/dryrun.py``,
+``launch/roofline.py``) and ``ModelConfig.remat`` (default on: each
+training step's forward runs again in its backward):
+
+40. dryrun        — the counts on ``meta`` at full size (the three
+                   hillclimb baselines at ``train_4k`` through
+                   ``analyze_pair``, recurrentgemma-9b x ``prefill_32k``,
+                   qwen3-32b x ``decode_32k``, xlstm-1.3b x ``long_500k``)
+                   with their seconds; ``make_step``'s train step on the
+                   card at ``llm_train``'s configuration with remat on and
+                   off: loss and every gradient leaf bit-identical, peak GB,
+                   ms and launches a step both ways, microbatch 2 against 1
+                   at ``LOSS_BAR`` / ``GRAD_BAR``; peak GB both ways at
+                   batch 1 x 4096 tokens; the dry-run's argument bytes of
+                   the step against the card's (held to allocator rounding),
+                   its predicted temp bytes, ``t_compute`` and ``t_memory``
+                   against the measured peak and ms (ratios recorded).
 
 Then a ``{"phase": "done"}`` line with the script's seconds, a
 ``{"kernels": [...]}`` line, the ``nvidia-smi`` name/power line, and as the
@@ -5742,6 +5763,11 @@ def _train_one(cfg, label):
     kinds = cfg.layer_kinds()
     attn_layers = sum(kinds.count(k) for k in ("attn", "local", "moe", "moe_local"))
     attn_layers = attn_layers * (2 if cfg.encoder_layers else 1) + cfg.encoder_layers
+    scan_layers = kinds.count("rglru") + kinds.count("slstm")
+    # under ModelConfig.remat (default True) every layer's forward runs again
+    # in the backward: each forward kernel launches twice a step, each
+    # backward kernel once
+    fwd = 2 if cfg.remat else 1
     rec = {"phase": "llm_train", "run": label, "params": param_count(cfg),
            "layers": cfg.num_layers, "d_model": cfg.d_model, "vocab": cfg.vocab_size,
            "steps": steps, "batch": TRAIN["batch"], "seq": TRAIN["seq"], "lr": TRAIN["lr"],
@@ -5750,8 +5776,10 @@ def _train_one(cfg, label):
            "first_step_ms": 1e3 * step_s[0], "loop_s": secs,
            "peak_gb": peak_gb, "held_peak_gb": held_peak_gb, "profiled_step": prof,
            "launches": launches, "launches_per_step": {k: v / steps for k, v in launches.items()},
-           "expected_per_step": {"flash_attention": attn_layers,
-                                 "rg_lru_scan": kinds.count("rglru") + kinds.count("slstm")},
+           "remat": cfg.remat,
+           "expected_per_step": {"flash_attention": fwd * attn_layers,
+                                 "flash_attention_bwd": attn_layers,
+                                 "rg_lru_scan": fwd * scan_layers, "rg_lru_scan_bwd": scan_layers},
            "first_loss_equals_held": losses[0] == float(loss_k),
            "held_first_step": held, "seconds": time.perf_counter() - t0}
     emit(rec)
@@ -5789,11 +5817,10 @@ def phase_llm_train(report):
         check(abs(r["losses"][0] - h["loss_kernels"]) <= LOSS_BAR * abs(h["loss_kernels"]),
               f"llm_train {arch}: train_loop's first loss {r['losses'][0]} is not the held "
               f"step's {h['loss_kernels']}")
-        for k, n in r["expected_per_step"].items():
-            for key in (k, k + "_bwd"):
-                check(r["launches_per_step"][key] == n and h["launches"][key] == n,
-                      f"llm_train {arch}: {key} launched {r['launches_per_step'][key]} times a "
-                      f"step, expected {n}")
+        for key, n in r["expected_per_step"].items():
+            check(r["launches_per_step"][key] == n and h["launches"][key] == n,
+                  f"llm_train {arch}: {key} launched {r['launches_per_step'][key]} times a "
+                  f"step, expected {n}")
         check(r["launches"]["flash_attention_bwd"] > 0, f"llm_train {arch}: no flash backward")
     check(out["recurrentgemma-9b"]["launches"]["rg_lru_scan_bwd"] > 0,
           "llm_train: recurrentgemma-9b launched no scan backward")
@@ -5822,7 +5849,8 @@ def phase_quickstart(report):
     """Slice 20: ``examples/torch_quickstart.py``'s ``main`` on the card at
     its defaults (smoke internlm2-1.8b, 60 AdamW steps, batch 8, lr 1e-3,
     then the gamma = 0.6 sub-model served): the loss falls; flash launched
-    once per attention layer in each step's forward and backward and in the
+    once per attention layer in each step's forward, again in its remat
+    recompute (``ModelConfig.remat``), once in its backward and in the
     sub-model's prefill, none in the cross spec (``FlashSpy``; counts zeroed
     just before ``main``).  The trained params saved with a global index
     and a CIG order (``repro_torch.checkpoint``) and reloaded onto the
@@ -5855,7 +5883,10 @@ def phase_quickstart(report):
     steps = len(q["losses"])
     attn = sum(k in ("attn", "local", "moe", "moe_local") for k in cfg.layer_kinds())
     sub_attn = sum(k in ("attn", "local", "moe", "moe_local") for k in sub.layer_kinds())
-    want_fwd = {**dict.fromkeys(fwd, 0), "flash_attention": steps * attn + sub_attn}
+    # remat (ModelConfig.remat, default True) runs each step's forward again
+    # in its backward; the sub-model's prefill records no graph
+    remat = 2 if cfg.remat else 1
+    want_fwd = {**dict.fromkeys(fwd, 0), "flash_attention": steps * remat * attn + sub_attn}
     want_bwd = {**dict.fromkeys(bwd, 0), "flash_attention_bwd": steps * attn}
     # the checkpoint: a global index and a CIG order for each FFN layer of
     # the 0.6 sub-model (seeded), as a worker's and the server's
@@ -6127,6 +6158,227 @@ def phase_moe_ep(report, moex):
     return out
 
 
+# ---------------------------------------------------------------------------
+# slice 21: the dry-run and roofline tooling, and ModelConfig.remat
+# ---------------------------------------------------------------------------
+
+# (a) pairs counted on meta at full size: the three hillclimb baselines
+# through roofline.analyze_pair, three serving pairs through dryrun.run_pair
+DRYRUN_ROOFLINE = (("llama4-maverick-400b-a17b", "train_4k"), ("xlstm-1.3b", "train_4k"),
+                   ("internlm2-1.8b", "train_4k"))
+DRYRUN_PAIRS = (("recurrentgemma-9b", "prefill_32k"), ("qwen3-32b", "decode_32k"),
+                ("xlstm-1.3b", "long_500k"))
+# (c) the remat reading at a long sequence, recurrentgemma-9b at TRAIN_LAYERS
+REMAT_LONG = {"batch": 1, "seq": 4096}
+# (b) microbatch 2 against 1 on the same batch: the same function, each
+# half's float32 gradients through the same kernels summed and halved, so
+# only the order of float32 sums differs, as between the kernels and the
+# plain versions in llm_train; held at llm_train's bars (LOSS_BAR, GRAD_BAR)
+
+
+def _same_leaves(a, b) -> bool:
+    import torch
+    from repro_torch.optim.optimizers import tree_leaves
+
+    la, lb = tree_leaves(a), tree_leaves(b)
+    return len(la) == len(lb) and all(x.dtype == y.dtype and torch.equal(x, y)
+                                      for x, y in zip(la, lb))
+
+
+def _timed_train_step(step, params, state, batch) -> dict:
+    """One call of a ``make_step`` train step: ms, peak GB, the peak's bytes
+    above what was allocated before, and the kernels' launches (counts
+    zeroed just before, read just after)."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    reset_train_launches()
+    t = time.perf_counter()
+    _, state, loss = step(params, state, batch)
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t)
+    peak = torch.cuda.max_memory_allocated()
+    return {"ms": ms, "peak_gb": peak / 1e9, "held_bytes": before, "temp_bytes": peak - before,
+            "launches": train_launches(), "loss": float(loss), "state": state}
+
+
+def _timed_grads(params, cfg, batch) -> dict:
+    import torch
+    from repro_torch.launch.train import loss_and_grads
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    reset_train_launches()
+    t = time.perf_counter()
+    loss, grads = loss_and_grads(params, cfg, batch)
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t)
+    peak = torch.cuda.max_memory_allocated()
+    return {"ms": ms, "peak_gb": peak / 1e9, "temp_gb": (peak - before) / 1e9,
+            "launches": train_launches(), "loss": loss, "grads": grads}
+
+
+def phase_dryrun(report):
+    """Slice 21: (a) the dry-run's counts on ``meta`` at full size
+    (``DRYRUN_ROOFLINE``, ``DRYRUN_PAIRS``), with their seconds; (b)
+    ``make_step``'s train step for real on the card at ``llm_train``'s
+    configuration (recurrentgemma-9b at full width, ``TRAIN_LAYERS`` layers,
+    float32, batch 8 x 64, AdamW), with ``remat`` on and off: the loss and
+    every gradient leaf bit-identical, peak GB, ms a step and launches a
+    step (counts zeroed just before each step, read just after) both ways,
+    and microbatch 2 against 1 at ``LOSS_BAR`` / ``GRAD_BAR``; (c) peak GB
+    and ms with ``remat`` on and off at batch 1 x ``REMAT_LONG`` tokens, the
+    two bit-identical; (d) the same step counted on ``meta`` at one device
+    against the card: its argument bytes against
+    ``torch.cuda.memory_allocated()`` (allocator rounding: 512 bytes a
+    leaf, held), its peak live bytes against the measured peak above the
+    held bytes, and ``t_compute`` (at the float32 rate the step runs at,
+    and at the roofline's bf16 rate) and ``t_memory`` against the measured
+    ms, as ratios (findings, not bars)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data.synthetic import SyntheticLMTask
+    from repro_torch.launch import dryrun as D
+    from repro_torch.launch.mesh import HARDWARE
+    from repro_torch.launch.roofline import analyze_pair
+    from repro_torch.models import transformer as T
+    from repro_torch.optim.optimizers import adamw, tree_leaves
+
+    t0 = time.perf_counter()
+    dev = torch.device(DEVICE)
+    # (a) counts on meta
+    counts = []
+    for arch, shape in DRYRUN_ROOFLINE:
+        t = time.perf_counter()
+        r = analyze_pair(arch, shape, "single")
+        counts.append({**{k: r[k] for k in ("arch", "shape", "mesh", "status", "devices",
+                                            "params", "flops_per_device", "bytes_per_device",
+                                            "collective_bytes_per_device", "t_compute_s",
+                                            "t_memory_s", "t_collective_s", "dominant",
+                                            "useful_flops_ratio", "temp_bytes", "arg_bytes",
+                                            "fits_hbm")},
+                       "seconds": time.perf_counter() - t})
+    for arch, shape in DRYRUN_PAIRS:
+        t = time.perf_counter()
+        r = D.run_pair(arch, shape, "single", verbose=False)
+        counts.append({**{k: r[k] for k in ("arch", "shape", "mesh", "status", "devices",
+                                            "params", "model_flops_per_token",
+                                            "hlo_flops_per_device", "hlo_bytes_per_device",
+                                            "memory")},
+                       "collective_bytes": r["collectives"]["total"],
+                       "seconds": time.perf_counter() - t})
+    counts_s = time.perf_counter() - t0
+    emit({"phase": "dryrun_counts", "counts": counts, "seconds": counts_s})
+    # (b) the real step at llm_train's configuration, and (d) its count
+    cfg = get_config("recurrentgemma-9b").replace(num_layers=TRAIN_LAYERS)
+    check(cfg.remat and cfg.dtype == "float32", "dryrun: remat is on by default, float32")
+    b, s = TRAIN["batch"], TRAIN["seq"]
+    step_on, abstract_args = D.make_step(cfg, "train_4k")
+    step_off, _ = D.make_step(cfg.replace(remat=False), "train_4k")
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    args = abstract_args(device=dev, batch=b, seq=s)
+    params, state, batch = args
+    toks = SyntheticLMTask(cfg.vocab_size, s, TRAIN["seed"]).sample(b, np.random.default_rng(1))
+    batch["tokens"].copy_(torch.as_tensor(toks, dtype=torch.int32))
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated() - base
+    n_leaves = len(tree_leaves(args))
+    predicted_args = D.argument_bytes(cfg, "train_4k", args, D.ONE_DEVICE)
+    t = time.perf_counter()
+    count = D.count_step(step_on, abstract_args(device="meta", batch=b, seq=s))
+    count_s = time.perf_counter() - t
+    # the optimizer state is made again for the timed steps: two gradient
+    # trees and microbatch 2's float32 accumulators fit beside the params
+    del args, state
+    torch.cuda.empty_cache()
+    _timed_grads(params, cfg, batch)                      # warm: the first call is cold
+    on = _timed_grads(params, cfg, batch)
+    off = _timed_grads(params, cfg.replace(remat=False), batch)
+    grads_equal = bool(torch.equal(on["loss"], off["loss"])) and _same_leaves(on["grads"], off["grads"])
+    del off["grads"]
+    mb_loss, mb_grads = D.accumulated_grads(params, cfg, batch, 2)
+    mb = {"loss_rel_gap": abs(float(mb_loss) - float(on["loss"])) / abs(float(on["loss"])),
+          "grad_gap": grad_gap(mb_grads, on["grads"])}
+    del mb_grads, on["grads"]
+    torch.cuda.empty_cache()
+    state = adamw(TRAIN["lr"]).init(params)
+    steps = {}
+    for label, step in (("remat_on", step_on), ("remat_off", step_off)):
+        _, state, _ = step(params, state, batch)          # warm
+        r = _timed_train_step(step, params, state, batch)
+        state = r.pop("state")
+        steps[label] = r
+    ro = steps["remat_on"]
+    flops_f32_ms = 1e3 * count.flops / F32_TFLOPS
+    est = {"argument_bytes": predicted_args, "held_bytes": held, "arg_leaves": n_leaves,
+           "arg_ratio": held / predicted_args,
+           "temp_bytes_predicted": count.peak_live_bytes, "temp_bytes_measured": ro["temp_bytes"],
+           "temp_ratio": ro["temp_bytes"] / count.peak_live_bytes,
+           "saved_bytes_predicted": count.saved_bytes,
+           "flops": count.flops, "bytes": count.bytes, "ops": count.ops, "count_s": count_s,
+           "t_compute_f32_ms": flops_f32_ms,
+           "t_compute_bf16_ms": 1e3 * count.flops / HARDWARE["peak_flops_bf16"],
+           "t_memory_ms": 1e3 * count.bytes / HARDWARE["hbm_bandwidth"],
+           "measured_ms": ro["ms"]}
+    est["compute_ratio"] = ro["ms"] / est["t_compute_f32_ms"]
+    est["memory_ratio"] = ro["ms"] / est["t_memory_ms"]
+    del params, state, batch
+    torch.cuda.empty_cache()
+    # (c) a long sequence
+    params = T.init_params(torch.Generator(device=dev).manual_seed(TRAIN["seed"]), cfg)
+    toks = SyntheticLMTask(cfg.vocab_size, REMAT_LONG["seq"], TRAIN["seed"]).sample(
+        REMAT_LONG["batch"], np.random.default_rng(2))
+    long_batch = {"tokens": torch.as_tensor(toks, dtype=torch.int32, device=dev)}
+    _timed_grads(params, cfg, long_batch)                 # warm at this shape
+    long_on = _timed_grads(params, cfg, long_batch)
+    long_off = _timed_grads(params, cfg.replace(remat=False), long_batch)
+    long_equal = bool(torch.equal(long_on["loss"], long_off["loss"])) and _same_leaves(
+        long_on["grads"], long_off["grads"])
+    long = {k: {f: r[f] for f in ("ms", "peak_gb", "temp_gb", "launches")}
+            for k, r in (("remat_on", long_on), ("remat_off", long_off))}
+    del params, long_on, long_off
+    torch.cuda.empty_cache()
+    rec = {"phase": "dryrun", "config": f"recurrentgemma-9b/{TRAIN_LAYERS}_of_38_layers",
+           "batch": b, "seq": s, "counts_s": counts_s,
+           "remat_bit_identical": grads_equal, "grad_ms": {"remat_on": on["ms"], "remat_off": off["ms"]},
+           "grad_peak_gb": {"remat_on": on["peak_gb"], "remat_off": off["peak_gb"]},
+           "grad_temp_gb": {"remat_on": on["temp_gb"], "remat_off": off["temp_gb"]},
+           "grad_launches": {"remat_on": on["launches"], "remat_off": off["launches"]},
+           "steps": steps, "microbatch_2_vs_1": mb, "loss_bar": LOSS_BAR, "grad_bar": GRAD_BAR,
+           "long": {**REMAT_LONG, **long, "bit_identical": long_equal},
+           "estimates": est, "seconds": time.perf_counter() - t0}
+    emit(rec)
+    report["dryrun"] = {**rec, "counts": counts}
+    for c in counts:
+        check(c["status"] == "ok", f"dryrun: {c['arch']} x {c['shape']} {c['status']}")
+    check(all(0 < c["useful_flops_ratio"] <= 1 for c in counts if "useful_flops_ratio" in c),
+          "dryrun: a useful-FLOPs ratio outside (0, 1]")
+    check(grads_equal, "dryrun: remat on and off differ in the loss or a gradient")
+    check(long_equal, "dryrun: remat on and off differ at the long sequence")
+    check(mb["loss_rel_gap"] <= LOSS_BAR and mb["grad_gap"]["max_rel"] <= GRAD_BAR,
+          "dryrun: microbatch 2 misses microbatch 1: " + json.dumps(mb))
+    check(0 <= held - predicted_args <= 512 * n_leaves,
+          f"dryrun: the card holds {held} bytes of arguments, the count {predicted_args}")
+    kinds = cfg.layer_kinds()
+    attn, scan = kinds.count("local"), kinds.count("rglru")
+    want = {"remat_on": {"flash_attention": 2 * attn, "flash_attention_bwd": attn,
+                         "rg_lru_scan": 2 * scan, "rg_lru_scan_bwd": scan},
+            "remat_off": {"flash_attention": attn, "flash_attention_bwd": attn,
+                          "rg_lru_scan": scan, "rg_lru_scan_bwd": scan}}
+    for label, w in want.items():
+        check(steps[label]["launches"] == w and rec["grad_launches"][label] == w,
+              f"dryrun: {label} launched {steps[label]['launches']}, want {w}")
+    # remat_off runs while remat_on's gradients are held: its peak above
+    # what was allocated before it (temp_gb) is the like-for-like reading
+    check(long["remat_on"]["temp_gb"] < long["remat_off"]["temp_gb"],
+          "dryrun: remat did not lower the long sequence's peak")
+    return rec
+
+
 def main() -> int:
     try:
         import torch
@@ -6228,6 +6480,8 @@ def main() -> int:
         quick = phase_quickstart(report)
         save(report)
         ep = phase_moe_ep(report, moex)
+        save(report)
+        dry = phase_dryrun(report)
     steps = max(res.train_steps, 1)
     rb_steps = max(rb_res.train_steps, 1)
     s_steps = max(s_res.train_steps, 1)
@@ -6419,6 +6673,12 @@ def main() -> int:
             entry.update(bit_identical=all(c["bit_identical"] for c in cases),
                          device_ms=head["device_ms"] * n)
         kernels.append(entry)
+    # slice 21: launches of the dry-run's train step on the card (make_step,
+    # recurrentgemma-9b at TRAIN_LAYERS, remat on: each forward kernel twice)
+    for entry in kernels:
+        if entry["name"] in dry["steps"]["remat_on"]["launches"]:
+            entry["dryrun"] = {label: dry["steps"][label]["launches"][entry["name"]]
+                               for label in ("remat_on", "remat_off")}
     report["kernels"] = kernels
     report["card"] = card
     report["seconds"] = time.perf_counter() - t0

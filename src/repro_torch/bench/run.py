@@ -11,8 +11,10 @@ Port of ``benchmarks/run.py``'s commands (``tables``, ``scale``,
 ``regrow_sweep``, ``world_model``, ``robust_world``, ``flaky_grid``), with
 the reference's rows, JSON keys and ``checks``.  A check that fails prints
 ``False``: it is bench data.  A failing bench is not: it raises, and the
-process exits non-zero.  The ``roofline_table`` bench reads the TPU
-dry-run's output; it is not ported and raises (ROADMAP.md).
+process exits non-zero.  The ``roofline_table`` bench prints the records
+of ``results/roofline_single.jsonl`` as the reference's does, from the
+port's roofline sweep (``python -m repro_torch.launch.roofline --out
+results/roofline_single.jsonl``, H100 terms).
 
 Flags the reference does not have:
 
@@ -1005,6 +1007,29 @@ SWEEPS = {"scale": (scale, "scale"), "async_scale": (async_scale, "async"),
           "flaky_grid": (flaky_grid, "world")}
 
 
+def roofline_table(path="results/roofline_single.jsonl"):
+    """§Roofline terms per (arch x shape), from the port's roofline sweep
+    (the reference's lines, byte for byte, for the same file)."""
+    if not os.path.exists(path):
+        print(f"roofline/skipped,no {path} (run repro_torch.launch.roofline first),")
+        return
+    seen = {}
+    with open(path) as f:
+        for line in f:
+            rec = json.loads(line)
+            seen[(rec["arch"], rec["shape"], rec.get("label", "baseline"))] = rec
+    for (arch, shape, label), rec in sorted(seen.items()):
+        if rec["status"] != "ok":
+            print(f"roofline/{arch}/{shape}/{label},{rec['status']},{rec.get('reason','')[:60]}")
+            continue
+        print(
+            f"roofline/{arch}/{shape}/{label},{rec['dominant']},"
+            f"tc={rec['t_compute_s']*1e3:.1f}ms;tm={rec['t_memory_s']*1e3:.1f}ms;"
+            f"tx={rec['t_collective_s']*1e3:.1f}ms;useful={rec['useful_flops_ratio']:.2f};"
+            f"fits={rec['fits_hbm']}"
+        )
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(
         description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter
@@ -1048,17 +1073,15 @@ def main(argv=None) -> int:
         fn(args.out or f"BENCH_port_{out}.json", **kw)
         return 0
 
-    names = [name for name, _ in tables.BENCHES]
-    if args.only == "roofline_table":
-        raise ValueError("roofline_table reads the TPU dry-run's output and is not ported "
-                         "to repro_torch (see ROADMAP.md, queue A6)")
+    benches = (*tables.BENCHES, ("roofline_table", lambda settings: roofline_table()))
+    names = [name for name, _ in benches]
     if args.only is not None and args.only not in names:
         raise ValueError(f"--only {args.only!r}: choose from {names}")
     # as in the reference, BENCH_QUICK=1 in the environment also shrinks the tables
     quick = args.quick or os.environ.get("BENCH_QUICK", "") == "1"
     settings = tables.Settings(quick=quick, engine=args.engine, device=args.device, cnn=cnn)
     print("name,value,derived")
-    for name, fn in tables.BENCHES:
+    for name, fn in benches:
         if args.only and name != args.only:
             continue
         t0 = time.perf_counter()

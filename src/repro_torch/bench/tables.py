@@ -204,8 +204,8 @@ def engines(s: Settings):
         )
 
 
-# the reference's order; its tenth entry, roofline_table, reads TPU dry-run
-# output and is not ported (ROADMAP.md A6)
+# the reference's order; its tenth entry, roofline_table, is bench/run.py's
+# (it reads the roofline sweep's records, not a simulation)
 BENCHES = (
     ("table2_main", table2_main),
     ("table4_heterogeneity", table4_heterogeneity),

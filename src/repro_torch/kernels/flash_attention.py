@@ -35,7 +35,10 @@ float16 included, and mixed dtypes are refused by name.
 
 A CPU tensor runs the plain version (``flash_attention_plain``: repeat K/V,
 then ``ref.flash_attention_ref``); a CUDA tensor launches
-``csrc/flash_attention.cu`` (head dims 64, 128, 256) or raises.
+``csrc/flash_attention.cu`` (head dims 64, 128, 256) or raises.  A ``meta``
+tensor (the dry-run's shape-only step, ``launch.dryrun``) goes through the
+plain version too, forward and backward, bf16 included: it computes
+nothing, and ``FlopCounterMode`` sees its products.
 In float32 the kernel runs both products on the tensor cores in 3xTF32
 (each operand split into two tf32 halves, three products summed in FP32),
 which keeps it within the FP32 bar where one TF32 pass would not.  In bf16
@@ -427,10 +430,10 @@ def flash_attention_bwd_cuda(q, k, v, o, do, *, causal: bool = True,
 
 
 def _forward(q, k, v, causal, window, softcap):
-    if q.device.type == "cpu":
+    if q.device.type in ("cpu", "meta"):
         return flash_attention_plain(q, k, v, causal=causal, window=window, softcap=softcap)
     if q.device.type != "cuda":
-        raise ValueError(f"flash_attention runs on CPU or CUDA tensors, got {q.device}")
+        raise ValueError(f"flash_attention runs on CPU or CUDA tensors (or meta: shapes only), got {q.device}")
     return flash_attention_cuda(q, k, v, causal=causal, window=window, softcap=softcap)
 
 
@@ -448,8 +451,12 @@ class _FlashAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, do):
         q, k, v, o = ctx.saved_tensors
-        bwd = flash_attention_bwd_plain if q.device.type == "cpu" else flash_attention_bwd_cuda
-        dq, dk, dv = bwd(q, k, v, o, do, **ctx.mode)
+        if q.device.type == "meta":
+            # shapes only: the plain formulas in any mode, the bf16 one too
+            dq, dk, dv = flash_attention_bwd_ref(q, k, v, o, do, **ctx.mode)
+        else:
+            bwd = flash_attention_bwd_plain if q.device.type == "cpu" else flash_attention_bwd_cuda
+            dq, dk, dv = bwd(q, k, v, o, do, **ctx.mode)
         return dq, dk, dv, None, None, None
 
 

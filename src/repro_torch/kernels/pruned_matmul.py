@@ -14,7 +14,9 @@ compacted list of live K blocks built on the device (no host sync).
 
 ``pruned_matmul`` is the differentiable entry point.  A CPU tensor goes to
 the plain version (``pruned_matmul_plain``); a CUDA tensor launches the
-hand-written kernel (``csrc/pruned_matmul.cu``) or raises.  Its backward
+hand-written kernel (``csrc/pruned_matmul.cu``) or raises.  A ``meta``
+tensor goes through the plain version too: shapes only, with its products
+visible to ``FlopCounterMode``.  Its backward
 pass reuses the same kernel through strides, with no materialised transpose:
 
     dX = K(g, wᵀ, out_mask, in_mask, row_mask)   blocks (bm, bk, bn)
@@ -530,10 +532,10 @@ def pruned_matmul(
     units.  A CPU tensor runs the plain version; a CUDA tensor launches the
     kernel, or raises on what it does not take (including block sizes that
     are not multiples of its 64-wide tile)."""
-    if x.device.type == "cpu":
+    if x.device.type in ("cpu", "meta"):
         return pruned_matmul_plain(x, w, in_mask, out_mask, row_mask)
     if x.device.type != "cuda":
-        raise ValueError(f"pruned_matmul runs on CPU or CUDA tensors, got {x.device}")
+        raise ValueError(f"pruned_matmul runs on CPU or CUDA tensors (or meta: shapes only), got {x.device}")
     blocks = check_blocks((block_m, block_n, block_k))
     squeeze = x.dim() == 2 and w.dim() == 2
     B = max(x.shape[0] if x.dim() == 3 else 1, w.shape[0] if w.dim() == 3 else 1)

@@ -33,7 +33,10 @@ casts up at load and down at the store; the plain version does the same.
 Any other dtype, float16 included, and mixed dtypes are refused by name.
 
 A CPU tensor runs the plain version (``ref.rg_lru_ref``); a CUDA tensor
-launches the kernel or raises.  ``LAUNCHES`` counts each mode's kernel
+launches the kernel or raises.  A ``meta`` tensor (the dry-run's shape-only
+step, ``launch.dryrun``) gets a shape-only result in each direction, bf16
+included: the plain version is a Python loop over the steps, which would
+walk 32 768 of them a layer at ``prefill_32k`` to compute nothing.  ``LAUNCHES`` counts each mode's kernel
 launches under its own key (``rg_lru_scan``, ``rg_lru_scan_bf16``).
 
 Gradients (the port's own: the Pallas kernel has no VJP, and the reference
@@ -210,8 +213,11 @@ def rg_lru_scan_bwd_cuda(a: torch.Tensor, h: torch.Tensor, h0: torch.Tensor, dh:
 def _forward(x: torch.Tensor, a: torch.Tensor, h0: Optional[torch.Tensor]) -> torch.Tensor:
     if x.device.type == "cpu":
         return rg_lru_scan_plain(x, a, h0)
+    if x.device.type == "meta":
+        check_dtypes(x, a, h0)
+        return torch.empty_like(x)
     if x.device.type != "cuda":
-        raise ValueError(f"rg_lru_scan runs on CPU or CUDA tensors, got {x.device}")
+        raise ValueError(f"rg_lru_scan runs on CPU or CUDA tensors (or meta: shapes only), got {x.device}")
     if h0 is None:
         h0 = torch.zeros((x.shape[0], x.shape[2]), dtype=torch.float32, device=x.device)
     return rg_lru_scan_cuda(x, a, h0)
@@ -230,7 +236,10 @@ class _RGLRUScan(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dh):
         a, h0, h = ctx.saved_tensors
-        if a.device.type == "cpu":
+        if a.device.type == "meta":
+            dx, da = torch.empty_like(a), torch.empty_like(a)
+            dh0 = None if h0 is None else torch.empty_like(h0)
+        elif a.device.type == "cpu":
             dx, da, dh0 = rg_lru_scan_bwd_plain(a, h, h0, dh)
         else:
             if h0 is None:

@@ -2,7 +2,10 @@
 
 Parameters are nested dicts of tensors.  Initializers draw from an explicit
 ``torch.Generator`` and allocate on its device; ``lead`` prepends stacking
-axes (the scan-group axis) so a stacked parameter is drawn in place.  As in
+axes (the scan-group axis) so a stacked parameter is drawn in place.  Given
+``SHAPE_ONLY`` in place of a generator, every initializer returns a ``meta``
+tensor of the same shape and dtype and draws nothing (``jax.eval_shape`` of
+the init), so one code path builds both trees.  As in
 the JAX package, parameters are float32 or bfloat16; ``rms_norm``,
 ``layer_norm`` and ``apply_rope`` compute in float32 and cast back to the
 input's dtype.
@@ -16,8 +19,10 @@ import torch
 import torch.nn.functional as F
 
 __all__ = [
+    "SHAPE_ONLY",
     "dense_init",
     "normal_init",
+    "uniform_init",
     "rms_norm",
     "layer_norm",
     "softcap",
@@ -29,6 +34,19 @@ __all__ = [
 
 _SQRT2 = math.sqrt(2.0)
 _PHI_M2 = 0.5 * (1.0 + math.erf(-2.0 / _SQRT2))   # standard normal CDF at -2
+
+
+class _ShapeOnly:
+    """The stand-in for a generator that makes initializers draw nothing:
+    its ``device`` is ``meta``."""
+
+    device = torch.device("meta")
+
+    def __repr__(self):
+        return "SHAPE_ONLY"
+
+
+SHAPE_ONLY = _ShapeOnly()
 
 
 def _shape(lead: Sequence[int], in_dim: int, out_shape) -> Tuple[int, ...]:
@@ -49,6 +67,8 @@ def dense_init(gen: torch.Generator, in_dim: int, out_shape: Union[int, tuple],
         scale = 1.0 / math.sqrt(in_dim)
     shape = _shape(lead, in_dim, out_shape)
     out = torch.empty(shape, dtype=dtype, device=gen.device)
+    if gen is SHAPE_ONLY:
+        return out
     for sl in out.view(-1, *shape[len(lead):]):
         t = torch.empty(sl.shape, dtype=torch.float32, device=gen.device)
         t.uniform_(_PHI_M2, 1.0 - _PHI_M2, generator=gen)
@@ -58,8 +78,16 @@ def dense_init(gen: torch.Generator, in_dim: int, out_shape: Union[int, tuple],
 
 def normal_init(gen: torch.Generator, shape: Sequence[int], std: float,
                 dtype=torch.float32) -> torch.Tensor:
+    if gen is SHAPE_ONLY:
+        return torch.empty(tuple(shape), dtype=dtype, device=gen.device)
     t = torch.empty(tuple(shape), dtype=torch.float32, device=gen.device)
     return t.normal_(0.0, std, generator=gen).to(dtype)
+
+
+def uniform_init(gen: torch.Generator, shape: Sequence[int], low: float, high: float) -> torch.Tensor:
+    """A float32 draw uniform on ``[low, high)``."""
+    t = torch.empty(tuple(shape), dtype=torch.float32, device=gen.device)
+    return t if gen is SHAPE_ONLY else t.uniform_(low, high, generator=gen)
 
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:

@@ -56,7 +56,8 @@ from repro_torch.sharding.specs import current_mesh, local_slice
 
 from .layers import dense_init, silu
 
-__all__ = ["MoESpec", "init_moe", "moe_fwd", "capacity", "ep_pspec", "RoutingSpy"]
+__all__ = ["MoESpec", "init_moe", "moe_fwd", "capacity", "ep_pspec", "RoutingSpy",
+           "remat_contexts"]
 
 # the experts' products run over chunks of experts whose [e, C, F]
 # temporaries stay under this many bytes: a drop-free llama4-maverick layer
@@ -224,7 +225,7 @@ def _moe_ep(params, spec: MoESpec, x: torch.Tensor, mesh, n: int):
 
     if torch.is_grad_enabled() and (x.requires_grad or params["w_gate"].requires_grad):
         raise NotImplementedError("the expert-parallel MoE path serves only (no_grad): "
-                                  "training under a model mesh is ROADMAP.md item A6")
+                                  "training under a model mesh is ROADMAP.md item A8")
     E_loc = params["w_gate"].shape[0]
     E = spec.num_experts
     if not hasattr(mesh, "axes"):
@@ -258,6 +259,17 @@ def _moe_ep(params, spec: MoESpec, x: torch.Tensor, mesh, n: int):
     return out, aux
 
 
+def remat_contexts():
+    """``torch.utils.checkpoint``'s ``context_fn`` for a checkpointed group:
+    (the forward's context, the recompute's).  With a ``RoutingSpy``
+    installed the recompute replays the group's calls from the spy's count
+    at the forward (``RoutingSpy.recomputing``)."""
+    spy = _dispatch_compute_combine
+    if isinstance(spy, RoutingSpy):
+        return contextlib.nullcontext(), spy.recomputing(len(spy.calls))
+    return contextlib.nullcontext(), contextlib.nullcontext()
+
+
 def moe_fwd(params, spec: MoESpec, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """Returns (output [b, s, d], router load-balance aux loss scalar):
     expert-parallel under a mesh whose ``model`` axis of ``n > 1`` ranks
@@ -282,40 +294,66 @@ class RoutingSpy:
     differs, the probabilities of the experts it would choose and those of
     the replayed set are swapped pairwise (largest with largest), so the
     row routes as replayed with gates that move by no more than the swapped
-    gaps.  ``flipped`` marks those rows."""
+    gaps.  ``flipped`` marks those rows.
+
+    Under ``ModelConfig.remat`` the backward recomputes each checkpointed
+    group's MoE calls (``remat_contexts``): a recomputed call routes as its
+    first run did (the same replayed row of ``replay``) and is not recorded
+    again, so ``calls`` holds one entry an MoE layer and a forward."""
 
     def __init__(self, replay=None):
         self.calls = []
         self.replay = replay
         self.host_s = 0.0
+        self._cursor = None       # the call a recompute is at, else None
+
+    def _route(self, probs, k: int, call: int):
+        """(routed probabilities, choice, flipped rows) of call ``call``."""
+        choice = torch.topk(probs, k, dim=-1).indices.sort(dim=-1).values
+        want = self.replay[call]
+        p = probs.detach()           # the swaps' order reads values, records nothing
+        flipped = (choice != want).any(dim=-1)
+        rows = flipped.nonzero().flatten().tolist()
+        routed = probs
+        if rows:
+            routed = probs.clone()
+            for r in rows:
+                mine, theirs = set(choice[r].tolist()), set(want[r].tolist())
+                out_ = sorted(mine - theirs, key=lambda e: -float(p[r, e]))
+                in_ = sorted(theirs - mine, key=lambda e: -float(p[r, e]))
+                for i, j in zip(out_, in_):
+                    routed[r, i], routed[r, j] = probs[r, j], probs[r, i]
+            got = torch.topk(routed[rows], k, dim=-1).indices.sort(dim=-1).values
+            if not torch.equal(got, want[rows]):
+                raise RuntimeError("moe replay: swapped rows do not route as replayed")
+        return routed, choice, flipped
 
     def __call__(self, params, spec, xf, probs, e_lo, n_local):
         t0 = time.perf_counter()
         k = spec.num_experts_per_tok
+        if self._cursor is not None:
+            call, self._cursor = self._cursor, self._cursor + 1
+            routed = probs if self.replay is None else self._route(probs, k, call)[0]
+            self.host_s += time.perf_counter() - t0
+            return self.real(params, spec, xf, routed, e_lo, n_local)
         rec = {"T": xf.shape[0], "C": capacity(spec, xf.shape[0]), "k": k, "probs": probs}
         routed = probs
         if self.replay is not None:
-            rec["choice"] = choice = torch.topk(probs, k, dim=-1).indices.sort(dim=-1).values
-            want = self.replay[len(self.calls)]
-            flipped = (choice != want).any(dim=-1)
-            rows = flipped.nonzero().flatten().tolist()
-            if rows:
-                routed = probs.clone()
-                for r in rows:
-                    mine, theirs = set(choice[r].tolist()), set(want[r].tolist())
-                    out_ = sorted(mine - theirs, key=lambda e: -float(probs[r, e]))
-                    in_ = sorted(theirs - mine, key=lambda e: -float(probs[r, e]))
-                    for i, j in zip(out_, in_):
-                        routed[r, i], routed[r, j] = probs[r, j], probs[r, i]
-                got = torch.topk(routed[rows], k, dim=-1).indices.sort(dim=-1).values
-                if not torch.equal(got, want[rows]):
-                    raise RuntimeError("moe replay: swapped rows do not route as replayed")
-            rec["flipped"] = flipped
+            routed, rec["choice"], rec["flipped"] = self._route(probs, k, len(self.calls))
         self.host_s += time.perf_counter() - t0
         out, counts = self.real(params, spec, xf, routed, e_lo, n_local)
         rec["counts"] = counts
         self.calls.append(rec)
         return out, counts
+
+    @contextlib.contextmanager
+    def recomputing(self, call: int):
+        """While open, calls replay from call ``call`` on, unrecorded."""
+        self._cursor = call
+        try:
+            yield
+        finally:
+            self._cursor = None
 
     def choices(self):
         """Each call's expert sets, ``[T, k]`` sorted, from its probabilities."""

@@ -22,7 +22,7 @@ from typing import Sequence
 import torch
 
 from ..kernels.rg_lru_scan import rg_lru_scan
-from .layers import dense_init, gelu, normal_init
+from .layers import dense_init, gelu, normal_init, uniform_init
 
 __all__ = ["RGLRUSpec", "init_rglru", "rglru_fwd", "rglru_decode", "init_rglru_state"]
 
@@ -49,8 +49,7 @@ def init_rglru(gen: torch.Generator, spec: RGLRUSpec, lead: Sequence[int] = (),
         "gate_x": normal_init(gen, (*lead, H, hw, hw), 1.0 / math.sqrt(hw), dtype),
     }
     # Lambda so that a = exp(-c*softplus(L)) spreads over (0.9, 0.999)
-    u = torch.empty((*lead, R), dtype=torch.float32, device=gen.device)
-    u.uniform_(0.9**2, 0.999**2, generator=gen)
+    u = uniform_init(gen, (*lead, R), 0.9**2, 0.999**2)
     p["lam"] = torch.log(torch.exp(-torch.log(u) / (2 * _C)) - 1.0)   # kept f32
     p["w_out"] = dense_init(gen, R, D, lead=lead, dtype=dtype)
     return p

@@ -16,9 +16,20 @@ counts them in the cache.  ``pos_embed="learned"`` adds ``pos_embed`` rows
 to the embedded sequence and each decode step.  Full periods
 of ``cfg.block_pattern`` are parameter-stacked on a leading group axis
 (``params["blocks"]["s{j}"]``), exactly as the JAX package stacks them for
-``lax.scan``; here a Python loop indexes one group at a time.  Remainder
-layers are the list ``params["rem"]``.  ``constrain`` and ``jax.checkpoint``
-have no counterpart: on one device both are no-ops or training-only.
+``lax.scan``; here a Python loop runs one group at a time (views made by
+one ``unbind`` a leaf).  Remainder
+layers are the list ``params["rem"]``.  ``constrain`` has no counterpart:
+on one device it is the identity.
+
+``cfg.remat`` (default True, as in the reference) is ``jax.checkpoint``'s
+counterpart: while autograd records the forward (grad enabled and the
+input or a parameter of the piece requiring grad), each period group of
+``_stack_fwd``, each remainder block when no cache is collected and each
+encoder layer runs under ``torch.utils.checkpoint.checkpoint(...,
+use_reentrant=False)``, which keeps only the piece's inputs and runs its
+forward again in the backward.  The recompute runs the same operations and
+kernels on the same inputs, so the loss and every gradient are bit for bit
+those of ``remat=False``; each kernel's forward launches twice a step.
 
 Entry points:
   * ``forward(params, cfg, batch)``               -> (logits, aux), aux the
@@ -50,6 +61,7 @@ from __future__ import annotations
 from typing import Any, Dict, List, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.sharding.specs import current_mesh
 
@@ -255,7 +267,9 @@ def _split_layers(cfg: ModelConfig) -> Tuple[int, List[str]]:
 @torch.no_grad()
 def init_params(gen: torch.Generator, cfg: ModelConfig) -> Dict[str, Any]:
     """Random parameters on ``gen``'s device: the JAX package's tree, shapes
-    and dtypes (the values differ: another generator)."""
+    and dtypes (the values differ: another generator).  ``gen`` =
+    ``layers.SHAPE_ONLY`` builds the same tree of ``meta`` tensors and
+    allocates nothing (``jax.eval_shape`` of the reference's init)."""
     validate_config(cfg)
     dt = param_dtype(cfg)
     params: Dict[str, Any] = {"embed": normal_init(gen, (cfg.vocab_size, cfg.d_model), 0.02, dt)}
@@ -353,7 +367,10 @@ def _ringify(cfg: ModelConfig, kind: str, k, v, cache_len: int, p, enc_out):
 
 
 def _embed_tokens(params, cfg: ModelConfig, tokens: torch.Tensor) -> torch.Tensor:
-    x = params["embed"][tokens]
+    # F.embedding, not ``embed[tokens]``: its backward sums each row's
+    # gradients in one order on every run, where indexing's scatter-add
+    # accumulates in parallel on the CPU, in whatever order threads meet
+    x = torch.nn.functional.embedding(tokens, params["embed"])
     if cfg.embed_scale:
         x = x * torch.tensor(cfg.d_model**0.5, dtype=x.dtype, device=x.device)
     return x
@@ -385,14 +402,40 @@ def _embed_inputs(params, cfg: ModelConfig, batch) -> torch.Tensor:
     return x
 
 
+def _recorded(x: torch.Tensor, tree) -> bool:
+    """Whether autograd records a piece run on ``x`` with params ``tree``."""
+    if not torch.is_grad_enabled():
+        return False
+    if x.requires_grad:
+        return True
+    found: List[bool] = []
+    tree_map(lambda t: found.append(t.requires_grad), tree)
+    return any(found)
+
+
+def _remat(cfg: ModelConfig, x: torch.Tensor, tree, fn, *args):
+    """``fn(*args)``, checkpointed under ``cfg.remat`` while autograd records
+    it (module docstring).  The forward draws no random numbers, so no RNG
+    state is kept for the recompute; an installed ``moe.RoutingSpy`` replays
+    the piece's routing in it (``moe.remat_contexts``)."""
+    if not (cfg.remat and _recorded(x, tree)):
+        return fn(*args)
+    return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False,
+                      context_fn=moe_mod.remat_contexts)
+
+
 def _run_encoder(params, cfg: ModelConfig, enc_embeds: torch.Tensor) -> torch.Tensor:
     """The encoder over ``enc_embeds [b, t, d]``: learned positions, then its
     ``attn`` blocks, then ``enc_norm``.  Its self-attention is causal, as the
     reference's ``_run_encoder`` builds it (``_attn_spec``'s default)."""
     x = enc_embeds.to(param_dtype(cfg))
     x = x + _learned(params["enc_pos"], 0, x.shape[1])
-    for li in range(cfg.encoder_layers):
-        x, _, _ = _block_fwd(cfg, "attn", _group(params["enc_blocks"], li)["s0"], x, None, False)
+
+    def layer(p, h):
+        return _block_fwd(cfg, "attn", p, h, None, False)[0]
+
+    for gp in _groups(params["enc_blocks"], cfg.encoder_layers):
+        x = _remat(cfg, x, gp["s0"], layer, gp["s0"], x)
     return _apply_norm(cfg, params["enc_norm"], x)
 
 
@@ -411,32 +454,52 @@ def _group(tree, gi: int):
     return tree_map(lambda t: t[gi], tree)
 
 
+def _groups(tree, g: int) -> List[Any]:
+    """The ``g`` groups of a stacked tree, as views made by one ``unbind`` a
+    leaf: its backward stacks the groups' gradients once, where indexing
+    each group would zero-fill and add a whole stack's gradient per group
+    (traffic quadratic in the depth)."""
+    if not g:
+        return []
+    if isinstance(tree, dict):
+        parts = {k: _groups(v, g) for k, v in tree.items()}
+        return [{k: parts[k][i] for k in tree} for i in range(g)]
+    return list(torch.unbind(tree, 0))
+
+
 def _stack_fwd(params, cfg: ModelConfig, x, enc_out, collect_cache: bool, cache_len: int = 0):
     """Run all layers; returns (x, total_aux, caches dict), the aux losses
     summed in layer order from a float32 zero as the JAX scan carries them."""
     g, rem = _split_layers(cfg)
     caches: Dict[str, Any] = {}
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+
+    def group(gp, h, aux_acc):
+        """One period group: (h, aux_acc, its caches)."""
+        gc = {}
+        for j, kind in enumerate(cfg.block_pattern):
+            h, aux, gc[f"s{j}"] = _block_fwd(cfg, kind, gp[f"s{j}"], h, enc_out,
+                                             collect_cache, cache_len)
+            if aux is not None:
+                aux_acc = aux_acc + aux
+        return h, aux_acc, gc
+
     if g > 0:
         group_caches = []
-        for gi in range(g):
-            gp = _group(params["blocks"], gi)
-            gc = {}
-            for j, kind in enumerate(cfg.block_pattern):
-                x, aux, gc[f"s{j}"] = _block_fwd(cfg, kind, gp[f"s{j}"], x, enc_out,
-                                                 collect_cache, cache_len)
-                if aux is not None:
-                    aux_total = aux_total + aux
+        for gp in _groups(params["blocks"], g):
+            x, aux_total, gc = _remat(cfg, x, gp, group, gp, x, aux_total)
             group_caches.append(gc)
         if collect_cache:
             caches["blocks"] = _stack(group_caches)
     for i, kind in enumerate(rem):
-        x, aux, cache = _block_fwd(cfg, kind, params["rem"][i], x, enc_out, collect_cache,
-                                   cache_len)
+        p = params["rem"][i]
+        if collect_cache:
+            x, aux, cache = _block_fwd(cfg, kind, p, x, enc_out, True, cache_len)
+            caches.setdefault("rem", []).append(cache)
+        else:
+            x, aux, _ = _remat(cfg, x, p, _block_fwd, cfg, kind, p, x, enc_out, False, cache_len)
         if aux is not None:
             aux_total = aux_total + aux
-        if collect_cache:
-            caches.setdefault("rem", []).append(cache)
     return x, aux_total, caches
 
 
@@ -474,7 +537,7 @@ def lm_loss(params, cfg: ModelConfig, batch) -> torch.Tensor:
     mesh = current_mesh()
     if mesh is not None and mesh.shape.get("model", 1) > 1:
         raise NotImplementedError("lm_loss under a model mesh: training on the expert-parallel "
-                                  "path is ROADMAP.md item A6")
+                                  "path is ROADMAP.md item A8")
     logits, aux = forward(params, cfg, batch)
     logits = logits[:, :-1]
     labels = batch["tokens"][:, 1:]

@@ -30,9 +30,10 @@ compares equal to ``tuple()`` of the reference's ``PartitionSpec``.
 returns the mesh entered with ``with mesh:``.  ``constrain`` is the
 reference's GSPMD layout hint (``with_sharding_constraint``); the port's
 forward runs no GSPMD, so it is the identity here and nothing calls it.
-Where a whole LLM is placed under these rules (FSDP + TP) is ROADMAP A6's
-open question; the one path that executes under a mesh is the MoE's
-expert-parallel one (``models.moe``).
+``launch.dryrun`` reads the rules on shapes only (each leaf's block,
+the collectives they imply); no whole LLM runs sharded (ROADMAP A8), and
+the one path that executes under a mesh is the MoE's expert-parallel one
+(``models.moe``).
 """
 from __future__ import annotations
 

@@ -40,6 +40,17 @@ from repro_torch.kernels.rg_lru_scan import rg_lru_scan, rg_lru_scan_plain
 from repro_torch.launch import serve as t_serve
 from repro_torch.models import transformer as TT
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """The models here are tiny: one intra-op thread beats a pool of them,
+    which only contends with the suite's other workers for the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 PM_TOL = 2e-2
 FLASH_TOL = 3e-2
 ARCHS = ["recurrentgemma-9b", "gemma2-2b", "internlm2-1.8b", "qwen1.5-32b", "qwen3-32b",

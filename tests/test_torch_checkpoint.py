@@ -28,6 +28,17 @@ import torch
 from repro.checkpoint import checkpoint as jck
 from repro_torch.checkpoint import checkpoint as tck
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """The models here are tiny: one intra-op thread beats a pool of them,
+    which only contends with the suite's other workers for the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 
 

@@ -17,6 +17,17 @@ from repro.models import cnn as jcnn
 from repro_torch.convert import params_from_numpy
 from repro_torch.models import cnn as tcnn
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """The models here are tiny: one intra-op thread beats a pool of them,
+    which only contends with the suite's other workers for the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 TOL = 1e-4
 PLAN = [16, "M", 32]
 

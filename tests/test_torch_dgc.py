@@ -200,21 +200,34 @@ def _scenario(f, s, spec):
     return s.ScenarioConfig(faults=fc, **spec)
 
 
-def _run_pair(engine, over, spec, seed=3):
-    jcfg = jcnn.vgg_config("t", [16, "M", 32], num_classes=10, image_size=8)
-    tcfg = tcnn.vgg_config("t", [16, "M", 32], num_classes=10, image_size=8)
+def _run_kw(engine, over, seed):
     kw = dict(method="adaptcl", importance="index", rounds=6, prune_interval=2, num_workers=5,
               batch_size=8, eval_every=1, seed=seed, engine=engine, **over)
     task = dict(num_classes=10, image_size=8, train_size=100, test_size=64, seed=seed)
-    base = {k: np.asarray(v) for k, v in jcnn.init_cnn(jax.random.PRNGKey(seed), jcfg).items()}
-    rj = jsim.run_simulation(jsim.SimConfig(
-        cnn=jcfg, task=jsyn.SyntheticImageTask(**task), scenario=_scenario(jf, jsc, spec),
+    return kw, task
+
+
+def _run_jax(engine, over, spec, seed=3):
+    kw, task = _run_kw(engine, over, seed)
+    return jsim.run_simulation(jsim.SimConfig(
+        cnn=jcnn.vgg_config("t", [16, "M", 32], num_classes=10, image_size=8),
+        task=jsyn.SyntheticImageTask(**task), scenario=_scenario(jf, jsc, spec),
         het=jtm.HeterogeneityConfig(num_workers=5), **kw))
-    rt = tsim.run_simulation(tsim.SimConfig(
-        cnn=tcfg, task=tsyn.SyntheticImageTask(**task), scenario=_scenario(tf, tsc, spec),
+
+
+def _run_port(engine, over, spec, seed=3):
+    kw, task = _run_kw(engine, over, seed)
+    jcfg = jcnn.vgg_config("t", [16, "M", 32], num_classes=10, image_size=8)
+    base = {k: np.asarray(v) for k, v in jcnn.init_cnn(jax.random.PRNGKey(seed), jcfg).items()}
+    return tsim.run_simulation(tsim.SimConfig(
+        cnn=tcnn.vgg_config("t", [16, "M", 32], num_classes=10, image_size=8),
+        task=tsyn.SyntheticImageTask(**task), scenario=_scenario(tf, tsc, spec),
         het=ttm.HeterogeneityConfig(num_workers=5), device="cpu",
         compute="block_skip" if engine == "masked" else "dense", **kw), base_params=base)
-    return rj, rt
+
+
+def _run_pair(engine, over, spec, seed=3):
+    return _run_jax(engine, over, spec, seed), _run_port(engine, over, spec, seed)
 
 
 @pytest.fixture(scope="module")
@@ -257,7 +270,7 @@ def test_dgc_shrinks_the_payload(runs):
     channel time and bytes fall below the dense run's."""
     for case in ("dgc_sequential", "dgc_masked"):
         engine, _, spec = RUN_CASES[case]
-        _, dense = runs("momentum_masked") if engine == "masked" else _run_pair(engine, {}, spec)
+        dense = runs("momentum_masked")[1] if engine == "masked" else _run_port(engine, {}, spec)
         _, sparse = runs(case)
         assert sparse.comm_bytes < 0.5 * dense.comm_bytes
 
@@ -267,5 +280,5 @@ def test_run_without_the_momentum_reset_misses_the_reference(runs, monkeypatch):
     run no longer matches the reference, so the parity case above sees it."""
     rj, _ = runs("momentum_masked")
     monkeypatch.setattr(tfleet.FleetEngine, "zero_momentum_rows", lambda self, state, rows: None)
-    _, broken = _run_pair(*RUN_CASES["momentum_masked"])
+    broken = _run_port(*RUN_CASES["momentum_masked"])   # against the module's oracle
     assert _param_diff(broken, rj) > 1e-4

@@ -31,6 +31,17 @@ from repro_torch.models import attention as t_attn
 from repro_torch.models import transformer as TT
 from torch_llm_parity import assert_tree_close, whole_model
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """The models here are tiny: one intra-op thread beats a pool of them,
+    which only contends with the suite's other workers for the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 LAYER_TOL = 1e-6
 BLOCK_TOL = 1e-5
 FRAMES = t_serve.CLI_ENC_FRAMES   # the reference CLI's 16 encoder frames

@@ -37,6 +37,17 @@ from repro_torch.core.worker import LocalTrainer as TTrainer
 from repro_torch.data.synthetic import SyntheticImageTask as TTask
 from repro_torch.models import cnn as tcnn
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """The models here are tiny: one intra-op thread beats a pool of them,
+    which only contends with the suite's other workers for the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 TINY_PLAN = [8, "M", 16]
 
 

@@ -12,6 +12,7 @@ each pruning worker's row once, at its scoring boundary).
 import jax
 import numpy as np
 import pytest
+import torch
 
 from repro.core import importance as jimp
 from repro.core.aggregation import extract_subparams
@@ -30,6 +31,17 @@ from repro_torch.core.worker import LocalTrainer as TTrainer
 from repro_torch.core.worker import local_unit_stats as t_stats
 from repro_torch.data.synthetic import SyntheticImageTask as TTask
 from repro_torch.models import cnn as tcnn
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """The models here are tiny: one intra-op thread beats a pool of them,
+    which only contends with the suite's other workers for the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 
 CRITERIA = ["l1", "taylor", "fpgm", "hrank"]
 

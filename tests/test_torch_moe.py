@@ -29,6 +29,17 @@ from repro_torch.models.config import apply_retention as t_apply_retention
 from repro_torch.models.config import param_count as t_param_count
 from torch_llm_parity import whole_model
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """The models here are tiny: one intra-op thread beats a pool of them,
+    which only contends with the suite's other workers for the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 MOE_TOL = 1e-5
 AUX_TOL = 1e-6
 BF16_TOL = 2e-2

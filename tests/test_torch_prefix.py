@@ -28,6 +28,17 @@ from repro_torch.launch import serve as t_serve
 from repro_torch.models import transformer as TT
 from torch_llm_parity import whole_model
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """The models here are tiny: one intra-op thread beats a pool of them,
+    which only contends with the suite's other workers for the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 LOGIT_TOL = 1e-4
 DECODE_TOL = 2e-3
 ARCH = "internvl2-76b"

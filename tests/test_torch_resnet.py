@@ -33,6 +33,17 @@ from repro_torch.core.simulation import run_simulation as t_run
 from repro_torch.data.synthetic import SyntheticImageTask as TTask
 from repro_torch.models import cnn as tcnn
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """The models here are tiny: one intra-op thread beats a pool of them,
+    which only contends with the suite's other workers for the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 TOL = 1e-4
 
 # name -> (resnet_config args, image size)

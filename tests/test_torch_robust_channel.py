@@ -28,7 +28,8 @@ in params; the witness is ``tests/test_torch_robust_chaos.py``).  So:
 * at a 160-image task (two SGD steps a round), where neither world is
   chaotic, every port engine in both worlds meets the whole contract
   against the JAX engine of the same name: the exact fields, final_acc
-  within 1e-3 and params within 1e-4.
+  within 1e-3 and params within 1e-4
+  (``tests/test_torch_channel_small_task.py``).
 
 The noise-mode world's four engines are ``tests/test_torch_robust_noise.py``.
 """
@@ -168,23 +169,3 @@ def test_channel_world_matches_the_same_jax_engine(engine):
 @pytest.mark.parametrize("name", ["chan", "noise"])
 def test_resident_engines_match_jax_from_the_draw(name, engine):
     check_world(name, engine, oracle="masked")
-
-
-@pytest.mark.parametrize("engine", ENGINES)
-@pytest.mark.parametrize("name", ["chan", "noise"])
-def test_world_meets_the_whole_contract_at_the_small_task(name, engine):
-    """At a 160-image task (two SGD steps a round) neither world is chaotic:
-    each port engine against the JAX engine of the same name, events,
-    clocks, comm bytes and ledger exact, final_acc within 1e-3 and every
-    param within 1e-4 (ROADMAP's parity contract)."""
-    ref = jax_run(engine, name, task=SMALL_TASK)
-    port = port_run(engine, name, task=SMALL_TASK)
-    assert_events_match(ref, port)
-    assert abs(ref.final_acc - port.final_acc) <= 1e-3
-    for k in ref.global_params:
-        np.testing.assert_allclose(port.global_params[k], ref.global_params[k], rtol=0,
-                                   atol=1e-4, err_msg=k)
-    if name == "chan":
-        assert port.retry_total > 0 and port.dup_commits > 0 and port.corrupt_commits > 0
-    else:
-        assert port.byz_commits > 0 and port.quarantined_commits > 0

@@ -9,6 +9,11 @@ meshes (``repro_torch.launch.mesh``) against the reference's.
 * ``decode_state_pspecs`` on every arch's decode state at ``decode_32k``
   and ``long_500k``, ``batch_pspecs`` on every input of every ``SHAPES``
   entry (the sequence fallback at batch 1), ``_assign``'s divisibility;
+* the port's shape-only init (``init_params(SHAPE_ONLY, cfg)``): the tree
+  paths, shapes and dtypes of the reference's ``jax.eval_shape`` of its
+  init, exact, for every arch at full size and through the dry-run's
+  ``prepare_config`` (bf16, padded vocab, retention 0.6 and 0.3, the
+  ``windowed`` variant, decode's learned positions), every leaf on ``meta``;
 * ``make_local_mesh``'s shrink rule (``data * model`` over the world
   becomes ``(world, 1)``) on a one-rank gloo group, ``current_mesh`` under
   ``with mesh:``, the production record and ``HARDWARE``; under a model
@@ -20,6 +25,7 @@ blocks on real multi-rank meshes are held in ``tests/test_torch_moe_ep.py``.
 """
 import dataclasses
 import functools
+import os
 
 import jax
 import numpy as np
@@ -36,6 +42,16 @@ from repro_torch.launch import mesh as tmesh
 from repro_torch.models import moe as tmoe
 from repro_torch.models import transformer as TT
 from repro_torch.sharding import specs as ts
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """The models here are tiny: one intra-op thread beats a pool of them,
+    which only contends with the suite's other workers for the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 class FakeMesh:
@@ -101,6 +117,59 @@ def test_param_and_decode_state_specs_equal_the_reference(arch, monkeypatch):
     assert checked == 4 and any(any(a is not None for a in s) for s in flat)
     # a mesh without a data or model axis replicates everything
     assert ts.param_pspec("blocks/s0/attn/wq", (4, 64, 16, 8), FakeMesh(fleet=4)) == ()
+
+
+# one prepared config an arch, together covering each of prepare_config's changes
+PREPARED = {
+    "internlm2-1.8b": dict(shape_name="train_4k"),                 # bf16, vocab padded
+    "llama4-maverick-400b-a17b": dict(shape_name="train_4k", retention=0.6),
+    "recurrentgemma-9b": dict(shape_name="prefill_32k", retention=0.3),
+    "granite-moe-1b-a400m": dict(shape_name="long_500k", variant="windowed"),
+    "whisper-small": dict(shape_name="decode_32k", retention=0.6),  # max_position
+}
+
+
+def _prepared(arch):
+    jax.devices()       # before the reference's dry-run sets its device flag
+    flags = os.environ.get("XLA_FLAGS")
+    from repro.launch import dryrun as JD
+
+    if flags is None:
+        os.environ.pop("XLA_FLAGS", None)
+    else:
+        os.environ["XLA_FLAGS"] = flags
+    from repro_torch.launch import dryrun as TD
+
+    kw = PREPARED[arch]
+    return TD.prepare_config(arch, **kw), JD.prepare_config(arch, **kw)
+
+
+def _same_tree(port, ref, path="root"):
+    if isinstance(ref, dict):
+        assert set(port) == set(ref), path
+        for k in ref:
+            _same_tree(port[k], ref[k], f"{path}/{k}")
+    elif isinstance(ref, list):
+        assert isinstance(port, list) and len(port) == len(ref), path
+        for i, (a, b) in enumerate(zip(port, ref)):
+            _same_tree(a, b, f"{path}/{i}")
+    else:
+        assert port.device.type == "meta", path
+        assert tuple(port.shape) == tuple(ref.shape), (path, tuple(port.shape), ref.shape)
+        assert str(port.dtype).replace("torch.", "") == ref.dtype.name, (path, port.dtype)
+
+
+@pytest.mark.parametrize("arch", list_archs())
+def test_shape_only_init_equals_the_reference_tree(arch):
+    from repro_torch.configs import get_config as t_get_config
+    from repro_torch.models.layers import SHAPE_ONLY
+
+    params, _ = _abstract(arch)
+    _same_tree(TT.init_params(SHAPE_ONLY, t_get_config(arch)), params)
+    if arch in PREPARED:
+        tc, jc = _prepared(arch)
+        _same_tree(TT.init_params(SHAPE_ONLY, tc),
+                   jax.eval_shape(lambda: JT.init_params(jax.random.key(0), jc)))
 
 
 @pytest.mark.parametrize("name", list(MESHES))
@@ -172,7 +241,7 @@ def test_model_axis_refusals_name_what_is_not_ported():
     batch = {"tokens": torch.zeros(1, 4, dtype=torch.long)}
     x = torch.zeros(1, 4, cfg.d_model)
     with tmesh.make_production_mesh():
-        with pytest.raises(NotImplementedError, match="A6"):
+        with pytest.raises(NotImplementedError, match="A8"):
             TT.lm_loss(params, cfg, batch)
         # 16 experts divide over the record's 16-way model axis
         spec = dataclasses.replace(TT._moe_spec(cfg), num_experts=16)

@@ -12,6 +12,7 @@ block_skip (Pallas interpret mode) pins the FLOPs/blocks ledger exactly.
 import jax
 import numpy as np
 import pytest
+import torch
 
 from repro.core.simulation import SimConfig as JSimConfig
 from repro.core.simulation import run_simulation as j_run
@@ -22,6 +23,17 @@ from repro_torch.core.simulation import SimConfig as TSimConfig
 from repro_torch.core.simulation import run_simulation as t_run
 from repro_torch.data.synthetic import SyntheticImageTask as TTask
 from repro_torch.models.cnn import vgg_config as t_vgg
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """The models here are tiny: one intra-op thread beats a pool of them,
+    which only contends with the suite's other workers for the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 
 PLAN = [16, "M", 32]
 

@@ -41,6 +41,17 @@ from repro_torch.launch import train as t_train
 from repro_torch.models import transformer as TT
 from repro_torch.optim import optimizers as t_opt
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """The models here are tiny: one intra-op thread beats a pool of them,
+    which only contends with the suite's other workers for the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 GRAD_TOL = 1e-5
 LOSS_TOL = 1e-5
 FLIP_SHARE = 1e-4

@@ -40,6 +40,17 @@ from repro_torch.kernels.ref import (
 from repro_torch.kernels.rg_lru_scan import rg_lru_scan
 from torch_tf32 import mm_tf32, tf32_rna
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """The models here are tiny: one intra-op thread beats a pool of them,
+    which only contends with the suite's other workers for the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 BWD_TOL = 1e-5
 # the kernel against the plain backward on the card: 3xTF32 tensor-core
 # products against float32 einsums in another order, and P recomputed from

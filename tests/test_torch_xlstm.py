@@ -37,6 +37,17 @@ from repro_torch.models import xlstm as t_xlstm
 from repro_torch.models.config import apply_retention as t_apply_retention
 from repro_torch.models.config import param_count as t_param_count
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """The models here are tiny: one intra-op thread beats a pool of them,
+    which only contends with the suite's other workers for the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 BLOCK_TOL = 1e-5
 SCAN_REL_TOL = 1e-6
 # the whole smoke model's decode caches after prefill: its sLSTM state is
@@ -143,14 +154,23 @@ def test_slstm_scan_against_associative_scan_and_float64_then_decode(J):
         assert_tree_close(tree_to_numpy(state), _np(J, j_state), BLOCK_TOL)
 
 
+class Elsewhere(torch.Tensor):
+    """A CPU tensor that reports another device (neither the CPU, a card nor
+    ``meta``), to show that the wrappers refuse it."""
+
+    @property
+    def device(self):
+        return torch.device("xpu")
+
+
 def test_slstm_recurrence_never_leaves_its_device():
-    """On a device other than the CPU or a card the scan raises: no quiet
-    fallback to the plain loop."""
+    """On a device other than the CPU, a card or ``meta`` the scan raises:
+    no quiet fallback to the plain loop."""
     ts = t_xlstm.XLSTMSpec(64, 4, 2.0)
     tp = t_xlstm.init_slstm(torch.Generator().manual_seed(0), ts)
-    meta = {k: v.to("meta") for k, v in tp.items()}
+    elsewhere = {k: v.as_subclass(Elsewhere) for k, v in tp.items()}
     with pytest.raises(ValueError, match="rg_lru_scan runs on CPU or CUDA tensors"):
-        t_xlstm.slstm_fwd(meta, ts, torch.zeros(1, 5, 64, device="meta"))
+        t_xlstm.slstm_fwd(elsewhere, ts, torch.zeros(1, 5, 64).as_subclass(Elsewhere))
 
 
 # ---------------------------------------------------------------------------
